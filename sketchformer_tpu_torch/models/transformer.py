@@ -1,0 +1,100 @@
+"""Transformer encoder stack (inference).
+
+Port of the encoder half of ``sketchformer_tpu/models/transformer.py``:
+``FeedForward``, ``EncoderLayer`` (pre-LN and post-LN) and ``Encoder``.
+The composed layers are the CPU oracle. ``Encoder`` runs the fused kernel
+stack (``ops/encoder_stack.py``) exactly where the JAX ``Encoder`` takes its
+fused path: ``attn_impl='pallas'``, pre-LN, no legacy 4-D mask and
+T <= 1024. Dropout is the identity here (eval mode only).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from sketchformer_tpu.utils.engines import note_engine
+from sketchformer_tpu_torch.models.attention import MultiHeadAttention
+from sketchformer_tpu_torch.models.layers import Dense, LayerNorm
+from sketchformer_tpu_torch.ops.encoder_stack import (
+    MAX_FUSED_LEN,
+    fused_encoder_stack,
+    stack_encoder_weights,
+)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, dff: int,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        # flax names the two Dense layers "in" and "out"
+        self.add_module("in", Dense(d_model, dff, dtype))
+        self.out = Dense(dff, d_model, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(torch.relu(getattr(self, "in")(x)))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, num_heads: int, d_model: int, dff: int,
+                 dtype: torch.dtype = torch.float32, norm_first: bool = True,
+                 qk_norm: bool = False) -> None:
+        super().__init__()
+        self.norm_first = norm_first
+        self.ln1 = LayerNorm(d_model, dtype)
+        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype, qk_norm)
+        self.ln2 = LayerNorm(d_model, dtype)
+        self.ffn = FeedForward(d_model, dff, dtype)
+
+    def forward(self, x, mask=None, key_mask=None):
+        if self.norm_first:
+            h = self.ln1(x)
+            x = x + self.self_attn(h, h, mask=mask, key_mask=key_mask)
+            return x + self.ffn(self.ln2(x))
+        x = self.ln1(x + self.self_attn(x, x, mask=mask, key_mask=key_mask))
+        return self.ln2(x + self.ffn(x))
+
+
+class Encoder(nn.Module):
+    def __init__(self, num_layers: int, num_heads: int, d_model: int,
+                 dff: int, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "xla", norm_first: bool = True,
+                 qk_norm: bool = False) -> None:
+        super().__init__()
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.norm_first = norm_first
+        self.qk_norm = qk_norm
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(
+                num_heads, d_model, dff, dtype, norm_first, qk_norm))
+        if norm_first:
+            self.ln_out = LayerNorm(d_model, dtype)
+
+    def stacked_weights(self) -> dict:
+        """Kernel operands for :func:`fused_encoder_stack`."""
+        return stack_encoder_weights(
+            self.state_dict(), num_layers=self.num_layers,
+            compute_dtype=self.dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        T = x.shape[1]
+        if self.attn_impl == "pallas":
+            if self.norm_first and mask is None and T <= MAX_FUSED_LEN:
+                return fused_encoder_stack(
+                    x, key_mask, self.stacked_weights(),
+                    num_heads=self.num_heads, qk_norm=self.qk_norm)
+            why = ("post-LN config" if not self.norm_first
+                   else "structured mask" if mask is not None
+                   else f"T={T} > fused limit {MAX_FUSED_LEN}")
+            note_engine("encoder-stack", "composed", why)
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x, mask=mask, key_mask=key_mask)
+        if self.norm_first:
+            x = self.ln_out(x)
+        return x

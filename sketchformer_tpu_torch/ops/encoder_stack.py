@@ -1,0 +1,321 @@
+"""Pre-LN encoder stack forward on hand-written Hopper kernels.
+
+Port of ``sketchformer_tpu/ops/pallas_encoder.py::fused_encoder_stack``
+(body ``_stack_kernel``), the kernel that carries embedding extraction. The
+TPU kernel runs all L layers in one call with the activations resident in
+VMEM; on the card the layer runs as three kernels from
+``csrc/encoder_stack.cu`` (see the note at the top of that file for why):
+
+    linear             QKV, out-proj + x, FFN-in -> ReLU, FFN-out + x
+    encoder_attention  optional qk-norm, key-masked softmax, P.V
+    layernorm_rows     LN1, LN2 and the final LayerNorm
+
+Each kernel has a wrapper here and a plain torch version beside it
+(``*_reference``) that computes the same math in the same rounding order.
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises. ``encoder_stack_reference`` is the whole
+stack on the plain versions; it is the oracle the CPU tests hold to the JAX
+kernel and that ``chip_smoke.py`` holds the kernels to on the card.
+
+``LAUNCHES`` counts kernel launches per wrapper (only where a kernel is
+actually launched), so a run can show that its path went through them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping, Optional
+
+import torch
+
+from sketchformer_tpu_torch.models.layers import layer_norm
+from sketchformer_tpu_torch.ops import _build
+
+NEG_INF = -1e9
+MAX_FUSED_LEN = 1024    # the JAX engine's limit (pallas_encoder.py)
+MAX_HEAD_DIM = 128      # encoder_attention keeps head rows in registers
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = {"linear": 0, "encoder_attention": 0, "layernorm_rows": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def linear_reference(a, w, bias, *, relu=False, residual=None):
+    """``epilogue(a @ w)``: the product accumulates in f32 and is rounded to
+    ``a.dtype`` before the (rounded) bias is added."""
+    dt = a.dtype
+    y = torch.matmul(a, w).to(dt) + bias.to(dt)
+    if relu:
+        y = torch.relu(y)
+    if residual is not None:
+        y = residual + y
+    return y
+
+
+def attention_reference(qkv, key_bias, *, num_heads, qk_norm=None):
+    """Encoder self-attention over a (B, T, 3*H*Dh) fused qkv pane.
+
+    ``qk_norm`` is ``(q_scale, q_bias, k_scale, k_bias)`` (each (Dh,),
+    shared by every head) or None. Scores and softmax are f32; the
+    unnormalised exponentials are rounded to the compute dtype for the
+    P.V product, whose f32 result is divided by the f32 sum.
+    """
+    B, T, three_hd = qkv.shape
+    dt = qkv.dtype
+    HD = three_hd // 3
+    H = num_heads
+    Dh = HD // H
+
+    def heads(x):   # (B, T, HD) -> (B, H, T, Dh)
+        return x.reshape(B, T, H, Dh).transpose(1, 2)
+
+    q, k, v = (heads(p) for p in qkv.split(HD, dim=-1))
+    if qk_norm is not None:
+        qs, qb, ks, kb = qk_norm
+        q = layer_norm(q, qs, qb, dt)
+        k = layer_norm(k, ks, kb, dt)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / Dh ** 0.5)
+    if key_bias is not None:
+        s = s + key_bias[:, None, None, :]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = e.sum(dim=-1, keepdim=True)
+    o = torch.matmul(e.to(dt).float(), v.float()) / denom
+    return o.to(dt).transpose(1, 2).reshape(B, T, HD)
+
+
+def layernorm_rows_reference(x, scale, bias):
+    return layer_norm(x, scale, bias, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require(t: torch.Tensor, name: str, device, dtype, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    return _DTYPE_CODES[t.dtype]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def linear(a, w, bias, *, relu=False, residual=None):
+    """(M, K) x (K, N) with the fused bias / ReLU / residual epilogue."""
+    if a.device.type == "cpu":
+        return linear_reference(a, w, bias, relu=relu, residual=residual)
+    if a.device.type != "cuda":
+        raise ValueError(f"linear: unsupported device {a.device}")
+    code = _dtype_code(a)
+    M, K = a.shape
+    N = w.shape[-1]
+    dev = a.device
+    _require(a, "a", dev, a.dtype, (M, K))
+    _require(w, "w", dev, a.dtype, (K, N))
+    _require(bias, "bias", dev, torch.float32, (N,))
+    if residual is not None:
+        _require(residual, "residual", dev, a.dtype, (M, N))
+    out = torch.empty((M, N), dtype=a.dtype, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.sk_linear(code, _ptr(a), _ptr(w), _ptr(bias),
+                            _ptr(residual), _ptr(out), M, N, K, int(relu),
+                            _stream(a))
+    _build.check(err, "linear")
+    LAUNCHES["linear"] += 1
+    return out
+
+
+def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):
+    """Key-masked multi-head self-attention over a (B, T, 3*H*Dh) pane."""
+    if qkv.device.type == "cpu":
+        return attention_reference(qkv, key_bias, num_heads=num_heads,
+                                   qk_norm=qk_norm)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"encoder_attention: unsupported device {qkv.device}")
+    code = _dtype_code(qkv)
+    B, T, three_hd = qkv.shape
+    HD = three_hd // 3
+    H = num_heads
+    Dh = HD // H
+    if three_hd != 3 * H * Dh:
+        raise ValueError(f"qkv width {three_hd} is not 3 * {H} heads")
+    if not 0 < Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {Dh} outside the kernel's 1..{MAX_HEAD_DIM}")
+    if T > MAX_FUSED_LEN:
+        raise ValueError(f"T={T} exceeds the kernel's limit {MAX_FUSED_LEN}")
+    dev = qkv.device
+    _require(qkv, "qkv", dev, qkv.dtype, (B, T, three_hd))
+    if key_bias is not None:
+        _require(key_bias, "key_bias", dev, torch.float32, (B, T))
+    norms = [None] * 4
+    if qk_norm is not None:
+        for p in qk_norm:
+            _require(p, "qk-norm param", dev, torch.float32, (Dh,))
+        norms = list(qk_norm)
+    out = torch.empty((B, T, HD), dtype=qkv.dtype, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.sk_encoder_attention(
+            code, _ptr(qkv), _ptr(key_bias), *(_ptr(p) for p in norms),
+            _ptr(out), B, T, H, Dh, 1.0 / Dh ** 0.5, _stream(qkv))
+    _build.check(err, "encoder_attention")
+    LAUNCHES["encoder_attention"] += 1
+    return out
+
+
+def layernorm_rows(x, scale, bias):
+    """Row LayerNorm of a (M, D) tensor, output in ``x.dtype``."""
+    if x.device.type == "cpu":
+        return layernorm_rows_reference(x, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"layernorm_rows: unsupported device {x.device}")
+    code = _dtype_code(x)
+    M, D = x.shape
+    dev = x.device
+    _require(x, "x", dev, x.dtype, (M, D))
+    _require(scale, "scale", dev, torch.float32, (D,))
+    _require(bias, "bias", dev, torch.float32, (D,))
+    out = torch.empty_like(x)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.sk_layernorm_rows(code, _ptr(x), _ptr(scale), _ptr(bias),
+                                    _ptr(out), M, D, _stream(x))
+    _build.check(err, "layernorm_rows")
+    LAUNCHES["layernorm_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the stack
+# ---------------------------------------------------------------------------
+
+
+def _run_stack(x, key_mask, w, *, num_heads, qk_norm, lin: Callable,
+               attn: Callable, norm: Callable):
+    B, T, d = x.shape
+    if T > MAX_FUSED_LEN:
+        raise ValueError(f"T={T} exceeds fused limit {MAX_FUSED_LEN}")
+    L = w["wqkv"].shape[0]
+    key_bias = None
+    if key_mask is not None:
+        key_bias = torch.where(
+            key_mask.to(torch.bool),
+            torch.zeros((), dtype=torch.float32, device=x.device),
+            torch.full((), NEG_INF, dtype=torch.float32, device=x.device))
+    h = x.contiguous().reshape(B * T, d)
+    for i in range(L):
+        qkv = lin(norm(h, w["ln1s"][i], w["ln1b"][i]), w["wqkv"][i],
+                  w["bqkv"][i])
+        norms = ((w["qns"][i], w["qnb"][i], w["kns"][i], w["knb"][i])
+                 if qk_norm else None)
+        o = attn(qkv.reshape(B, T, -1), key_bias, num_heads=num_heads,
+                 qk_norm=norms)
+        h = lin(o.reshape(B * T, -1), w["wo"][i], w["bo"][i], residual=h)
+        f = lin(norm(h, w["ln2s"][i], w["ln2b"][i]), w["w1"][i], w["b1"][i],
+                relu=True)
+        h = lin(f, w["w2"][i], w["b2"][i], residual=h)
+    y = norm(h, w["lnfs"].reshape(-1), w["lnfb"].reshape(-1))
+    return y.reshape(B, T, d)
+
+
+def fused_encoder_stack(x: torch.Tensor, key_mask: Optional[torch.Tensor],
+                        w: Mapping[str, torch.Tensor], *, num_heads: int,
+                        qk_norm: bool = False) -> torch.Tensor:
+    """The full pre-LN encoder stack plus final LN, on the kernels.
+
+    ``x`` (B, T, d) in the compute dtype; ``key_mask`` (B, T) bool, True =
+    attend, or None; ``w`` from :func:`stack_encoder_weights`. CPU tensors
+    run the plain versions (same result as :func:`encoder_stack_reference`).
+    """
+    return _run_stack(x, key_mask, w, num_heads=num_heads, qk_norm=qk_norm,
+                      lin=linear, attn=encoder_attention,
+                      norm=layernorm_rows)
+
+
+def encoder_stack_reference(x, key_mask, w, *, num_heads, qk_norm=False):
+    """:func:`fused_encoder_stack` on the plain torch versions, any device."""
+    return _run_stack(x, key_mask, w, num_heads=num_heads, qk_norm=qk_norm,
+                      lin=linear_reference, attn=attention_reference,
+                      norm=layernorm_rows_reference)
+
+
+def stack_encoder_weights(enc_state: Mapping[str, torch.Tensor], *,
+                          num_layers: int,
+                          compute_dtype: torch.dtype) -> dict:
+    """Encoder ``state_dict`` (keys ``layer_{i}.…``, ``ln_out.…``) ->
+    stacked kernel operands, as the JAX ``stack_encoder_weights`` builds
+    them: products' weights (L, ...) in the compute dtype, LN params and
+    biases f32, ``lnfs``/``lnfb`` shaped (1, d)."""
+    f32 = torch.float32
+
+    def stk(suffix, dtype, shape=None):
+        arrs = [enc_state[f"layer_{i}.{suffix}"] for i in range(num_layers)]
+        out = torch.stack([a.detach().to(dtype) for a in arrs])
+        return out if shape is None else out.reshape(num_layers, *shape)
+
+    d = enc_state["layer_0.ln1.scale"].shape[0]
+    qkv_k, qkv_b = [], []
+    for i in range(num_layers):
+        p = f"layer_{i}.self_attn."
+        qkv_k.append(torch.cat(
+            [enc_state[p + n + ".kernel"].reshape(d, -1)
+             for n in ("query", "key", "value")], dim=-1))
+        qkv_b.append(torch.cat(
+            [enc_state[p + n + ".bias"].reshape(-1)
+             for n in ("query", "key", "value")], dim=-1))
+    w = {
+        "ln1s": stk("ln1.scale", f32),
+        "ln1b": stk("ln1.bias", f32),
+        "wqkv": torch.stack(qkv_k).detach().to(compute_dtype).contiguous(),
+        "bqkv": torch.stack(qkv_b).detach().to(f32).contiguous(),
+        "wo": stk("self_attn.out.kernel", compute_dtype, (-1, d)).contiguous(),
+        "bo": stk("self_attn.out.bias", f32),
+        "ln2s": stk("ln2.scale", f32),
+        "ln2b": stk("ln2.bias", f32),
+        "w1": stk("ffn.in.kernel", compute_dtype),
+        "b1": stk("ffn.in.bias", f32),
+        "w2": stk("ffn.out.kernel", compute_dtype),
+        "b2": stk("ffn.out.bias", f32),
+    }
+    if "layer_0.self_attn.q_norm.scale" in enc_state:
+        for key, name in (("qns", "q_norm.scale"), ("qnb", "q_norm.bias"),
+                          ("kns", "k_norm.scale"), ("knb", "k_norm.bias")):
+            w[key] = stk(f"self_attn.{name}", f32)
+    else:
+        # unused (L, head_dim) panes, as in the JAX dict
+        head_dim = enc_state["layer_0.self_attn.query.kernel"].shape[-1]
+        dev = w["ln1s"].device
+        for key, fill in (("qns", 1.0), ("qnb", 0.0), ("kns", 1.0),
+                          ("knb", 0.0)):
+            w[key] = torch.full((num_layers, head_dim), fill, dtype=f32,
+                                device=dev)
+    w["lnfs"] = enc_state["ln_out.scale"].detach().to(f32).reshape(1, d)
+    w["lnfb"] = enc_state["ln_out.bias"].detach().to(f32).reshape(1, d)
+    return w
