@@ -1,14 +1,19 @@
-"""Command line for the PyTorch port: embedding extraction and SBIR eval.
+"""Command line for the PyTorch port: embedding extraction, SBIR eval, AR
+reconstruction and latent interpolation.
 
-Port of the ``embed`` and ``sbir`` subcommands of ``sketchformer_tpu.cli``.
-The loader and preset come from the JAX package's own (JAX-free) data
-path; weights come from an ``.npz`` written by ``convert.save_npz`` or from
-a seeded initialisation::
+Port of the ``embed``, ``sbir``, ``decode`` and ``interpolate`` subcommands
+of ``sketchformer_tpu.cli``, with the same outputs. The loader and preset
+come from the JAX package's own (JAX-free) data path; weights come from an
+``.npz`` written by ``convert.save_npz`` or from a seeded initialisation::
 
     python -m sketchformer_tpu_torch.cli embed --preset sbir --init-seed 0 \\
         --device cuda --output z.npz
     python -m sketchformer_tpu_torch.cli sbir --preset sbir \\
         --weights weights.npz --device cuda
+    python -m sketchformer_tpu_torch.cli decode --preset ar_decode \\
+        --init-seed 0 --device cuda
+    python -m sketchformer_tpu_torch.cli interpolate --preset ar_decode \\
+        --init-seed 0 --device cuda
 """
 
 from __future__ import annotations
@@ -103,6 +108,90 @@ def cmd_sbir(args) -> int:
     return 0
 
 
+def _save_sketches(path, sketches, **extra) -> int:
+    """Write stroke-3 sketches as concatenated points + offsets (the JAX
+    CLI's layout); returns how many are non-empty."""
+    offsets = np.zeros(len(sketches) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(s) for s in sketches])
+    points = (np.concatenate(sketches, axis=0)
+              if any(len(s) for s in sketches) else np.zeros((0, 3)))
+    np.savez(path, points=points, offsets=offsets, **extra)
+    return int(sum(len(s) > 0 for s in sketches))
+
+
+def first_batch(model, loader):
+    """The first validation batch: (batch dict, enc, enc_mask or None) on
+    the model's device."""
+    dev = next(model.parameters()).device
+    batch = loader.get_validation_set(max_batches=1)[0]
+    enc = torch.from_numpy(batch["enc"]).to(dev)
+    mask = (torch.from_numpy(batch["enc_mask"]).to(dev)
+            if model.config.use_continuous else None)
+    return batch, enc, mask
+
+
+def _sample_generator(model):
+    """Fixed-seed generator for MDN temperature sampling (the JAX CLI
+    samples from PRNGKey(0))."""
+    dev = next(model.parameters()).device
+    return torch.Generator(device=dev).manual_seed(0)
+
+
+def cmd_decode(args) -> int:
+    """AR reconstruction of the first validation batch."""
+    from sketchformer_tpu_torch.infer import decode as dec
+
+    model, loader = build_model_and_loader(args)
+    batch, enc, mask = first_batch(model, loader)
+    if model.config.use_continuous:
+        decode = dec.make_cont_decoder(model, temperature=args.temperature)
+        xy, pen, valid = decode(enc, mask, _sample_generator(model))
+        sketches = dec.cont_to_sketches(
+            xy.cpu().numpy(), pen.cpu().numpy(), valid.cpu().numpy(),
+            scale=loader.scale)
+    else:
+        ids = dec.make_token_decoder(model)(enc)
+        sketches = dec.tokens_to_sketches(loader.tokenizer, ids.cpu())
+    nonempty = _save_sketches(args.output, sketches, labels=batch["label"])
+    print(json.dumps({"sketches": len(sketches), "nonempty": nonempty,
+                      "output": args.output}))
+    return 0
+
+
+def cmd_interpolate(args) -> int:
+    """Latent interpolation between two validation sketches, decoded from
+    z and rendered as a raster strip."""
+    from sketchformer_tpu.utils.metrics import sketch_strip
+    from sketchformer_tpu_torch.infer import decode as dec
+    from sketchformer_tpu_torch.infer.encode import interpolate, make_embed_fn
+
+    model, loader = build_model_and_loader(args)
+    batch, enc, mask = first_batch(model, loader)
+    Z = make_embed_fn(model)(enc, mask).cpu().numpy()
+    i, j = args.index_a, args.index_b
+    if j is None:  # default: first sketch with a different label
+        labels = np.asarray(batch["label"])
+        distinct = np.flatnonzero(labels != labels[i])
+        j = int(distinct[0]) if len(distinct) else (i + 1) % len(Z)
+    path = interpolate(Z[i], Z[j], steps=args.steps).astype(Z.dtype)
+    z = torch.from_numpy(path).to(enc.device)
+    if model.config.use_continuous:
+        decode = dec.make_cont_decoder_from_z(
+            model, temperature=args.temperature)
+        xy, pen, valid = decode(z, _sample_generator(model))
+        sketches = dec.cont_to_sketches(
+            xy.cpu().numpy(), pen.cpu().numpy(), valid.cpu().numpy(),
+            scale=loader.scale)
+    else:
+        ids = dec.make_token_decoder_from_z(model)(z)
+        sketches = dec.tokens_to_sketches(loader.tokenizer, ids.cpu())
+    nonempty = _save_sketches(args.output, sketches, embeddings=path,
+                              strip=sketch_strip(sketches))
+    print(json.dumps({"steps": args.steps, "index_a": i, "index_b": j,
+                      "nonempty": nonempty, "output": args.output}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sketchformer_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -138,6 +227,23 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--output", default=None,
                     help="optionally dump embeddings npz")
     sp.set_defaults(fn=cmd_sbir)
+
+    sp = sub.add_parser("interpolate",
+                        help="latent interpolation between two val sketches")
+    common(sp)
+    sp.add_argument("--steps", type=int, default=8)
+    sp.add_argument("--index-a", type=int, default=0)
+    sp.add_argument("--index-b", type=int, default=None,
+                    help="default: first val sketch with a different label")
+    sp.add_argument("--temperature", type=float, default=0.0)
+    sp.add_argument("--output", default="interpolation.npz")
+    sp.set_defaults(fn=cmd_interpolate)
+
+    sp = sub.add_parser("decode", help="AR reconstruction of a val batch")
+    common(sp)
+    sp.add_argument("--temperature", type=float, default=0.0)
+    sp.add_argument("--output", default="reconstructions.npz")
+    sp.set_defaults(fn=cmd_decode)
     return p
 
 

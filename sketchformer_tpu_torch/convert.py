@@ -3,8 +3,8 @@ initialisation that needs no JAX.
 
 - :func:`params_from_flax` maps a flax param tree (nested dicts of numpy
   arrays) onto the port's ``state_dict``: the key is the flax path joined
-  with dots, the layout is unchanged. Subtrees the port has no module for
-  yet are returned by name, never dropped silently.
+  with dots, the layout is unchanged (``HeadProjection`` kernels stay
+  ``(d, H, Dh)``, ``HeadOutProjection`` kernels ``(H, Dh, d)``).
 - :func:`save_npz` / :func:`load_npz` keep a ``state_dict`` as a flat npz
   whose keys are the same paths joined with ``/``.
 - :func:`init_params` draws every parameter of the port's model from a
@@ -13,19 +13,22 @@ initialisation that needs no JAX.
   ``jax.nn.initializers`` computes them), normal(1/sqrt(d)) token
   embeddings, normal(0.02) bottleneck queries, zero biases, unit
   LayerNorm scales.
+- :func:`stacked_decoder_weights` stacks the decoder's ``state_dict`` into
+  the operands of the decode kernels, as the JAX ``stack_decoder_weights``
+  does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from sketchformer_tpu_torch.config import SketchformerConfig
 
-PORTED = ("enc_embed", "encoder", "bottleneck", "classifier")
-UNPORTED = ("decoder", "dec_embed", "out_head")
+PORTED = ("enc_embed", "encoder", "bottleneck", "classifier", "dec_embed",
+          "decoder", "out_head")
 
 # jax's truncated_normal(-2, 2) has this std; lecun_normal divides it out
 _TRUNC_STD = 0.87962566103423978
@@ -40,21 +43,16 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...]):
             yield path, v
 
 
-def params_from_flax(params: Mapping
-                     ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """Flax ``params`` tree -> ``(state_dict, unported_subtrees)``."""
+def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` tree -> the port's ``state_dict`` (float32, CPU)."""
     sd: Dict[str, torch.Tensor] = {}
-    unported: List[str] = []
     for top, sub in params.items():
-        if top in UNPORTED:
-            unported.append(top)
-            continue
         if top not in PORTED:
             raise KeyError(f"unknown flax subtree {top!r}")
         for path, arr in _flatten(sub, (top,)):
             sd[".".join(path)] = torch.from_numpy(
                 np.array(arr, dtype=np.float32))
-    return sd, sorted(unported)
+    return sd
 
 
 def save_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
@@ -110,3 +108,66 @@ def init_params(cfg: SketchformerConfig, seed: int) -> Dict[str, torch.Tensor]:
             raise KeyError(f"no initializer for parameter {name!r}")
         sd[name] = torch.from_numpy(arr.astype(np.float32))
     return sd
+
+
+def stacked_decoder_weights(dec_state: Mapping[str, torch.Tensor], *,
+                            num_layers: int,
+                            compute_dtype: torch.dtype) -> dict:
+    """Pre-LN decoder ``state_dict`` (keys ``layer_{i}.…``, ``ln_out.…``) ->
+    the stacked operands of ``ops/decode_chunk.py``, with the keys of the
+    JAX ``stack_decoder_weights``: products' weights (L, K, N) in the
+    compute dtype, biases and LayerNorm parameters f32, ``lnfs``/``lnfb``
+    (1, d), and identity qk-norm parameters when the model has no qk-norm.
+    """
+    f32 = torch.float32
+
+    def get(i, name):
+        return dec_state[f"layer_{i}.{name}"].detach()
+
+    def stk(name, dtype, shape=None):
+        out = torch.stack([get(i, name).to(dtype) for i in range(num_layers)])
+        return (out if shape is None else out.reshape(num_layers, *shape)
+                ).contiguous()
+
+    def cat(attn, names, part):
+        return torch.stack([torch.cat(
+            [get(i, f"{attn}.{n}.{part}").reshape(d, -1) if part == "kernel"
+             else get(i, f"{attn}.{n}.{part}").reshape(-1) for n in names],
+            dim=-1) for i in range(num_layers)])
+
+    d = dec_state["layer_0.ln1.scale"].shape[0]
+    dt = compute_dtype
+    qkv, kv = ("query", "key", "value"), ("key", "value")
+    w = {
+        "ln1s": stk("ln1.scale", f32), "ln1b": stk("ln1.bias", f32),
+        "s_wqkv": cat("self_attn", qkv, "kernel").to(dt).contiguous(),
+        "s_bqkv": cat("self_attn", qkv, "bias").to(f32).contiguous(),
+        "s_wo": stk("self_attn.out.kernel", dt, (-1, d)),
+        "s_bo": stk("self_attn.out.bias", f32),
+        "ln2s": stk("ln2.scale", f32), "ln2b": stk("ln2.bias", f32),
+        "c_wq": stk("cross_attn.query.kernel", dt, (d, -1)),
+        "c_bq": stk("cross_attn.query.bias", f32, (-1,)),
+        "c_wkv": cat("cross_attn", kv, "kernel").to(dt).contiguous(),
+        "c_bkv": cat("cross_attn", kv, "bias").to(f32).contiguous(),
+        "c_wo": stk("cross_attn.out.kernel", dt, (-1, d)),
+        "c_bo": stk("cross_attn.out.bias", f32),
+        "ln3s": stk("ln3.scale", f32), "ln3b": stk("ln3.bias", f32),
+        "w1": stk("ffn.in.kernel", dt), "b1": stk("ffn.in.bias", f32),
+        "w2": stk("ffn.out.kernel", dt), "b2": stk("ffn.out.bias", f32),
+    }
+    if "layer_0.self_attn.q_norm.scale" in dec_state:
+        for attn, a in (("self_attn", "s"), ("cross_attn", "c")):
+            for p, n in (("q", "q_norm"), ("k", "k_norm")):
+                w[f"{a}_{p}ns"] = stk(f"{attn}.{n}.scale", f32)
+                w[f"{a}_{p}nb"] = stk(f"{attn}.{n}.bias", f32)
+    else:
+        head_dim = dec_state["layer_0.self_attn.query.kernel"].shape[-1]
+        dev = w["ln1s"].device
+        for key in ("s_qns", "s_kns", "c_qns", "c_kns"):
+            w[key] = torch.ones((num_layers, head_dim), dtype=f32, device=dev)
+        for key in ("s_qnb", "s_knb", "c_qnb", "c_knb"):
+            w[key] = torch.zeros((num_layers, head_dim), dtype=f32,
+                                 device=dev)
+    w["lnfs"] = dec_state["ln_out.scale"].detach().to(f32).reshape(1, d)
+    w["lnfb"] = dec_state["ln_out.bias"].detach().to(f32).reshape(1, d)
+    return w

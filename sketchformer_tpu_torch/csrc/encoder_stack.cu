@@ -44,55 +44,17 @@
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 
 #include <stdint.h>
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps in every kernel
 constexpr int kWarps = kThreads / 32;
-constexpr float kLnEps = 1e-6f;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
-}
-
-// value of v after a round trip through the compute dtype
-template <typename T>
-__device__ __forceinline__ float round_dt(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // linear: out[M,N] = epilogue(a[M,K] @ w[K,N])

@@ -2,10 +2,13 @@
 
 Port of ``sketchformer_tpu/models/embeddings.py``: the token lookup (or the
 dense projection of continuous stroke rows) times sqrt(d_model), plus the
-sinusoidal table, all in the compute dtype.
+sinusoidal table, all in the compute dtype. ``pos`` starts the table at a
+given position (one cached AR decode step) instead of at 0.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,7 +30,8 @@ def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
 
 
 class _PositionalInput(nn.Module):
-    """Shared tail: ``emb * sqrt(d) + table[:T]`` in the compute dtype."""
+    """Shared tail: ``emb * sqrt(d) + table[pos:pos + T]`` in the compute
+    dtype (``pos`` 0 when None)."""
 
     def __init__(self, d_model: int, max_len: int, dtype: torch.dtype):
         super().__init__()
@@ -38,12 +42,14 @@ class _PositionalInput(nn.Module):
             torch.from_numpy(sinusoidal_position_encoding(max_len, d_model)),
             persistent=False)
 
-    def _add_positions(self, emb: torch.Tensor) -> torch.Tensor:
+    def _add_positions(self, emb: torch.Tensor,
+                       pos: Optional[int] = None) -> torch.Tensor:
         dt = self.dtype
         scale = torch.tensor(np.sqrt(self.d_model), dtype=dt,
                              device=emb.device)
-        T = emb.shape[-2]
-        return emb * scale + self.table[:T].to(dt)
+        start = pos or 0
+        pe = self.table[start:start + emb.shape[-2]]
+        return emb * scale + pe.to(dt)
 
 
 class TokenEmbed(_PositionalInput):
@@ -54,8 +60,9 @@ class TokenEmbed(_PositionalInput):
         super().__init__(d_model, max_len, dtype)
         self.embed = Embed(vocab_size, d_model, dtype)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self._add_positions(self.embed(ids))
+    def forward(self, ids: torch.Tensor,
+                pos: Optional[int] = None) -> torch.Tensor:
+        return self._add_positions(self.embed(ids), pos)
 
 
 class ContinuousEmbed(_PositionalInput):
@@ -66,5 +73,6 @@ class ContinuousEmbed(_PositionalInput):
         super().__init__(d_model, max_len, dtype)
         self.proj = Dense(in_features, d_model, dtype)
 
-    def forward(self, rows: torch.Tensor) -> torch.Tensor:
-        return self._add_positions(self.proj(rows))
+    def forward(self, rows: torch.Tensor,
+                pos: Optional[int] = None) -> torch.Tensor:
+        return self._add_positions(self.proj(rows), pos)

@@ -1,8 +1,8 @@
-"""Classifier head on the bottleneck embedding.
+"""Output heads: token logits, MDN parameters, classifier on z.
 
-Port of ``sketchformer_tpu/models/heads.py::ClassifierHead``: fc1 -> ReLU ->
-fc2, logits in f32 whatever the trunk dtype. (The token and MDN heads come
-with the decoder.)
+Port of ``sketchformer_tpu/models/heads.py`` (inference): each head is
+Dense layers in the compute dtype with f32 output whatever the trunk dtype.
+``TokenHead.fused_ce`` comes with the training slice.
 """
 
 from __future__ import annotations
@@ -22,3 +22,28 @@ class ClassifierHead(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.fc2(torch.relu(self.fc1(z))).float()
+
+
+class TokenHead(nn.Module):
+    """Decoder output -> (..., vocab_size) f32 logits."""
+
+    def __init__(self, vocab_size: int, d_model: int,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.proj = Dense(d_model, vocab_size, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x).float()
+
+
+class MDNHead(nn.Module):
+    """Decoder output -> (..., 6M+3) f32 raw MDN parameters (layout in
+    ``ops/mdn.py``)."""
+
+    def __init__(self, num_mixtures: int, d_model: int,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.proj = Dense(d_model, 6 * num_mixtures + 3, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x).float()

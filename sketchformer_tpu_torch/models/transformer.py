@@ -1,22 +1,27 @@
-"""Transformer encoder stack (inference).
+"""Transformer encoder and decoder stacks (inference).
 
-Port of the encoder half of ``sketchformer_tpu/models/transformer.py``:
-``FeedForward``, ``EncoderLayer`` (pre-LN and post-LN) and ``Encoder``.
-The composed layers are the CPU oracle. ``Encoder`` runs the fused kernel
-stack (``ops/encoder_stack.py``) exactly where the JAX ``Encoder`` takes its
-fused path: ``attn_impl='pallas'``, pre-LN, no legacy 4-D mask and
-T <= 1024. Dropout is the identity here (eval mode only).
+Port of ``sketchformer_tpu/models/transformer.py``: ``FeedForward``,
+``EncoderLayer`` / ``DecoderLayer`` (pre-LN and post-LN) and ``Encoder`` /
+``Decoder``. The composed layers are the CPU oracle. ``Encoder`` runs the
+fused kernel stack (``ops/encoder_stack.py``) exactly where the JAX
+``Encoder`` takes its fused path: ``attn_impl='pallas'``, pre-LN, no legacy
+4-D mask and T <= 1024. ``Decoder`` is composed: its teacher-forced causal
+forward, and its cached decode step (one position per call against a
+:class:`KVCache` per layer). The AR decode engine with whole steps in one
+kernel is ``infer/fast_decode.py``. Dropout is the identity here (eval mode
+only).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
 
 from sketchformer_tpu.utils.engines import note_engine
-from sketchformer_tpu_torch.models.attention import MultiHeadAttention
+from sketchformer_tpu_torch.convert import stacked_decoder_weights
+from sketchformer_tpu_torch.models.attention import KVCache, MultiHeadAttention
 from sketchformer_tpu_torch.models.layers import Dense, LayerNorm
 from sketchformer_tpu_torch.ops.encoder_stack import (
     MAX_FUSED_LEN,
@@ -95,6 +100,84 @@ class Encoder(nn.Module):
             note_engine("encoder-stack", "composed", why)
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, mask=mask, key_mask=key_mask)
+        if self.norm_first:
+            x = self.ln_out(x)
+        return x
+
+
+class DecoderLayer(nn.Module):
+    """Causal self-attention (``attn_impl`` in decode), cross-attention to
+    the bottleneck memory (always the composed math, as in flax), FFN."""
+
+    def __init__(self, num_heads: int, d_model: int, dff: int,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
+                 norm_first: bool = True, qk_norm: bool = False) -> None:
+        super().__init__()
+        self.norm_first = norm_first
+        self.ln1 = LayerNorm(d_model, dtype)
+        self.self_attn = MultiHeadAttention(num_heads, d_model, dtype,
+                                            qk_norm, attn_impl)
+        self.ln2 = LayerNorm(d_model, dtype)
+        self.cross_attn = MultiHeadAttention(num_heads, d_model, dtype,
+                                             qk_norm)
+        self.ln3 = LayerNorm(d_model, dtype)
+        self.ffn = FeedForward(d_model, dff, dtype)
+
+    def forward(self, x, memory, self_key_mask=None, causal=False,
+                cross_key_mask=None, cache: Optional[KVCache] = None):
+        def self_attn(h):
+            return self.self_attn(h, h, key_mask=self_key_mask,
+                                  causal=causal, cache=cache)
+
+        if self.norm_first:
+            x = x + self_attn(self.ln1(x))
+            x = x + self.cross_attn(self.ln2(x), memory,
+                                    key_mask=cross_key_mask)
+            return x + self.ffn(self.ln3(x))
+        x = self.ln1(x + self_attn(x))
+        x = self.ln2(x + self.cross_attn(x, memory, key_mask=cross_key_mask))
+        return self.ln3(x + self.ffn(x))
+
+
+class Decoder(nn.Module):
+    def __init__(self, num_layers: int, num_heads: int, d_model: int,
+                 dff: int, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "xla", norm_first: bool = True,
+                 qk_norm: bool = False) -> None:
+        super().__init__()
+        self.num_layers = num_layers
+        self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.norm_first = norm_first
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", DecoderLayer(
+                num_heads, d_model, dff, dtype, attn_impl, norm_first,
+                qk_norm))
+        if norm_first:
+            self.ln_out = LayerNorm(d_model, dtype)
+
+    def stacked_weights(self) -> dict:
+        """Kernel operands for ``ops/decode_chunk.py`` (pre-LN only)."""
+        return stacked_decoder_weights(
+            self.state_dict(), num_layers=self.num_layers,
+            compute_dtype=self.dtype)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                self_key_mask: Optional[torch.Tensor] = None,
+                causal: bool = False,
+                cross_key_mask: Optional[torch.Tensor] = None,
+                caches: Optional[List[KVCache]] = None) -> torch.Tensor:
+        """Teacher-forced (``caches`` None) or one cached decode step
+        (``caches``: one :class:`KVCache` per layer)."""
+        if caches is None and self.attn_impl == "pallas":
+            note_engine("decoder-stack", "composed",
+                        "the teacher-forced decoder stack has no fused "
+                        "kernel in the port")
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(
+                x, memory, self_key_mask=self_key_mask, causal=causal,
+                cross_key_mask=cross_key_mask,
+                cache=None if caches is None else caches[i])
         if self.norm_first:
             x = self.ln_out(x)
         return x

@@ -1,0 +1,379 @@
+"""Greedy AR decode, K whole steps per launch, on hand-written Hopper kernels.
+
+Port of ``sketchformer_tpu/ops/pallas_decode_loop.py``
+(``fused_decode_chunk``, ``fused_decode_cont_chunk``) and of their
+lane-packed small-head variants in ``pallas_decode_packed.py``, which fold
+into the same kernels here (head_dim is a template width of
+``csrc/decode_chunk.cu``). Beside each wrapper is its plain torch version
+(``*_reference``) with the same rounding sites; ``precompute_cross_kv`` is
+the port of ``pallas_decode_stack.precompute_cross_kv`` (plain torch, as it
+is plain jnp in the JAX package).
+
+Interface, for a batch of B rows and a chunk of K steps from position
+``t0``: ``k_cache``/``v_cache`` are head-folded ``(L, B*H, Tmax, Dh)`` in the
+compute dtype; the K new rows of each layer, at positions ``[t0, t0 + K)``,
+are written into them in place (the TPU kernel returns them for the
+caller to scatter). ``prev``/``finished`` are ``(B,)`` int32. A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+the kernel or raises. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+from sketchformer_tpu_torch.models.layers import layer_norm
+from sketchformer_tpu_torch.ops import _build
+
+NEG_INF = -1e9
+MAX_HEAD_DIM = 128      # the kernel keeps a head row in registers
+
+# stacked decoder weights in the order the kernel's Trunk struct reads them
+# (the JAX kernel's _LOOP_WKEYS)
+TRUNK_KEYS = ("ln1s", "ln1b", "s_wqkv", "s_bqkv", "s_qns", "s_qnb",
+              "s_kns", "s_knb", "s_wo", "s_bo",
+              "ln2s", "ln2b", "c_wq", "c_bq", "c_qns", "c_qnb",
+              "c_wo", "c_bo", "ln3s", "ln3b", "w1", "b1", "w2", "b2",
+              "lnfs", "lnfb")
+_PRODUCT_KEYS = ("s_wqkv", "s_wo", "c_wq", "c_wo", "w1", "w2")
+
+LAUNCHES = {"decode_chunk": 0, "decode_cont_chunk": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def precompute_cross_kv(memory: torch.Tensor, w: Mapping[str, torch.Tensor],
+                        *, num_heads: int, qk_norm: bool = False):
+    """(B, Mq, d) bottleneck memory -> folded (L, B*H, Mq, Dh) cross K and
+    V in the compute dtype, K already qk-normed (as MultiHeadAttention
+    computes them): ``dt(memory @ W) + dt(bias)``."""
+    L = w["c_wkv"].shape[0]
+    B, Mq, d = memory.shape
+    HD = w["c_wkv"].shape[2] // 2
+    H = num_heads
+    Dh = HD // H
+    dt = memory.dtype
+    ks, vs = [], []
+    for i in range(L):
+        kv = (torch.matmul(memory.reshape(B * Mq, d), w["c_wkv"][i])
+              + w["c_bkv"][i].to(dt)).reshape(B, Mq, 2 * HD)
+        k = kv[..., :HD].reshape(B, Mq, H, Dh)
+        v = kv[..., HD:].reshape(B, Mq, H, Dh)
+        if qk_norm:
+            k = layer_norm(k, w["c_kns"][i], w["c_knb"][i], dt)
+        ks.append(k.transpose(1, 2).reshape(B * H, Mq, Dh))
+        vs.append(v.transpose(1, 2).reshape(B * H, Mq, Dh))
+    return torch.stack(ks), torch.stack(vs)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _mm(a, b):
+    """f32 product of compute-dtype values (exact products, f32 sums)."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _attend(q, k, v, *, scale, normalized):
+    """(B, H, Dh) f32 queries over (B, H, n, Dh) dt keys/values; products
+    of dtype values rounded to the dtype, f32 sums. Self-attention rounds
+    the unnormalised exponentials and divides after P.V; cross-attention
+    (``normalized``) rounds the normalised weights."""
+    dt = k.dtype
+    s = (k * q.to(dt)[:, :, None, :]).float().sum(-1) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = e.sum(dim=-1, keepdim=True)
+    p = e / denom if normalized else e
+    o = (p.to(dt)[..., None] * v).float().sum(-2)
+    return o if normalized else o / denom
+
+
+def _trunk_reference(x, t, k_cache, v_cache, cross_k, cross_v, w, *,
+                     num_heads, qk_norm):
+    """One position ``t`` of a (B, d) dt batch through the L layers and the
+    final LayerNorm; writes each layer's k/v row at ``t`` into the caches."""
+    B, d = x.shape
+    dt = x.dtype
+    f32 = torch.float32
+    L = w["s_wqkv"].shape[0]
+    HD = w["s_wqkv"].shape[2] // 3
+    H = num_heads
+    Dh = HD // H
+    Tmax = k_cache.shape[2]
+    scale = 1.0 / Dh ** 0.5
+    for i in range(L):
+        kc = k_cache[i].view(B, H, Tmax, Dh)
+        vc = v_cache[i].view(B, H, Tmax, Dh)
+        h = layer_norm(x, w["ln1s"][i], w["ln1b"][i], dt)
+        qkv = _mm(h, w["s_wqkv"][i]) + w["s_bqkv"][i]
+        q, kn, vn = (p.reshape(B, H, Dh) for p in qkv.split(HD, dim=-1))
+        if qk_norm:
+            q = layer_norm(q, w["s_qns"][i], w["s_qnb"][i], f32)
+            kn = layer_norm(kn, w["s_kns"][i], w["s_knb"][i], f32)
+        kc[:, :, t] = kn.to(dt)
+        vc[:, :, t] = vn.to(dt)
+        o = _attend(q, kc[:, :, :t + 1], vc[:, :, :t + 1], scale=scale,
+                    normalized=False)
+        x = x + (_mm(o.reshape(B, HD).to(dt), w["s_wo"][i])
+                 + w["s_bo"][i]).to(dt)
+        h = layer_norm(x, w["ln2s"][i], w["ln2b"][i], dt)
+        cq = (_mm(h, w["c_wq"][i]) + w["c_bq"][i]).reshape(B, H, Dh)
+        if qk_norm:
+            cq = layer_norm(cq, w["c_qns"][i], w["c_qnb"][i], f32)
+        Mq = cross_k.shape[2]
+        o = _attend(cq, cross_k[i].view(B, H, Mq, Dh),
+                    cross_v[i].view(B, H, Mq, Dh), scale=scale,
+                    normalized=True)
+        x = x + (_mm(o.reshape(B, HD).to(dt), w["c_wo"][i])
+                 + w["c_bo"][i]).to(dt)
+        h = layer_norm(x, w["ln3s"][i], w["ln3b"][i], dt)
+        f = torch.relu(_mm(h, w["w1"][i]) + w["b1"][i]).to(dt)
+        x = x + (_mm(f, w["w2"][i]) + w["b2"][i]).to(dt)
+    return layer_norm(x, w["lnfs"][0], w["lnfb"][0], dt)
+
+
+def _masked_head_bias(head_b, pad_id, sos_id):
+    """The PAD/SOS logit mask folded into the f32 head bias (as the TPU
+    kernel's wrapper does): those lanes read logit - 1e9."""
+    lane = torch.arange(head_b.shape[0], device=head_b.device)
+    return torch.where((lane == pad_id) | (lane == sos_id),
+                       head_b.float() + NEG_INF, head_b.float())
+
+
+def tie_margin(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The gap between the two largest values of each row of ``x`` over the
+    gap below which a kernel and its plain version may pick differently:
+    1e-3 in float32, one bfloat16 ulp of the row's largest value in
+    bfloat16. A margin below 1 marks a near tie."""
+    top = x.float().topk(2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    if dtype == torch.float32:
+        return gap / 1e-3
+    # |v| in [2^(e-1), 2^e) has a bf16 ulp of 2^(e-8)
+    ulp = torch.ldexp(torch.ones_like(gap),
+                      torch.frexp(top[..., 0]).exponent - 8)
+    return gap / ulp
+
+
+def decode_chunk_reference(prev, finished, k_cache, v_cache, cross_k,
+                           cross_v, emb, pos_chunk, head_w, head_b, w, t0, *,
+                           num_heads, qk_norm=False, pad_id=0, sos_id=1,
+                           eos_id=2, return_margins=False):
+    """K greedy token steps (K = ``pos_chunk.shape[0]``) from position
+    ``t0``. Returns ``(ids (B, K) int32, finished (B,) int32)``, plus each
+    step's (B, K) :func:`tie_margin` of the logits with
+    ``return_margins``."""
+    K, d = pos_chunk.shape
+    B = prev.shape[0]
+    dt = emb.dtype
+    sqrt_d = torch.tensor(d ** 0.5, dtype=dt, device=emb.device)
+    hb = _masked_head_bias(head_b, pad_id, sos_id)
+    hw = head_w.float()
+    ids = torch.empty((B, K), dtype=torch.int32, device=prev.device)
+    margins = torch.empty((B, K), dtype=torch.float32, device=prev.device)
+    fin = finished.clone()
+    for j in range(K):
+        x = emb[prev.long()] * sqrt_d + pos_chunk[j]
+        h = _trunk_reference(x, t0 + j, k_cache, v_cache, cross_k, cross_v,
+                             w, num_heads=num_heads, qk_norm=qk_norm)
+        logits = torch.matmul(h.float(), hw).to(dt).float() + hb
+        margins[:, j] = tie_margin(logits, dt)
+        nxt = logits.argmax(dim=-1).to(torch.int32)   # first index of max
+        nxt = torch.where(fin != 0, pad_id, nxt)
+        fin = torch.where(nxt == eos_id, 1, fin)
+        ids[:, j] = nxt
+        prev = nxt
+    return (ids, fin, margins) if return_margins else (ids, fin)
+
+
+def decode_cont_chunk_reference(prev_row, finished, k_cache, v_cache,
+                                cross_k, cross_v, in_w, in_b, pos_chunk,
+                                head_w, head_b, w, t0, *, num_heads,
+                                num_mixtures, qk_norm=False, pen_end=2,
+                                return_margins=False):
+    """K greedy MDN steps from position ``t0``: the argmax component's mean
+    and the argmax pen state. ``prev_row`` is the (B, 5) f32 last stroke
+    row. Returns ``(xy (B, K, 2) f32, pen (B, K) int32, valid (B, K) int32,
+    finished (B,) int32)``, plus the (B, K) smaller of the component and
+    pen :func:`tie_margin` with ``return_margins``."""
+    K, d = pos_chunk.shape
+    B = prev_row.shape[0]
+    M = num_mixtures
+    dt = in_w.dtype
+    dev = prev_row.device
+    sqrt_d = torch.tensor(d ** 0.5, dtype=dt, device=dev)
+    hw = head_w.float()
+    xy = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
+    pens = torch.empty((B, K), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, K), dtype=torch.int32, device=dev)
+    margins = torch.empty((B, K), dtype=torch.float32, device=dev)
+    fin = finished.clone()
+    row = prev_row.float()
+    for j in range(K):
+        x = _mm(row.to(dt), in_w).to(dt) + in_b.to(dt)
+        x = x * sqrt_d + pos_chunk[j]
+        h = _trunk_reference(x, t0 + j, k_cache, v_cache, cross_k, cross_v,
+                             w, num_heads=num_heads, qk_norm=qk_norm)
+        raw = (torch.matmul(h.float(), hw).to(dt) + head_b.to(dt)).float()
+        margins[:, j] = torch.minimum(tie_margin(raw[:, :M], dt),
+                                      tie_margin(raw[:, 6 * M:6 * M + 3], dt))
+        comp = raw[:, :M].argmax(dim=-1)
+        pen = raw[:, 6 * M:6 * M + 3].argmax(dim=-1).to(torch.int32)
+        mu = raw.gather(1, torch.stack([M + comp, 2 * M + comp], dim=1))
+        done = fin != 0
+        pen = torch.where(done, pen_end, pen)
+        mu = torch.where(done[:, None], 0.0, mu)
+        fin = torch.where(pen == pen_end, 1, fin)
+        xy[:, j] = mu
+        pens[:, j] = pen
+        valid[:, j] = (~done).to(torch.int32)
+        row = torch.cat([mu, F.one_hot(pen.long(), 3).float()], dim=-1)
+    out = (xy, pens, valid, fin)
+    return out + (margins,) if return_margins else out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
+            cross_v, in_w, in_b, pos_chunk, head_w, head_b, w, t0, num_heads,
+            qk_norm, outs, ints):
+    """Check every operand against the kernel's contract and launch."""
+    dev = prev.device
+    dt = pos_chunk.dtype
+    code = _build.dtype_code(pos_chunk)
+    L, BH, Tmax, Dh = k_cache.shape
+    H = num_heads
+    B = prev.shape[0]
+    K, d = pos_chunk.shape
+    Mq = cross_k.shape[2]
+    dff = w["w1"].shape[2]
+    HD = H * Dh
+    if BH != B * H or HD != d:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not fold B={B} "
+                         f"rows of H={H} heads of d={d}")
+    if not 0 < Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {Dh} outside the kernel's "
+                         f"1..{MAX_HEAD_DIM}")
+    if not 0 <= t0 <= Tmax - K:
+        raise ValueError(f"chunk [{t0}, {t0 + K}) outside the cache of "
+                         f"{Tmax} positions")
+    shapes = {"s_wqkv": (L, d, 3 * HD), "s_bqkv": (L, 3 * HD),
+              "s_wo": (L, HD, d), "c_wq": (L, d, HD), "c_bq": (L, HD),
+              "c_wo": (L, HD, d), "w1": (L, d, dff), "b1": (L, dff),
+              "w2": (L, dff, d), "lnfs": (1, d), "lnfb": (1, d)}
+    for key in ("s_qns", "s_qnb", "s_kns", "s_knb", "c_qns", "c_qnb"):
+        shapes[key] = (L, Dh)
+    for key in TRUNK_KEYS:
+        _build.require(w[key], key, dev,
+                       dt if key in _PRODUCT_KEYS else torch.float32,
+                       shapes.get(key, (L, d)))
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _build.require(t, name, dev, dt, (L, BH, Tmax, Dh))
+    for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
+        _build.require(t, name, dev, dt, (L, BH, Mq, Dh))
+    _build.require(pos_chunk, "pos_chunk", dev, dt, (K, d))
+    _build.require(head_w, "head_w", dev, dt, (d, head_b.shape[0]))
+    _build.require(head_b, "head_b", dev, torch.float32, head_b.shape)
+    _build.require(in_w, "in_w", dev, dt, (in_w.shape[0], d))
+    if in_b is not None:
+        _build.require(in_b, "in_b", dev, torch.float32, (d,))
+    _build.require(finished, "finished", dev, torch.int32, (B,))
+    wptrs = (ctypes.c_void_p * len(TRUNK_KEYS))(
+        *(w[key].data_ptr() for key in TRUNK_KEYS))
+    dims = (ctypes.c_int * 16)(
+        B, L, H, Dh, d, dff, Tmax, Mq, K, t0, head_b.shape[0], int(qk_norm),
+        *ints)
+    fdims = (ctypes.c_float * 2)(
+        1.0 / Dh ** 0.5, float(torch.tensor(d ** 0.5, dtype=dt)))
+    prev_tok = None if cont else prev
+    prev_row = prev if cont else None
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.sk_decode_chunk(
+            code, int(cont), ctypes.addressof(wptrs), _build.ptr(k_cache),
+            _build.ptr(v_cache), _build.ptr(cross_k), _build.ptr(cross_v),
+            _build.ptr(pos_chunk), _build.ptr(head_w), _build.ptr(head_b),
+            _build.ptr(in_w), _build.ptr(in_b), _build.ptr(prev_tok),
+            _build.ptr(prev_row), _build.ptr(finished),
+            *(_build.ptr(o) for o in outs), ctypes.addressof(dims),
+            ctypes.addressof(fdims), _build.stream(prev))
+    _build.check(err, kernel)
+    LAUNCHES[kernel] += 1
+
+
+def decode_chunk(prev, finished, k_cache, v_cache, cross_k, cross_v, emb,
+                 pos_chunk, head_w, head_b, w, t0, *, num_heads,
+                 qk_norm=False, pad_id=0, sos_id=1, eos_id=2):
+    """K greedy token steps from position ``t0`` (the port of
+    ``fused_decode_chunk``). ``emb`` (V, d) and ``head_w`` (d, V) in the
+    compute dtype, ``head_b`` (V,) f32, ``w`` from
+    ``convert.stacked_decoder_weights``. Returns ``(ids (B, K) int32,
+    finished (B,) int32)``; the caches get rows ``[t0, t0 + K)``."""
+    if prev.device.type == "cpu":
+        return decode_chunk_reference(
+            prev, finished, k_cache, v_cache, cross_k, cross_v, emb,
+            pos_chunk, head_w, head_b, w, t0, num_heads=num_heads,
+            qk_norm=qk_norm, pad_id=pad_id, sos_id=sos_id, eos_id=eos_id)
+    if prev.device.type != "cuda":
+        raise ValueError(f"decode_chunk: unsupported device {prev.device}")
+    B = prev.shape[0]
+    K = pos_chunk.shape[0]
+    _build.require(prev, "prev", prev.device, torch.int32, (B,))
+    ids = torch.empty((B, K), dtype=torch.int32, device=prev.device)
+    fin = torch.empty((B,), dtype=torch.int32, device=prev.device)
+    _launch("decode_chunk", cont=False, prev=prev, finished=finished,
+            k_cache=k_cache, v_cache=v_cache, cross_k=cross_k,
+            cross_v=cross_v, in_w=emb, in_b=None, pos_chunk=pos_chunk,
+            head_w=head_w, head_b=_masked_head_bias(head_b, pad_id, sos_id),
+            w=w, t0=t0, num_heads=num_heads, qk_norm=qk_norm,
+            outs=(ids, None, None, None, fin), ints=(pad_id, eos_id, 0, 0))
+    return ids, fin
+
+
+def decode_cont_chunk(prev_row, finished, k_cache, v_cache, cross_k, cross_v,
+                      in_w, in_b, pos_chunk, head_w, head_b, w, t0, *,
+                      num_heads, num_mixtures, qk_norm=False, pen_end=2):
+    """K greedy MDN steps from position ``t0`` (the port of
+    ``fused_decode_cont_chunk``). ``in_w`` (5, d) and ``head_w`` (d, 6M+3)
+    in the compute dtype, ``in_b``/``head_b`` f32. Returns ``(xy (B, K, 2)
+    f32, pen (B, K) int32, valid (B, K) int32, finished (B,) int32)``; the
+    caches get rows ``[t0, t0 + K)``."""
+    if prev_row.device.type == "cpu":
+        return decode_cont_chunk_reference(
+            prev_row, finished, k_cache, v_cache, cross_k, cross_v, in_w,
+            in_b, pos_chunk, head_w, head_b, w, t0, num_heads=num_heads,
+            num_mixtures=num_mixtures, qk_norm=qk_norm, pen_end=pen_end)
+    if prev_row.device.type != "cuda":
+        raise ValueError(
+            f"decode_cont_chunk: unsupported device {prev_row.device}")
+    dev = prev_row.device
+    B = prev_row.shape[0]
+    K = pos_chunk.shape[0]
+    P = 6 * num_mixtures + 3
+    _build.require(prev_row, "prev_row", dev, torch.float32, (B, 5))
+    if head_b.shape != (P,):
+        raise ValueError(f"head_b has shape {tuple(head_b.shape)}, expected "
+                         f"({P},) for {num_mixtures} mixtures")
+    xy = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
+    pen = torch.empty((B, K), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, K), dtype=torch.int32, device=dev)
+    fin = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch("decode_cont_chunk", cont=True, prev=prev_row, finished=finished,
+            k_cache=k_cache, v_cache=v_cache, cross_k=cross_k,
+            cross_v=cross_v, in_w=in_w, in_b=in_b, pos_chunk=pos_chunk,
+            head_w=head_w, head_b=head_b, w=w, t0=t0, num_heads=num_heads,
+            qk_norm=qk_norm, outs=(None, xy, pen, valid, fin),
+            ints=(0, 0, num_mixtures, pen_end))
+    return xy, pen, valid, fin

@@ -33,7 +33,6 @@ from sketchformer_tpu_torch.ops import _build
 NEG_INF = -1e9
 MAX_FUSED_LEN = 1024    # the JAX engine's limit (pallas_encoder.py)
 MAX_HEAD_DIM = 128      # encoder_attention keeps head rows in registers
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"linear": 0, "encoder_attention": 0, "layernorm_rows": 0}
 
@@ -100,53 +99,28 @@ def layernorm_rows_reference(x, scale, bias):
 # ---------------------------------------------------------------------------
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _require(t: torch.Tensor, name: str, device, dtype, shape) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _dtype_code(t: torch.Tensor) -> int:
-    if t.dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
-    return _DTYPE_CODES[t.dtype]
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 def linear(a, w, bias, *, relu=False, residual=None):
     """(M, K) x (K, N) with the fused bias / ReLU / residual epilogue."""
     if a.device.type == "cpu":
         return linear_reference(a, w, bias, relu=relu, residual=residual)
     if a.device.type != "cuda":
         raise ValueError(f"linear: unsupported device {a.device}")
-    code = _dtype_code(a)
+    code = _build.dtype_code(a)
     M, K = a.shape
     N = w.shape[-1]
     dev = a.device
-    _require(a, "a", dev, a.dtype, (M, K))
-    _require(w, "w", dev, a.dtype, (K, N))
-    _require(bias, "bias", dev, torch.float32, (N,))
+    _build.require(a, "a", dev, a.dtype, (M, K))
+    _build.require(w, "w", dev, a.dtype, (K, N))
+    _build.require(bias, "bias", dev, torch.float32, (N,))
     if residual is not None:
-        _require(residual, "residual", dev, a.dtype, (M, N))
+        _build.require(residual, "residual", dev, a.dtype, (M, N))
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.sk_linear(code, _ptr(a), _ptr(w), _ptr(bias),
-                            _ptr(residual), _ptr(out), M, N, K, int(relu),
-                            _stream(a))
+        err = lib.sk_linear(code, _build.ptr(a), _build.ptr(w),
+                            _build.ptr(bias), _build.ptr(residual),
+                            _build.ptr(out), M, N, K, int(relu),
+                            _build.stream(a))
     _build.check(err, "linear")
     LAUNCHES["linear"] += 1
     return out
@@ -159,7 +133,7 @@ def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):
                                    qk_norm=qk_norm)
     if qkv.device.type != "cuda":
         raise ValueError(f"encoder_attention: unsupported device {qkv.device}")
-    code = _dtype_code(qkv)
+    code = _build.dtype_code(qkv)
     B, T, three_hd = qkv.shape
     HD = three_hd // 3
     H = num_heads
@@ -171,20 +145,21 @@ def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):
     if T > MAX_FUSED_LEN:
         raise ValueError(f"T={T} exceeds the kernel's limit {MAX_FUSED_LEN}")
     dev = qkv.device
-    _require(qkv, "qkv", dev, qkv.dtype, (B, T, three_hd))
+    _build.require(qkv, "qkv", dev, qkv.dtype, (B, T, three_hd))
     if key_bias is not None:
-        _require(key_bias, "key_bias", dev, torch.float32, (B, T))
+        _build.require(key_bias, "key_bias", dev, torch.float32, (B, T))
     norms = [None] * 4
     if qk_norm is not None:
         for p in qk_norm:
-            _require(p, "qk-norm param", dev, torch.float32, (Dh,))
+            _build.require(p, "qk-norm param", dev, torch.float32, (Dh,))
         norms = list(qk_norm)
     out = torch.empty((B, T, HD), dtype=qkv.dtype, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.sk_encoder_attention(
-            code, _ptr(qkv), _ptr(key_bias), *(_ptr(p) for p in norms),
-            _ptr(out), B, T, H, Dh, 1.0 / Dh ** 0.5, _stream(qkv))
+            code, _build.ptr(qkv), _build.ptr(key_bias),
+            *(_build.ptr(p) for p in norms), _build.ptr(out), B, T, H, Dh,
+            1.0 / Dh ** 0.5, _build.stream(qkv))
     _build.check(err, "encoder_attention")
     LAUNCHES["encoder_attention"] += 1
     return out
@@ -196,17 +171,18 @@ def layernorm_rows(x, scale, bias):
         return layernorm_rows_reference(x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"layernorm_rows: unsupported device {x.device}")
-    code = _dtype_code(x)
+    code = _build.dtype_code(x)
     M, D = x.shape
     dev = x.device
-    _require(x, "x", dev, x.dtype, (M, D))
-    _require(scale, "scale", dev, torch.float32, (D,))
-    _require(bias, "bias", dev, torch.float32, (D,))
+    _build.require(x, "x", dev, x.dtype, (M, D))
+    _build.require(scale, "scale", dev, torch.float32, (D,))
+    _build.require(bias, "bias", dev, torch.float32, (D,))
     out = torch.empty_like(x)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.sk_layernorm_rows(code, _ptr(x), _ptr(scale), _ptr(bias),
-                                    _ptr(out), M, D, _stream(x))
+        err = lib.sk_layernorm_rows(code, _build.ptr(x), _build.ptr(scale),
+                                    _build.ptr(bias), _build.ptr(out), M, D,
+                                    _build.stream(x))
     _build.check(err, "layernorm_rows")
     LAUNCHES["layernorm_rows"] += 1
     return out

@@ -24,7 +24,6 @@ from sketchformer_tpu.models.embeddings import (
 )
 from sketchformer_tpu_torch.config import SketchformerConfig
 from sketchformer_tpu_torch.convert import (
-    UNPORTED,
     init_params,
     load_npz,
     params_from_flax,
@@ -112,12 +111,14 @@ def test_init_params_shapes_match_flax_init(over):
               num_layers=2, num_heads=4, dff=64, lowerdim=16, num_queries=2)
     kw.update(over)
     jcfg = JaxConfig(**kw)
-    enc = (np.zeros((2, 48, 3), np.float32) if jcfg.use_continuous
-           else np.ones((2, 48), np.int32))
-    flax_params = jax.device_get(
-        JaxSketchformer(jcfg).init(jax.random.PRNGKey(0), enc, enc)["params"])
-    state, unported = params_from_flax(flax_params)
-    assert unported == sorted(UNPORTED)
+    if jcfg.use_continuous:
+        enc, dec_in = (np.zeros((2, 48, 3), np.float32),
+                       np.zeros((2, 48, 5), np.float32))
+    else:
+        enc = dec_in = np.ones((2, 48), np.int32)
+    flax_params = jax.device_get(JaxSketchformer(jcfg).init(
+        jax.random.PRNGKey(0), enc, dec_in)["params"])
+    state = params_from_flax(flax_params)
 
     cfg = SketchformerConfig(**kw)
     init = init_params(cfg, seed=3)
@@ -134,7 +135,7 @@ def test_init_params_shapes_match_flax_init(over):
 
 def test_npz_round_trip(tmp_path):
     model, params = jax_model_and_params()
-    state, _ = params_from_flax(params)
+    state = params_from_flax(params)
     path = str(tmp_path / "w.npz")
     save_npz(path, state)
     with np.load(path) as data:
@@ -165,7 +166,7 @@ def test_golden_fixture_embedding_and_logits(kind):
     params = JaxSketchformer(JaxConfig(**kw)).init(
         jax.random.PRNGKey(7), *(jnp.asarray(a) for a in args))["params"]
     port = Sketchformer(SketchformerConfig(**kw))
-    port.load_state_dict(params_from_flax(jax.device_get(params))[0])
+    port.load_state_dict(params_from_flax(jax.device_get(params)))
     with torch.no_grad():
         z = port.embed(torch.from_numpy(data["enc"]), enc_mask)
         logits = port.classify(z)

@@ -46,7 +46,7 @@ def _setup(d, H, qk_norm, masked, norm_first=True, seed=0):
         key_mask=None if km is None else jnp.asarray(km))["params"]
     params = perturb(params, seed + 1)
     port = Encoder(L, H, d, 2 * d, torch.float32, "xla", norm_first, qk_norm)
-    state, _ = params_from_flax({"encoder": params})
+    state = params_from_flax({"encoder": params})
     port.load_state_dict({k[len("encoder."):]: v for k, v in state.items()})
     return x, km, jax_enc, params, port.eval()
 

@@ -39,7 +39,7 @@ def _setup(token_mode):
     model = JaxSketchformer(cfg)
     first = batches[0]
     params = model.init(jax.random.PRNGKey(0), first["enc"],
-                        first["enc"])["params"]
+                        first["dec_in"])["params"]
     return model, perturb(params, 5), batches
 
 
@@ -58,8 +58,10 @@ def test_embed_dataset_matches_jax(token_mode):
 def test_cli_sbir_and_embed_from_converted_npz(tmp_path, capsys):
     model, params, batches = _setup(True)
     want_z, want_labels = jax_embed_dataset(model, params, batches)
-    state, unported = params_from_flax(params)
-    assert unported == ["dec_embed", "decoder", "out_head"]
+    state = params_from_flax(params)
+    assert {k.split(".")[0] for k in state} == {
+        "enc_embed", "encoder", "bottleneck", "classifier", "dec_embed",
+        "decoder", "out_head"}
     weights = str(tmp_path / "weights.npz")
     save_npz(weights, state)
 

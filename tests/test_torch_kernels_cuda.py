@@ -11,7 +11,10 @@ other devices raise.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from sketchformer_tpu_torch.ops import decode_attention as da
+from sketchformer_tpu_torch.ops import decode_chunk as dc
 from sketchformer_tpu_torch.ops import encoder_stack as es
 
 # max |kernel - plain| / max |plain|, as chip_smoke.py
@@ -143,6 +146,142 @@ def test_fused_encoder_stack(cuda, dtype, H, qk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("BH,Tmax,Dh", [(48, 40, 32), (6, 33, 128),
+                                        (10, 20, 64), (5, 9, 24)])
+def test_decode_attention(cuda, dtype, BH, Tmax, Dh):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _rand(gen, cuda, BH, 1, Dh, dtype=dtype)
+    k, v = (_rand(gen, cuda, BH, Tmax, Dh, dtype=dtype) for _ in range(2))
+    for cache_len in (1, 17 % Tmax + 1, Tmax):
+        before = da.LAUNCHES["decode_attention"]
+        got = da.decode_attention(q, k, v, cache_len)
+        assert da.LAUNCHES["decode_attention"] == before + 1
+        _close(got, da.decode_attention_reference(q, k, v, cache_len), dtype)
+
+
+def _chunk_operands(gen, dev, *, B, L, d, H, dff, N, Tmax, Mq, K, t0, dtype,
+                    cont):
+    """Random operands of one decode chunk: stacked trunk weights, cross
+    K/V, caches filled below ``t0``, the input embedding, the head and the
+    carried state (a third of the rows already finished)."""
+    r = lambda *s, scale=0.1, dt=torch.float32: _rand(gen, dev, *s,
+                                                       scale=scale, dtype=dt)
+    Dh = d // H
+    w = {"s_wqkv": r(L, d, 3 * d, scale=d ** -0.5, dt=dtype),
+         "s_bqkv": r(L, 3 * d),
+         "s_wo": r(L, d, d, scale=d ** -0.5, dt=dtype), "s_bo": r(L, d),
+         "c_wq": r(L, d, d, scale=d ** -0.5, dt=dtype), "c_bq": r(L, d),
+         "c_wo": r(L, d, d, scale=d ** -0.5, dt=dtype), "c_bo": r(L, d),
+         "w1": r(L, d, dff, scale=d ** -0.5, dt=dtype), "b1": r(L, dff),
+         "w2": r(L, dff, d, scale=dff ** -0.5, dt=dtype), "b2": r(L, d),
+         "lnfs": 1 + r(1, d), "lnfb": r(1, d)}
+    for s, b, n in (("ln1s", "ln1b", d), ("ln2s", "ln2b", d),
+                    ("ln3s", "ln3b", d), ("s_qns", "s_qnb", Dh),
+                    ("s_kns", "s_knb", Dh), ("c_qns", "c_qnb", Dh)):
+        w[s], w[b] = 1 + r(L, n), r(L, n)
+    kc, vc = (torch.zeros(L, B * H, Tmax, Dh, dtype=dtype, device=dev)
+              for _ in range(2))
+    kc[:, :, :t0] = r(L, B * H, t0, Dh, scale=1.0, dt=dtype)
+    vc[:, :, :t0] = r(L, B * H, t0, Dh, scale=1.0, dt=dtype)
+    ops = dict(k_cache=kc, v_cache=vc,
+               cross_k=r(L, B * H, Mq, Dh, scale=1.0, dt=dtype),
+               cross_v=r(L, B * H, Mq, Dh, scale=1.0, dt=dtype),
+               pos_chunk=r(K, d, scale=1.0, dt=dtype),
+               head_w=r(d, N, scale=d ** -0.5, dt=dtype), head_b=r(N),
+               w=w, t0=t0,
+               finished=(torch.arange(B, device=dev) % 3 == 1).int())
+    if cont:
+        ops.update(in_w=r(5, d, scale=0.5, dt=dtype), in_b=r(d),
+                   prev_row=torch.cat([r(B, 2, scale=1.0), F.one_hot(
+                       torch.arange(B, device=dev) % 2, 3).float()], -1))
+    else:
+        ops.update(emb=r(N, d, scale=d ** -0.5, dt=dtype),
+                   prev=torch.randint(4, N, (B,), generator=gen,
+                                      device=dev).int())
+    return ops
+
+
+def _agreeing_steps(margins):
+    """Per row, the steps before the plain version's first near tie."""
+    K = margins.shape[1]
+    tie = margins < 1
+    return torch.where(tie.any(1), tie.int().argmax(1), K)
+
+
+def _check_chunk(got, want, n, got_kv, want_kv, t0, dtype):
+    """Picks equal and k/v rows close for each row's agreeing steps: the
+    k/v row of step j reads step j-1's pick, so the rows go one further."""
+    K = got[0].shape[1]
+    steps = torch.arange(K, device=n.device)
+    before = steps[None] < n[:, None]                       # (B, K)
+    for g, w in zip(got, want):
+        if g.is_floating_point():
+            _close(g[before], w[before], dtype)
+        else:
+            assert torch.equal(g[before], w[before])
+    for g, w in zip(got_kv, want_kv):
+        L, BH, _, Dh = g.shape
+        B = n.shape[0]
+        rows = (steps[None] <= n[:, None])[None, :, None, :, None].expand(
+            L, B, BH // B, K, Dh)
+        g = g[:, :, t0:t0 + K].reshape(L, B, BH // B, K, Dh)[rows]
+        w = w[:, :, t0:t0 + K].reshape(L, B, BH // B, K, Dh)[rows]
+        _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,qk,t0,rows", [
+    (4, False, 0, 1), (4, True, 8, 1), (1, True, 24, 1), (2, False, 8, 1),
+    (4, True, 8, 2)])
+@pytest.mark.parametrize("cont", [False, True], ids=["token", "mdn"])
+def test_decode_chunk(cuda, dtype, H, qk, t0, rows, cont):
+    """``rows`` 2: a batch above the SM count, which the kernel runs two
+    rows per block (the last block half empty)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B = 7 if rows == 1 else torch.cuda.get_device_properties(
+        cuda).multi_processor_count + 3
+    L, d, dff, K, Tmax = 2, 128, 256, 8, 32
+    N = 6 * 5 + 3 if cont else 517
+    ops = _chunk_operands(gen, cuda, B=B, L=L, d=d, H=H, dff=dff, N=N,
+                          Tmax=Tmax, Mq=3, K=K, t0=t0, dtype=dtype,
+                          cont=cont)
+    kv_ref = (ops["k_cache"].clone(), ops["v_cache"].clone())
+    name = "decode_cont_chunk" if cont else "decode_chunk"
+    before = dc.LAUNCHES[name]
+    if cont:
+        kw = dict(num_heads=H, num_mixtures=5, qk_norm=qk)
+        args = lambda kc, vc: (
+            ops["prev_row"], ops["finished"], kc, vc, ops["cross_k"],
+            ops["cross_v"], ops["in_w"], ops["in_b"], ops["pos_chunk"],
+            ops["head_w"], ops["head_b"], ops["w"], t0)
+        got = dc.decode_cont_chunk(*args(ops["k_cache"], ops["v_cache"]),
+                                   **kw)
+        *want, margins = dc.decode_cont_chunk_reference(
+            *args(*kv_ref), **kw, return_margins=True)
+        assert torch.isfinite(got[0]).all()
+    else:
+        kw = dict(num_heads=H, qk_norm=qk)
+        args = lambda kc, vc: (
+            ops["prev"], ops["finished"], kc, vc, ops["cross_k"],
+            ops["cross_v"], ops["emb"], ops["pos_chunk"], ops["head_w"],
+            ops["head_b"], ops["w"], t0)
+        got = dc.decode_chunk(*args(ops["k_cache"], ops["v_cache"]), **kw)
+        *want, margins = dc.decode_chunk_reference(
+            *args(*kv_ref), **kw, return_margins=True)
+    assert dc.LAUNCHES[name] == before + 1
+    n = _agreeing_steps(margins)
+    assert int(n.sum()) >= B * K // 2      # most steps are compared
+    _check_chunk(got[:-1], want[:-1], n, (ops["k_cache"], ops["v_cache"]),
+                 kv_ref, t0, dtype)
+    # the cache below t0 is untouched
+    assert torch.equal(ops["k_cache"][:, :, :t0], kv_ref[0][:, :, :t0])
+    if bool((n == K).all()):
+        assert torch.equal(got[-1], want[-1])
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     a = torch.zeros(8, 16, dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -151,6 +290,10 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     qkv = torch.zeros(1, 8, 3 * 2 * 256, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         es.encoder_attention(qkv, None, num_heads=2)
+    q = torch.zeros(4, 1, 32, device=cuda)
+    with pytest.raises(ValueError, match="cache_len"):
+        da.decode_attention(q, torch.zeros(4, 8, 32, device=cuda),
+                            torch.zeros(4, 8, 32, device=cuda), 9)
 
 
 def test_cpu_tensors_take_the_plain_version_without_a_launch():
@@ -166,6 +309,12 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
                                                    b[:1].expand(8)))
     assert es.LAUNCHES == {"linear": 0, "encoder_attention": 0,
                            "layernorm_rows": 0}
+    q = torch.from_numpy(rng.standard_normal((6, 1, 8)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((6, 5, 8)).astype(np.float32))
+    da.reset_launches()
+    assert torch.equal(da.decode_attention(q, kv, kv, 3),
+                       da.decode_attention_reference(q, kv, kv, 3))
+    assert da.LAUNCHES == {"decode_attention": 0}
 
 
 def test_other_devices_raise():
@@ -177,3 +326,12 @@ def test_other_devices_raise():
                              num_heads=1)
     with pytest.raises(ValueError, match="unsupported device"):
         es.layernorm_rows(a, a[0], a[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        da.decode_attention(torch.zeros(2, 1, 4, device="meta"), a[None],
+                            a[None], 1)
+    z = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        dc.decode_chunk(z, z, *(None,) * 9, 0, num_heads=1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dc.decode_cont_chunk(z, z, *(None,) * 10, 0, num_heads=1,
+                             num_mixtures=1)

@@ -54,22 +54,31 @@ def cont_batch(cfg, B: int = 4, seed: int = 0, pad_tail: int = 6):
     return rows, mask
 
 
+def dec_rows(rows):
+    """(B, T, 3) stroke rows -> the decoder's (B, T, 5) input rows: dx, dy
+    and the one-hot pen state."""
+    pen = (rows[..., 2] > 0).astype(np.int64)
+    return np.concatenate([rows[..., :2], np.eye(3, dtype=np.float32)[pen]],
+                          axis=-1).astype(np.float32)
+
+
 def jax_model_and_params(seed: int = 0, **over):
     """(flax model, perturbed numpy params) for the small config."""
     cfg = JaxConfig(**small_model_kwargs(**over))
     model = JaxSketchformer(cfg)
     if cfg.use_continuous:
         enc, _ = cont_batch(cfg)
+        dec_in = dec_rows(enc)
     else:
-        enc = token_batch(cfg)
-    params = model.init(jax.random.PRNGKey(0), enc, enc)["params"]
+        enc = dec_in = token_batch(cfg)
+    params = model.init(jax.random.PRNGKey(0), enc, dec_in)["params"]
     return model, perturb(params, seed)
 
 
 def port_model(jax_model, params) -> Sketchformer:
     cfg = SketchformerConfig(**dataclasses.asdict(jax_model.config))
     model = Sketchformer(cfg)
-    state, _ = params_from_flax(params)
+    state = params_from_flax(params)
     model.load_state_dict(state)
     return model.eval()
 
