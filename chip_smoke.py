@@ -23,7 +23,16 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the same cache; picks must be equal up to each row's first near tie of
    the plain version (top-two gap below 1e-3 in f32, below one bf16 ulp
    of the row's top value in bf16), and new k/v rows and xy close over
-   those steps;
+   those steps; then the training kernels at the ``cont2cont_mdn`` width
+   (B=64, T=192, d=256, dff=512) with H=8/Dh=32 and qk-norm and at
+   H=2/Dh=128 without: ``linear_nt`` and ``linear_tn`` (one encoder
+   layer's four backward products, with dropout masks and the ReLU gate),
+   ``linear``'s dropout epilogue, ``attention_fwd`` / ``attention_bwd_q``
+   / ``attention_bwd_kv`` (self-attention under a key mask, and
+   cross-attention to 4 memory rows), ``layernorm_bwd``, ``sum_rows``; and
+   each whole train stack's forward and backward (L=2, dropout 0.1),
+   float32 within a relative L2 error of 1e-3 of the plain version, bf16
+   within 2x the plain bf16 path's error against float32;
 4. main paths, each with every launch counter reset just before and read
    just after: the port's ``sbir`` CLI at the full width of the ``sbir``
    preset (seeded random weights) over 16 batches of 64 from the preset's
@@ -37,12 +46,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    kernel, MDN chunk kernel, MDN composed on ``decode_attention``) is
    held to the plain teacher-forced forward of its own output: each
    emitted pick that is not a near tie is the argmax of the model given
-   the decoded prefix;
+   the decoded prefix. Then the port's ``train`` CLI on ``cont2cont_mdn``
+   (B=64, buckets 96 and 192, bf16, dropout 0.1) for 30 steps: every
+   kernel of the train stacks launches, neither stack declines its
+   kernels, the loss is finite and falls; and ``eval`` on its checkpoint,
+   whose loss the composed model matches;
 5. times: kernel vs plain (CUDA events after warm-up), the end-to-end
    embed rate, per-chunk and per-call decode kernel times, and the
    whole-decode p50 at B=64/T=192 and sketches/s at B=512 for the chunk
-   engine and the composed decoder, each with the card's name and power
-   limit.
+   engine and the composed decoder; each training kernel (one layer's
+   calls) against its plain version and one PyTorch call where one
+   computes the same function; the train stacks' forward + backward; the
+   train step p50 and sketches/s at the ``cont2cont_mdn`` shape and the
+   JAX benchmark's ``cont_train`` shape (B=512, T=96, H=2) with a
+   ``torch.profiler`` breakdown of each; each with the card's name and
+   power limit. Every kernel's bound (the least time for its bytes and
+   operations at the card's published peaks) is computed from the timed
+   calls' shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -71,7 +91,17 @@ SOURCES = {"linear": "encoder_stack.cu", "encoder_attention":
            "encoder_stack.cu", "layernorm_rows": "encoder_stack.cu",
            "decode_chunk": "decode_chunk.cu",
            "decode_cont_chunk": "decode_chunk.cu",
-           "decode_attention": "decode_attention.cu"}
+           "decode_attention": "decode_attention.cu",
+           "linear_nt": "encoder_stack.cu", "linear_tn": "encoder_stack.cu",
+           "attention_fwd": "attention_train.cu",
+           "attention_bwd_q": "attention_train.cu",
+           "attention_bwd_kv": "attention_train.cu",
+           "layernorm_bwd": "norm_train.cu", "sum_rows": "norm_train.cu"}
+# the training kernels replace parts of the bodies of the TPU training
+# kernels: the backward products and the row LayerNorm backward of
+# _layer_bwd_kernel (:102, _ln_bwd32 :80, the cross-cell accumulation
+# :214), the decoder's attention (_dec_stack_kernel :87) and the small-head
+# attention backward (group_attn_bwd)
 REPLACES = {
     "linear": "sketchformer_tpu/ops/pallas_encoder.py:140",
     "encoder_attention": "sketchformer_tpu/ops/pallas_packed.py:169",
@@ -79,6 +109,13 @@ REPLACES = {
     "decode_chunk": "sketchformer_tpu/ops/pallas_decode_packed.py:455",
     "decode_cont_chunk": "sketchformer_tpu/ops/pallas_decode_packed.py:549",
     "decode_attention": "sketchformer_tpu/ops/pallas_decode.py:73",
+    "linear_nt": "sketchformer_tpu/ops/pallas_encoder_train.py:102",
+    "linear_tn": "sketchformer_tpu/ops/pallas_encoder_train.py:102",
+    "attention_fwd": "sketchformer_tpu/ops/pallas_decoder_train.py:87",
+    "attention_bwd_q": "sketchformer_tpu/ops/pallas_packed.py:341",
+    "attention_bwd_kv": "sketchformer_tpu/ops/pallas_packed.py:341",
+    "layernorm_bwd": "sketchformer_tpu/ops/pallas_encoder_train.py:80",
+    "sum_rows": "sketchformer_tpu/ops/pallas_encoder_train.py:214",
 }
 # max |kernel - plain| / max |plain| allowed, by dtype
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -180,8 +217,8 @@ def plain_fed_kernel_picks(kname, ops, got, kv, kw, cont):
     import torch
     import torch.nn.functional as F
 
-    from sketchformer_tpu.data.pipeline import PEN_END
-    from sketchformer_tpu.data.tokenizer import EOS_ID
+    from sketchformer_tpu_torch.data.pipeline import PEN_END
+    from sketchformer_tpu_torch.data.tokenizer import EOS_ID
     from sketchformer_tpu_torch.ops import decode_chunk as dc
 
     ref = getattr(dc, f"{kname}_reference")
@@ -343,8 +380,8 @@ def teacher_forced_check(name, model, enc, mask, out):
     import torch
     import torch.nn.functional as F
 
-    from sketchformer_tpu.data.pipeline import PEN_END
-    from sketchformer_tpu.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
+    from sketchformer_tpu_torch.data.pipeline import PEN_END
+    from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
     from sketchformer_tpu_torch.ops.decode_chunk import NEG_INF, tie_margin
 
     cfg = model.config
@@ -406,6 +443,683 @@ def teacher_forced_check(name, model, enc, mask, out):
         fail(f"{name}: fewer than half the live steps were checked")
 
 
+# ---------------------------------------------------------------------------
+# the training stacks' kernels (K3 / K4 / K5)
+# ---------------------------------------------------------------------------
+
+# cont2cont_mdn (sketchformer_tpu_torch/presets.py): the trunk of the main
+# path; cont_train: the JAX benchmark's continuous training shape
+MDN = dict(B=64, T=192, d=256, H=8, dff=512, L=8)
+CONT_TRAIN = dict(B=512, T=96, d=256, H=2, dff=512, L=8)
+TRAIN_STEPS = 30
+TRAIN_KERNELS = ("linear_nt", "linear_tn", "attention_fwd", "attention_bwd_q",
+                 "attention_bwd_kv", "layernorm_bwd", "sum_rows")
+STACK_KERNELS = ("linear", "layernorm_rows", "encoder_attention") + \
+    TRAIN_KERNELS
+
+
+def train_operands(randn, dev, *, B, T, d, H, dff, dtype, qk):
+    """Random operands of one layer's backward at a stack's shapes: rows,
+    gradients, weights, dropout bytes and attention inputs."""
+    import torch
+
+    M, HD, Dh = B * T, d, d // H
+    gen = torch.Generator(device=dev).manual_seed(7)
+    byt = lambda *s: torch.randint(0, 256, s, dtype=torch.uint8,
+                                   generator=gen, device=dev)
+    lengths = torch.randint(T // 4, T + 1, (B,), generator=gen, device=dev)
+    lengths[0] = T
+    bias = torch.where(torch.arange(T, device=dev)[None] < lengths[:, None],
+                       0.0, -1e9).float()
+    qkv = randn(B, T, 3 * HD, dtype=dtype)
+    norms = tuple(1.0 + randn(Dh, scale=0.1) if i % 2 == 0 else
+                  randn(Dh, scale=0.1) for i in range(4)) if qk else None
+    return dict(
+        x=randn(M, d, dtype=dtype), h=randn(M, dff, dtype=dtype),
+        g=randn(M, d, dtype=dtype), g32=randn(M, d), gf=randn(M, dff),
+        gqkv=randn(M, 3 * HD),
+        f1=torch.relu(randn(M, dff, dtype=dtype)),
+        wqkv=randn(d, 3 * HD, scale=d ** -0.5, dtype=dtype),
+        wo=randn(HD, d, scale=HD ** -0.5, dtype=dtype),
+        w1=randn(d, dff, scale=d ** -0.5, dtype=dtype),
+        w2=randn(dff, d, scale=dff ** -0.5, dtype=dtype),
+        drop=byt(M, d), thresh=26, ks=1.0 / (1.0 - 26 / 256.0),
+        q=qkv[..., :HD], k=qkv[..., HD:2 * HD], v=qkv[..., 2 * HD:],
+        bias=bias, norms=norms, do=randn(B, T, HD),
+        mem_k=randn(B, 4, 2 * HD, dtype=dtype),
+        scale=1.0 + randn(d, scale=0.1), bvec=randn(d, scale=0.1))
+
+
+def layer_nt_calls(o, fn):
+    """The four input-gradient products of one encoder layer's backward."""
+    def run():
+        ks = dict(drop=o["drop"], thresh=o["thresh"], keep_scale=o["ks"])
+        return [fn(o["g"], o["w2"], gate=o["f1"], **ks),
+                fn(o["gf"], o["w1"]),
+                fn(o["g32"], o["wo"], **ks),
+                fn(o["gqkv"], o["wqkv"])]
+    return run
+
+
+def layer_tn_calls(o, fn):
+    """The four weight-gradient products of one encoder layer's backward."""
+    def run():
+        ks = dict(drop=o["drop"], thresh=o["thresh"], keep_scale=o["ks"])
+        return [fn(o["f1"], o["g"], **ks), fn(o["x"], o["gf"]),
+                fn(o["x"], o["g32"], **ks), fn(o["x"], o["gqkv"])]
+    return run
+
+
+def attn_calls(o, H, qk, which, mod):
+    """One attention call of the backward's recompute / backward."""
+    q, k, v, bias = o["q"], o["k"], o["v"], o["bias"]
+    norms = o["norms"] if qk else None
+    kw = dict(num_heads=H, qk_norm=norms)
+    ref = "_reference" if mod == "plain" else ""
+    import sketchformer_tpu_torch.ops.attention_train as at
+
+    if which == "fwd":
+        return lambda: getattr(at, "attention_fwd" + ref)(q, k, v, bias,
+                                                          norm_p=True, **kw)
+    if which == "bwd_q":
+        return lambda: getattr(at, "attention_bwd_q" + ref)(q, k, v, o["do"],
+                                                            bias, **kw)
+    stats = at.attention_bwd_q_reference(q, k, v, o["do"], bias, **kw)[1]
+    return lambda: getattr(at, "attention_bwd_kv" + ref)(
+        q, k, v, o["do"], bias, stats, **kw)
+
+
+def check_train_kernels(randn, dev, errs, compare):
+    """Each training kernel against its plain version at the cont2cont_mdn
+    width (H=8/Dh=32, qk-norm) and at H=2/Dh=128 without qk-norm, f32 and
+    bf16; then each whole stack's forward and backward."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+    from sketchformer_tpu_torch.ops import norm_train as nt
+
+    B, T, d, dff = (MDN[k] for k in ("B", "T", "d", "dff"))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for H, qk in ((8, True), (2, False)):
+            main = dtype == torch.bfloat16 and H == 8
+            o = train_operands(randn, dev, B=B, T=T, d=d, H=H, dff=dff,
+                               dtype=dtype, qk=qk)
+            shape = f"{tag} B={B} T={T} d={d} H={H} qk_norm={qk}"
+            if H == 8:   # the products and norms do not depend on H
+                for name, calls in (("linear_nt", layer_nt_calls),
+                                    ("linear_tn", layer_tn_calls)):
+                    got = calls(o, getattr(es, name))()
+                    want = calls(o, getattr(es, name + "_reference"))()
+                    for i, (g, w) in enumerate(zip(got, want)):
+                        compare(f"{name} {shape} call {i}", g, w, dtype,
+                                name if main else None)
+                ks = dict(drop=o["drop"], thresh=o["thresh"],
+                          keep_scale=o["ks"])
+                compare(f"linear+dropout {shape}",
+                        es.linear(o["h"], o["w2"], o["bvec"], residual=o["x"],
+                                  **ks),
+                        es.linear_reference(o["h"], o["w2"], o["bvec"],
+                                            residual=o["x"], **ks), dtype)
+                for i, (g, w) in enumerate(zip(
+                        nt.layernorm_bwd(o["x"], o["g32"], o["scale"],
+                                         resid=o["g"]),
+                        nt.layernorm_bwd_reference(o["x"], o["g32"],
+                                                   o["scale"], resid=o["g"]))):
+                    compare(f"layernorm_bwd {shape} out {i}", g, w,
+                            torch.float32, "layernorm_bwd" if main else None)
+                compare(f"sum_rows {shape}", nt.sum_rows(o["gqkv"]),
+                        nt.sum_rows_reference(o["gqkv"]), torch.float32,
+                        "sum_rows" if main else None)
+            for which, name in (("fwd", "attention_fwd"),
+                                ("bwd_q", "attention_bwd_q"),
+                                ("bwd_kv", "attention_bwd_kv")):
+                got = attn_calls(o, H, qk, which, "kernel")()
+                want = attn_calls(o, H, qk, which, "plain")()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    if g is None:
+                        continue
+                    part = f"{name} {shape} out {i}"
+                    if which == "bwd_kv" and qk and i == 3:
+                        # the k-norm bias shifts every key alike: its
+                        # gradient is zero up to rounding, held at the
+                        # k-norm scale gradient's magnitude
+                        compare(part, g, w, dtype, None,
+                                scale=want[2].abs().max().item())
+                    else:
+                        compare(part, g, w, dtype, name if main and i == 0
+                                else None)
+            # cross-attention over the Mq = 4 memory rows
+            ck, cv = o["mem_k"][..., :d], o["mem_k"][..., d:]
+            from sketchformer_tpu_torch.ops import attention_train as at
+            kw = dict(num_heads=H, qk_norm=o["norms"])
+            compare(f"attention_fwd cross Mq=4 {shape}",
+                    at.attention_fwd(o["q"], ck, cv, None, **kw),
+                    at.attention_fwd_reference(o["q"], ck, cv, None, **kw),
+                    dtype)
+            gq = at.attention_bwd_q(o["q"], ck, cv, o["do"], None, **kw)
+            wq = at.attention_bwd_q_reference(o["q"], ck, cv, o["do"], None,
+                                              **kw)
+            compare(f"attention_bwd_q cross Mq=4 {shape}", gq[0], wq[0],
+                    dtype)
+            gkv = at.attention_bwd_kv(o["q"], ck, cv, o["do"], None, wq[1],
+                                      **kw)
+            wkv = at.attention_bwd_kv_reference(o["q"], ck, cv, o["do"], None,
+                                                wq[1], **kw)
+            for i in (0, 1):
+                compare(f"attention_bwd_kv cross Mq=4 {shape} out {i}",
+                        gkv[i], wkv[i], dtype)
+            del o
+        for decoder in (False, True):
+            for H, qk in ((8, True), (2, False)):
+                check_train_stack(randn, dev, decoder, H, qk, dtype)
+
+
+def stack_module(dev, decoder, H, qk, dtype, L=2, seed=0):
+    """A pre-LN stack module at the cont2cont_mdn width with seeded random
+    parameters (f32, as the port keeps them)."""
+    import torch
+
+    from sketchformer_tpu_torch.models.transformer import Decoder, Encoder
+
+    d, dff = MDN["d"], MDN["dff"]
+    mod = (Decoder if decoder else Encoder)(L, H, d, dff, dtype, "pallas",
+                                           True, qk, 0.1).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            base = 1.0 if name.endswith("scale") else 0.0
+            scale = 0.05 if "kernel" in name else 0.1
+            p.copy_(base + torch.randn(p.shape, generator=gen, device=dev)
+                    * scale)
+    return mod
+
+
+def stack_grads(mod, x, mem, km, gy, drop, decoder, H, qk, ops, dtype):
+    """Output and the gradients of (x, memory, every parameter) of one
+    forward + backward of the train stack on ``ops``."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import decoder_stack_train as dst
+    from sketchformer_tpu_torch.ops import encoder_stack_train as est
+
+    mod = mod.to(dtype=torch.float32)
+    for m in mod.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = dtype
+    w = mod.stacked_weights(grad=True)
+    xi = x.detach().to(dtype).requires_grad_(True)
+    inputs = [xi]
+    if decoder:
+        mi = mem.detach().to(dtype).requires_grad_(True)
+        inputs.append(mi)
+        y = dst.fused_decoder_stack_train(
+            xi, mi, km, None, w, num_heads=H, qk_norm=qk, dropout_rate=0.1,
+            dropout_bytes=drop, ops=ops)
+    else:
+        y = est.fused_encoder_stack_train(
+            xi, km, w, num_heads=H, qk_norm=qk, dropout_rate=0.1,
+            dropout_bytes=drop, ops=ops)
+    names = ["x", "memory"][:len(inputs)] + [
+        n for n, _ in mod.named_parameters()]
+    grads = torch.autograd.grad((y.float() * gy).sum(),
+                                inputs + list(mod.parameters()),
+                                allow_unused=True)
+    return [("y", y)] + [(n, g) for n, g in zip(names, grads)
+                         if g is not None]
+
+
+# f32 whole stacks: the bound on each output's relative L2 error against
+# the plain version (see check_train_stack)
+STACK_F32_L2 = 1e-3
+
+
+def check_train_stack(randn, dev, decoder, H, qk, dtype):
+    """A whole train stack (L=2, cont2cont_mdn width, dropout on), kernels
+    against the plain versions, the output and every gradient.
+
+    f32: a relative L2 error within STACK_F32_L2, not 1e-4 of the largest
+    element: a ReLU pre-activation within rounding of zero is gated
+    differently by two summation orders; at these sizes (12.6M
+    pre-activations a stack) about one a run is, and it moves its row of
+    the input gradient by up to 2.5e-3 of the largest element and the
+    gradient's L2 by up to 2.2e-4 (on an H100 80GB HBM3). Every kernel alone
+    is held to 1e-4 of the largest element above. bf16: held to the f32 computation of the same inputs, at most
+    STACK_BF16_FACTOR x the plain bf16 path's relative L2 error. A key bias
+    (projection or k-norm) shifts a row's keys alike, so its gradient is
+    zero up to rounding: it is held to 1e-4 (f32) of the largest
+    gradient."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import encoder_stack_train as est
+
+    B, T, d = MDN["B"], MDN["T"], MDN["d"]
+    L = 2
+    tag = str(dtype).replace("torch.", "")
+    name = (f"fused_{'decoder' if decoder else 'encoder'}_stack_train fwd+bwd "
+            f"{tag} L={L} B={B} T={T} d={d} H={H} qk_norm={qk} dropout 0.1")
+    mod = stack_module(dev, decoder, H, qk, dtype)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = randn(B, T, d)
+    mem = randn(B, 4, d)
+    gy = randn(B, T, d)
+    km = torch.arange(T, device=dev)[None] < torch.randint(
+        T // 4, T + 1, (B,), generator=gen, device=dev)[:, None]
+    drop = torch.randint(0, 256, ((3 if decoder else 2) * L, B, T, d),
+                         dtype=torch.uint8, generator=gen, device=dev)
+    args = (mod, x, mem, km, gy, drop, decoder, H, qk)
+    got = stack_grads(*args, est.KERNELS, dtype)
+    want = stack_grads(*args, est.PLAIN, dtype)
+    torch.cuda.synchronize()
+    zero = ("key.bias", "k_norm.bias")
+    l2 = lambda a, b: (a.float() - b.float()).norm().item() / max(
+        b.float().norm().item(), 1e-30)
+    if dtype == torch.float32:
+        top = max(w.abs().max().item() for _, w in want[1:])
+        worst_l2 = worst_max = 0.0
+        for (n, g), (_, r) in zip(got, want):
+            if not torch.isfinite(g).all():
+                fail(f"{name}: {n} not finite")
+            diff = (g - r).abs()
+            if n.endswith(zero):
+                if not diff.max().item() <= TOL["float32"] * top:
+                    fail(f"{name}: {n} differs by {diff.max().item():.3e}")
+                continue
+            worst_max = max(worst_max, diff.max().item()
+                            / max(r.abs().max().item(), 1e-30))
+            worst_l2 = max(worst_l2, l2(g, r))
+            if not l2(g, r) <= STACK_F32_L2:
+                fail(f"{name}: {n} rel L2 err {l2(g, r):.3e}")
+        print(f"check {name}: output and {len(got) - 1} gradients, worst "
+              f"rel L2 err {worst_l2:.3e} (<= {STACK_F32_L2:.0e}), worst "
+              f"max-element rel err {worst_max:.3e}")
+        return
+    ref = stack_grads(*args, est.PLAIN, torch.float32)
+    top = max(w.norm().item() for _, w in ref[1:])
+    worst = 0.0
+    for (n, g), (_, p), (_, r) in zip(got, want, ref):
+        if not torch.isfinite(g).all():
+            fail(f"{name}: {n} not finite")
+        scale = top if n.endswith(zero) else max(r.float().norm().item(),
+                                                 1e-30)
+        err_k = (g.float() - r.float()).norm().item() / scale
+        err_p = (p.float() - r.float()).norm().item() / scale
+        worst = max(worst, err_k / max(err_p, 1e-30))
+        if not err_k <= STACK_BF16_FACTOR * err_p:
+            fail(f"{name}: {n} kernel L2 error {err_k:.3e} vs float32 above "
+                 f"{STACK_BF16_FACTOR} x the plain path's {err_p:.3e}")
+    print(f"check {name}: output and {len(got) - 1} gradients vs float32, "
+          f"worst kernel/plain L2 error ratio {worst:.2f} (<= "
+          f"{STACK_BF16_FACTOR})")
+
+
+def train_main_path(cli, counters, engines, tmp):
+    """The port's train CLI on cont2cont_mdn for TRAIN_STEPS steps, then
+    eval on its checkpoint, each with every launch counter reset just
+    before and read just after. Returns (train launches, steps)."""
+    import torch
+
+    run = os.path.join(tmp, "run")
+    argv = ["train", "--preset", "cont2cont_mdn", "--run-dir", run,
+            "--device", "cuda", "--notifier", "none",
+            "--loop-arg", f"total_steps={TRAIN_STEPS}",
+            "--loop-arg", "log_every=1", "--loop-arg", "eval_every=1000",
+            "--loop-arg", f"save_every={TRAIN_STEPS}"]
+    engines.reset_seen()
+    for m in counters:
+        m.reset_launches()
+    print("main path: python -m sketchformer_tpu_torch.cli " + " ".join(argv))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for m in counters for k, v in m.LAUNCHES.items()}
+    if rc != 0:
+        fail(f"cli train returned {rc}")
+    final = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"  train: {json.dumps(final)} ({secs:.1f} s)")
+    print(f"  launches: {json.dumps(launches)}")
+    for k in STACK_KERNELS:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by cli train")
+    composed = sorted(s for s in engines._seen
+                      if s[0] in ("encoder-stack", "decoder-stack")
+                      and s[1] == "composed")
+    if composed:
+        fail(f"a stack declined its kernels: {composed}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r and "val_loss" not in r]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"train losses {losses}")
+    last = float(np.mean(losses[-5:]))
+    print(f"  losses {' '.join(f'{v:.3f}' for v in losses)}")
+    print(f"  loss at step 1 {losses[0]:.4f}, mean of the last 5 steps "
+          f"{last:.4f}; skipped steps "
+          f"{sum(r.get('skipped_nonfinite', 0) for r in recs):.0f}")
+    if not last < losses[0]:
+        fail("the training loss did not fall")
+    if not all(np.isfinite(v) for v in final.values()):
+        fail(f"final eval metrics not finite: {final}")
+    # eval on the checkpoint
+    for m in counters:
+        m.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["eval", "--run-dir", run, "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = {k: v for m in counters for k, v in m.LAUNCHES.items()}
+    if rc != 0:
+        fail(f"cli eval returned {rc}")
+    ev = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"main path: python -m sketchformer_tpu_torch.cli eval --run-dir "
+          f"{run} --device cuda\n  eval: {json.dumps(ev)}\n  launches: "
+          f"{json.dumps(got)}")
+    for k in ("linear", "layernorm_rows", "encoder_attention",
+              "attention_fwd"):
+        if got[k] <= 0:
+            fail(f"kernel {k} was not launched by cli eval")
+    if not all(np.isfinite(v) for v in ev.values()):
+        fail(f"eval metrics not finite: {ev}")
+    # the same checkpoint through the composed model (plain torch): the eval
+    # loss of the kernels' forward within the bf16 tolerance
+    args = cli.build_parser().parse_args(["eval", "--run-dir", run,
+                                          "--device", "cuda"])
+    model, loader = cli.restore_for_eval(args)
+    from sketchformer_tpu_torch.train.loop import evaluate
+    from sketchformer_tpu_torch.train.step import make_eval_step
+
+    batches = loader.get_validation_set(max_batches=2)
+    k_ev = evaluate(make_eval_step(model), batches)
+    model.encoder.attn_impl = model.decoder.attn_impl = "xla"
+    p_ev = evaluate(make_eval_step(model), batches)
+    rel = abs(k_ev["loss"] - p_ev["loss"]) / abs(p_ev["loss"])
+    print(f"check eval loss, kernels {k_ev['loss']:.5f} vs composed "
+          f"{p_ev['loss']:.5f} (2 batches): rel {rel:.3e} (tol "
+          f"{TOL['bfloat16']:.0e})")
+    if not rel <= TOL["bfloat16"]:
+        fail("the kernels' eval loss differs from the composed model's")
+    return launches, TRAIN_STEPS
+
+
+def profile_steps(label, step, batch, gpu, step_ms, n=2, top=12):
+    """torch.profiler over ``n`` train steps: the device's busy time per
+    step, its idle share against the untraced step time ``step_ms`` (the
+    tracer slows the host, so the traced window's wall time overstates
+    it), and the kernels with the most device time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):   # the tracer's set-up
+        step(batch)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step(batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: a host op's "self device time" also
+        # holds the kernels launched under it without an op of their own
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    print(f"profile train step {label} ({n} steps under torch.profiler): "
+          f"device busy {busy / n:.2f} ms/step, idle share "
+          f"{1 - busy / n / step_ms:.3f} of the untraced p50 {step_ms:.2f} "
+          f"ms (traced wall {wall / n:.2f} ms/step) [{gpu}]")
+    for dev_ms, count, key in rows[:top]:
+        print(f"  {dev_ms / n:8.3f} ms/step {count // n:6d} calls/step  "
+              f"{key[:90]}")
+
+
+def train_step_times(gpu, dev, cli):
+    """Train step ms and sketches/s (host clock around synchronised steps)
+    at the cont2cont_mdn and the cont_train shape; returns them."""
+    import torch
+
+    from sketchformer_tpu_torch.config import SketchformerConfig
+    from sketchformer_tpu_torch.convert import init_params
+    from sketchformer_tpu_torch.data.registry import get_dataloader_by_name
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.presets import get_preset
+    from sketchformer_tpu_torch.train.step import (
+        batch_to_device,
+        create_train_state,
+        make_train_step,
+    )
+
+    out = {}
+    preset = get_preset("cont2cont_mdn")
+    for label, shape, over in (
+            ("cont2cont_mdn", MDN, {}),
+            ("cont_train", CONT_TRAIN,
+             dict(num_heads=2, qk_norm=False, max_len=96, num_classes=345))):
+        B, T = shape["B"], shape["T"]
+        cfg = SketchformerConfig(**{**preset.model_overrides, **over,
+                                    "num_classes": over.get("num_classes",
+                                                            32)})
+        model = Sketchformer(cfg)
+        model.load_state_dict(init_params(cfg, 0))
+        model.to(dev)
+        loader = get_dataloader_by_name("synthetic")(
+            num_classes=32, sketches_per_epoch=B * 2, batch_size=B,
+            buckets=(T,), token_mode=False)
+        batch = batch_to_device(next(loader.batch_iterator("train")), dev)
+        state = create_train_state(model, 0, 500, 2.0)
+        step = make_train_step(state)
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(ts))
+        if not np.isfinite(m["loss"].item()):
+            fail(f"{label} train step loss not finite")
+        profile_steps(label, step, batch, gpu, ms)
+        out[label] = (ms, B / ms * 1e3)
+        print(f"time train step {label} (B={B}, T={T}, d={cfg.d_model}, "
+              f"L={cfg.num_layers}, H={cfg.num_heads}, qk_norm={cfg.qk_norm},"
+              f" {cfg.dtype}, dropout {cfg.dropout}): p50 {ms:.2f} ms (min "
+              f"{min(ts):.2f}, max {max(ts):.2f}, 5 steps), "
+              f"{B / ms * 1e3:.1f} sketches/s [{gpu}]")
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a call's work
+# ---------------------------------------------------------------------------
+
+PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core rate, FLOP/s
+PEAK_F32 = 67e12        # float32 outside the tensor cores
+HBM = 3.35e12           # bytes/s
+
+
+def bound(flops, nbytes, dtype_bytes=2):
+    """(ms, 'operations' | 'bytes'): the larger of the two times."""
+    peak = PEAK_BF16 if dtype_bytes == 2 else PEAK_F32
+    t_op, t_by = flops / peak, nbytes / HBM
+    return (max(t_op, t_by) * 1e3,
+            "operations" if t_op >= t_by else "bytes")
+
+
+def gemm_work(shapes, es_=2):
+    """FLOPs and bytes of a list of (M, K, N, a_bytes, b_bytes, out_bytes,
+    extra_bytes) products."""
+    fl = by = 0
+    for M, K, N, ab, bb, ob, extra in shapes:
+        fl += 2 * M * K * N
+        by += M * K * ab + K * N * bb + M * N * ob + extra
+    return fl, by
+
+
+def train_kernel_work(B, T, d, H, dff):
+    """{kernel: (flops, bytes)} of the calls chip_smoke times for each
+    training kernel (bf16, the cont2cont_mdn layer)."""
+    M, HD, Dh = B * T, d, d // H
+    u8 = M * d
+    nt = gemm_work([(M, d, dff, 2, 2, 4, u8 + M * dff * 2),
+                    (M, dff, d, 4, 2, 4, 0),
+                    (M, d, HD, 4, 2, 4, u8),
+                    (M, 3 * HD, d, 4, 2, 4, 0)])
+    tn = gemm_work([(dff, M, d, 2, 2, 4, u8), (d, M, dff, 2, 4, 4, 0),
+                    (d, M, d, 2, 4, 4, u8), (d, M, 3 * HD, 2, 4, 4, 0)])
+    qkv = 3 * M * HD * 2
+    att = 4 * B * H * T * T * Dh
+    return {
+        "linear_nt": nt, "linear_tn": tn,
+        "attention_fwd": (att, qkv + M * HD * 2 + B * T * 4),
+        "attention_bwd_q": (1.5 * att, qkv + 2 * M * HD * 4 + B * H * T * 12),
+        "attention_bwd_kv": (2 * att, qkv + 3 * M * HD * 4 + B * H * T * 12),
+        "layernorm_bwd": (10 * M * d, M * d * (2 + 4 + 2 + 4) + 4 * d * 4),
+        "sum_rows": (M * 3 * HD, M * 3 * HD * 4 + 3 * HD * 4),
+    }
+
+
+def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn):
+    """{kernel: (flops, bytes)} of the timed calls of the serving kernels
+    (bf16): linear = one encoder layer's 4 products; encoder_attention and
+    layernorm_rows one call at (B, T); decode chunks the mean 16-step chunk
+    of a T=192 decode (cache positions t0 + 16, t0 = 88 on average);
+    decode_attention one call (B*H, cache_len T/2)."""
+    M, Dh = B * T, d // H
+    lin = gemm_work([(M, d, 3 * d, 2, 2, 2, 0), (M, d, d, 2, 2, 2, M * d * 2),
+                     (M, d, dff, 2, 2, 2, 0), (M, dff, d, 2, 2, 2, M * d * 2)])
+    trunk_w = L * (d * 3 * d + 3 * d * d + 2 * d * dff) * 2
+    t_mean = 88 + K
+    per_row = L * 2 * (d * 3 * d + 3 * d * d + 2 * d * dff) + L * 4 * t_mean * d
+
+    def chunk(N, emb):
+        fl = K * B * (per_row + 2 * d * N)
+        by = (trunk_w + d * N * 2 + emb + 2 * L * B * H * t_mean * Dh * 2
+              + 2 * L * B * H * 4 * Dh * 2 + K * B * 8)
+        return fl, by
+    n = T // 2
+    return {
+        "linear": lin,
+        "encoder_attention": (4 * B * H * T * T * Dh,
+                              3 * M * d * 2 + M * d * 2 + B * T * 4),
+        "layernorm_rows": (8 * M * d, 2 * M * d * 2 + 2 * d * 4),
+        "decode_chunk": chunk(V, V * d * 2),
+        "decode_cont_chunk": chunk(N_mdn, 5 * d * 2),
+        "decode_attention": (4 * B * H * n * Dh,
+                             (2 * B * H * Dh + 2 * B * H * n * Dh) * 2),
+    }
+
+
+def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
+    """Each training kernel (the layer's call set) against its plain version
+    and, where one PyTorch call computes the same function, that call; bf16
+    at the cont2cont_mdn layer. Returns {kernel: (ms, plain_ms, lib_ms)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+    from sketchformer_tpu_torch.ops import norm_train as nt
+
+    B, T, d, H, dff = (MDN[k] for k in ("B", "T", "d", "H", "dff"))
+    dt = torch.bfloat16
+    o = train_operands(randn, dev, B=B, T=T, d=d, H=H, dff=dff, dtype=dt,
+                       qk=True)
+    out = {}
+
+    def lib_nt():
+        for a, w in ((o["g"], o["w2"]), (o["gf"], o["w1"]),
+                     (o["g32"], o["wo"]), (o["gqkv"], o["wqkv"])):
+            torch.matmul(a.to(dt), w.t())
+
+    def lib_tn():
+        for x, y in ((o["f1"], o["g"]), (o["x"], o["gf"]), (o["x"], o["g32"]),
+                     (o["x"], o["gqkv"])):
+            torch.matmul(x.t(), y.to(dt))
+
+    q4, k4, v4 = (t.reshape(B, T, H, d // H).transpose(1, 2)
+                  for t in (o["q"], o["k"], o["v"]))
+    mask = (o["bias"] == 0)[:, None, None, :]
+    with torch.no_grad():
+        for name, kern, plain, lib in (
+                ("linear_nt", layer_nt_calls(o, es.linear_nt),
+                 layer_nt_calls(o, es.linear_nt_reference), lib_nt),
+                ("linear_tn", layer_tn_calls(o, es.linear_tn),
+                 layer_tn_calls(o, es.linear_tn_reference), lib_tn),
+                ("attention_fwd", attn_calls(o, H, True, "fwd", "kernel"),
+                 attn_calls(o, H, True, "fwd", "plain"),
+                 lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                        attn_mask=mask)),
+                ("attention_bwd_q", attn_calls(o, H, True, "bwd_q", "kernel"),
+                 attn_calls(o, H, True, "bwd_q", "plain"), None),
+                ("attention_bwd_kv", attn_calls(o, H, True, "bwd_kv",
+                                                "kernel"),
+                 attn_calls(o, H, True, "bwd_kv", "plain"), None),
+                ("layernorm_bwd",
+                 lambda: nt.layernorm_bwd(o["x"], o["g32"], o["scale"],
+                                          resid=o["g"]),
+                 lambda: nt.layernorm_bwd_reference(o["x"], o["g32"],
+                                                    o["scale"], resid=o["g"]),
+                 None),
+                ("sum_rows", lambda: nt.sum_rows(o["gqkv"]),
+                 lambda: nt.sum_rows_reference(o["gqkv"]),
+                 lambda: torch.sum(o["gqkv"], dim=0))):
+            k_ms, p_ms = paired(kern, plain, iters=10, warm=2)
+            lib_ms = cuda_ms(lib, 10, 2) if lib is not None else None
+            out[name] = (k_ms, p_ms, lib_ms)
+            print(f"time {name} (bf16, B={B}, T={T}, d={d}, H={H}, "
+                  f"dff={dff}{', the layer: 4 calls' if 'linear' in name else ''}"
+                  f"): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} [{gpu}]")
+    return out
+
+
+def stack_times(dev, gpu, cuda_ms):
+    """Encoder and decoder train stacks, forward + backward (L=8, dropout
+    0.1, bf16, cont2cont_mdn width), kernels against the plain versions."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import encoder_stack_train as est
+
+    B, T, d, H = (MDN[k] for k in ("B", "T", "d", "H"))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for decoder in (False, True):
+        mod = stack_module(dev, decoder, H, True, torch.bfloat16,
+                           L=MDN["L"])
+        x = torch.randn((B, T, d), generator=gen, device=dev)
+        mem = torch.randn((B, 4, d), generator=gen, device=dev)
+        gy = torch.randn((B, T, d), generator=gen, device=dev)
+        km = torch.ones((B, T), dtype=torch.bool, device=dev)
+        drop = torch.randint(0, 256, ((3 if decoder else 2) * MDN["L"], B, T,
+                                      d), dtype=torch.uint8, generator=gen,
+                             device=dev)
+        args = (mod, x, mem, km, gy, drop, decoder, H, True)
+        ms = {}
+        for label, ops in (("kernel", est.KERNELS), ("plain", est.PLAIN)):
+            ms[label] = cuda_ms(lambda: stack_grads(*args, ops,
+                                                    torch.bfloat16), 3, 1)
+        print(f"time fused_{'decoder' if decoder else 'encoder'}_stack_train "
+              f"fwd+bwd (L={MDN['L']}, B={B}, T={T}, d={d}, H={H}, qk_norm, "
+              f"bf16, dropout 0.1): kernel {ms['kernel']:.2f} ms, plain "
+              f"{ms['plain']:.2f} ms [{gpu}]")
+        del mod
+
+
 def main() -> int:
     import torch
 
@@ -423,9 +1137,12 @@ def main() -> int:
     from sketchformer_tpu_torch.ops import _build
     from sketchformer_tpu_torch.ops import decode_attention as da
     from sketchformer_tpu_torch.ops import decode_chunk as dc
+    from sketchformer_tpu_torch.ops import attention_train as at
     from sketchformer_tpu_torch.ops import encoder_stack as es
+    from sketchformer_tpu_torch.ops import norm_train as nt
+    from sketchformer_tpu_torch.utils import engines
 
-    counters = (es, dc, da)
+    counters = (es, dc, da, at, nt)
 
     dev = torch.device("cuda")
     gpu = gpu_line()
@@ -481,13 +1198,16 @@ def main() -> int:
 
     errs = {k: 0.0 for k in REPLACES}   # bf16, main-path shapes (B=64)
 
-    def compare(name, got, ref, dtype, record=None):
+    def compare(name, got, ref, dtype, record=None, scale=None):
+        """max |got - ref| <= TOL * max |ref| (or * ``scale`` for an output
+        that is zero up to rounding)."""
         torch.cuda.synchronize()
         got, ref = got.float(), ref.float()
         if not torch.isfinite(got).all():
             fail(f"{name}: kernel output not finite")
         err = (got - ref).abs().max().item()
-        rel = err / max(ref.abs().max().item(), 1e-30)
+        rel = err / max(ref.abs().max().item() if scale is None else scale,
+                        1e-30)
         tol = TOL[str(dtype).replace("torch.", "")]
         print(f"check {name}: max_abs_err {err:.3e} rel {rel:.3e} "
               f"(tol {tol:.0e})")
@@ -577,6 +1297,7 @@ def main() -> int:
                      f"{STACK_BF16_FACTOR} x the plain path's {err_p:.3e}")
 
     check_decode_kernels(randn, gen, dev, errs)
+    check_train_kernels(randn, dev, errs, compare)
 
     # ---- 4. main path: the port's sbir CLI at the sbir preset's width ------
     with tempfile.TemporaryDirectory() as tmp:
@@ -601,9 +1322,11 @@ def main() -> int:
         metrics = json.loads(buf.getvalue().strip().splitlines()[-1])
         print(f"sbir metrics: {json.dumps(metrics)} ({main_s:.1f} s)")
         print(f"launches during the main path: {json.dumps(launches)}")
-        for name, n in launches.items():
-            if n <= 0:
+        for name in ("linear", "encoder_attention", "layernorm_rows"):
+            if launches[name] <= 0:
                 fail(f"kernel {name} was not launched by the main path")
+        if launches["linear_nt"] or launches["linear_tn"]:
+            fail("the sbir path launched a backward kernel")
         if dc.LAUNCHES["decode_chunk"] or da.LAUNCHES["decode_attention"]:
             fail("the sbir path launched a decode kernel")
         with np.load(out_npz) as data:
@@ -750,6 +1473,12 @@ def main() -> int:
                              mdn32, encm, maskm, outm)
     del mdn32
 
+    # ---- 4c. main path: continuous training, then eval -------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, _ = train_main_path(cli, counters, engines, tmp)
+    for k in TRAIN_KERNELS:
+        launches[k] = train_launches[k]
+
     # ---- 5. times ----------------------------------------------------------
     def cuda_ms(fn, iters=20, warm=3):
         for _ in range(warm):
@@ -771,8 +1500,11 @@ def main() -> int:
         p2 = cuda_ms(plain_fn, iters, warm)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
+    import torch.nn.functional as F
+
     dt = cfg.compute_dtype
     times = {}
+    lib = {}    # one PyTorch call computing the same function, where one does
     B = 64
     M = B * T
     w = weights
@@ -799,7 +1531,22 @@ def main() -> int:
             lambda: es.layernorm_rows(x, w["lnfs"][0], w["lnfb"][0]),
             lambda: es.layernorm_rows_reference(x, w["lnfs"][0],
                                                 w["lnfb"][0]))
+        Dh = d // H
+        q4, k4, v4 = (t.reshape(B, T, H, Dh).transpose(1, 2)
+                      for t in qkv.split(d, dim=-1))
+        amask = (kbias == 0)[:, None, None, :]
+        lib["linear"] = cuda_ms(lambda: [
+            torch.addmm(w[b][0].to(dt), a, w[k][0])
+            for a, k, b in ((x, "wqkv", "bqkv"), (x, "wo", "bo"),
+                            (x, "w1", "b1"), (hid, "w2", "b2"))])
+        lib["encoder_attention"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=amask))
+        lib["layernorm_rows"] = cuda_ms(
+            lambda: F.layer_norm(x, (d,), w["lnfs"][0].to(dt),
+                                 w["lnfb"][0].to(dt), 1e-6))
         for name, (k_ms, p_ms) in times.items():
+            print(f"library {name}: {lib[name]:.4f} ms [{gpu}]")
             print(f"time {name} (B={B}, T={T}, {str(dt)[6:]}"
                   f"{', one layer: 4 calls' if name == 'linear' else ''})"
                   f": kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
@@ -826,8 +1573,8 @@ def main() -> int:
 
     # decode: per chunk (the mean over a T=192 decode's 12 chunks) and per
     # decode_attention call, kernel vs plain; then whole decodes
-    from sketchformer_tpu.data.pipeline import PEN_END
-    from sketchformer_tpu.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
+    from sketchformer_tpu_torch.data.pipeline import PEN_END
+    from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
 
     T, K, H = AR["T"], AR["K"], AR["H"]
     B = 64
@@ -908,6 +1655,9 @@ def main() -> int:
             lambda: da.decode_attention(q, kq, vq, T // 2),
             lambda: da.decode_attention_reference(q, kq, vq, T // 2),
             iters=50)
+        lib["decode_attention"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, kq[:, :T // 2], vq[:, :T // 2]), iters=50)
     for name in ("decode_chunk", "decode_cont_chunk"):
         k_ms, p_ms = times[name]
         print(f"time {name} (B={B}, L={cfg.num_layers}, d={cfg.d_model}, "
@@ -917,7 +1667,8 @@ def main() -> int:
     k_ms, p_ms = times["decode_attention"]
     print(f"time decode_attention (B*H={B * H}, Dh={Dh}, Tmax={T}, "
           f"cache_len={T // 2}, {str(dt)[6:]}, per call): kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (SDPA) "
+          f"{lib['decode_attention']:.4f} ms [{gpu}]")
 
     def host_ms(fn, reps):
         fn()
@@ -944,16 +1695,35 @@ def main() -> int:
               f"{512 / float(np.median(big)) * 1e3:.1f} sketches/s "
               f"({float(np.median(big)):.1f} ms) [{gpu}]")
 
+    # the training kernels, the stacks and whole train steps
+    for name, (k_ms, p_ms, l_ms) in train_kernel_times(
+            randn, dev, gpu, cuda_ms, paired).items():
+        times[name] = (k_ms, p_ms)
+        lib[name] = l_ms
+    stack_times(dev, gpu, cuda_ms)
+    steps_ms = train_step_times(gpu, dev, cli)
+    print(f"train steps: {json.dumps(steps_ms)} [{gpu}]")
+
+    work = serving_kernel_work(B=64, T=SBIR["T"], d=SBIR["d"], H=SBIR["H"],
+                               dff=SBIR["dff"], L=SBIR["L"], V=AR["V"],
+                               K=AR["K"], N_mdn=6 * MDN_MIXTURES + 3)
+    work.update(train_kernel_work(*(MDN[k] for k in ("B", "T", "d", "H",
+                                                     "dff"))))
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "jaxlib"))
     if leaked:
         fail(f"JAX was imported: {leaked[:5]}")
 
-    kernels = [{
-        "name": name, "route": "cuda", "source": CSRC + SOURCES[name],
-        "replaces": REPLACES[name], "launches": launches[name],
-        "max_abs_err": errs[name], "ms": times[name][0],
-        "plain_ms": times[name][1]} for name in REPLACES]
+    kernels = []
+    for name in REPLACES:
+        b_ms, b_by = bound(*work[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": times[name][0],
+            "plain_ms": times[name][1], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib.get(name)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,14 +6,22 @@ the reference; module names mirror it::
     sketchformer_tpu_torch/
       config.py   SketchformerConfig (same fields and defaults)
       convert.py  flax params -> state_dict, npz save/load, seeded init
-      models/     embeddings, attention, encoder stack, bottleneck, heads
-      ops/        hand-written CUDA kernels (csrc/) and their wrappers
-      infer/      embedding extraction (kernel engine + serving loop)
-      cli.py      embed / sbir subcommands
+      data/       stroke-3 tools, tokenizers, bucketed batch builders,
+                  loaders, packed batches (copies of the JAX package's)
+      native/     the C batch builder (a copy), built into native/_build/
+      models/     embeddings, attention, stacks, bottleneck, heads, dropout
+      ops/        hand-written CUDA kernels (csrc/) and their wrappers, the
+                  train stacks' autograd Functions, MDN math
+      infer/      embedding extraction, AR decode, SBIR metrics
+      train/      losses, optimizer, train / eval steps, checkpoints, loop
+      utils/      hparams, registries, engine notes, metric writers
+      presets.py  the named experiment presets
+      cli.py      train / eval / embed / sbir / decode / interpolate
 
-The package imports torch and never jax or flax; from ``sketchformer_tpu``
-it uses only the framework-neutral data path, presets, SBIR metrics,
-``HParams`` and ``note_engine``.
+The package imports torch and never jax, flax, optax or orbax, nor any
+module of ``sketchformer_tpu``: what it needs of the JAX package's
+framework-neutral modules it keeps as its own copies, under the same
+paths (``tests/test_torch_imports.py`` walks every module to hold this).
 """
 
 __version__ = "0.1.0"

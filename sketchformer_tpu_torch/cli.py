@@ -1,10 +1,18 @@
-"""Command line for the PyTorch port: embedding extraction, SBIR eval, AR
-reconstruction and latent interpolation.
+"""Command line for the PyTorch port: training and eval of continuous
+(MDN) models, embedding extraction, SBIR eval, AR reconstruction and latent
+interpolation.
 
-Port of the ``embed``, ``sbir``, ``decode`` and ``interpolate`` subcommands
-of ``sketchformer_tpu.cli``, with the same outputs. The loader and preset
-come from the JAX package's own (JAX-free) data path; weights come from an
-``.npz`` written by ``convert.save_npz`` or from a seeded initialisation::
+Port of the ``train``, ``eval``, ``embed``, ``sbir``, ``decode`` and
+``interpolate`` subcommands of ``sketchformer_tpu.cli``, with the same
+outputs. Loaders and presets are the port's copies (``data/``,
+``presets.py``). ``train`` writes a run dir (config, loader config,
+checkpoints, metrics) that ``eval`` reads; the serving subcommands take
+weights from an ``.npz`` written by ``convert.save_npz`` or a seeded
+initialisation::
+
+    python -m sketchformer_tpu_torch.cli train --preset cont2cont_mdn \
+        --run-dir R --device cuda --loop-arg total_steps=30
+    python -m sketchformer_tpu_torch.cli eval --run-dir R --device cuda
 
     python -m sketchformer_tpu_torch.cli embed --preset sbir --init-seed 0 \\
         --device cuda --output z.npz
@@ -26,16 +34,46 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from sketchformer_tpu.cli import _resolve_loader_config
 from sketchformer_tpu_torch.config import SketchformerConfig
 
 
-def build_model_and_loader(args):
-    """(model on ``args.device`` in eval mode, loader) from preset/flags."""
-    from sketchformer_tpu.data.registry import get_dataloader_by_name
-    from sketchformer_tpu.presets import get_preset
-    from sketchformer_tpu_torch.convert import init_params, load_npz
-    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+def _parse_kv(items) -> Dict[str, Any]:
+    """``k=v`` flags -> dict; values parse as JSON, else as Python-style
+    literals (``False`` must not become the truthy string "False"), else
+    stay strings."""
+    out: Dict[str, Any] = {}
+    for item in items or []:
+        k, v = item.split("=", 1)
+        try:
+            out[k] = json.loads(v)
+        except json.JSONDecodeError:
+            lit = {"true": True, "false": False, "none": None}
+            out[k] = lit[v.lower()] if v.lower() in lit else v
+    return out
+
+
+def _resolve_loader_config(args):
+    """(loader_name, loader_kwargs) from preset and/or explicit flags."""
+    from sketchformer_tpu_torch.presets import get_preset
+
+    loader_name = args.loader
+    loader_kwargs: Dict[str, Any] = {}
+    if args.preset:
+        p = get_preset(args.preset)
+        loader_name = loader_name or p.loader
+        loader_kwargs.update(p.loader_kwargs)
+    loader_name = loader_name or "synthetic"
+    loader_kwargs.update(_parse_kv(getattr(args, "loader_arg", None)))
+    if getattr(args, "data_dir", None):
+        loader_kwargs["data_dir"] = args.data_dir
+    return loader_name, loader_kwargs
+
+
+def resolve_config(args):
+    """(SketchformerConfig, loader) from preset and flags, the dataset's
+    vocab and class count filled in unless ``--hparams`` sets them."""
+    from sketchformer_tpu_torch.data.registry import get_dataloader_by_name
+    from sketchformer_tpu_torch.presets import get_preset
 
     model_over: Dict[str, Any] = {}
     if args.preset:
@@ -56,8 +94,15 @@ def build_model_and_loader(args):
     if "num_classes" not in explicit:
         hps.num_classes = (max(loader.num_classes, hps.num_classes)
                            if args.preset else loader.num_classes)
-    cfg = SketchformerConfig.from_hparams(hps)
+    return SketchformerConfig.from_hparams(hps), loader
 
+
+def build_model_and_loader(args):
+    """(model on ``args.device`` in eval mode, loader) from preset/flags."""
+    from sketchformer_tpu_torch.convert import init_params, load_npz
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+
+    cfg, loader = resolve_config(args)
     if args.weights:
         state = load_npz(args.weights)
     else:
@@ -65,6 +110,84 @@ def build_model_and_loader(args):
     model = Sketchformer(cfg)
     model.load_state_dict(state)
     return model.to(torch.device(args.device)).eval(), loader
+
+
+def cmd_train(args) -> int:
+    """Train from a seeded initialisation (``--loop-arg seed``) or resume
+    the run dir's newest checkpoint; prints the final eval metrics."""
+    from sketchformer_tpu_torch.convert import init_params
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.presets import get_preset
+    from sketchformer_tpu_torch.train.checkpoint import CheckpointManager
+    from sketchformer_tpu_torch.train.loop import (
+        TrainLoopConfig,
+        run_training,
+    )
+    from sketchformer_tpu_torch.utils.notify import build_notifier
+
+    cfg, loader = resolve_config(args)
+    loop_over: Dict[str, Any] = {}
+    if args.preset:
+        loop_over.update(get_preset(args.preset).loop_overrides)
+    loop_over.update(_parse_kv(args.loop_arg))
+    loop_cfg = TrainLoopConfig(**loop_over)
+    model = Sketchformer(cfg)
+    model.load_state_dict(init_params(cfg, loop_cfg.seed))
+    model.to(torch.device(args.device))
+    # persist the data config so eval rebuilds the same loader
+    loader_name, loader_kwargs = _resolve_loader_config(args)
+    CheckpointManager(args.run_dir).save_meta(
+        {"loader": loader_name, "loader_kwargs": loader_kwargs})
+    final = run_training(model, loader, args.run_dir, loop_cfg,
+                         notifier=build_notifier(args.notifier, args.run_dir))
+    print(json.dumps({k: round(v, 4) for k, v in final.items()}))
+    return 0
+
+
+def restore_for_eval(args):
+    """(model with the run dir's newest checkpoint on ``args.device``, in
+    eval mode, and the run's loader)."""
+    from sketchformer_tpu_torch.data.registry import get_dataloader_by_name
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt = CheckpointManager(args.run_dir)
+    saved = ckpt.load_config_dict()
+    if saved is None:
+        raise FileNotFoundError(f"no config.json in {args.run_dir}")
+    model = Sketchformer(SketchformerConfig(**saved))
+    model.load_state_dict(ckpt.load_state_dict()["params"])
+    meta = ckpt.load_meta()
+    explicit = bool(args.loader or args.preset or args.loader_arg
+                    or args.data_dir)
+    if not explicit and "loader" in meta:
+        loader = get_dataloader_by_name(meta["loader"])(
+            **meta["loader_kwargs"])
+    else:
+        _, loader = resolve_config(args)
+    return model.to(torch.device(args.device)).eval(), loader
+
+
+def cmd_eval(args) -> int:
+    """Mean eval metrics of the newest checkpoint over a split."""
+    from sketchformer_tpu_torch.train.loop import evaluate
+    from sketchformer_tpu_torch.train.step import make_eval_step
+
+    model, loader = restore_for_eval(args)
+    if args.split == "valid":
+        batches = loader.get_validation_set(max_batches=args.max_batches)
+    else:
+        batches = []
+        for b in loader.batch_iterator(args.split):
+            batches.append(b)
+            if len(batches) >= args.max_batches:
+                break
+    if not batches:
+        print(f"no batches in split {args.split!r}", file=sys.stderr)
+        return 1
+    out = evaluate(make_eval_step(model), batches)
+    print(json.dumps({k: round(v, 4) for k, v in out.items()}))
+    return 0
 
 
 def cmd_embed(args) -> int:
@@ -84,7 +207,7 @@ def cmd_sbir(args) -> int:
     Default protocol: disjoint query/gallery halves; ``--self-retrieval``
     evaluates Z against itself with the diagonal excluded.
     """
-    from sketchformer_tpu.infer.sbir import retrieval_eval
+    from sketchformer_tpu_torch.infer.sbir import retrieval_eval
     from sketchformer_tpu_torch.infer.encode import embed_dataset
 
     model, loader = build_model_and_loader(args)
@@ -161,7 +284,7 @@ def cmd_decode(args) -> int:
 def cmd_interpolate(args) -> int:
     """Latent interpolation between two validation sketches, decoded from
     z and rendered as a raster strip."""
-    from sketchformer_tpu.utils.metrics import sketch_strip
+    from sketchformer_tpu_torch.utils.metrics import sketch_strip
     from sketchformer_tpu_torch.infer import decode as dec
     from sketchformer_tpu_torch.infer.encode import interpolate, make_embed_fn
 
@@ -196,7 +319,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sketchformer_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
+    def data_args(sp):
         sp.add_argument("--preset", default=None)
         sp.add_argument("--loader", default=None)
         sp.add_argument("--data-dir", default=None)
@@ -206,6 +329,26 @@ def build_parser() -> argparse.ArgumentParser:
                         help="loader kwarg k=v (repeatable)")
         sp.add_argument("--device", default="cuda",
                         help="torch device, e.g. cuda, cuda:0 or cpu")
+
+    sp = sub.add_parser("train", help="train a continuous (MDN) model")
+    data_args(sp)
+    sp.add_argument("--run-dir", required=True)
+    sp.add_argument("--loop-arg", action="append", default=[],
+                    help="loop config k=v (repeatable)")
+    sp.add_argument("--notifier", default="file",
+                    help="none | file | webhook:<url>")
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("eval", help="evaluate the newest checkpoint")
+    data_args(sp)
+    sp.add_argument("--run-dir", required=True)
+    sp.add_argument("--max-batches", type=int, default=8)
+    sp.add_argument("--split", default="valid",
+                    choices=["train", "valid", "test"])
+    sp.set_defaults(fn=cmd_eval)
+
+    def common(sp):
+        data_args(sp)
         src = sp.add_mutually_exclusive_group(required=True)
         src.add_argument("--weights", default=None,
                          help="npz from sketchformer_tpu_torch.convert")

@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from sketchformer_tpu.utils.hparams import HParams
+from sketchformer_tpu_torch.utils.hparams import HParams
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}

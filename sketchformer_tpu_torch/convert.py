@@ -4,7 +4,11 @@ initialisation that needs no JAX.
 - :func:`params_from_flax` maps a flax param tree (nested dicts of numpy
   arrays) onto the port's ``state_dict``: the key is the flax path joined
   with dots, the layout is unchanged (``HeadProjection`` kernels stay
-  ``(d, H, Dh)``, ``HeadOutProjection`` kernels ``(H, Dh, d)``).
+  ``(d, H, Dh)``, ``HeadOutProjection`` kernels ``(H, Dh, d)``). A JAX
+  gradient tree has the params' structure and maps the same way, which is
+  how the tests hold the port's gradients to the JAX package's;
+  :func:`params_to_flax` is the inverse (a ``state_dict`` or the port's
+  gradients -> a nested dict of numpy arrays).
 - :func:`save_npz` / :func:`load_npz` keep a ``state_dict`` as a flat npz
   whose keys are the same paths joined with ``/``.
 - :func:`init_params` draws every parameter of the port's model from a
@@ -53,6 +57,19 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             sd[".".join(path)] = torch.from_numpy(
                 np.array(arr, dtype=np.float32))
     return sd
+
+
+def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``state_dict`` (or a dict of its gradients, same keys) ->
+    the flax param tree, nested dicts of float32 numpy arrays."""
+    tree: Dict = {}
+    for key, value in state_dict.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().float().numpy()
+    return tree
 
 
 def save_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
@@ -111,18 +128,22 @@ def init_params(cfg: SketchformerConfig, seed: int) -> Dict[str, torch.Tensor]:
 
 
 def stacked_decoder_weights(dec_state: Mapping[str, torch.Tensor], *,
-                            num_layers: int,
-                            compute_dtype: torch.dtype) -> dict:
+                            num_layers: int, compute_dtype: torch.dtype,
+                            grad: bool = False) -> dict:
     """Pre-LN decoder ``state_dict`` (keys ``layer_{i}.…``, ``ln_out.…``) ->
-    the stacked operands of ``ops/decode_chunk.py``, with the keys of the
-    JAX ``stack_decoder_weights``: products' weights (L, K, N) in the
-    compute dtype, biases and LayerNorm parameters f32, ``lnfs``/``lnfb``
-    (1, d), and identity qk-norm parameters when the model has no qk-norm.
+    the stacked operands of ``ops/decode_chunk.py`` and
+    ``ops/decoder_stack_train.py``, with the keys of the JAX
+    ``stack_decoder_weights``: products' weights (L, K, N) in the compute
+    dtype, biases and LayerNorm parameters f32, ``lnfs``/``lnfb`` (1, d),
+    and identity qk-norm parameters when the model has no qk-norm.
+    ``grad=True`` keeps the autograd graph back to the parameters (pass
+    ``state_dict(keep_vars=True)``); otherwise the operands are detached.
     """
     f32 = torch.float32
 
     def get(i, name):
-        return dec_state[f"layer_{i}.{name}"].detach()
+        t = dec_state[f"layer_{i}.{name}"]
+        return t if grad else t.detach()
 
     def stk(name, dtype, shape=None):
         out = torch.stack([get(i, name).to(dtype) for i in range(num_layers)])
@@ -168,6 +189,9 @@ def stacked_decoder_weights(dec_state: Mapping[str, torch.Tensor], *,
         for key in ("s_qnb", "s_knb", "c_qnb", "c_knb"):
             w[key] = torch.zeros((num_layers, head_dim), dtype=f32,
                                  device=dev)
-    w["lnfs"] = dec_state["ln_out.scale"].detach().to(f32).reshape(1, d)
-    w["lnfb"] = dec_state["ln_out.bias"].detach().to(f32).reshape(1, d)
+    lnf = (dec_state["ln_out.scale"], dec_state["ln_out.bias"])
+    if not grad:
+        lnf = tuple(t.detach() for t in lnf)
+    w["lnfs"] = lnf[0].to(f32).reshape(1, d)
+    w["lnfb"] = lnf[1].to(f32).reshape(1, d)
     return w

@@ -1,0 +1,823 @@
+// Hopper (sm_90a) attention kernels of the training stacks.
+//
+// Replaces the attention inside the TPU training kernels:
+// sketchformer_tpu/ops/pallas_encoder_train.py::_layer_bwd_kernel (the
+// recomputed forward and the backward of the encoder's self-attention),
+// sketchformer_tpu/ops/pallas_decoder_train.py::_dec_stack_kernel and
+// _dec_layer_bwd_kernel (causal self-attention and cross-attention to the
+// Mq memory rows, forward and backward), and the small-head forms they run
+// through sketchformer_tpu/ops/pallas_packed.py (group_attn_fwd / _bwd,
+// ln_blocks_fwd32 / _bwd32) when head_dim < 128. Here head_dim is an
+// argument (<= 128), so one kernel serves every geometry.
+//
+//   attention_fwd     one block per (32 query rows, head, batch element):
+//                     optional per-head qk-norm, scores in f32 with the
+//                     causal bias (an iota compare, no (T, T) tensor) and
+//                     the key-mask bias, softmax, P.V. kNormP picks the
+//                     rounding site: the normalised p is rounded to the
+//                     compute dtype before P.V (the decoder's forward and
+//                     the encoder's recompute), or the unnormalised e with
+//                     the division after (the encoder's forward, as
+//                     encoder_attention in encoder_stack.cu).
+//   attention_bwd_q   one block per (16 query rows, head, batch element):
+//                     recomputes each row's scores and softmax, dp = dO.V^T,
+//                     delta = sum(dp * p), ds = p * (dp - delta) in f32 (the
+//                     TPU kernel's form, not sum(dO * O)), rounds ds to the
+//                     compute dtype and forms dq = ds.K * scale, then the
+//                     qk-norm backward of dq. It saves each row's (max, sum,
+//                     delta) for the second pass.
+//   attention_bwd_kv  one block per (32 key columns, head, batch element):
+//                     walks all query rows in chunks of 32, rebuilds p and ds
+//                     from the saved row statistics bit for bit as the first
+//                     pass had them, and sums dv = p^T.dO and dk = ds^T.Q *
+//                     scale, then the qk-norm backward of dk. Every dk / dv
+//                     row is owned by one warp, so no atomics: re-runs are
+//                     bit-stable.
+//
+// qk-norm parameter gradients are per-block partial rows, summed in a fixed
+// order by sum_rows (norm_train.cu).
+//
+// What bounds these on the card: at Dh = 32 each score costs 2 * Dh FLOPs
+// against one f32 exponential, so they are bound by instruction issue on
+// the FMA and SFU units, not by memory. This first landing keeps the design
+// simple to hold against the plain version; the tensor cores (QK^T and P.V
+// as WMMA or wgmma tiles) are later work.
+//
+// Every entry point returns cudaGetLastError() after its launch (0 = ok).
+
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr float kNegInf = -1e9f;  // the TPU kernels' NEG_INF
+constexpr int kKC = 64;           // keys staged per chunk
+
+// one head row (Dh <= 32 * NI values) into registers, lane-strided
+template <typename T, int NI>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, int Dh,
+                                         int lane, float (&v)[NI]) {
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int d = lane + 32 * i;
+    v[i] = d < Dh ? to_f<T>(p[d]) : 0.f;
+  }
+}
+
+// per-head qk-norm in f32, the result rounded to the compute dtype as the
+// TPU kernels' _ln / ln_blocks_fwd32 are; keeps xhat and rstd for the
+// backward
+template <typename T, int NI>
+__device__ __forceinline__ void head_norm(float (&v)[NI], int Dh, int lane,
+                                          const float* __restrict__ s,
+                                          const float* __restrict__ b,
+                                          float (&xhat)[NI], float& rstd) {
+  float sum = 0.f, ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    sum += v[i];
+    ss += v[i] * v[i];
+  }
+  sum = warp_sum(sum);
+  ss = warp_sum(ss);
+  const float mu = sum / Dh;
+  rstd = 1.f / sqrtf(fmaxf(ss / Dh - mu * mu, 0.f) + kLnEps);
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int d = lane + 32 * i;
+    xhat[i] = d < Dh ? (v[i] - mu) * rstd : 0.f;
+    if (d < Dh) v[i] = round_dt<T>(xhat[i] * s[d] + b[d]);
+  }
+}
+
+// backward of head_norm for one row: dy -> dx in place; accumulates the
+// parameter gradients of this lane's columns into ps / pb
+template <int NI>
+__device__ __forceinline__ void head_norm_bwd(float (&dy)[NI], int Dh,
+                                              int lane,
+                                              const float* __restrict__ s,
+                                              const float (&xhat)[NI],
+                                              float rstd, float (&ps)[NI],
+                                              float (&pb)[NI], bool count) {
+  float dxh[NI], m1 = 0.f, m2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int d = lane + 32 * i;
+    dxh[i] = d < Dh ? dy[i] * s[d] : 0.f;
+    m1 += dxh[i];
+    m2 += dxh[i] * xhat[i];
+    if (count && d < Dh) {
+      ps[i] += dy[i] * xhat[i];
+      pb[i] += dy[i];
+    }
+  }
+  m1 = warp_sum(m1) / Dh;
+  m2 = warp_sum(m2) / Dh;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) dy[i] = rstd * (dxh[i] - m1 - xhat[i] * m2);
+}
+
+// the 8 warps' partial (Dh) rows summed in warp order into out[blk * Dh]
+template <int NI>
+__device__ void block_partials(float* red, const float (&ps)[NI],
+                               const float (&pb)[NI], int Dh, float* out_s,
+                               float* out_b, size_t blk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // red aliases the score panes
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int d = lane + 32 * i;
+    if (d < Dh) {
+      red[warp * Dh + d] = ps[i];
+      red[(kWarps + warp) * Dh + d] = pb[i];
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < Dh; d += kThreads) {
+    float a = 0.f, c = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[w * Dh + d];
+      c += red[(kWarps + w) * Dh + d];
+    }
+    out_s[blk * Dh + d] = a;
+    out_b[blk * Dh + d] = c;
+  }
+}
+
+struct AttnArgs {
+  const void *q, *k, *v;         // head 0 of batch element 0, row 0
+  long long q_bs, k_bs, v_bs;    // batch strides (elements)
+  int q_rs, k_rs, v_rs;          // row strides (elements)
+  const float* key_bias;         // (B, Tk) additive 0 / -1e9, or null
+  const float *qn_s, *qn_b, *kn_s, *kn_b;  // (Dh) qk-norm, or null
+  int Tq, Tk, H, Dh, causal;
+  float scale;
+};
+
+// s = (q . k) * scale (+ causal bias) (+ key bias), the TPU kernels' order
+__device__ __forceinline__ float score(float acc, const AttnArgs& a,
+                                       const float* kb, int t, int j) {
+  float s = acc * a.scale;
+  if (a.causal) s += j <= t ? 0.f : kNegInf;
+  if (kb != nullptr) s += kb[j];
+  return s;
+}
+
+// stage key rows [c0, c0 + nk) of head h, qk-normed and rounded, into kv
+template <typename T, int NI>
+__device__ __forceinline__ void stage_keys(const AttnArgs& a, const T* kb0,
+                                           int c0, int nk, float* kv,
+                                           int kvs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j = warp; j < nk; j += kWarps) {
+    float v[NI], xh[NI], rs;
+    load_row<T, NI>(kb0 + (size_t)(c0 + j) * a.k_rs, a.Dh, lane, v);
+    if (a.kn_s != nullptr) head_norm<T, NI>(v, a.Dh, lane, a.kn_s, a.kn_b, xh, rs);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = lane + 32 * i;
+      if (d < a.Dh) kv[j * kvs + d] = v[i];
+    }
+  }
+}
+
+template <typename T, int NI>
+__device__ __forceinline__ void stage_values(const AttnArgs& a, const T* vb0,
+                                             int c0, int nk, float* kv,
+                                             int kvs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j = warp; j < nk; j += kWarps) {
+    const T* p = vb0 + (size_t)(c0 + j) * a.v_rs;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = lane + 32 * i;
+      if (d < a.Dh) kv[j * kvs + d] = to_f<T>(p[d]);
+    }
+  }
+}
+
+// scores of the block's R rows per warp against all keys, into sc[row][Tk]
+template <typename T, int NI, int R>
+__device__ void scores_rows(const AttnArgs& a, const T* kb0, const float* kb,
+                            const float* qs, float* sc, float* kv, int t0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kvs = a.Dh + 1;  // odd stride: lanes on different keys miss banks
+  for (int c0 = 0; c0 < a.Tk; c0 += kKC) {
+    const int nk = min(kKC, a.Tk - c0);
+    __syncthreads();
+    stage_keys<T, NI>(a, kb0, c0, nk, kv, kvs);
+    __syncthreads();
+    float acc[R][kKC / 32];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+      for (int u = 0; u < kKC / 32; ++u) acc[rr][u] = 0.f;
+    for (int d = 0; d < a.Dh; ++d) {
+      float kval[kKC / 32];
+#pragma unroll
+      for (int u = 0; u < kKC / 32; ++u) {
+        const int j = lane + 32 * u;
+        kval[u] = j < nk ? kv[j * kvs + d] : 0.f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const float qv = qs[(warp * R + rr) * a.Dh + d];
+#pragma unroll
+        for (int u = 0; u < kKC / 32; ++u) acc[rr][u] = fmaf(qv, kval[u], acc[rr][u]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int t = min(t0 + warp * R + rr, a.Tq - 1);
+      float* row = sc + (warp * R + rr) * a.Tk;
+#pragma unroll
+      for (int u = 0; u < kKC / 32; ++u) {
+        const int j = lane + 32 * u;
+        if (j < nk) row[c0 + j] = score(acc[rr][u], a, kb, t, c0 + j);
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// attention_fwd
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 4;                  // query rows per warp
+constexpr int kFwdQT = kWarps * kFwdRows;    // query rows per block
+
+template <typename T, int NI, bool kNormP>
+__global__ void __launch_bounds__(kThreads)
+attention_fwd_kernel(AttnArgs a, T* __restrict__ out, long long o_bs,
+                     int o_rs) {
+  extern __shared__ float smem[];
+  float* qs = smem;                // [kFwdQT][Dh] normed queries
+  float* sc = qs + kFwdQT * a.Dh;  // [kFwdQT][Tk] scores, then p or e
+  float* kv = sc + kFwdQT * a.Tk;  // [kKC][Dh+1] staged keys or values
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = blockIdx.x * kFwdQT, h = blockIdx.y, b = blockIdx.z;
+  const int kvs = a.Dh + 1;
+  const T* qb0 = static_cast<const T*>(a.q) + b * a.q_bs + h * a.Dh;
+  const T* kb0 = static_cast<const T*>(a.k) + b * a.k_bs + h * a.Dh;
+  const T* vb0 = static_cast<const T*>(a.v) + b * a.v_bs + h * a.Dh;
+  const float* kb = a.key_bias != nullptr ? a.key_bias + (size_t)b * a.Tk
+                                          : nullptr;
+#pragma unroll
+  for (int rr = 0; rr < kFwdRows; ++rr) {
+    const int r = warp * kFwdRows + rr;
+    const int t = min(t0 + r, a.Tq - 1);  // ragged tile: computed, not stored
+    float v[NI], xh[NI], rs;
+    load_row<T, NI>(qb0 + (size_t)t * a.q_rs, a.Dh, lane, v);
+    if (a.qn_s != nullptr) head_norm<T, NI>(v, a.Dh, lane, a.qn_s, a.qn_b, xh, rs);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = lane + 32 * i;
+      if (d < a.Dh) qs[r * a.Dh + d] = v[i];
+    }
+  }
+  __syncwarp();
+  scores_rows<T, NI, kFwdRows>(a, kb0, kb, qs, sc, kv, t0);
+
+  float denom[kFwdRows];
+#pragma unroll
+  for (int rr = 0; rr < kFwdRows; ++rr) {
+    float* row = sc + (warp * kFwdRows + rr) * a.Tk;
+    float m = -INFINITY;
+    for (int j = lane; j < a.Tk; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < a.Tk; j += 32) {
+      const float e = expf(row[j] - m);
+      sum += e;
+      row[j] = kNormP ? e : round_dt<T>(e);
+    }
+    denom[rr] = warp_sum(sum);
+    if (kNormP) {
+      __syncwarp();
+      for (int j = lane; j < a.Tk; j += 32) row[j] = round_dt<T>(row[j] / denom[rr]);
+    }
+  }
+  __syncwarp();
+
+  float o[kFwdRows][NI];
+#pragma unroll
+  for (int rr = 0; rr < kFwdRows; ++rr)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) o[rr][i] = 0.f;
+  for (int c0 = 0; c0 < a.Tk; c0 += kKC) {
+    const int nk = min(kKC, a.Tk - c0);
+    __syncthreads();
+    stage_values<T, NI>(a, vb0, c0, nk, kv, kvs);
+    __syncthreads();
+    for (int j = 0; j < nk; ++j) {
+      float vv[NI];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int d = lane + 32 * i;
+        vv[i] = d < a.Dh ? kv[j * kvs + d] : 0.f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kFwdRows; ++rr) {
+        const float p = sc[(warp * kFwdRows + rr) * a.Tk + c0 + j];
+#pragma unroll
+        for (int i = 0; i < NI; ++i) o[rr][i] = fmaf(p, vv[i], o[rr][i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kFwdRows; ++rr) {
+    const int t = t0 + warp * kFwdRows + rr;
+    if (t < a.Tq) {
+      T* dst = out + b * o_bs + (size_t)t * o_rs + h * a.Dh;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int d = lane + 32 * i;
+        if (d < a.Dh) dst[d] = from_f<T>(kNormP ? o[rr][i] : o[rr][i] / denom[rr]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// attention_bwd_q
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdRows = 2;                  // query rows per warp
+constexpr int kBwdQT = kWarps * kBwdRows;    // query rows per block
+
+struct GradArgs {
+  const float* dout;   // dL/d(attention output), f32, head 0 of element 0
+  long long do_bs;
+  int do_rs;
+  float* stats;        // (B, H, Tq, 3): row max, row sum, delta
+  float *dq, *dk, *dv; // f32 outputs at head 0 of element 0
+  long long dq_bs, dk_bs, dv_bs;
+  int dq_rs, dk_rs, dv_rs;
+  float *part_s, *part_b;  // (blocks, Dh) qk-norm parameter-gradient partials
+};
+
+template <typename T, int NI>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_q_kernel(AttnArgs a, GradArgs g) {
+  extern __shared__ float smem[];
+  float* qs = smem;                   // [kBwdQT][Dh] normed queries
+  float* dos = qs + kBwdQT * a.Dh;    // [kBwdQT][Dh] dO rounded to dt
+  float* P = dos + kBwdQT * a.Dh;     // [kBwdQT][Tk] scores, then p
+  float* DP = P + kBwdQT * a.Tk;      // [kBwdQT][Tk] dp, then rounded ds
+  float* kv = DP + kBwdQT * a.Tk;     // [kKC][Dh+1]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = blockIdx.x * kBwdQT, h = blockIdx.y, b = blockIdx.z;
+  const int kvs = a.Dh + 1;
+  const T* qb0 = static_cast<const T*>(a.q) + b * a.q_bs + h * a.Dh;
+  const T* kb0 = static_cast<const T*>(a.k) + b * a.k_bs + h * a.Dh;
+  const T* vb0 = static_cast<const T*>(a.v) + b * a.v_bs + h * a.Dh;
+  const float* kb = a.key_bias != nullptr ? a.key_bias + (size_t)b * a.Tk
+                                          : nullptr;
+  float qxh[kBwdRows][NI], qrs[kBwdRows];
+#pragma unroll
+  for (int rr = 0; rr < kBwdRows; ++rr) {
+    const int r = warp * kBwdRows + rr;
+    const int t = min(t0 + r, a.Tq - 1);
+    float v[NI];
+    load_row<T, NI>(qb0 + (size_t)t * a.q_rs, a.Dh, lane, v);
+    if (a.qn_s != nullptr)
+      head_norm<T, NI>(v, a.Dh, lane, a.qn_s, a.qn_b, qxh[rr], qrs[rr]);
+    const float* dp = g.dout + b * g.do_bs + (size_t)t * g.do_rs + h * a.Dh;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = lane + 32 * i;
+      if (d < a.Dh) {
+        qs[r * a.Dh + d] = v[i];
+        dos[r * a.Dh + d] = round_dt<T>(dp[d]);
+      }
+    }
+  }
+  __syncwarp();
+  scores_rows<T, NI, kBwdRows>(a, kb0, kb, qs, P, kv, t0);
+
+  float rmax[kBwdRows], rsum[kBwdRows];
+#pragma unroll
+  for (int rr = 0; rr < kBwdRows; ++rr) {
+    float* row = P + (warp * kBwdRows + rr) * a.Tk;
+    float m = -INFINITY;
+    for (int j = lane; j < a.Tk; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < a.Tk; j += 32) {
+      const float e = expf(row[j] - m);
+      sum += e;
+      row[j] = e;
+    }
+    sum = warp_sum(sum);
+    __syncwarp();
+    for (int j = lane; j < a.Tk; j += 32) row[j] = row[j] / sum;
+    rmax[rr] = m;
+    rsum[rr] = sum;
+  }
+
+  // dp = dO . V^T
+  for (int c0 = 0; c0 < a.Tk; c0 += kKC) {
+    const int nk = min(kKC, a.Tk - c0);
+    __syncthreads();
+    stage_values<T, NI>(a, vb0, c0, nk, kv, kvs);
+    __syncthreads();
+    float acc[kBwdRows][kKC / 32];
+#pragma unroll
+    for (int rr = 0; rr < kBwdRows; ++rr)
+#pragma unroll
+      for (int u = 0; u < kKC / 32; ++u) acc[rr][u] = 0.f;
+    for (int d = 0; d < a.Dh; ++d) {
+      float vval[kKC / 32];
+#pragma unroll
+      for (int u = 0; u < kKC / 32; ++u) {
+        const int j = lane + 32 * u;
+        vval[u] = j < nk ? kv[j * kvs + d] : 0.f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kBwdRows; ++rr) {
+        const float dv = dos[(warp * kBwdRows + rr) * a.Dh + d];
+#pragma unroll
+        for (int u = 0; u < kKC / 32; ++u) acc[rr][u] = fmaf(dv, vval[u], acc[rr][u]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kBwdRows; ++rr)
+#pragma unroll
+      for (int u = 0; u < kKC / 32; ++u) {
+        const int j = lane + 32 * u;
+        if (j < nk) DP[(warp * kBwdRows + rr) * a.Tk + c0 + j] = acc[rr][u];
+      }
+  }
+  __syncwarp();
+
+  // ds = p * (dp - delta), rounded to the compute dtype
+  float delta[kBwdRows];
+#pragma unroll
+  for (int rr = 0; rr < kBwdRows; ++rr) {
+    const float* p = P + (warp * kBwdRows + rr) * a.Tk;
+    float* dp = DP + (warp * kBwdRows + rr) * a.Tk;
+    float s = 0.f;
+    for (int j = lane; j < a.Tk; j += 32) s += dp[j] * p[j];
+    delta[rr] = warp_sum(s);
+    for (int j = lane; j < a.Tk; j += 32)
+      dp[j] = round_dt<T>(p[j] * (dp[j] - delta[rr]));
+  }
+  __syncwarp();
+
+  // dq = ds . K * scale
+  float dq[kBwdRows][NI];
+#pragma unroll
+  for (int rr = 0; rr < kBwdRows; ++rr)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) dq[rr][i] = 0.f;
+  for (int c0 = 0; c0 < a.Tk; c0 += kKC) {
+    const int nk = min(kKC, a.Tk - c0);
+    __syncthreads();
+    stage_keys<T, NI>(a, kb0, c0, nk, kv, kvs);
+    __syncthreads();
+    for (int j = 0; j < nk; ++j) {
+      float kk[NI];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int d = lane + 32 * i;
+        kk[i] = d < a.Dh ? kv[j * kvs + d] : 0.f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kBwdRows; ++rr) {
+        const float ds = DP[(warp * kBwdRows + rr) * a.Tk + c0 + j];
+#pragma unroll
+        for (int i = 0; i < NI; ++i) dq[rr][i] = fmaf(ds, kk[i], dq[rr][i]);
+      }
+    }
+  }
+
+  float ps[NI], pb[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) ps[i] = pb[i] = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < kBwdRows; ++rr) {
+    const int t = t0 + warp * kBwdRows + rr;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) dq[rr][i] *= a.scale;
+    if (a.qn_s != nullptr)
+      head_norm_bwd<NI>(dq[rr], a.Dh, lane, a.qn_s, qxh[rr], qrs[rr], ps, pb,
+                        t < a.Tq);
+    if (t < a.Tq) {
+      float* dst = g.dq + b * g.dq_bs + (size_t)t * g.dq_rs + h * a.Dh;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int d = lane + 32 * i;
+        if (d < a.Dh) dst[d] = dq[rr][i];
+      }
+      if (lane == 0) {
+        float* st = g.stats + (((size_t)b * a.H + h) * a.Tq + t) * 3;
+        st[0] = rmax[rr];
+        st[1] = rsum[rr];
+        st[2] = delta[rr];
+      }
+    }
+  }
+  if (a.qn_s != nullptr)
+    block_partials<NI>(P, ps, pb, a.Dh, g.part_s, g.part_b,
+                       ((size_t)b * a.H + h) * gridDim.x + blockIdx.x);
+}
+
+// ---------------------------------------------------------------------------
+// attention_bwd_kv
+// ---------------------------------------------------------------------------
+
+constexpr int kKeysPerWarp = 4;
+constexpr int kKT = kWarps * kKeysPerWarp;  // key columns per block
+constexpr int kQC = 32;                     // query rows per chunk (a lane each)
+
+template <typename T, int NI>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_kv_kernel(AttnArgs a, GradArgs g) {
+  extern __shared__ float smem[];
+  const int ld = a.Dh + 1;
+  float* kn = smem;                 // [kKT][Dh] normed keys
+  float* vs = kn + kKT * a.Dh;      // [kKT][Dh] values
+  float* qc = vs + kKT * a.Dh;      // [kQC][Dh+1] normed queries of a chunk
+  float* doc = qc + kQC * ld;       // [kQC][Dh+1] their dO, rounded
+  float* st = doc + kQC * ld;       // [kQC][3] their row statistics
+  float* PT = st + kQC * 3;         // [kKT][kQC] rounded p
+  float* DST = PT + kKT * kQC;      // [kKT][kQC] rounded ds
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = blockIdx.x * kKT, h = blockIdx.y, b = blockIdx.z;
+  const T* qb0 = static_cast<const T*>(a.q) + b * a.q_bs + h * a.Dh;
+  const T* kb0 = static_cast<const T*>(a.k) + b * a.k_bs + h * a.Dh;
+  const T* vb0 = static_cast<const T*>(a.v) + b * a.v_bs + h * a.Dh;
+  const float* kb = a.key_bias != nullptr ? a.key_bias + (size_t)b * a.Tk
+                                          : nullptr;
+  const float* stats = g.stats + ((size_t)b * a.H + h) * a.Tq * 3;
+  float kxh[kKeysPerWarp][NI], krs[kKeysPerWarp];
+#pragma unroll
+  for (int rr = 0; rr < kKeysPerWarp; ++rr) {
+    const int r = warp * kKeysPerWarp + rr;
+    const int j = min(j0 + r, a.Tk - 1);
+    float v[NI], w[NI];
+    load_row<T, NI>(kb0 + (size_t)j * a.k_rs, a.Dh, lane, v);
+    if (a.kn_s != nullptr)
+      head_norm<T, NI>(v, a.Dh, lane, a.kn_s, a.kn_b, kxh[rr], krs[rr]);
+    load_row<T, NI>(vb0 + (size_t)j * a.v_rs, a.Dh, lane, w);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = lane + 32 * i;
+      if (d < a.Dh) {
+        kn[r * a.Dh + d] = v[i];
+        vs[r * a.Dh + d] = w[i];
+      }
+    }
+  }
+  float dk[kKeysPerWarp][NI], dv[kKeysPerWarp][NI];
+#pragma unroll
+  for (int rr = 0; rr < kKeysPerWarp; ++rr)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) dk[rr][i] = dv[rr][i] = 0.f;
+
+  for (int i0 = 0; i0 < a.Tq; i0 += kQC) {
+    __syncthreads();
+    for (int qi = warp; qi < kQC; qi += kWarps) {
+      const int t = i0 + qi;
+      if (t < a.Tq) {
+        float v[NI], xh[NI], rs;
+        load_row<T, NI>(qb0 + (size_t)t * a.q_rs, a.Dh, lane, v);
+        if (a.qn_s != nullptr)
+          head_norm<T, NI>(v, a.Dh, lane, a.qn_s, a.qn_b, xh, rs);
+        const float* dp = g.dout + b * g.do_bs + (size_t)t * g.do_rs + h * a.Dh;
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int d = lane + 32 * i;
+          if (d < a.Dh) {
+            qc[qi * ld + d] = v[i];
+            doc[qi * ld + d] = round_dt<T>(dp[d]);
+          }
+        }
+        if (lane < 3) st[qi * 3 + lane] = stats[(size_t)t * 3 + lane];
+      } else {
+        for (int d = lane; d < a.Dh; d += 32) qc[qi * ld + d] = doc[qi * ld + d] = 0.f;
+        if (lane < 3) st[qi * 3 + lane] = lane == 1 ? 1.f : 0.f;
+      }
+    }
+    __syncthreads();
+    // this lane's query row against the warp's keys: p and ds
+    const int t = i0 + lane;
+    const bool live = t < a.Tq;
+#pragma unroll
+    for (int rr = 0; rr < kKeysPerWarp; ++rr) {
+      const int r = warp * kKeysPerWarp + rr;
+      const int j = min(j0 + r, a.Tk - 1);
+      float sacc = 0.f, dpacc = 0.f;
+      for (int d = 0; d < a.Dh; ++d) {
+        sacc = fmaf(qc[lane * ld + d], kn[r * a.Dh + d], sacc);
+        dpacc = fmaf(doc[lane * ld + d], vs[r * a.Dh + d], dpacc);
+      }
+      const float s = score(sacc, a, kb, t, j);
+      const float p = expf(s - st[lane * 3]) / st[lane * 3 + 1];
+      PT[r * kQC + lane] = live ? round_dt<T>(p) : 0.f;
+      DST[r * kQC + lane] = live ? round_dt<T>(p * (dpacc - st[lane * 3 + 2])) : 0.f;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int rr = 0; rr < kKeysPerWarp; ++rr) {
+      const int r = warp * kKeysPerWarp + rr;
+      for (int qi = 0; qi < kQC; ++qi) {
+        const float pv = PT[r * kQC + qi], dsv = DST[r * kQC + qi];
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          const int d = lane + 32 * i;
+          if (d < a.Dh) {
+            dv[rr][i] = fmaf(pv, doc[qi * ld + d], dv[rr][i]);
+            dk[rr][i] = fmaf(dsv, qc[qi * ld + d], dk[rr][i]);
+          }
+        }
+      }
+    }
+  }
+
+  float ps[NI], pb[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) ps[i] = pb[i] = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < kKeysPerWarp; ++rr) {
+    const int j = j0 + warp * kKeysPerWarp + rr;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) dk[rr][i] *= a.scale;
+    if (a.kn_s != nullptr)
+      head_norm_bwd<NI>(dk[rr], a.Dh, lane, a.kn_s, kxh[rr], krs[rr], ps, pb,
+                        j < a.Tk);
+    if (j < a.Tk) {
+      float* dkd = g.dk + b * g.dk_bs + (size_t)j * g.dk_rs + h * a.Dh;
+      float* dvd = g.dv + b * g.dv_bs + (size_t)j * g.dv_rs + h * a.Dh;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int d = lane + 32 * i;
+        if (d < a.Dh) {
+          dkd[d] = dk[rr][i];
+          dvd[d] = dv[rr][i];
+        }
+      }
+    }
+  }
+  if (a.kn_s != nullptr)
+    block_partials<NI>(qc, ps, pb, a.Dh, g.part_s, g.part_b,
+                       ((size_t)b * a.H + h) * gridDim.x + blockIdx.x);
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <typename K>
+int set_smem(K kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int NI>
+int launch_fwd(const AttnArgs& a, void* out, long long o_bs, int o_rs,
+               int norm_p, int B, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)kFwdQT * a.Dh +
+                                       (size_t)kFwdQT * a.Tk +
+                                       (size_t)kKC * (a.Dh + 1));
+  const dim3 grid((a.Tq + kFwdQT - 1) / kFwdQT, a.H, B);
+  auto kernel = norm_p ? attention_fwd_kernel<T, NI, true>
+                       : attention_fwd_kernel<T, NI, false>;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(a, static_cast<T*>(out), o_bs, o_rs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NI>
+int launch_bwd_q(const AttnArgs& a, const GradArgs& g, int B,
+                 cudaStream_t stream) {
+  // the qk-norm partials need kWarps * 2 * Dh floats of the score panes
+  const size_t panes = std::max((size_t)kBwdQT * a.Tk * 2,
+                                (size_t)2 * kWarps * a.Dh);
+  const size_t smem = sizeof(float) * ((size_t)2 * kBwdQT * a.Dh + panes +
+                                       (size_t)kKC * (a.Dh + 1));
+  const dim3 grid((a.Tq + kBwdQT - 1) / kBwdQT, a.H, B);
+  int err = set_smem(attention_bwd_q_kernel<T, NI>, smem);
+  if (err) return err;
+  attention_bwd_q_kernel<T, NI><<<grid, kThreads, smem, stream>>>(a, g);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NI>
+int launch_bwd_kv(const AttnArgs& a, const GradArgs& g, int B,
+                  cudaStream_t stream) {
+  const size_t smem = sizeof(float) *
+                      ((size_t)2 * kKT * a.Dh + (size_t)2 * kQC * (a.Dh + 1) +
+                       (size_t)kQC * 3 + (size_t)2 * kKT * kQC);
+  const dim3 grid((a.Tk + kKT - 1) / kKT, a.H, B);
+  int err = set_smem(attention_bwd_kv_kernel<T, NI>, smem);
+  if (err) return err;
+  attention_bwd_kv_kernel<T, NI><<<grid, kThreads, smem, stream>>>(a, g);
+  return (int)cudaGetLastError();
+}
+
+// Dh <= 32 * NI; which pass: 0 fwd, 1 bwd_q, 2 bwd_kv
+template <typename T>
+int dispatch(int pass, const AttnArgs& a, const GradArgs& g, void* out,
+             long long o_bs, int o_rs, int norm_p, int B,
+             cudaStream_t stream) {
+#define SK_PASS(NI)                                                      \
+  return pass == 0   ? launch_fwd<T, NI>(a, out, o_bs, o_rs, norm_p, B, \
+                                       stream)                           \
+         : pass == 1 ? launch_bwd_q<T, NI>(a, g, B, stream)              \
+                     : launch_bwd_kv<T, NI>(a, g, B, stream);
+  if (a.Dh <= 32) { SK_PASS(1) }
+  if (a.Dh <= 64) { SK_PASS(2) }
+  if (a.Dh <= 128) { SK_PASS(4) }
+#undef SK_PASS
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_dtype(int dtype, int pass, const AttnArgs& a, const GradArgs& g,
+                   void* out, long long o_bs, int o_rs, int norm_p, int B,
+                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.Tq < 1 || a.Tk < 1 || a.Dh < 1 || (a.causal && a.Tq != a.Tk))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch<float>(pass, a, g, out, o_bs, o_rs, norm_p, B, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(pass, a, g, out, o_bs, o_rs, norm_p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+AttnArgs make_args(const void* q, long long q_bs, int q_rs, const void* k,
+                   long long k_bs, int k_rs, const void* v, long long v_bs,
+                   int v_rs, const void* key_bias, const void* qn_s,
+                   const void* qn_b, const void* kn_s, const void* kn_b,
+                   int Tq, int Tk, int H, int Dh, int causal, float scale) {
+  AttnArgs a;
+  a.q = q; a.k = k; a.v = v;
+  a.q_bs = q_bs; a.k_bs = k_bs; a.v_bs = v_bs;
+  a.q_rs = q_rs; a.k_rs = k_rs; a.v_rs = v_rs;
+  a.key_bias = static_cast<const float*>(key_bias);
+  a.qn_s = static_cast<const float*>(qn_s);
+  a.qn_b = static_cast<const float*>(qn_b);
+  a.kn_s = static_cast<const float*>(kn_s);
+  a.kn_b = static_cast<const float*>(kn_b);
+  a.Tq = Tq; a.Tk = Tk; a.H = H; a.Dh = Dh; a.causal = causal;
+  a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16. Strides are in elements; each
+// pointer is the first element of head 0 of batch element 0.
+extern "C" {
+
+int sk_attention_fwd(int dtype, const void* q, long long q_bs, int q_rs,
+                     const void* k, long long k_bs, int k_rs, const void* v,
+                     long long v_bs, int v_rs, const void* key_bias,
+                     const void* qn_s, const void* qn_b, const void* kn_s,
+                     const void* kn_b, void* out, long long o_bs, int o_rs,
+                     int B, int Tq, int Tk, int H, int Dh, int causal,
+                     int norm_p, float scale, void* stream) {
+  const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
+                               key_bias, qn_s, qn_b, kn_s, kn_b, Tq, Tk, H, Dh,
+                               causal, scale);
+  GradArgs g = {};
+  return dispatch_dtype(dtype, 0, a, g, out, o_bs, o_rs, norm_p, B, stream);
+}
+
+int sk_attention_bwd(int dtype, int pass, const void* q, long long q_bs,
+                     int q_rs, const void* k, long long k_bs, int k_rs,
+                     const void* v, long long v_bs, int v_rs,
+                     const void* key_bias, const void* qn_s, const void* qn_b,
+                     const void* kn_s, const void* kn_b, const void* dout,
+                     long long do_bs, int do_rs, void* stats, void* dq,
+                     long long dq_bs, int dq_rs, void* dk, long long dk_bs,
+                     int dk_rs, void* dv, long long dv_bs, int dv_rs,
+                     void* part_s, void* part_b, int B, int Tq, int Tk, int H,
+                     int Dh, int causal, float scale, void* stream) {
+  if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
+  const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
+                               key_bias, qn_s, qn_b, kn_s, kn_b, Tq, Tk, H, Dh,
+                               causal, scale);
+  GradArgs g;
+  g.dout = static_cast<const float*>(dout);
+  g.do_bs = do_bs;
+  g.do_rs = do_rs;
+  g.stats = static_cast<float*>(stats);
+  g.dq = static_cast<float*>(dq);
+  g.dk = static_cast<float*>(dk);
+  g.dv = static_cast<float*>(dv);
+  g.dq_bs = dq_bs; g.dk_bs = dk_bs; g.dv_bs = dv_bs;
+  g.dq_rs = dq_rs; g.dk_rs = dk_rs; g.dv_rs = dv_rs;
+  g.part_s = static_cast<float*>(part_s);
+  g.part_b = static_cast<float*>(part_b);
+  return dispatch_dtype(dtype, pass, a, g, nullptr, 0, 0, 0, B, stream);
+}
+
+}  // extern "C"

@@ -1,9 +1,15 @@
-// Hopper (sm_90a) kernels for the pre-LN encoder stack forward.
+// Hopper (sm_90a) kernels for the pre-LN encoder stack forward, and the
+// products of the training stacks' forward and backward passes.
 //
 // Replaces the TPU kernel sketchformer_tpu/ops/pallas_encoder.py::
 // fused_encoder_stack (body _stack_kernel), including the small-head
 // attention and qk-norm it runs through sketchformer_tpu/ops/pallas_packed.py
-// (group_attn_fwd, ln_blocks_fwd32) when head_dim < 128.
+// (group_attn_fwd, ln_blocks_fwd32) when head_dim < 128; and the products
+// computed inside the training kernels' bodies,
+// sketchformer_tpu/ops/pallas_encoder_train.py::_layer_bwd_kernel and
+// sketchformer_tpu/ops/pallas_decoder_train.py::_dec_layer_bwd_kernel
+// (linear_nt, linear_tn, and linear's dropout epilogue; see the note above
+// linear_nt).
 //
 // The TPU kernel keeps a whole batch group's activations resident in VMEM
 // for all L layers. That does not carry over: one sketch's (T=192, 3*256)
@@ -102,6 +108,7 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)  // two blocks per SM
 linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
               const float* __restrict__ bias, const T* __restrict__ residual,
+              const uint8_t* __restrict__ drop, int thresh, float keep_scale,
               T* __restrict__ out, int M, int N, int K, int relu) {
   constexpr int BK = Slab<T>::BK;
   constexpr int VW = 16 / sizeof(T);  // elements per 16-byte vector
@@ -231,9 +238,275 @@ linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
       float v = round_dt<T>(cs[r * LDC + c]);
       v = round_dt<T>(v + round_dt<T>(bias[n]));
       if (relu) v = fmaxf(v, 0.f);
+      if (drop != nullptr)  // u8-threshold dropout of the product's output
+        v = drop[(size_t)m * N + n] >= thresh ? round_dt<T>(v * keep_scale)
+                                               : 0.f;
       if (residual != nullptr) v = to_f<T>(residual[(size_t)m * N + n]) + v;
       out[(size_t)m * N + n] = from_f<T>(v);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// linear_nt / linear_tn: the two products of a layer's backward pass
+// ---------------------------------------------------------------------------
+//
+//   linear_nt  out[M, Ko] = a[M, K] . w[Ko, K]^T     (dX = dY . W^T)
+//   linear_tn  out[Ko, N] = x[M, Ko]^T . y[M, N]     (dW = X^T . dY)
+//
+// Both stage each operand's tile as its rows arrive from device memory
+// (coalesced loads, contiguous shared-memory stores) and run one WMMA / FMA
+// inner loop, reading a transposed operand through a column-major fragment. The gradient operand (a for NT, y for TN) may be
+// f32: it is multiplied by the dropout mask of its site (u8 >= thresh ->
+// keep_scale, else 0) in f32 and rounded to the compute dtype as it is
+// staged, which is where the TPU kernel rounds it (df.astype(dt)).
+// linear_nt's epilogue optionally gates by a ReLU output (gate > 0, the
+// FFN backward) and writes f32, or rounds to the compute dtype and adds a
+// running sum (dmemory over the decoder's layers). linear_tn reduces over
+// all M rows: grid.z splits M into slices whose f32 partial tiles land in
+// out[z] and are summed in a fixed order by sum_rows, so the result does
+// not depend on scheduling.
+
+constexpr int TBK = 32;  // contraction slab of the NT / TN products
+
+template <typename T>
+using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
+                                     float>;
+
+// one TBK-deep slab: cfrag / acc += A[BM][TBK] . B[TBK][BN]. Each operand
+// sits in shared memory as its global rows arrive, so the stores are
+// contiguous: A as [BM][LDA] (kAT false) or [TBK][LDA] (kAT, A^T), B as
+// [TBK][LDB] (kBT false) or [BN][LDB] (kBT, B^T); a transposed operand is
+// read through a column-major WMMA fragment.
+template <typename T, bool kAT, int LDA, bool kBT, int LDB>
+__device__ __forceinline__ void mma_slab(const T* as, const T* bs,
+                                         FragC<T> (&cfrag)[2],
+                                         float (&acc)[4][4], int tid) {
+  using namespace nvcuda;
+  using LayoutA = std::conditional_t<kAT, wmma::col_major, wmma::row_major>;
+  using LayoutB = std::conditional_t<kBT, wmma::col_major, wmma::row_major>;
+  const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
+  const int ty = tid >> 4, tx = tid & 15;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int kk = 0; kk < TBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA> fa;
+      wmma::load_matrix_sync(
+          fa, kAT ? &as[kk * LDA + wm * 16] : &as[wm * 16 * LDA + kk], LDA);
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int c = wn * 32 + f * 16;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB> fb;
+        wmma::load_matrix_sync(fb, kBT ? &bs[c * LDB + kk] : &bs[kk * LDB + c],
+                               LDB);
+        wmma::mma_sync(cfrag[f], fa, fb, cfrag[f]);
+      }
+    }
+  } else {
+#pragma unroll 8
+    for (int kk = 0; kk < TBK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        av[i] = to_f<T>(kAT ? as[kk * LDA + r] : as[r * LDA + kk]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        bv[j] = to_f<T>(kBT ? bs[c * LDB + kk] : bs[kk * LDB + c]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// the BM x BN f32 result tile into shared memory (cs, row stride LDC)
+template <typename T, int LDC>
+__device__ __forceinline__ void store_tile(float* cs, FragC<T> (&cfrag)[2],
+                                           float (&acc)[4][4], int tid) {
+  const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
+  const int ty = tid >> 4, tx = tid & 15;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+      nvcuda::wmma::store_matrix_sync(&cs[wm * 16 * LDC + wn * 32 + f * 16],
+                                      cfrag[f], LDC,
+                                      nvcuda::wmma::mem_row_major);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void zero_acc(FragC<T> (&cfrag)[2],
+                                         float (&acc)[4][4]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    nvcuda::wmma::fill_fragment(cfrag[0], 0.f);
+    nvcuda::wmma::fill_fragment(cfrag[1], 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+}
+
+// gradient value of one element: f32 (or dt) times its dropout mask
+template <typename TA>
+__device__ __forceinline__ float masked(const TA* __restrict__ p,
+                                        const uint8_t* __restrict__ drop,
+                                        size_t idx, int thresh,
+                                        float keep_scale) {
+  float v = to_f<TA>(p[idx]);
+  if (drop != nullptr) v *= drop[idx] >= thresh ? keep_scale : 0.f;
+  return v;
+}
+
+constexpr int kLdaT = TBK + kPadA, kLdbT = BN + kPadB, kLdcT = BN + kPadC;
+constexpr int kElemsA = BM * TBK / kThreads, kElemsB = TBK * BN / kThreads;
+template <typename T>
+struct TrainSmem {  // NT: [BM][kLdaT] + [BN][kLdaT]; TN: 2 x [TBK][kLdbT]
+  static constexpr int kAB = 2 * BM * kLdaT * (int)sizeof(T);
+  static constexpr int kC = BM * kLdcT * (int)sizeof(float);
+  static constexpr int kBytes = kAB > kC ? kAB : kC;
+};
+
+template <typename T, typename TA, typename TO>
+__global__ void __launch_bounds__(kThreads, 2)
+linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
+                 const uint8_t* __restrict__ drop, int thresh,
+                 float keep_scale, const T* __restrict__ gate,
+                 const T* __restrict__ residual, TO* __restrict__ out, int M,
+                 int N, int K) {
+  // a [M][N] (contraction N), w [K][N]; out [M][K]
+  __shared__ __align__(128) unsigned char smem[TrainSmem<T>::kBytes];
+  T* as = reinterpret_cast<T*>(smem);  // [BM][kLdaT]: a rows
+  T* bs = as + BM * kLdaT;             // [BN][kLdaT]: w rows (B^T)
+  float* cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, k0 = blockIdx.x * BN;
+  FragC<T> cfrag[2];
+  float acc[4][4];
+  zero_acc<T>(cfrag, acc);
+  T ra[kElemsA], rb[kElemsB];
+  auto load_slab = [&](int n0) {
+#pragma unroll
+    for (int i = 0; i < kElemsA; ++i) {
+      const int e = tid + i * kThreads, r = e / TBK, c = e % TBK;
+      const int m = m0 + r, n = n0 + c;
+      ra[i] = from_f<T>(m < M && n < N
+                            ? masked<TA>(a, drop, (size_t)m * N + n, thresh,
+                                         keep_scale)
+                            : 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < kElemsB; ++i) {
+      const int e = tid + i * kThreads, c = e % TBK, r = e / TBK;
+      const int k = k0 + r, n = n0 + c;
+      rb[i] = k < K && n < N ? w[(size_t)k * N + n] : from_f<T>(0.f);
+    }
+  };
+  load_slab(0);
+  for (int n0 = 0; n0 < N; n0 += TBK) {
+#pragma unroll
+    for (int i = 0; i < kElemsA; ++i) {
+      const int e = tid + i * kThreads;
+      as[(e / TBK) * kLdaT + e % TBK] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kElemsB; ++i) {
+      const int e = tid + i * kThreads;
+      bs[(e / TBK) * kLdaT + e % TBK] = rb[i];
+    }
+    __syncthreads();
+    if (n0 + TBK < N) load_slab(n0 + TBK);
+    mma_slab<T, false, kLdaT, true, kLdaT>(as, bs, cfrag, acc, tid);
+    __syncthreads();
+  }
+  store_tile<T, kLdcT>(cs, cfrag, acc, tid);
+  __syncthreads();
+  for (int idx = tid; idx < BM * BN; idx += kThreads) {
+    const int r = idx / BN, c = idx % BN;
+    const int m = m0 + r, k = k0 + c;
+    if (m < M && k < K) {
+      const size_t o = (size_t)m * K + k;
+      float v = cs[r * kLdcT + c];
+      if (gate != nullptr && !(to_f<T>(gate[o]) > 0.f)) v = 0.f;
+      if (residual != nullptr) v = to_f<T>(residual[o]) + round_dt<T>(v);
+      out[o] = from_f<TO>(v);
+    }
+  }
+}
+
+template <typename T, typename TB>
+__global__ void __launch_bounds__(kThreads, 2)
+linear_tn_kernel(const T* __restrict__ x, const TB* __restrict__ y,
+                 const uint8_t* __restrict__ drop, int thresh,
+                 float keep_scale, float* __restrict__ out, int M, int K,
+                 int N, int rows_per_split) {
+  // x [M][K], y [M][N]; out[z] [K][N] sums rows [z*rps, (z+1)*rps)
+  __shared__ __align__(128) unsigned char smem[TrainSmem<T>::kBytes];
+  T* as = reinterpret_cast<T*>(smem);  // [TBK][kLdbT]: x rows (A^T)
+  T* bs = as + TBK * kLdbT;            // [TBK][kLdbT]: y rows
+  float* cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x;
+  const int kr0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int mb = blockIdx.z * rows_per_split;
+  const int me = min(M, mb + rows_per_split);
+  FragC<T> cfrag[2];
+  float acc[4][4];
+  zero_acc<T>(cfrag, acc);
+  T ra[kElemsA], rb[kElemsB];
+  auto load_slab = [&](int m0) {
+#pragma unroll
+    for (int i = 0; i < kElemsA; ++i) {
+      const int e = tid + i * kThreads, r = e % BM, c = e / BM;
+      const int m = m0 + c, k = kr0 + r;
+      ra[i] = m < me && k < K ? x[(size_t)m * K + k] : from_f<T>(0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < kElemsB; ++i) {
+      const int e = tid + i * kThreads, c = e % BN, r = e / BN;
+      const int m = m0 + r, n = n0 + c;
+      rb[i] = from_f<T>(m < me && n < N
+                            ? masked<TB>(y, drop, (size_t)m * N + n, thresh,
+                                         keep_scale)
+                            : 0.f);
+    }
+  };
+  load_slab(mb);
+  for (int m0 = mb; m0 < me; m0 += TBK) {
+#pragma unroll
+    for (int i = 0; i < kElemsA; ++i) {
+      const int e = tid + i * kThreads;
+      as[(e / BM) * kLdbT + e % BM] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kElemsB; ++i) {
+      const int e = tid + i * kThreads;
+      bs[(e / BN) * kLdbT + e % BN] = rb[i];
+    }
+    __syncthreads();
+    if (m0 + TBK < me) load_slab(m0 + TBK);
+    mma_slab<T, true, kLdbT, false, kLdbT>(as, bs, cfrag, acc, tid);
+    __syncthreads();
+  }
+  store_tile<T, kLdcT>(cs, cfrag, acc, tid);
+  __syncthreads();
+  float* dst = out + (size_t)blockIdx.z * K * N;
+  for (int idx = tid; idx < BM * BN; idx += kThreads) {
+    const int r = idx / BN, c = idx % BN;
+    const int k = kr0 + r, n = n0 + c;
+    if (k < K && n < N) dst[(size_t)k * N + n] = cs[r * kLdcT + c];
   }
 }
 
@@ -486,14 +759,16 @@ bool vector_ok(const void* p, int cols) {
 
 template <typename T>
 int launch_linear(const void* a, const void* w, const void* bias,
-                  const void* residual, void* out, int M, int N, int K,
-                  int relu, cudaStream_t stream) {
+                  const void* residual, const void* drop, int thresh,
+                  float keep_scale, void* out, int M, int N, int K, int relu,
+                  cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const bool vec = vector_ok<T>(a, K) && vector_ok<T>(w, N);
   auto kernel = vec ? linear_kernel<T, true> : linear_kernel<T, false>;
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<const T*>(residual),
+      static_cast<const uint8_t*>(drop), thresh, keep_scale,
       static_cast<T*>(out), M, N, K, relu);
   return (int)cudaGetLastError();
 }
@@ -548,20 +823,101 @@ int launch_attention_dh(const void* qkv, const void* key_bias,
   return (int)cudaErrorInvalidValue;
 }
 
+
+template <typename T>
+int launch_linear_nt(int a_f32, const void* a, const void* w, const void* drop,
+                     int thresh, float keep_scale, const void* gate,
+                     const void* residual, int out_f32, void* out, int M,
+                     int N, int K, cudaStream_t stream) {
+  const dim3 grid((K + BN - 1) / BN, (M + BM - 1) / BM);
+  const T* wp = static_cast<const T*>(w);
+  const uint8_t* dp = static_cast<const uint8_t*>(drop);
+  const T* gp = static_cast<const T*>(gate);
+  const T* rp = static_cast<const T*>(residual);
+  if (a_f32 && out_f32)
+    linear_nt_kernel<T, float, float><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(a), wp, dp, thresh, keep_scale, gp, rp,
+        static_cast<float*>(out), M, N, K);
+  else if (a_f32)
+    linear_nt_kernel<T, float, T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(a), wp, dp, thresh, keep_scale, gp, rp,
+        static_cast<T*>(out), M, N, K);
+  else if (out_f32)
+    linear_nt_kernel<T, T, float><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(a), wp, dp, thresh, keep_scale, gp, rp,
+        static_cast<float*>(out), M, N, K);
+  else
+    linear_nt_kernel<T, T, T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(a), wp, dp, thresh, keep_scale, gp, rp,
+        static_cast<T*>(out), M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_linear_tn(int b_f32, const void* x, const void* y, const void* drop,
+                     int thresh, float keep_scale, void* out, int M, int K,
+                     int N, int splits, cudaStream_t stream) {
+  if (splits < 1) return (int)cudaErrorInvalidValue;
+  const int rps = ((M + splits - 1) / splits + TBK - 1) / TBK * TBK;
+  const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
+  const T* xp = static_cast<const T*>(x);
+  const uint8_t* dp = static_cast<const uint8_t*>(drop);
+  float* op = static_cast<float*>(out);
+  if (b_f32)
+    linear_tn_kernel<T, float><<<grid, kThreads, 0, stream>>>(
+        xp, static_cast<const float*>(y), dp, thresh, keep_scale, op, M, K, N,
+        rps);
+  else
+    linear_tn_kernel<T, T><<<grid, kThreads, 0, stream>>>(
+        xp, static_cast<const T*>(y), dp, thresh, keep_scale, op, M, K, N,
+        rps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16
 extern "C" {
 
 int sk_linear(int dtype, const void* a, const void* w, const void* bias,
-              const void* residual, void* out, int M, int N, int K, int relu,
+              const void* residual, const void* drop, int thresh,
+              float keep_scale, void* out, int M, int N, int K, int relu,
               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_linear<float>(a, w, bias, residual, out, M, N, K, relu, s);
+    return launch_linear<float>(a, w, bias, residual, drop, thresh, keep_scale,
+                                out, M, N, K, relu, s);
   if (dtype == 1)
-    return launch_linear<__nv_bfloat16>(a, w, bias, residual, out, M, N, K,
-                                        relu, s);
+    return launch_linear<__nv_bfloat16>(a, w, bias, residual, drop, thresh,
+                                        keep_scale, out, M, N, K, relu, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int sk_linear_nt(int dtype, int a_f32, const void* a, const void* w,
+                 const void* drop, int thresh, float keep_scale,
+                 const void* gate, const void* residual, int out_f32,
+                 void* out, int M, int N, int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_linear_nt<float>(a_f32, a, w, drop, thresh, keep_scale,
+                                   gate, residual, out_f32, out, M, N, K, s);
+  if (dtype == 1)
+    return launch_linear_nt<__nv_bfloat16>(a_f32, a, w, drop, thresh,
+                                           keep_scale, gate, residual, out_f32,
+                                           out, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int sk_linear_tn(int dtype, int b_f32, const void* x, const void* y,
+                 const void* drop, int thresh, float keep_scale, void* out,
+                 int M, int K, int N, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_linear_tn<float>(b_f32, x, y, drop, thresh, keep_scale, out,
+                                   M, K, N, splits, s);
+  if (dtype == 1)
+    return launch_linear_tn<__nv_bfloat16>(b_f32, x, y, drop, thresh,
+                                           keep_scale, out, M, K, N, splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,9 +24,9 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from sketchformer_tpu.data.pipeline import PEN_END
-from sketchformer_tpu.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
-from sketchformer_tpu.utils.engines import note_engine
+from sketchformer_tpu_torch.data.pipeline import PEN_END
+from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
+from sketchformer_tpu_torch.utils.engines import note_engine
 from sketchformer_tpu_torch.infer import decode as composed
 from sketchformer_tpu_torch.models.embeddings import (
     sinusoidal_position_encoding,

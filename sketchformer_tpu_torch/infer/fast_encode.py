@@ -13,7 +13,7 @@ from typing import Callable, Optional
 
 import torch
 
-from sketchformer_tpu.utils.engines import note_engine
+from sketchformer_tpu_torch.utils.engines import note_engine
 from sketchformer_tpu_torch.models.sketchformer import Sketchformer
 from sketchformer_tpu_torch.ops.encoder_stack import (
     MAX_FUSED_LEN,

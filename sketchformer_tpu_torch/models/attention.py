@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sketchformer_tpu_torch.models.dropout import Dropout
 from sketchformer_tpu_torch.models.layers import LayerNorm
 from sketchformer_tpu_torch.ops.decode_attention import decode_attention
 
@@ -106,11 +107,13 @@ class MultiHeadAttention(nn.Module):
     """MHA with separate q and kv inputs; ``qk_norm`` applies a LayerNorm
     over head_dim (one (Dh,) scale/bias shared by all heads) to q and k.
     ``attn_impl`` picks the decode branch's attention
-    (:func:`cached_decode_attention`)."""
+    (:func:`cached_decode_attention`). ``dropout`` is the rate of the site
+    after the output projection (training mode only)."""
 
     def __init__(self, num_heads: int, d_model: int,
                  dtype: torch.dtype = torch.float32,
-                 qk_norm: bool = False, attn_impl: str = "xla") -> None:
+                 qk_norm: bool = False, attn_impl: str = "xla",
+                 dropout: float = 0.0) -> None:
         super().__init__()
         if d_model % num_heads:
             raise ValueError("num_heads must divide d_model")
@@ -126,6 +129,7 @@ class MultiHeadAttention(nn.Module):
             self.q_norm = LayerNorm(head_dim, dtype)
             self.k_norm = LayerNorm(head_dim, dtype)
         self.out = HeadOutProjection(num_heads, head_dim, d_model, dtype)
+        self.drop = Dropout(dropout)
 
     def forward(self, q_inp: torch.Tensor, kv_inp: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
@@ -161,7 +165,7 @@ class MultiHeadAttention(nn.Module):
                 None if key_mask is None else key_mask[:, None, None, :],
                 causal_mask(q.shape[1], q.device) if causal else None)
             out = dot_product_attention(q, k, v, mask=full)
-        return self.out(out)
+        return self.drop(self.out(out))
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,8 @@ from sketchformer_tpu_torch.models.layers import Dense
 class Bottleneck(nn.Module):
     def __init__(self, mode: str = "attn", lowerdim: int = 256,
                  num_queries: int = 4, d_model: int = 256, num_heads: int = 8,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0) -> None:
         super().__init__()
         self.mode = mode
         self.num_queries = num_queries
@@ -34,7 +35,8 @@ class Bottleneck(nn.Module):
         self.dtype = dtype
         if mode == "attn":
             self.queries = nn.Parameter(torch.zeros(num_queries, d_model))
-            self.pool_attn = MultiHeadAttention(num_heads, d_model, dtype)
+            self.pool_attn = MultiHeadAttention(num_heads, d_model, dtype,
+                                                dropout=dropout)
             self.to_z = Dense(num_queries * d_model, lowerdim, dtype)
         elif mode in ("mean", "direct"):
             self.to_z = Dense(d_model, lowerdim, dtype)

@@ -2,10 +2,13 @@
 output head, and the classifier on z.
 
 Port of ``sketchformer_tpu/models/sketchformer.py``: ``encode`` / ``embed``,
-the teacher-forced ``forward`` (the flax ``__call__``), ``memory_from_z``,
+the teacher-forced ``forward`` (the flax ``__call__``; in training mode it
+is the flax call with ``deterministic=False``: every dropout site is active,
+and the fused stacks take their differentiable kernels), ``memory_from_z``,
 and the cached AR step ``decode_step`` with ``init_cache``. Submodule and
 parameter names follow the flax module, so ``state_dict`` keys are the flax
-param paths joined with dots. Inference only: dropout is the identity.
+param paths joined with dots. Serving paths run the model in eval mode,
+where dropout is the identity.
 The port's decode cache is exactly as long as it is asked to be: the JAX
 model's ``CACHE_PAD`` works around a TPU runtime fault and is not ported.
 """
@@ -52,15 +55,15 @@ class Sketchformer(nn.Module):
             self.out_head = TokenHead(cfg.vocab_size, cfg.d_model, dt)
         self.encoder = Encoder(cfg.num_layers, cfg.num_heads, cfg.d_model,
                                cfg.dff, dt, cfg.attn_impl, cfg.norm_first,
-                               cfg.qk_norm)
+                               cfg.qk_norm, cfg.dropout)
         self.bottleneck = Bottleneck(cfg.bottleneck_mode, cfg.lowerdim,
                                      cfg.num_queries, cfg.d_model,
-                                     cfg.num_heads, dt)
+                                     cfg.num_heads, dt, cfg.dropout)
         self.decoder = Decoder(cfg.num_layers, cfg.num_heads, cfg.d_model,
                                cfg.dff, dt, cfg.attn_impl, cfg.norm_first,
-                               cfg.qk_norm)
+                               cfg.qk_norm, cfg.dropout)
         self.classifier = ClassifierHead(cfg.num_classes, cfg.lowerdim,
-                                         cfg.lowerdim, dt)
+                                         cfg.lowerdim, dt, cfg.dropout)
 
     def enc_key_mask(self, enc: torch.Tensor,
                      enc_mask: Optional[torch.Tensor]):

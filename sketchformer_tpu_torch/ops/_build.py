@@ -32,9 +32,25 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points of csrc/*.cu: (argtypes, restype)
 SIGNATURES = {
-    "sk_linear": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "sk_linear": ([_I, _P, _P, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _P],
+                  _I),
+    "sk_linear_nt": ([_I, _I, _P, _P, _P, _I, _F, _P, _P, _I, _P, _I, _I, _I,
+                      _P], _I),
+    "sk_linear_tn": ([_I, _I, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _P],
+                     _I),
+    "sk_attention_fwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _P, _P,
+                          _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                          _P], _I),
+    "sk_attention_bwd": ([_I, _I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _P,
+                          _P, _P, _P, _P, _L, _I, _P, _P, _L, _I, _P, _L, _I,
+                          _P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+                         _I),
+    "sk_layernorm_bwd": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+                         _I),
+    "sk_sum_rows": ([_I, _P, _P, _I, _F, _P, _I, _I, _I, _P], _I),
     "sk_encoder_attention": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "sk_layernorm_rows": ([_I, _P, _P, _P, _P, _I, _I, _P], _I),

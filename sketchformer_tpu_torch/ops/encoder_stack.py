@@ -6,9 +6,14 @@ TPU kernel runs all L layers in one call with the activations resident in
 VMEM; on the card the layer runs as three kernels from
 ``csrc/encoder_stack.cu`` (see the note at the top of that file for why):
 
-    linear             QKV, out-proj + x, FFN-in -> ReLU, FFN-out + x
+    linear             QKV, out-proj + x, FFN-in -> ReLU, FFN-out + x,
+                       with an optional dropout epilogue (the training
+                       stacks' forward)
     encoder_attention  optional qk-norm, key-masked softmax, P.V
     layernorm_rows     LN1, LN2 and the final LayerNorm
+
+and the two products of the training stacks' backward (``linear_nt``:
+dX = dY . W^T, ``linear_tn``: dW = X^T . dY summed over every row).
 
 Each kernel has a wrapper here and a plain torch version beside it
 (``*_reference``) that computes the same math in the same rounding order.
@@ -34,7 +39,8 @@ NEG_INF = -1e9
 MAX_FUSED_LEN = 1024    # the JAX engine's limit (pallas_encoder.py)
 MAX_HEAD_DIM = 128      # encoder_attention keeps head rows in registers
 
-LAUNCHES = {"linear": 0, "encoder_attention": 0, "layernorm_rows": 0}
+LAUNCHES = {"linear": 0, "encoder_attention": 0, "layernorm_rows": 0,
+            "linear_nt": 0, "linear_tn": 0}
 
 
 def reset_launches() -> None:
@@ -47,16 +53,54 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def linear_reference(a, w, bias, *, relu=False, residual=None):
+def dropout_mask(drop, thresh, keep_scale):
+    """f32 multiplier of the u8-threshold dropout: ``keep_scale`` where the
+    byte is >= ``thresh``, else 0."""
+    return torch.where(drop >= thresh, keep_scale, 0.0).float()
+
+
+def linear_reference(a, w, bias, *, relu=False, residual=None, drop=None,
+                     thresh=0, keep_scale=1.0):
     """``epilogue(a @ w)``: the product accumulates in f32 and is rounded to
-    ``a.dtype`` before the (rounded) bias is added."""
+    ``a.dtype`` before the (rounded) bias is added; then ReLU, then dropout
+    (``drop`` u8 bytes of the output's shape: kept values times
+    ``keep_scale``, rounded), then the residual."""
     dt = a.dtype
     y = torch.matmul(a, w).to(dt) + bias.to(dt)
     if relu:
         y = torch.relu(y)
+    if drop is not None:
+        y = (y.float() * dropout_mask(drop, thresh, keep_scale)).to(dt)
     if residual is not None:
         y = residual + y
     return y
+
+
+def linear_nt_reference(a, w, *, drop=None, thresh=0, keep_scale=1.0,
+                        gate=None, residual=None, out_dtype=torch.float32):
+    """``a @ w^T`` (dX = dY . W^T): ``a`` (f32 or dt) times its dropout mask
+    is rounded to ``w.dtype``; the f32 product is gated by ``gate > 0`` and
+    returned in ``out_dtype``, or rounded to the compute dtype and added to
+    ``residual`` (a running sum in the compute dtype)."""
+    dt = w.dtype
+    av = a.float()
+    if drop is not None:
+        av = av * dropout_mask(drop, thresh, keep_scale)
+    y = torch.matmul(av.to(dt).float(), w.float().t())
+    if gate is not None:
+        y = torch.where(gate > 0, y, 0.0)
+    if residual is not None:
+        return residual + y.to(dt)
+    return y.to(out_dtype)
+
+
+def linear_tn_reference(x, y, *, drop=None, thresh=0, keep_scale=1.0):
+    """``x^T @ y`` over all rows (dW = X^T . dY) in f32; ``y`` times its
+    dropout mask is rounded to ``x.dtype`` first."""
+    yv = y.float()
+    if drop is not None:
+        yv = yv * dropout_mask(drop, thresh, keep_scale)
+    return torch.matmul(x.float().t(), yv.to(x.dtype).float())
 
 
 def attention_reference(qkv, key_bias, *, num_heads, qk_norm=None):
@@ -99,10 +143,14 @@ def layernorm_rows_reference(x, scale, bias):
 # ---------------------------------------------------------------------------
 
 
-def linear(a, w, bias, *, relu=False, residual=None):
-    """(M, K) x (K, N) with the fused bias / ReLU / residual epilogue."""
+def linear(a, w, bias, *, relu=False, residual=None, drop=None, thresh=0,
+           keep_scale=1.0):
+    """(M, K) x (K, N) with the fused bias / ReLU / dropout / residual
+    epilogue."""
     if a.device.type == "cpu":
-        return linear_reference(a, w, bias, relu=relu, residual=residual)
+        return linear_reference(a, w, bias, relu=relu, residual=residual,
+                                drop=drop, thresh=thresh,
+                                keep_scale=keep_scale)
     if a.device.type != "cuda":
         raise ValueError(f"linear: unsupported device {a.device}")
     code = _build.dtype_code(a)
@@ -114,16 +162,111 @@ def linear(a, w, bias, *, relu=False, residual=None):
     _build.require(bias, "bias", dev, torch.float32, (N,))
     if residual is not None:
         _build.require(residual, "residual", dev, a.dtype, (M, N))
+    if drop is not None:
+        _build.require(drop, "drop", dev, torch.uint8, (M, N))
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.sk_linear(code, _build.ptr(a), _build.ptr(w),
                             _build.ptr(bias), _build.ptr(residual),
+                            _build.ptr(drop), int(thresh), float(keep_scale),
                             _build.ptr(out), M, N, K, int(relu),
                             _build.stream(a))
     _build.check(err, "linear")
     LAUNCHES["linear"] += 1
     return out
+
+
+def linear_nt(a, w, *, drop=None, thresh=0, keep_scale=1.0, gate=None,
+              residual=None, out_dtype=torch.float32):
+    """(M, N) x (K, N)^T -> (M, K): the input-gradient product of a layer's
+    backward, with the dropout mask of ``a``'s site, the ReLU gate and the
+    f32 or rounded output of :func:`linear_nt_reference`."""
+    if a.device.type == "cpu":
+        return linear_nt_reference(a, w, drop=drop, thresh=thresh,
+                                   keep_scale=keep_scale, gate=gate,
+                                   residual=residual, out_dtype=out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"linear_nt: unsupported device {a.device}")
+    code = _build.dtype_code(w)
+    M, N = a.shape
+    K = w.shape[0]
+    dev = a.device
+    if a.dtype not in (torch.float32, w.dtype):
+        raise TypeError(f"linear_nt: a is {a.dtype}, expected float32 or "
+                        f"{w.dtype}")
+    if out_dtype not in (torch.float32, w.dtype):
+        raise TypeError(f"linear_nt: out_dtype {out_dtype}")
+    _build.require(a, "a", dev, a.dtype, (M, N))
+    _build.require(w, "w", dev, w.dtype, (K, N))
+    if drop is not None:
+        _build.require(drop, "drop", dev, torch.uint8, (M, N))
+    if gate is not None:
+        _build.require(gate, "gate", dev, w.dtype, (M, K))
+    if residual is not None:
+        if out_dtype != w.dtype:
+            raise ValueError("linear_nt: a residual needs out_dtype "
+                             f"{w.dtype}")
+        _build.require(residual, "residual", dev, w.dtype, (M, K))
+    out = torch.empty((M, K), dtype=out_dtype, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.sk_linear_nt(
+            code, int(a.dtype == torch.float32), _build.ptr(a), _build.ptr(w),
+            _build.ptr(drop), int(thresh), float(keep_scale),
+            _build.ptr(gate), _build.ptr(residual),
+            int(out_dtype == torch.float32), _build.ptr(out), M, N, K,
+            _build.stream(a))
+    _build.check(err, "linear_nt")
+    LAUNCHES["linear_nt"] += 1
+    return out
+
+
+TN_ROWS_PER_SPLIT = 512   # linear_tn's M slice per block, at least
+
+
+def tn_splits(M, K, N, sms=132):
+    """How many M slices linear_tn runs: enough blocks for about two waves
+    of the card's SMs, each slice at least TN_ROWS_PER_SPLIT rows."""
+    tiles = -(-K // 64) * -(-N // 64)
+    return max(1, min(M // TN_ROWS_PER_SPLIT, -(-2 * sms // tiles)))
+
+
+def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0):
+    """(M, K)^T x (M, N) -> (K, N) f32 over all M rows: the weight-gradient
+    product of a layer's backward. M is cut into slices that run in
+    parallel; ``sum_rows`` adds their partial products in a fixed order."""
+    if x.device.type == "cpu":
+        return linear_tn_reference(x, y, drop=drop, thresh=thresh,
+                                   keep_scale=keep_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"linear_tn: unsupported device {x.device}")
+    from sketchformer_tpu_torch.ops.norm_train import sum_rows
+
+    code = _build.dtype_code(x)
+    M, K = x.shape
+    N = y.shape[1]
+    dev = x.device
+    if y.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"linear_tn: y is {y.dtype}")
+    _build.require(x, "x", dev, x.dtype, (M, K))
+    _build.require(y, "y", dev, y.dtype, (M, N))
+    if drop is not None:
+        _build.require(drop, "drop", dev, torch.uint8, (M, N))
+    splits = tn_splits(M, K, N, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    out = torch.empty((splits, K, N), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.sk_linear_tn(
+            code, int(y.dtype == torch.float32), _build.ptr(x), _build.ptr(y),
+            _build.ptr(drop), int(thresh), float(keep_scale), _build.ptr(out),
+            M, K, N, splits, _build.stream(x))
+    _build.check(err, "linear_tn")
+    LAUNCHES["linear_tn"] += 1
+    if splits == 1:
+        return out[0]
+    return sum_rows(out.reshape(splits, K * N)).reshape(K, N)
 
 
 def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):
@@ -243,17 +386,23 @@ def encoder_stack_reference(x, key_mask, w, *, num_heads, qk_norm=False):
 
 
 def stack_encoder_weights(enc_state: Mapping[str, torch.Tensor], *,
-                          num_layers: int,
-                          compute_dtype: torch.dtype) -> dict:
+                          num_layers: int, compute_dtype: torch.dtype,
+                          grad: bool = False) -> dict:
     """Encoder ``state_dict`` (keys ``layer_{i}.…``, ``ln_out.…``) ->
     stacked kernel operands, as the JAX ``stack_encoder_weights`` builds
     them: products' weights (L, ...) in the compute dtype, LN params and
-    biases f32, ``lnfs``/``lnfb`` shaped (1, d)."""
+    biases f32, ``lnfs``/``lnfb`` shaped (1, d). ``grad=True`` keeps the
+    autograd graph back to the parameters (pass
+    ``state_dict(keep_vars=True)``), so a training stack's weight gradients
+    reach them; otherwise the operands are detached."""
     f32 = torch.float32
+
+    def leaf(t):
+        return t if grad else t.detach()
 
     def stk(suffix, dtype, shape=None):
         arrs = [enc_state[f"layer_{i}.{suffix}"] for i in range(num_layers)]
-        out = torch.stack([a.detach().to(dtype) for a in arrs])
+        out = torch.stack([leaf(a).to(dtype) for a in arrs])
         return out if shape is None else out.reshape(num_layers, *shape)
 
     d = enc_state["layer_0.ln1.scale"].shape[0]
@@ -269,8 +418,8 @@ def stack_encoder_weights(enc_state: Mapping[str, torch.Tensor], *,
     w = {
         "ln1s": stk("ln1.scale", f32),
         "ln1b": stk("ln1.bias", f32),
-        "wqkv": torch.stack(qkv_k).detach().to(compute_dtype).contiguous(),
-        "bqkv": torch.stack(qkv_b).detach().to(f32).contiguous(),
+        "wqkv": leaf(torch.stack(qkv_k)).to(compute_dtype).contiguous(),
+        "bqkv": leaf(torch.stack(qkv_b)).to(f32).contiguous(),
         "wo": stk("self_attn.out.kernel", compute_dtype, (-1, d)).contiguous(),
         "bo": stk("self_attn.out.bias", f32),
         "ln2s": stk("ln2.scale", f32),
@@ -292,6 +441,6 @@ def stack_encoder_weights(enc_state: Mapping[str, torch.Tensor], *,
                           ("knb", 0.0)):
             w[key] = torch.full((num_layers, head_dim), fill, dtype=f32,
                                 device=dev)
-    w["lnfs"] = enc_state["ln_out.scale"].detach().to(f32).reshape(1, d)
-    w["lnfb"] = enc_state["ln_out.bias"].detach().to(f32).reshape(1, d)
+    w["lnfs"] = leaf(enc_state["ln_out.scale"]).to(f32).reshape(1, d)
+    w["lnfb"] = leaf(enc_state["ln_out.bias"]).to(f32).reshape(1, d)
     return w

@@ -1,7 +1,9 @@
-"""Mixture-density head math for decoding: split the raw head output, sample.
+"""Mixture-density head math: split the raw head output, the loss, sample.
 
-Port of ``split_params`` and ``sample`` from ``sketchformer_tpu/ops/mdn.py``
-(the loss functions come with the training slice). Everything runs in f32.
+Port of ``sketchformer_tpu/ops/mdn.py``: ``split_params``,
+``component_log_prob``, ``gmm_log_likelihood``, ``mdn_loss`` and ``sample``,
+as plain torch (the JAX package has no kernel here). Everything runs in
+f32, with log-sigma clamped to [-6, 4] and |rho| <= 0.99.
 Layout of a raw head output (``6*M + 3`` features)::
 
     [pi_logits(M) | mu_x(M) | mu_y(M) | log_sigma_x(M) | log_sigma_y(M)
@@ -13,6 +15,7 @@ Sampling draws from a ``torch.Generator``, so its streams differ from
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -45,6 +48,38 @@ def split_params(raw: torch.Tensor, num_mixtures: int) -> MDNParams:
         rho=RHO_MAX * torch.tanh(raw[..., 5 * M:6 * M]),
         pen_logits=raw[..., 6 * M:],
     )
+
+
+def component_log_prob(params: MDNParams, xy: torch.Tensor) -> torch.Tensor:
+    """Log N_m(xy) for every mixture component; xy (..., 2) -> (..., M)."""
+    xy = xy.float()[..., None, :]                          # (..., 1, 2)
+    norm = (xy - params.mu) * torch.exp(-params.log_sigma)
+    nx, ny = norm[..., 0], norm[..., 1]
+    one_m_rho2 = torch.clamp(1.0 - params.rho ** 2, min=1e-6)
+    zq = nx * nx + ny * ny - 2.0 * params.rho * nx * ny
+    log_det = params.log_sigma.sum(dim=-1)
+    return (-zq / (2.0 * one_m_rho2) - log_det - 0.5 * torch.log(one_m_rho2)
+            - math.log(2.0 * math.pi))
+
+
+def gmm_log_likelihood(params: MDNParams, xy: torch.Tensor) -> torch.Tensor:
+    """Log p(xy) under the mixture; (..., 2) -> (...)."""
+    return torch.logsumexp(params.log_pi + component_log_prob(params, xy),
+                           dim=-1)
+
+
+def mdn_loss(raw: torch.Tensor, num_mixtures: int, tgt_xy: torch.Tensor,
+             tgt_pen: torch.Tensor,
+             mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean (GMM NLL, pen CE) over the batch: raw (B, T, 6M+3),
+    tgt_xy (B, T, 2), tgt_pen (B, T) int, mask (B, T)."""
+    params = split_params(raw, num_mixtures)
+    mask = mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    nll_xy = -gmm_log_likelihood(params, tgt_xy)
+    pen_ll = torch.log_softmax(params.pen_logits, dim=-1)
+    nll_pen = -pen_ll.gather(-1, tgt_pen.long()[..., None])[..., 0]
+    return (nll_xy * mask).sum() / denom, (nll_pen * mask).sum() / denom
 
 
 def _categorical(logits: torch.Tensor,

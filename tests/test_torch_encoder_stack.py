@@ -109,12 +109,12 @@ def test_pallas_impl_takes_the_stack_and_post_ln_declines(caplog):
                                        num_heads=2, qk_norm=True)
     assert torch.equal(got, want)
 
-    from sketchformer_tpu.utils.engines import reset_seen
+    from sketchformer_tpu_torch.utils.engines import reset_seen
 
     reset_seen()
     x, km, _, _, post = _setup(64, 2, False, True, norm_first=False)
     post.attn_impl = "pallas"
-    with caplog.at_level("WARNING", logger="sketchformer_tpu.engines"):
+    with caplog.at_level("WARNING", logger="sketchformer_tpu_torch.engines"):
         with torch.no_grad():
             post(torch.from_numpy(x), key_mask=torch.from_numpy(km))
     assert "post-LN config" in caplog.text

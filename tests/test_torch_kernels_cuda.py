@@ -38,11 +38,14 @@ def _rand(gen, device, *shape, scale=1.0, dtype=torch.float32):
             * scale).to(dtype)
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, scale=None):
+    """max |got - want| <= TOL * max |want| (or * ``scale``, for a tensor
+    that is zero up to rounding)."""
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
-    rel = (got - want).abs().max().item() / want.abs().max().item()
+    ref = want.abs().max().item() if scale is None else scale
+    rel = (got - want).abs().max().item() / ref
     assert rel <= TOL[dtype], rel
 
 
@@ -128,7 +131,8 @@ def test_fused_encoder_stack(cuda, dtype, H, qk):
     es.reset_launches()
     got = es.fused_encoder_stack(x, km, w, num_heads=H, qk_norm=qk)
     assert es.LAUNCHES == {"linear": 4 * L, "encoder_attention": L,
-                           "layernorm_rows": 2 * L + 1}
+                           "layernorm_rows": 2 * L + 1, "linear_nt": 0,
+                           "linear_tn": 0}
     ref = es.encoder_stack_reference(x, km, w, num_heads=H, qk_norm=qk)
     if dtype == torch.float32:
         _close(got, ref, dtype)
@@ -308,7 +312,8 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
                        es.layernorm_rows_reference(a, torch.ones(8),
                                                    b[:1].expand(8)))
     assert es.LAUNCHES == {"linear": 0, "encoder_attention": 0,
-                           "layernorm_rows": 0}
+                           "layernorm_rows": 0, "linear_nt": 0,
+                           "linear_tn": 0}
     q = torch.from_numpy(rng.standard_normal((6, 1, 8)).astype(np.float32))
     kv = torch.from_numpy(rng.standard_normal((6, 5, 8)).astype(np.float32))
     da.reset_launches()
@@ -335,3 +340,217 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         dc.decode_cont_chunk(z, z, *(None,) * 10, 0, num_heads=1,
                              num_mixtures=1)
+
+
+# ---------------------------------------------------------------------------
+# the training stacks' kernels
+# ---------------------------------------------------------------------------
+
+from sketchformer_tpu_torch.ops import attention_train as at  # noqa: E402
+from sketchformer_tpu_torch.ops import decoder_stack_train as dst  # noqa: E402
+from sketchformer_tpu_torch.ops import encoder_stack_train as est  # noqa: E402
+from sketchformer_tpu_torch.ops import norm_train as nt  # noqa: E402
+
+
+def _bytes(gen, dev, *shape):
+    return torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen,
+                         device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_linear_dropout_epilogue(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = _rand(gen, cuda, 300, 64, dtype=dtype)
+    w = _rand(gen, cuda, 64, 96, scale=0.125, dtype=dtype)
+    b, res = _rand(gen, cuda, 96, scale=0.1), _rand(gen, cuda, 300, 96,
+                                                      dtype=dtype)
+    kw = dict(residual=res, drop=_bytes(gen, cuda, 300, 96), thresh=26,
+              keep_scale=est.keep_scales(26, dtype)[0])
+    _close(es.linear(a, w, b, **kw), es.linear_reference(a, w, b, **kw),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("a_f32,gate,out_dt", [(True, False, False),
+                                               (False, True, False),
+                                               (True, False, True)])
+def test_linear_nt(cuda, dtype, a_f32, gate, out_dt):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    M, N, K = 333, 96, 80
+    a = _rand(gen, cuda, M, N, dtype=torch.float32 if a_f32 else dtype)
+    w = _rand(gen, cuda, K, N, scale=N ** -0.5, dtype=dtype)
+    kw = dict(drop=_bytes(gen, cuda, M, N), thresh=26, keep_scale=1.11)
+    if gate:
+        kw["gate"] = torch.relu(_rand(gen, cuda, M, K, dtype=dtype))
+    if out_dt:
+        kw.update(out_dtype=dtype, residual=_rand(gen, cuda, M, K,
+                                                  dtype=dtype))
+    before = es.LAUNCHES["linear_nt"]
+    got = es.linear_nt(a, w, **kw)
+    assert es.LAUNCHES["linear_nt"] == before + 1
+    _close(got, es.linear_nt_reference(a, w, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,y_f32", [(1000, True), (4100, False)])
+def test_linear_tn(cuda, dtype, M, y_f32):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _rand(gen, cuda, M, 72, dtype=dtype)
+    y = _rand(gen, cuda, M, 130, dtype=torch.float32 if y_f32 else dtype)
+    kw = dict(drop=_bytes(gen, cuda, M, 130), thresh=26, keep_scale=1.11)
+    _close(es.linear_tn(x, y, **kw), es.linear_tn_reference(x, y, **kw),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,N,drop", [(50, 70, False), (9000, 256, True)])
+def test_sum_rows(cuda, dtype, R, N, drop):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = _rand(gen, cuda, R, N, dtype=dtype)
+    kw = dict(drop=_bytes(gen, cuda, R, N), thresh=26, keep_scale=1.11) \
+        if drop else {}
+    _close(nt.sum_rows(x, **kw), nt.sum_rows_reference(x, **kw),
+           torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D,resid_dt,out_dt", [(300, 96, True, False),
+                                                 (1000, 256, False, True)])
+def test_layernorm_bwd(cuda, dtype, M, D, resid_dt, out_dt):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = _rand(gen, cuda, M, D, dtype=dtype)
+    dy = _rand(gen, cuda, M, D)
+    s = 1 + _rand(gen, cuda, D, scale=0.1)
+    kw = dict(resid=_rand(gen, cuda, M, D,
+                          dtype=dtype if resid_dt else torch.float32),
+              out_dtype=dtype if out_dt else torch.float32)
+    for g, w in zip(nt.layernorm_bwd(x, dy, s, **kw),
+                    nt.layernorm_bwd_reference(x, dy, s, **kw)):
+        _close(g, w, dtype if out_dt else torch.float32)
+
+
+def _attn_case(gen, dev, dtype, B, Tq, Tk, H, Dh, qk, masked):
+    q = _rand(gen, dev, B, Tq, 3 * H * Dh, dtype=dtype)[..., :H * Dh]
+    kv = _rand(gen, dev, B, Tk, 2 * H * Dh, dtype=dtype)
+    k, v = kv[..., :H * Dh], kv[..., H * Dh:]
+    bias = None
+    if masked:
+        lengths = torch.tensor([Tk - 2 * i for i in range(B)], device=dev)
+        bias = torch.where(torch.arange(Tk, device=dev)[None] <
+                           lengths[:, None], 0.0, at.NEG_INF).float()
+    norms = tuple(1 + _rand(gen, dev, Dh, scale=0.1) if i % 2 == 0
+                  else _rand(gen, dev, Dh, scale=0.1)
+                  for i in range(4)) if qk else None
+    return q, k, v, bias, norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Tq,Tk,H,Dh,causal,qk,norm_p", [
+    (3, 40, 40, 4, 32, True, True, True),
+    (3, 40, 40, 2, 128, False, False, False),
+    (3, 37, 4, 4, 32, False, True, True),
+    (2, 70, 70, 2, 64, True, False, True),
+])
+def test_attention_fwd_and_bwd(cuda, dtype, B, Tq, Tk, H, Dh, causal, qk,
+                               norm_p):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, bias, norms = _attn_case(gen, cuda, dtype, B, Tq, Tk, H, Dh,
+                                      qk, masked=True)
+    kw = dict(num_heads=H, causal=causal, qk_norm=norms)
+    _close(at.attention_fwd(q, k, v, bias, norm_p=norm_p, **kw),
+           at.attention_fwd_reference(q, k, v, bias, norm_p=norm_p, **kw),
+           dtype)
+    do = _rand(gen, cuda, B, Tq, H * Dh)
+    got = at.attention_bwd_q(q, k, v, do, bias, **kw)
+    want = at.attention_bwd_q_reference(q, k, v, do, bias, **kw)
+    _close(got[0], want[0], dtype)
+    _close(got[1], want[1], torch.float32 if dtype == torch.float32
+           else dtype)
+    got_kv = at.attention_bwd_kv(q, k, v, do, bias, want[1], **kw)
+    want_kv = at.attention_bwd_kv_reference(q, k, v, do, bias, want[1], **kw)
+    for g, w in zip(got_kv[:2], want_kv[:2]):
+        _close(g, w, dtype)
+    if qk:
+        _close(got[2], want[2], dtype)
+        _close(got[3], want[3], dtype)
+        _close(got_kv[2], want_kv[2], dtype)
+        # the k-norm bias shifts every key of a row alike, so its gradient
+        # is zero up to rounding: held at the k-norm scale's magnitude
+        _close(got_kv[3], want_kv[3], dtype,
+               scale=want_kv[2].abs().max().item())
+
+
+def _train_stack_case(gen, dev, decoder, H, qk, B=4, T=48, d=128, L=2,
+                      dff=256):
+    """A stack module with random parameters, its differentiable operands,
+    an input and a key mask."""
+    from sketchformer_tpu_torch.models.transformer import Decoder, Encoder
+
+    mod = (Decoder if decoder else Encoder)(L, H, d, dff, torch.float32,
+                                           "pallas", True, qk).to(dev)
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            base = 1.0 if name.endswith("scale") else 0.0
+            p.copy_(base + _rand(gen, dev, *p.shape,
+                                 scale=0.05 if "kernel" in name else 0.1))
+    x = _rand(gen, dev, B, T, d).requires_grad_(True)
+    km = torch.arange(T, device=dev)[None] < torch.tensor(
+        [T, T - 5, 20, 1], device=dev)[:, None]
+    return mod, mod.stacked_weights(grad=True), x, km
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoder", [False, True], ids=["encoder",
+                                                         "decoder"])
+@pytest.mark.parametrize("H,qk", [(4, True), (1, False)])
+def test_train_stack_fwd_bwd(cuda, decoder, H, qk):
+    """Whole stack forward + backward in f32, kernels against the plain
+    versions, dropout on."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    mod, w, x, km = _train_stack_case(gen, cuda, decoder, H, qk)
+    B, T, d = x.shape
+    L = 2
+    drop = _bytes(gen, cuda, (3 if decoder else 2) * L, B, T, d)
+    gy = _rand(gen, cuda, B, T, d)
+    mem = _rand(gen, cuda, B, 4, d).requires_grad_(True)
+
+    def run(ops):
+        if decoder:
+            y = dst.fused_decoder_stack_train(
+                x, mem, km, None, w, num_heads=H, qk_norm=qk,
+                dropout_rate=0.1, dropout_bytes=drop, ops=ops)
+            inputs = [x, mem]
+        else:
+            y = est.fused_encoder_stack_train(
+                x, km, w, num_heads=H, qk_norm=qk, dropout_rate=0.1,
+                dropout_bytes=drop, ops=ops)
+            inputs = [x]
+        names = ["x", "mem"][:len(inputs)] + [
+            n for n, _ in mod.named_parameters()]
+        grads = torch.autograd.grad((y.float() * gy).sum(),
+                                    inputs + list(mod.parameters()),
+                                    allow_unused=True)
+        return [("y", y)] + [(n, g) for n, g in zip(names, grads)
+                             if g is not None]
+
+    got, want = run(est.KERNELS), run(est.PLAIN)
+    torch.cuda.synchronize()
+    top = max(g.abs().max().item() for _, g in want[1:])
+    for (name, g), (_, r) in zip(got, want):
+        # chip_smoke.py's rule: relative L2 within 1e-3, since a ReLU
+        # pre-activation within rounding of zero is gated differently by two
+        # summation orders; a key bias (projection or k-norm) shifts every
+        # key of a row alike, so its gradient is zero up to rounding, held
+        # at the largest gradient's scale
+        assert torch.isfinite(g).all(), name
+        if name.endswith(("key.bias", "k_norm.bias")):
+            assert (g - r).abs().max().item() <= TOL[torch.float32] * top, \
+                name
+            continue
+        assert (g - r).norm().item() <= 1e-3 * r.norm().item(), name
