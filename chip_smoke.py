@@ -32,7 +32,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    cross-attention to 4 memory rows), ``layernorm_bwd``, ``sum_rows``; and
    each whole train stack's forward and backward (L=2, dropout 0.1),
    float32 within a relative L2 error of 1e-3 of the plain version, bf16
-   within 2x the plain bf16 path's error against float32;
+   within 2x the plain bf16 path's error against float32; then the fused
+   vocab-CE head (K6: ``token_ce_fwd``, ``token_ce_dx``, ``token_ce_dw``)
+   at the JAX benchmark's ``train`` shape (bf16, M 49,152, d 256, V 10,004)
+   and in f32 at M 4,096: ll, lse, dx, dW and db within TOL, corr equal
+   away from near ties, and the bf16 kernels against the f32 computation;
+   and the in-kernel dropout draw (K7): ``emit_dropout_bits`` bit-equal to
+   the plain Philox at (16, 512, 96, 256) with the kept share within 1e-3,
+   and each 'prng' train stack equal to the 'bits' stack fed the emitted
+   bytes (output and every gradient, torch.equal; f32 and bf16);
 4. main paths, each with every launch counter reset just before and read
    just after: the port's ``sbir`` CLI at the full width of the ``sbir``
    preset (seeded random weights) over 16 batches of 64 from the preset's
@@ -50,17 +58,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (B=64, buckets 96 and 192, bf16, dropout 0.1) for 30 steps: every
    kernel of the train stacks launches, neither stack declines its
    kernels, the loss is finite and falls; and ``eval`` on its checkpoint,
-   whose loss the composed model matches;
+   whose loss the composed model matches; then the same for token-mode
+   training: ``train`` on ``pretrain_full`` with a synthetic 345-class
+   token loader (its shards are not in the repo) and warmup 500, through
+   the K6 kernels, the stacks drawing their dropout in-kernel (no dropout
+   byte tensor drawn) and the composed sites through the emit kernel;
 5. times: kernel vs plain (CUDA events after warm-up), the end-to-end
    embed rate, per-chunk and per-call decode kernel times, and the
    whole-decode p50 at B=64/T=192 and sketches/s at B=512 for the chunk
    engine and the composed decoder; each training kernel (one layer's
    calls) against its plain version and one PyTorch call where one
-   computes the same function; the train stacks' forward + backward; the
-   train step p50 and sketches/s at the ``cont2cont_mdn`` shape and the
-   JAX benchmark's ``cont_train`` shape (B=512, T=96, H=2) with a
-   ``torch.profiler`` breakdown of each; each with the card's name and
-   power limit. Every kernel's bound (the least time for its bytes and
+   computes the same function; the train stacks' forward + backward; K6
+   and the emit kernel; the train step p50 and sketches/s at the
+   ``cont2cont_mdn`` shape, the JAX benchmark's ``cont_train`` shape
+   (B=512, T=96, H=2; 'prng' and 'bits' dropout) and its token cells
+   ``train`` (H=2) and ``train_h8`` (H=8), with a ``torch.profiler``
+   breakdown of each; each with the card's name and power limit. Every kernel's bound (the least time for its bytes and
    operations at the card's published peaks) is computed from the timed
    calls' shapes.
 
@@ -96,7 +109,10 @@ SOURCES = {"linear": "encoder_stack.cu", "encoder_attention":
            "attention_fwd": "attention_train.cu",
            "attention_bwd_q": "attention_train.cu",
            "attention_bwd_kv": "attention_train.cu",
-           "layernorm_bwd": "norm_train.cu", "sum_rows": "norm_train.cu"}
+           "layernorm_bwd": "norm_train.cu", "sum_rows": "norm_train.cu",
+           "token_ce_fwd": "token_ce.cu", "token_ce_dx": "token_ce.cu",
+           "token_ce_dw": "token_ce.cu",
+           "emit_dropout_bits": "dropout_prng.cu"}
 # the training kernels replace parts of the bodies of the TPU training
 # kernels: the backward products and the row LayerNorm backward of
 # _layer_bwd_kernel (:102, _ln_bwd32 :80, the cross-cell accumulation
@@ -116,6 +132,10 @@ REPLACES = {
     "attention_bwd_kv": "sketchformer_tpu/ops/pallas_packed.py:341",
     "layernorm_bwd": "sketchformer_tpu/ops/pallas_encoder_train.py:80",
     "sum_rows": "sketchformer_tpu/ops/pallas_encoder_train.py:214",
+    "token_ce_fwd": "sketchformer_tpu/ops/pallas_ce.py:60",
+    "token_ce_dx": "sketchformer_tpu/ops/pallas_ce.py:84",
+    "token_ce_dw": "sketchformer_tpu/ops/pallas_ce.py:84",
+    "emit_dropout_bits": "sketchformer_tpu/ops/pallas_dropout.py:95",
 }
 # max |kernel - plain| / max |plain| allowed, by dtype
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -454,6 +474,8 @@ CONT_TRAIN = dict(B=512, T=96, d=256, H=2, dff=512, L=8)
 TRAIN_STEPS = 30
 TRAIN_KERNELS = ("linear_nt", "linear_tn", "attention_fwd", "attention_bwd_q",
                  "attention_bwd_kv", "layernorm_bwd", "sum_rows")
+TOK_KERNELS = ("token_ce_fwd", "token_ce_dx", "token_ce_dw",
+               "emit_dropout_bits")
 STACK_KERNELS = ("linear", "layernorm_rows", "encoder_attention") + \
     TRAIN_KERNELS
 
@@ -639,7 +661,8 @@ def stack_module(dev, decoder, H, qk, dtype, L=2, seed=0):
 
 def stack_grads(mod, x, mem, km, gy, drop, decoder, H, qk, ops, dtype):
     """Output and the gradients of (x, memory, every parameter) of one
-    forward + backward of the train stack on ``ops``."""
+    forward + backward of the train stack on ``ops``; ``drop`` is the
+    dropout bytes, or the stack's dropout keyword arguments."""
     import torch
 
     from sketchformer_tpu_torch.ops import decoder_stack_train as dst
@@ -652,16 +675,17 @@ def stack_grads(mod, x, mem, km, gy, drop, decoder, H, qk, ops, dtype):
     w = mod.stacked_weights(grad=True)
     xi = x.detach().to(dtype).requires_grad_(True)
     inputs = [xi]
+    dkw = drop if isinstance(drop, dict) else dict(dropout_bytes=drop)
     if decoder:
         mi = mem.detach().to(dtype).requires_grad_(True)
         inputs.append(mi)
         y = dst.fused_decoder_stack_train(
             xi, mi, km, None, w, num_heads=H, qk_norm=qk, dropout_rate=0.1,
-            dropout_bytes=drop, ops=ops)
+            ops=ops, **dkw)
     else:
         y = est.fused_encoder_stack_train(
-            xi, km, w, num_heads=H, qk_norm=qk, dropout_rate=0.1,
-            dropout_bytes=drop, ops=ops)
+            xi, km, w, num_heads=H, qk_norm=qk, dropout_rate=0.1, ops=ops,
+            **dkw)
     names = ["x", "memory"][:len(inputs)] + [
         n for n, _ in mod.named_parameters()]
     grads = torch.autograd.grad((y.float() * gy).sum(),
@@ -888,13 +912,17 @@ def profile_steps(label, step, batch, gpu, step_ms, n=2, top=12):
 
 def train_step_times(gpu, dev, cli):
     """Train step ms and sketches/s (host clock around synchronised steps)
-    at the cont2cont_mdn and the cont_train shape; returns them."""
+    at the cont2cont_mdn and the cont_train shape (the stacks' dropout in
+    'prng' mode, and cont_train again with the stacks forced to 'bits', PR
+    3's mode, for the comparison) and at the JAX benchmark's token cells
+    train (H=2) and train_h8 (H=8); returns them."""
     import torch
 
     from sketchformer_tpu_torch.config import SketchformerConfig
     from sketchformer_tpu_torch.convert import init_params
     from sketchformer_tpu_torch.data.registry import get_dataloader_by_name
     from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
     from sketchformer_tpu_torch.presets import get_preset
     from sketchformer_tpu_torch.train.step import (
         batch_to_device,
@@ -903,46 +931,400 @@ def train_step_times(gpu, dev, cli):
     )
 
     out = {}
-    preset = get_preset("cont2cont_mdn")
-    for label, shape, over in (
-            ("cont2cont_mdn", MDN, {}),
-            ("cont_train", CONT_TRAIN,
-             dict(num_heads=2, qk_norm=False, max_len=96, num_classes=345))):
+    cont = {**get_preset("cont2cont_mdn").model_overrides, "num_classes": 32}
+    cont_train = dict(cont, num_heads=2, qk_norm=False, max_len=96,
+                      num_classes=345)
+    tok = dict(vocab_size=TRAIN["V"], num_classes=TRAIN["classes"],
+               max_len=TRAIN["T"], d_model=TRAIN["d"],
+               num_layers=TRAIN["L"], num_heads=TRAIN["H"],
+               dff=TRAIN["dff"], dropout=0.1, lowerdim=256,
+               dtype="bfloat16", attn_impl="pallas", qk_norm=False)
+    resolve = dp.resolve_impl
+    for label, shape, over, impl in (
+            ("cont2cont_mdn", MDN, cont, "auto"),
+            ("cont_train", CONT_TRAIN, cont_train, "auto"),
+            ("cont_train (stacks in bits mode)", CONT_TRAIN, cont_train,
+             "bits"),
+            ("train", TRAIN, tok, "auto"),
+            ("train_h8", TRAIN, dict(tok, num_heads=8), "auto")):
         B, T = shape["B"], shape["T"]
-        cfg = SketchformerConfig(**{**preset.model_overrides, **over,
-                                    "num_classes": over.get("num_classes",
-                                                            32)})
+        cfg = SketchformerConfig(**over)
         model = Sketchformer(cfg)
         model.load_state_dict(init_params(cfg, 0))
         model.to(dev)
+        token = not cfg.use_continuous
         loader = get_dataloader_by_name("synthetic")(
-            num_classes=32, sketches_per_epoch=B * 2, batch_size=B,
-            buckets=(T,), token_mode=False)
+            num_classes=cfg.num_classes if token else 32,
+            sketches_per_epoch=B * 2, batch_size=B, buckets=(T,),
+            token_mode=token)
         batch = batch_to_device(next(loader.batch_iterator("train")), dev)
         state = create_train_state(model, 0, 500, 2.0)
         step = make_train_step(state)
-        for _ in range(2):
-            step(batch)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            m = step(batch)
+        if impl == "bits":
+            dp.resolve_impl = lambda *_: "bits"
+        try:
+            for _ in range(2):
+                step(batch)
             torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        ms = float(np.median(ts))
-        if not np.isfinite(m["loss"].item()):
-            fail(f"{label} train step loss not finite")
-        profile_steps(label, step, batch, gpu, ms)
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            ms = float(np.median(ts))
+            if not np.isfinite(m["loss"].item()):
+                fail(f"{label} train step loss not finite")
+            profile_steps(label, step, batch, gpu, ms)
+        finally:
+            dp.resolve_impl = resolve
         out[label] = (ms, B / ms * 1e3)
-        print(f"time train step {label} (B={B}, T={T}, d={cfg.d_model}, "
-              f"L={cfg.num_layers}, H={cfg.num_heads}, qk_norm={cfg.qk_norm},"
-              f" {cfg.dtype}, dropout {cfg.dropout}): p50 {ms:.2f} ms (min "
-              f"{min(ts):.2f}, max {max(ts):.2f}, 5 steps), "
-              f"{B / ms * 1e3:.1f} sketches/s [{gpu}]")
+        print(f"time train step {label} ({'token' if token else 'MDN'}, "
+              f"B={B}, T={T}, d={cfg.d_model}, L={cfg.num_layers}, "
+              f"H={cfg.num_heads}, qk_norm={cfg.qk_norm}, {cfg.dtype}, "
+              f"dropout {cfg.dropout}): p50 {ms:.2f} ms (min {min(ts):.2f}, "
+              f"max {max(ts):.2f}, 5 steps), {B / ms * 1e3:.1f} sketches/s "
+              f"[{gpu}]")
         del model, state, step
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# token-mode training: the fused vocab-CE head (K6) and the in-kernel
+# dropout draw (K7)
+# ---------------------------------------------------------------------------
+
+# the JAX benchmark's flagship train cell (bench.py:262-267, :371-376): d 256,
+# L=8, H=2/Dh=128, dff 512, vocab 10,004, 345 classes, bf16, dropout 0.1, no
+# qk-norm, B=512, T=96; train_h8 is the same at H=8 (bench.py:431-434)
+TRAIN = dict(B=512, T=96, d=256, H=2, dff=512, L=8, V=10004, classes=345)
+CE_F32_ROWS = 4096
+# corr is compared where the plain version's top two f32 logits are further
+# apart than this (the two sides sum the same f32 products in other orders)
+CE_TIE = 1e-3
+PRNG_SEED = 0x5EED_0000_0000_0042
+
+
+def ce_operands(randn, gen, dev, M, d, V, dtype):
+    """Rows, head kernel (f32 parameter), bias, targets and a row gradient
+    of one CE call."""
+    import torch
+
+    return (randn(M, d, dtype=dtype), randn(d, V, scale=d ** -0.5),
+            randn(V, scale=0.1),
+            torch.randint(0, V, (M,), generator=gen, device=dev).int(),
+            randn(M, scale=1.0 / M))
+
+
+def check_token_ce(randn, gen, dev, errs, compare):
+    """K6 against its plain version: bf16 at the train shape (M 49,152, d
+    256, V 10,004) and f32 at M 4,096: ll and lse, dx, dW and db within
+    TOL; corr equal away from near ties; and the bf16 kernel against the
+    f32 computation of the same inputs."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import token_ce as tce
+
+    d, V = TRAIN["d"], TRAIN["V"]
+    for dtype, M in ((torch.bfloat16, TRAIN["B"] * TRAIN["T"]),
+                     (torch.float32, CE_F32_ROWS)):
+        tag = str(dtype).replace("torch.", "")
+        main = dtype == torch.bfloat16
+        x, w, b, tgt, gll = ce_operands(randn, gen, dev, M, d, V, dtype)
+        shape = f"{tag} M={M} d={d} V={V}"
+        got = tce.token_ce_fwd(x, w, b, tgt)
+        want = tce.token_ce_fwd_reference(x, w, b, tgt)
+        compare(f"token_ce_fwd ll {shape}", got[0], want[0], dtype,
+                "token_ce_fwd" if main else None)
+        compare(f"token_ce_fwd lse {shape}", got[2], want[2], dtype)
+        top2 = tce.logits_reference(x, w, b).topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > CE_TIE
+        if not torch.equal(got[1][clear], want[1][clear]):
+            fail(f"token_ce_fwd {shape}: corr differs away from a near tie")
+        print(f"check token_ce_fwd corr {shape}: equal on {int(clear.sum())}"
+              f" of {M} rows (top two logits > {CE_TIE:g} apart)")
+        del top2
+        gb = tce.token_ce_bwd(x, w, b, tgt, want[2], gll)
+        wb = tce.token_ce_bwd_reference(x, w, b, tgt, want[2], gll)
+        for name, g, r, rec in (("dx", gb[0], wb[0], "token_ce_dx"),
+                                ("dW", gb[1], wb[1], "token_ce_dw"),
+                                ("db", gb[2], wb[2], None)):
+            compare(f"token_ce_bwd {name} {shape}", g, r, dtype,
+                    rec if main else None)
+        del wb
+        if main:   # the bf16 kernel against the f32 computation
+            ref32 = tce.token_ce_fwd_reference(x.float(), w, b, tgt)
+            compare(f"token_ce_fwd ll {shape} vs float32", got[0], ref32[0],
+                    dtype)
+            r32 = tce.token_ce_bwd_reference(x.float(), w, b, tgt, ref32[2],
+                                             gll)
+            for name, g, r in zip(("dx", "dW", "db"), gb, r32):
+                compare(f"token_ce_bwd {name} {shape} vs float32", g, r,
+                        dtype)
+            del ref32, r32
+        del x, w, gb, got, want
+        torch.cuda.empty_cache()
+
+
+def check_dropout_prng(dev, errs):
+    """K7: the emit kernel bit-equal to the plain Philox at the train
+    shape's (2L, B, T, d) with the kept share within 1e-3 of 1 - 26/256;
+    then each 'prng' train stack (L=2, cont2cont_mdn width: B=64, T=192,
+    H=8, qk-norm; f32 and bf16) equal to the 'bits' stack fed the emitted
+    bytes, output and every gradient (torch.equal)."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
+    from sketchformer_tpu_torch.ops import encoder_stack_train as est
+
+    L, B, T, d = TRAIN["L"], TRAIN["B"], TRAIN["T"], TRAIN["d"]
+    got = dp.emit_dropout_bits(PRNG_SEED, L, 2, B, T, d, dev)
+    want = dp.emit_dropout_bits_reference(PRNG_SEED, L, 2, B, T, d, dev)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("emit_dropout_bits differs from the plain Philox")
+    kept = (got >= 26).double().mean().item()
+    print(f"check emit_dropout_bits (2L, B, T, d) = {tuple(got.shape)}: "
+          f"bit-equal to the plain Philox; kept share {kept:.6f} (1 - "
+          f"26/256 = {1 - 26 / 256:.6f})")
+    if not abs(kept - (1 - 26 / 256)) <= 1e-3:
+        fail(f"emit_dropout_bits kept share {kept}")
+    errs["emit_dropout_bits"] = 0.0
+    del got, want
+    B, T = MDN["B"], MDN["T"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for dtype in (torch.float32, torch.bfloat16):
+        for decoder in (False, True):
+            mod = stack_module(dev, decoder, 8, True, dtype, seed=5)
+            x = torch.randn((B, T, d), generator=gen, device=dev)
+            mem = torch.randn((B, 4, d), generator=gen, device=dev)
+            gy = torch.randn((B, T, d), generator=gen, device=dev)
+            km = torch.arange(T, device=dev)[None] < torch.randint(
+                T // 4, T + 1, (B,), generator=gen, device=dev)[:, None]
+            byt = dp.emit_dropout_bits(PRNG_SEED, 2, 3 if decoder else 2, B,
+                                       T, d, dev)
+            args = (mod, x, mem, km, gy)
+            est.DRAWS["draw_dropout_bytes"] = 0
+            dp.reset_launches()
+            prng = stack_grads(*args, dict(dropout_impl="prng",
+                                           seed=PRNG_SEED), decoder, 8, True,
+                               est.KERNELS, dtype)
+            draws = dp.LAUNCHES["prng_draw"]
+            bits = stack_grads(*args, byt, decoder, 8, True, est.KERNELS,
+                               dtype)
+            torch.cuda.synchronize()
+            name = (f"prng vs bits fused_{'decoder' if decoder else 'encoder'}"
+                    f"_stack_train {str(dtype)[6:]} L=2 B={B} T={T} d={d} H=8 "
+                    f"qk_norm")
+            if est.DRAWS["draw_dropout_bytes"] or not draws:
+                fail(f"{name}: the prng stack drew a byte tensor or no site "
+                     f"in-kernel")
+            for (n, g), (_, r) in zip(prng, bits):
+                if not torch.equal(g, r):
+                    fail(f"{name}: {n} differs")
+            print(f"check {name}: output and {len(prng) - 1} gradients equal "
+                  f"(torch.equal); {draws} kernel launches drew in-kernel")
+            del mod, prng, bits, byt
+
+
+def train_tok_main_path(cli, counters, engines, tmp):
+    """The port's train CLI on pretrain_full (token mode) for TRAIN_STEPS
+    steps from a synthetic 345-class token loader, then eval on its
+    checkpoint, each with every launch counter reset just before and read
+    just after. Returns the train launches."""
+    import dataclasses
+
+    import torch
+
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.ops import encoder_stack_train as est
+    from sketchformer_tpu_torch.train.loop import evaluate
+    from sketchformer_tpu_torch.train.step import make_eval_step
+
+    run = os.path.join(tmp, "run_tok")
+    argv = ["train", "--preset", "pretrain_full", "--loader", "synthetic",
+            "--loader-arg", "num_classes=345", "--loader-arg",
+            "sketches_per_epoch=8280", "--run-dir", run, "--device", "cuda",
+            "--notifier", "none", "--loop-arg", f"total_steps={TRAIN_STEPS}",
+            "--loop-arg", "warmup_steps=500", "--loop-arg", "log_every=1",
+            "--loop-arg", "eval_every=1000", "--loop-arg",
+            f"save_every={TRAIN_STEPS}"]
+    print("main path: python -m sketchformer_tpu_torch.cli " + " ".join(argv))
+    print("  cuts: the preset's QuickDraw shards are not in the repo, so its "
+          "loader is the synthetic token loader of 345 classes (the preset's "
+          "batch 256 and buckets 64/96/128/192 kept); warmup 10,000 -> 500 so "
+          f"that the loss can move in {TRAIN_STEPS} steps; {TRAIN_STEPS} of "
+          "300,000 steps")
+    engines.reset_seen()
+    for m in counters:
+        m.reset_launches()
+    est.DRAWS["draw_dropout_bytes"] = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for m in counters for k, v in m.LAUNCHES.items()}
+    draws = est.DRAWS["draw_dropout_bytes"]
+    if rc != 0:
+        fail(f"cli train (token) returned {rc}")
+    final = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"  train: {json.dumps(final)} ({secs:.1f} s)")
+    print(f"  launches: {json.dumps(launches)}; draw_dropout_bytes calls "
+          f"{draws}")
+    for k in STACK_KERNELS + TOK_KERNELS + ("prng_draw",):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by cli train (token)")
+    if draws:
+        fail(f"the token train path drew {draws} dropout byte tensors")
+    composed = sorted(s for s in engines._seen
+                      if s[0] in ("encoder-stack", "decoder-stack")
+                      and s[1] == "composed")
+    if composed:
+        fail(f"a stack declined its kernels: {composed}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r and "val_loss" not in r]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"token train losses {losses}")
+    last = float(np.mean(losses[-5:]))
+    print(f"  losses {' '.join(f'{v:.3f}' for v in losses)}")
+    print(f"  loss at step 1 {losses[0]:.4f}, mean of the last 5 steps "
+          f"{last:.4f}; skipped steps "
+          f"{sum(r.get('skipped_nonfinite', 0) for r in recs):.0f}")
+    if not last < losses[0]:
+        fail("the token training loss did not fall")
+    if not all(np.isfinite(v) for v in final.values()):
+        fail(f"final eval metrics not finite: {final}")
+    for m in counters:
+        m.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["eval", "--run-dir", run, "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = {k: v for m in counters for k, v in m.LAUNCHES.items()}
+    if rc != 0:
+        fail(f"cli eval (token) returned {rc}")
+    ev = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"main path: python -m sketchformer_tpu_torch.cli eval --run-dir "
+          f"{run} --device cuda\n  eval: {json.dumps(ev)}\n  launches: "
+          f"{json.dumps(got)}")
+    for k in ("linear", "layernorm_rows", "encoder_attention",
+              "attention_fwd", "token_ce_fwd"):
+        if got[k] <= 0:
+            fail(f"kernel {k} was not launched by cli eval (token)")
+    if not all(np.isfinite(v) for v in ev.values()):
+        fail(f"token eval metrics not finite: {ev}")
+    # the same checkpoint through the composed model (plain torch, the
+    # chunked composed CE head): the kernels' eval loss within bf16 TOL
+    args = cli.build_parser().parse_args(["eval", "--run-dir", run,
+                                          "--device", "cuda"])
+    model, loader = cli.restore_for_eval(args)
+    batches = loader.get_validation_set(max_batches=2)
+    k_ev = evaluate(make_eval_step(model), batches)
+    composed = Sketchformer(dataclasses.replace(model.config,
+                                                attn_impl="xla"))
+    composed.load_state_dict(model.state_dict())
+    composed.to(next(model.parameters()).device).eval()
+    p_ev = evaluate(make_eval_step(composed), batches)
+    rel = abs(k_ev["loss"] - p_ev["loss"]) / abs(p_ev["loss"])
+    print(f"check token eval loss, kernels {k_ev['loss']:.5f} vs composed "
+          f"{p_ev['loss']:.5f} (2 batches): rel {rel:.3e} (tol "
+          f"{TOL['bfloat16']:.0e})")
+    if not rel <= TOL["bfloat16"]:
+        fail("the kernels' token eval loss differs from the composed model's")
+    del model, composed
+    return launches
+
+
+def device_ms(fn, names, n=3):
+    """Device time per call of each kernel whose name holds one of
+    ``names``, from a torch.profiler trace of ``n`` calls of ``fn``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        for k in names:
+            if k in e.key:
+                out[k] += us / 1e3 / n
+    return out
+
+
+def token_ce_times(randn, gen, dev, gpu, cuda_ms, paired):
+    """K6 at the train shape (bf16, M 49,152, d 256, V 10,004): each kernel
+    against its plain version and one PyTorch call of its product. The
+    backward wrapper launches both backward kernels; each one's time is its
+    device time in a profiler trace of the wrapper, and both rows carry the
+    plain backward's time (it computes dx, dW and db together). Returns
+    {kernel: (ms, plain_ms, library_ms)}."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import token_ce as tce
+
+    M, d, V = TRAIN["B"] * TRAIN["T"], TRAIN["d"], TRAIN["V"]
+    dt = torch.bfloat16
+    x, w, b, tgt, gll = ce_operands(randn, gen, dev, M, d, V, dt)
+    wd = w.to(dt)
+    lse = tce.token_ce_fwd(x, w, b, tgt)[2]
+    dl = randn(M, V, scale=1e-3, dtype=dt)
+    out = {}
+    with torch.no_grad():
+        k_ms, p_ms = paired(lambda: tce.token_ce_fwd(x, w, b, tgt),
+                            lambda: tce.token_ce_fwd_reference(x, w, b, tgt),
+                            iters=5, warm=1)
+        out["token_ce_fwd"] = (k_ms, p_ms, cuda_ms(
+            lambda: torch.addmm(b.to(dt), x, wd), 5, 1))
+        k_ms, p_ms = paired(
+            lambda: tce.token_ce_bwd(x, w, b, tgt, lse, gll),
+            lambda: tce.token_ce_bwd_reference(x, w, b, tgt, lse, gll),
+            iters=3, warm=1)
+        parts = device_ms(lambda: tce.token_ce_bwd(x, w, b, tgt, lse, gll),
+                          ("ce_dx_kernel", "ce_dw_kernel"))
+        print(f"time token_ce_bwd (bf16, M={M}, d={d}, V={V}, the wrapper: "
+              f"both kernels and the partial sums): kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms; device time ce_dx_kernel "
+              f"{parts['ce_dx_kernel']:.4f} ms, ce_dw_kernel "
+              f"{parts['ce_dw_kernel']:.4f} ms [{gpu}]")
+        out["token_ce_dx"] = (parts["ce_dx_kernel"], p_ms, cuda_ms(
+            lambda: torch.matmul(dl, wd.t()), 5, 1))
+        out["token_ce_dw"] = (parts["ce_dw_kernel"], p_ms, cuda_ms(
+            lambda: torch.matmul(x.t(), dl), 5, 1))
+    for name, (k_ms, p_ms, l_ms) in out.items():
+        print(f"time {name} (bf16, M={M}, d={d}, V={V}): kernel {k_ms:.4f} "
+              f"ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms [{gpu}]")
+    del dl, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def emit_times(dev, gpu, cuda_ms, paired):
+    """The emit kernel at the train shape's (2L, B, T, d) against the plain
+    Philox. Returns (ms, plain_ms)."""
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
+
+    L, B, T, d = TRAIN["L"], TRAIN["B"], TRAIN["T"], TRAIN["d"]
+    k_ms, p_ms = paired(
+        lambda: dp.emit_dropout_bits(PRNG_SEED, L, 2, B, T, d, dev),
+        lambda: dp.emit_dropout_bits_reference(PRNG_SEED, L, 2, B, T, d, dev),
+        iters=5, warm=1)
+    print(f"time emit_dropout_bits ((2L, B, T, d) = ({2 * L}, {B}, {T}, {d}))"
+          f": kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
+    return k_ms, p_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1026,6 +1408,22 @@ def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn):
     }
 
 
+def token_kernel_work(M, d, V, L):
+    """{kernel: (flops, bytes)} of K6 and K7 at the train shape: the CE
+    forward (2 M d V), the backward as the TPU kernel does it (one logits
+    recompute and the dx and dW products, 6 M d V) split into dx (the
+    recompute and dx) and dW (its product; ce_dw's own recompute is work
+    the TPU design does not do); emit writes (2L, B*T, d) bytes."""
+    x, wb = M * d * 2, d * V * 2 + V * 4
+    return {
+        "token_ce_fwd": (2 * M * d * V, x + wb + M * 4 + 3 * M * 4),
+        "token_ce_dx": (4 * M * d * V, x + wb + 3 * M * 4 + M * d * 2),
+        "token_ce_dw": (2 * M * d * V, x + wb + 3 * M * 4 + d * V * 4
+                        + V * 4),
+        "emit_dropout_bits": (0, 2 * L * M * d),
+    }
+
+
 def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     """Each training kernel (the layer's call set) against its plain version
     and, where one PyTorch call computes the same function, that call; bf16
@@ -1055,6 +1453,27 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     q4, k4, v4 = (t.reshape(B, T, H, d // H).transpose(1, 2)
                   for t in (o["q"], o["k"], o["v"]))
     mask = (o["bias"] == 0)[:, None, None, :]
+    # the SDPA backward at the same shape (no qk-norm): one call computes
+    # dq, dk and dv
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+    with torch.enable_grad():
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    do4 = o["do"].reshape(B, T, H, d // H).transpose(1, 2).to(dt)
+
+    def lib_attn_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(sdpa, (qs, ks, vs), do4, retain_graph=True)
+
+    # LayerNorm's backward on the same rows (f32, as the gradient is)
+    x32 = o["x"].float()
+    _, ln_mean, ln_rstd = torch.ops.aten.native_layer_norm(
+        x32, [d], o["scale"], o["bvec"], 1e-6)
+
+    def lib_ln_bwd():
+        torch.ops.aten.native_layer_norm_backward(
+            o["g32"], x32, [d], ln_mean, ln_rstd, o["scale"], o["bvec"],
+            [True, True, True])
+
     with torch.no_grad():
         for name, kern, plain, lib in (
                 ("linear_nt", layer_nt_calls(o, es.linear_nt),
@@ -1066,16 +1485,16 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
                  lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                         attn_mask=mask)),
                 ("attention_bwd_q", attn_calls(o, H, True, "bwd_q", "kernel"),
-                 attn_calls(o, H, True, "bwd_q", "plain"), None),
+                 attn_calls(o, H, True, "bwd_q", "plain"), lib_attn_bwd),
                 ("attention_bwd_kv", attn_calls(o, H, True, "bwd_kv",
                                                 "kernel"),
-                 attn_calls(o, H, True, "bwd_kv", "plain"), None),
+                 attn_calls(o, H, True, "bwd_kv", "plain"), lib_attn_bwd),
                 ("layernorm_bwd",
                  lambda: nt.layernorm_bwd(o["x"], o["g32"], o["scale"],
                                           resid=o["g"]),
                  lambda: nt.layernorm_bwd_reference(o["x"], o["g32"],
                                                     o["scale"], resid=o["g"]),
-                 None),
+                 lib_ln_bwd),
                 ("sum_rows", lambda: nt.sum_rows(o["gqkv"]),
                  lambda: nt.sum_rows_reference(o["gqkv"]),
                  lambda: torch.sum(o["gqkv"], dim=0))):
@@ -1089,9 +1508,25 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     return out
 
 
+def stack_work(B, T, d, H, dff, L, decoder):
+    """(flops, bytes) of a train stack's forward + backward as the TPU
+    kernels do it: the forward, its recompute in the backward and the two
+    backward products of every product and attention (4x the forward's
+    operations); bytes: each layer's input and output activations, the
+    weights and their f32 gradients, the input gradient (bf16)."""
+    M = B * T
+    proj = d * (3 * d + d + 2 * dff) + (2 * d * d if decoder else 0)
+    fwd = 2 * M * proj + 4 * B * H * T * T * (d // H)
+    if decoder:
+        fwd += 4 * B * H * T * 4 * (d // H) + 2 * B * 4 * d * 2 * d
+    w = L * (proj + (2 * d * d if decoder else 0))
+    return 4 * L * fwd, L * 4 * M * d * 2 + w * (2 + 4)
+
+
 def stack_times(dev, gpu, cuda_ms):
     """Encoder and decoder train stacks, forward + backward (L=8, dropout
-    0.1, bf16, cont2cont_mdn width), kernels against the plain versions."""
+    0.1, bf16, cont2cont_mdn width), kernels against the plain versions,
+    beside the bound of :func:`stack_work`."""
     import torch
 
     from sketchformer_tpu_torch.ops import encoder_stack_train as est
@@ -1113,10 +1548,13 @@ def stack_times(dev, gpu, cuda_ms):
         for label, ops in (("kernel", est.KERNELS), ("plain", est.PLAIN)):
             ms[label] = cuda_ms(lambda: stack_grads(*args, ops,
                                                     torch.bfloat16), 3, 1)
+        b_ms, b_by = bound(*stack_work(B, T, d, H, MDN["dff"], MDN["L"],
+                                       decoder))
         print(f"time fused_{'decoder' if decoder else 'encoder'}_stack_train "
               f"fwd+bwd (L={MDN['L']}, B={B}, T={T}, d={d}, H={H}, qk_norm, "
-              f"bf16, dropout 0.1): kernel {ms['kernel']:.2f} ms, plain "
-              f"{ms['plain']:.2f} ms [{gpu}]")
+              f"bf16, dropout 0.1, bits mode): kernel {ms['kernel']:.2f} ms, "
+              f"plain {ms['plain']:.2f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}) [{gpu}]")
         del mod
 
 
@@ -1139,10 +1577,12 @@ def main() -> int:
     from sketchformer_tpu_torch.ops import decode_chunk as dc
     from sketchformer_tpu_torch.ops import attention_train as at
     from sketchformer_tpu_torch.ops import encoder_stack as es
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
     from sketchformer_tpu_torch.ops import norm_train as nt
+    from sketchformer_tpu_torch.ops import token_ce as tce
     from sketchformer_tpu_torch.utils import engines
 
-    counters = (es, dc, da, at, nt)
+    counters = (es, dc, da, at, nt, tce, dp)
 
     dev = torch.device("cuda")
     gpu = gpu_line()
@@ -1298,6 +1738,8 @@ def main() -> int:
 
     check_decode_kernels(randn, gen, dev, errs)
     check_train_kernels(randn, dev, errs, compare)
+    check_token_ce(randn, gen, dev, errs, compare)
+    check_dropout_prng(dev, errs)
 
     # ---- 4. main path: the port's sbir CLI at the sbir preset's width ------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1478,6 +1920,12 @@ def main() -> int:
         train_launches, _ = train_main_path(cli, counters, engines, tmp)
     for k in TRAIN_KERNELS:
         launches[k] = train_launches[k]
+
+    # ---- 4d. main path: token-mode training, then eval -------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tok_launches = train_tok_main_path(cli, counters, engines, tmp)
+    for k in TOK_KERNELS:
+        launches[k] = tok_launches[k]
 
     # ---- 5. times ----------------------------------------------------------
     def cuda_ms(fn, iters=20, warm=3):
@@ -1701,6 +2149,12 @@ def main() -> int:
         times[name] = (k_ms, p_ms)
         lib[name] = l_ms
     stack_times(dev, gpu, cuda_ms)
+    for name, (k_ms, p_ms, l_ms) in token_ce_times(
+            randn, gen, dev, gpu, cuda_ms, paired).items():
+        times[name] = (k_ms, p_ms)
+        lib[name] = l_ms
+    times["emit_dropout_bits"] = emit_times(dev, gpu, cuda_ms, paired)
+    lib["emit_dropout_bits"] = None
     steps_ms = train_step_times(gpu, dev, cli)
     print(f"train steps: {json.dumps(steps_ms)} [{gpu}]")
 
@@ -1709,6 +2163,8 @@ def main() -> int:
                                K=AR["K"], N_mdn=6 * MDN_MIXTURES + 3)
     work.update(train_kernel_work(*(MDN[k] for k in ("B", "T", "d", "H",
                                                      "dff"))))
+    work.update(token_kernel_work(TRAIN["B"] * TRAIN["T"], TRAIN["d"],
+                                  TRAIN["V"], TRAIN["L"]))
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "jaxlib"))

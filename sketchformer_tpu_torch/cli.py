@@ -1,6 +1,6 @@
-"""Command line for the PyTorch port: training and eval of continuous
-(MDN) models, embedding extraction, SBIR eval, AR reconstruction and latent
-interpolation.
+"""Command line for the PyTorch port: training and eval (token and
+continuous (MDN) models), embedding extraction, SBIR eval, AR
+reconstruction and latent interpolation.
 
 Port of the ``train``, ``eval``, ``embed``, ``sbir``, ``decode`` and
 ``interpolate`` subcommands of ``sketchformer_tpu.cli``, with the same
@@ -12,6 +12,9 @@ initialisation::
 
     python -m sketchformer_tpu_torch.cli train --preset cont2cont_mdn \
         --run-dir R --device cuda --loop-arg total_steps=30
+    python -m sketchformer_tpu_torch.cli train --preset pretrain_full \
+        --loader synthetic --loader-arg num_classes=345 --run-dir R2 \
+        --device cuda --loop-arg total_steps=30 --loop-arg warmup_steps=500
     python -m sketchformer_tpu_torch.cli eval --run-dir R --device cuda
 
     python -m sketchformer_tpu_torch.cli embed --preset sbir --init-seed 0 \\
@@ -330,7 +333,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default="cuda",
                         help="torch device, e.g. cuda, cuda:0 or cpu")
 
-    sp = sub.add_parser("train", help="train a continuous (MDN) model")
+    sp = sub.add_parser("train", help="train a token or continuous model")
     data_args(sp)
     sp.add_argument("--run-dir", required=True)
     sp.add_argument("--loop-arg", action="append", default=[],

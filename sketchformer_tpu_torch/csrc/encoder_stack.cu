@@ -9,7 +9,10 @@
 // sketchformer_tpu/ops/pallas_encoder_train.py::_layer_bwd_kernel and
 // sketchformer_tpu/ops/pallas_decoder_train.py::_dec_layer_bwd_kernel
 // (linear_nt, linear_tn, and linear's dropout epilogue; see the note above
-// linear_nt).
+// linear_nt). A dropout site's bytes are read from a u8 tensor ('bits'
+// mode) or drawn in-kernel from a Philox seed ('prng' mode, the port of
+// sketchformer_tpu/ops/pallas_dropout.py::draw_layer_bytes; see
+// dropout_prng.cuh and load_masked).
 //
 // The TPU kernel keeps a whole batch group's activations resident in VMEM
 // for all L layers. That does not carry over: one sketch's (T=192, 3*256)
@@ -56,6 +59,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "dropout_prng.cuh"
 
 namespace {
 
@@ -108,8 +112,9 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)  // two blocks per SM
 linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
               const float* __restrict__ bias, const T* __restrict__ residual,
-              const uint8_t* __restrict__ drop, int thresh, float keep_scale,
-              T* __restrict__ out, int M, int N, int K, int relu) {
+              const uint8_t* __restrict__ drop, DropPrng prng, int thresh,
+              float keep_scale, T* __restrict__ out, int M, int N, int K,
+              int relu) {
   constexpr int BK = Slab<T>::BK;
   constexpr int VW = 16 / sizeof(T);  // elements per 16-byte vector
   constexpr int LDA = BK + kPadA, LDB = BN + kPadB, LDC = BN + kPadC;
@@ -238,9 +243,10 @@ linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
       float v = round_dt<T>(cs[r * LDC + c]);
       v = round_dt<T>(v + round_dt<T>(bias[n]));
       if (relu) v = fmaxf(v, 0.f);
-      if (drop != nullptr)  // u8-threshold dropout of the product's output
-        v = drop[(size_t)m * N + n] >= thresh ? round_dt<T>(v * keep_scale)
-                                               : 0.f;
+      if (has_drop(drop, prng))  // u8-threshold dropout of the output
+        v = drop_byte(drop, prng, m, n, N) >= (uint32_t)thresh
+                ? round_dt<T>(v * keep_scale)
+                : 0.f;
       if (residual != nullptr) v = to_f<T>(residual[(size_t)m * N + n]) + v;
       out[(size_t)m * N + n] = from_f<T>(v);
     }
@@ -256,10 +262,11 @@ linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
 //
 // Both stage each operand's tile as its rows arrive from device memory
 // (coalesced loads, contiguous shared-memory stores) and run one WMMA / FMA
-// inner loop, reading a transposed operand through a column-major fragment. The gradient operand (a for NT, y for TN) may be
-// f32: it is multiplied by the dropout mask of its site (u8 >= thresh ->
-// keep_scale, else 0) in f32 and rounded to the compute dtype as it is
-// staged, which is where the TPU kernel rounds it (df.astype(dt)).
+// inner loop, reading a transposed operand through a column-major fragment.
+// The gradient operand (a for NT, y for TN) may be f32: it is multiplied by
+// the dropout mask of its site (byte >= thresh -> keep_scale, else 0) in
+// f32 and rounded to the compute dtype as it is staged (load_masked), which
+// is where the TPU kernel rounds it (df.astype(dt)).
 // linear_nt's epilogue optionally gates by a ReLU output (gate > 0, the
 // FFN backward) and writes f32, or rounds to the compute dtype and adds a
 // running sum (dmemory over the decoder's layers). linear_tn reduces over
@@ -358,15 +365,76 @@ __device__ __forceinline__ void zero_acc(FragC<T> (&cfrag)[2],
   }
 }
 
-// gradient value of one element: f32 (or dt) times its dropout mask
-template <typename TA>
-__device__ __forceinline__ float masked(const TA* __restrict__ p,
-                                        const uint8_t* __restrict__ drop,
-                                        size_t idx, int thresh,
-                                        float keep_scale) {
-  float v = to_f<TA>(p[idx]);
-  if (drop != nullptr) v *= drop[idx] >= thresh ? keep_scale : 0.f;
-  return v;
+// The gradient operand's kRows x kCols slab at (row0, col0) of an [.][N]
+// array, each element f32 (or dt) times its dropout mask and rounded to the
+// compute dtype, into kE registers a thread. 'bits' mode (kPrng false) reads
+// the mask bytes from drop (or none) and gives thread tid the elements
+// e = tid + i * kThreads (one column a lane); 'prng' mode draws them
+// in-kernel and gives each thread four consecutive columns of a row per
+// Philox call (N a multiple of 4), a quarter of the calls one element each
+// would take. The two are separate instantiations, so the 'bits' kernels
+// carry no Philox code in their main loop.
+template <typename T, typename TA, int kRows, int kCols, bool kPrng>
+__device__ __forceinline__ void load_masked(
+    T (&reg)[kRows * kCols / kThreads], const TA* __restrict__ a,
+    const uint8_t* __restrict__ drop, const DropPrng& prng, int row0,
+    int col0, int row_lim, int N, int thresh, float keep_scale, int tid) {
+  constexpr int kE = kRows * kCols / kThreads;
+  if constexpr (!kPrng) {
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      const int e = tid + i * kThreads, r = e / kCols, c = e % kCols;
+      const int m = row0 + r, n = col0 + c;
+      float v = 0.f;
+      if (m < row_lim && n < N) {
+        v = to_f<TA>(a[(size_t)m * N + n]);
+        if (drop != nullptr)
+          v *= drop[(size_t)m * N + n] >= (uint32_t)thresh ? keep_scale : 0.f;
+      }
+      reg[i] = from_f<T>(v);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kE / 4; ++i) {
+      const int g = tid + i * kThreads, r = g / (kCols / 4);
+      const int m = row0 + r, n = col0 + (g % (kCols / 4)) * 4;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (m < row_lim && n < N) w = prng_words4(prng, m, n, N);
+      const uint32_t wj[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = 0.f;
+        if (m < row_lim && n + j < N) {
+          v = to_f<TA>(a[(size_t)m * N + n + j]);
+          v *= ((wj[j] >> prng.shift) & 255u) >= (uint32_t)thresh ? keep_scale
+                                                                   : 0.f;
+        }
+        reg[4 * i + j] = from_f<T>(v);
+      }
+    }
+  }
+}
+
+// load_masked's registers into shared memory (row stride ld), same mapping
+template <typename T, int kRows, int kCols, bool kPrng>
+__device__ __forceinline__ void store_masked(
+    const T (&reg)[kRows * kCols / kThreads], T* dst, int ld, int tid) {
+  constexpr int kE = kRows * kCols / kThreads;
+  if constexpr (!kPrng) {
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      const int e = tid + i * kThreads;
+      dst[(e / kCols) * ld + e % kCols] = reg[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kE / 4; ++i) {
+      const int g = tid + i * kThreads;
+      const int r = g / (kCols / 4), c = (g % (kCols / 4)) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[r * ld + c + j] = reg[4 * i + j];
+    }
+  }
 }
 
 constexpr int kLdaT = TBK + kPadA, kLdbT = BN + kPadB, kLdcT = BN + kPadC;
@@ -378,10 +446,10 @@ struct TrainSmem {  // NT: [BM][kLdaT] + [BN][kLdaT]; TN: 2 x [TBK][kLdbT]
   static constexpr int kBytes = kAB > kC ? kAB : kC;
 };
 
-template <typename T, typename TA, typename TO>
+template <typename T, typename TA, typename TO, bool kPrng>
 __global__ void __launch_bounds__(kThreads, 2)
 linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
-                 const uint8_t* __restrict__ drop, int thresh,
+                 const uint8_t* __restrict__ drop, DropPrng prng, int thresh,
                  float keep_scale, const T* __restrict__ gate,
                  const T* __restrict__ residual, TO* __restrict__ out, int M,
                  int N, int K) {
@@ -398,15 +466,8 @@ linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
   zero_acc<T>(cfrag, acc);
   T ra[kElemsA], rb[kElemsB];
   auto load_slab = [&](int n0) {
-#pragma unroll
-    for (int i = 0; i < kElemsA; ++i) {
-      const int e = tid + i * kThreads, r = e / TBK, c = e % TBK;
-      const int m = m0 + r, n = n0 + c;
-      ra[i] = from_f<T>(m < M && n < N
-                            ? masked<TA>(a, drop, (size_t)m * N + n, thresh,
-                                         keep_scale)
-                            : 0.f);
-    }
+    load_masked<T, TA, BM, TBK, kPrng>(ra, a, drop, prng, m0, n0, M, N,
+                                       thresh, keep_scale, tid);
 #pragma unroll
     for (int i = 0; i < kElemsB; ++i) {
       const int e = tid + i * kThreads, c = e % TBK, r = e / TBK;
@@ -416,11 +477,7 @@ linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
   };
   load_slab(0);
   for (int n0 = 0; n0 < N; n0 += TBK) {
-#pragma unroll
-    for (int i = 0; i < kElemsA; ++i) {
-      const int e = tid + i * kThreads;
-      as[(e / TBK) * kLdaT + e % TBK] = ra[i];
-    }
+    store_masked<T, BM, TBK, kPrng>(ra, as, kLdaT, tid);
 #pragma unroll
     for (int i = 0; i < kElemsB; ++i) {
       const int e = tid + i * kThreads;
@@ -446,10 +503,10 @@ linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
   }
 }
 
-template <typename T, typename TB>
+template <typename T, typename TB, bool kPrng>
 __global__ void __launch_bounds__(kThreads, 2)
 linear_tn_kernel(const T* __restrict__ x, const TB* __restrict__ y,
-                 const uint8_t* __restrict__ drop, int thresh,
+                 const uint8_t* __restrict__ drop, DropPrng prng, int thresh,
                  float keep_scale, float* __restrict__ out, int M, int K,
                  int N, int rows_per_split) {
   // x [M][K], y [M][N]; out[z] [K][N] sums rows [z*rps, (z+1)*rps)
@@ -473,15 +530,8 @@ linear_tn_kernel(const T* __restrict__ x, const TB* __restrict__ y,
       const int m = m0 + c, k = kr0 + r;
       ra[i] = m < me && k < K ? x[(size_t)m * K + k] : from_f<T>(0.f);
     }
-#pragma unroll
-    for (int i = 0; i < kElemsB; ++i) {
-      const int e = tid + i * kThreads, c = e % BN, r = e / BN;
-      const int m = m0 + r, n = n0 + c;
-      rb[i] = from_f<T>(m < me && n < N
-                            ? masked<TB>(y, drop, (size_t)m * N + n, thresh,
-                                         keep_scale)
-                            : 0.f);
-    }
+    load_masked<T, TB, TBK, BN, kPrng>(rb, y, drop, prng, m0, n0, me, N,
+                                       thresh, keep_scale, tid);
   };
   load_slab(mb);
   for (int m0 = mb; m0 < me; m0 += TBK) {
@@ -490,11 +540,7 @@ linear_tn_kernel(const T* __restrict__ x, const TB* __restrict__ y,
       const int e = tid + i * kThreads;
       as[(e / BM) * kLdbT + e % BM] = ra[i];
     }
-#pragma unroll
-    for (int i = 0; i < kElemsB; ++i) {
-      const int e = tid + i * kThreads;
-      bs[(e / BN) * kLdbT + e % BN] = rb[i];
-    }
+    store_masked<T, TBK, BN, kPrng>(rb, bs, kLdbT, tid);
     __syncthreads();
     if (m0 + TBK < me) load_slab(m0 + TBK);
     mma_slab<T, true, kLdbT, false, kLdbT>(as, bs, cfrag, acc, tid);
@@ -759,16 +805,16 @@ bool vector_ok(const void* p, int cols) {
 
 template <typename T>
 int launch_linear(const void* a, const void* w, const void* bias,
-                  const void* residual, const void* drop, int thresh,
-                  float keep_scale, void* out, int M, int N, int K, int relu,
-                  cudaStream_t stream) {
+                  const void* residual, const void* drop, DropPrng prng,
+                  int thresh, float keep_scale, void* out, int M, int N, int K,
+                  int relu, cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const bool vec = vector_ok<T>(a, K) && vector_ok<T>(w, N);
   auto kernel = vec ? linear_kernel<T, true> : linear_kernel<T, false>;
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<const T*>(residual),
-      static_cast<const uint8_t*>(drop), thresh, keep_scale,
+      static_cast<const uint8_t*>(drop), prng, thresh, keep_scale,
       static_cast<T*>(out), M, N, K, relu);
   return (int)cudaGetLastError();
 }
@@ -824,9 +870,10 @@ int launch_attention_dh(const void* qkv, const void* key_bias,
 }
 
 
-template <typename T>
+template <typename T, bool kPrng>
 int launch_linear_nt(int a_f32, const void* a, const void* w, const void* drop,
-                     int thresh, float keep_scale, const void* gate,
+                     DropPrng prng, int thresh, float keep_scale,
+                     const void* gate,
                      const void* residual, int out_f32, void* out, int M,
                      int N, int K, cudaStream_t stream) {
   const dim3 grid((K + BN - 1) / BN, (M + BM - 1) / BM);
@@ -835,28 +882,28 @@ int launch_linear_nt(int a_f32, const void* a, const void* w, const void* drop,
   const T* gp = static_cast<const T*>(gate);
   const T* rp = static_cast<const T*>(residual);
   if (a_f32 && out_f32)
-    linear_nt_kernel<T, float, float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(a), wp, dp, thresh, keep_scale, gp, rp,
+    linear_nt_kernel<T, float, float, kPrng><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(a), wp, dp, prng, thresh, keep_scale, gp, rp,
         static_cast<float*>(out), M, N, K);
   else if (a_f32)
-    linear_nt_kernel<T, float, T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(a), wp, dp, thresh, keep_scale, gp, rp,
+    linear_nt_kernel<T, float, T, kPrng><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(a), wp, dp, prng, thresh, keep_scale, gp, rp,
         static_cast<T*>(out), M, N, K);
   else if (out_f32)
-    linear_nt_kernel<T, T, float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(a), wp, dp, thresh, keep_scale, gp, rp,
+    linear_nt_kernel<T, T, float, kPrng><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(a), wp, dp, prng, thresh, keep_scale, gp, rp,
         static_cast<float*>(out), M, N, K);
   else
-    linear_nt_kernel<T, T, T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(a), wp, dp, thresh, keep_scale, gp, rp,
+    linear_nt_kernel<T, T, T, kPrng><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(a), wp, dp, prng, thresh, keep_scale, gp, rp,
         static_cast<T*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPrng>
 int launch_linear_tn(int b_f32, const void* x, const void* y, const void* drop,
-                     int thresh, float keep_scale, void* out, int M, int K,
-                     int N, int splits, cudaStream_t stream) {
+                     DropPrng prng, int thresh, float keep_scale, void* out,
+                     int M, int K, int N, int splits, cudaStream_t stream) {
   if (splits < 1) return (int)cudaErrorInvalidValue;
   const int rps = ((M + splits - 1) / splits + TBK - 1) / TBK * TBK;
   const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
@@ -864,12 +911,14 @@ int launch_linear_tn(int b_f32, const void* x, const void* y, const void* drop,
   const uint8_t* dp = static_cast<const uint8_t*>(drop);
   float* op = static_cast<float*>(out);
   if (b_f32)
-    linear_tn_kernel<T, float><<<grid, kThreads, 0, stream>>>(
-        xp, static_cast<const float*>(y), dp, thresh, keep_scale, op, M, K, N,
+    linear_tn_kernel<T, float, kPrng><<<grid, kThreads, 0, stream>>>(
+        xp, static_cast<const float*>(y), dp, prng, thresh, keep_scale, op, M,
+        K, N,
         rps);
   else
-    linear_tn_kernel<T, T><<<grid, kThreads, 0, stream>>>(
-        xp, static_cast<const T*>(y), dp, thresh, keep_scale, op, M, K, N,
+    linear_tn_kernel<T, T, kPrng><<<grid, kThreads, 0, stream>>>(
+        xp, static_cast<const T*>(y), dp, prng, thresh, keep_scale, op, M, K,
+        N,
         rps);
   return (int)cudaGetLastError();
 }
@@ -879,45 +928,58 @@ int launch_linear_tn(int b_f32, const void* x, const void* y, const void* drop,
 // dtype codes: 0 = float32, 1 = bfloat16
 extern "C" {
 
+// the dropout operand of sk_linear, sk_linear_nt and sk_linear_tn: the u8
+// bytes in drop, or (drop null, prng_T > 0) site `site` of layer `layer`
+// drawn in-kernel from seed, rows m = b * prng_T + t (dropout_prng.cuh)
 int sk_linear(int dtype, const void* a, const void* w, const void* bias,
-              const void* residual, const void* drop, int thresh,
-              float keep_scale, void* out, int M, int N, int K, int relu,
-              void* stream) {
+              const void* residual, const void* drop, unsigned long long seed,
+              int layer, int site, int prng_T, int thresh, float keep_scale,
+              void* out, int M, int N, int K, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropPrng p = make_prng(seed, layer, site, prng_T);
   if (dtype == 0)
-    return launch_linear<float>(a, w, bias, residual, drop, thresh, keep_scale,
-                                out, M, N, K, relu, s);
+    return launch_linear<float>(a, w, bias, residual, drop, p, thresh,
+                                keep_scale, out, M, N, K, relu, s);
   if (dtype == 1)
-    return launch_linear<__nv_bfloat16>(a, w, bias, residual, drop, thresh,
+    return launch_linear<__nv_bfloat16>(a, w, bias, residual, drop, p, thresh,
                                         keep_scale, out, M, N, K, relu, s);
   return (int)cudaErrorInvalidValue;
 }
 
 int sk_linear_nt(int dtype, int a_f32, const void* a, const void* w,
-                 const void* drop, int thresh, float keep_scale,
+                 const void* drop, unsigned long long seed, int layer,
+                 int site, int prng_T, int thresh, float keep_scale,
                  const void* gate, const void* residual, int out_f32,
                  void* out, int M, int N, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_linear_nt<float>(a_f32, a, w, drop, thresh, keep_scale,
-                                   gate, residual, out_f32, out, M, N, K, s);
-  if (dtype == 1)
-    return launch_linear_nt<__nv_bfloat16>(a_f32, a, w, drop, thresh,
-                                           keep_scale, gate, residual, out_f32,
-                                           out, M, N, K, s);
+  const DropPrng p = make_prng(seed, layer, site, prng_T);
+  if (prng_T > 0 && N % 4 != 0) return (int)cudaErrorInvalidValue;
+#define SK_NT(T, P)                                                        \
+  return launch_linear_nt<T, P>(a_f32, a, w, drop, p, thresh, keep_scale, \
+                                gate, residual, out_f32, out, M, N, K, s)
+  if (dtype == 0 && prng_T > 0) SK_NT(float, true);
+  if (dtype == 0) SK_NT(float, false);
+  if (dtype == 1 && prng_T > 0) SK_NT(__nv_bfloat16, true);
+  if (dtype == 1) SK_NT(__nv_bfloat16, false);
+#undef SK_NT
   return (int)cudaErrorInvalidValue;
 }
 
 int sk_linear_tn(int dtype, int b_f32, const void* x, const void* y,
-                 const void* drop, int thresh, float keep_scale, void* out,
+                 const void* drop, unsigned long long seed, int layer,
+                 int site, int prng_T, int thresh, float keep_scale, void* out,
                  int M, int K, int N, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_linear_tn<float>(b_f32, x, y, drop, thresh, keep_scale, out,
-                                   M, K, N, splits, s);
-  if (dtype == 1)
-    return launch_linear_tn<__nv_bfloat16>(b_f32, x, y, drop, thresh,
-                                           keep_scale, out, M, K, N, splits, s);
+  const DropPrng p = make_prng(seed, layer, site, prng_T);
+  if (prng_T > 0 && N % 4 != 0) return (int)cudaErrorInvalidValue;
+#define SK_TN(T, P)                                                         \
+  return launch_linear_tn<T, P>(b_f32, x, y, drop, p, thresh, keep_scale, \
+                                out, M, K, N, splits, s)
+  if (dtype == 0 && prng_T > 0) SK_TN(float, true);
+  if (dtype == 0) SK_TN(float, false);
+  if (dtype == 1 && prng_T > 0) SK_TN(__nv_bfloat16, true);
+  if (dtype == 1) SK_TN(__nv_bfloat16, false);
+#undef SK_TN
   return (int)cudaErrorInvalidValue;
 }
 

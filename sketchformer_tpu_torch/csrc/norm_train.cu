@@ -17,7 +17,9 @@
 //                  dtype; the block's partial sums of dy * xhat and dy go to
 //                  one row each of the partial buffers.
 //   sum_rows       out[c] = sum over rows r of x[r, c] (optionally times the
-//                  row's dropout mask), lanes over columns, warps over rows
+//                  element's dropout mask: bytes read from a u8 tensor, or
+//                  drawn in-kernel, dropout_prng.cuh), lanes over columns,
+//                  warps over rows
 //                  and a fixed-order pass over the warps; with splits > 1
 //                  it writes split partial rows that a second launch adds.
 //
@@ -28,6 +30,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "dropout_prng.cuh"
 
 namespace {
 
@@ -96,8 +99,8 @@ layernorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
 template <typename TI>
 __global__ void __launch_bounds__(kThreads)
 sum_rows_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ drop,
-                int thresh, float keep_scale, float* __restrict__ out, int R,
-                int N, int rows_per_split) {
+                DropPrng prng, int thresh, float keep_scale,
+                float* __restrict__ out, int R, int N, int rows_per_split) {
   __shared__ float red[kWarps][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * 32 + lane;
@@ -108,7 +111,9 @@ sum_rows_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ drop,
     for (int r = r0 + warp; r < r1; r += kWarps) {
       const size_t i = (size_t)r * N + c;
       float v = to_f<TI>(x[i]);
-      if (drop != nullptr) v *= drop[i] >= thresh ? keep_scale : 0.f;
+      if (has_drop(drop, prng))
+        v *= drop_byte(drop, prng, r, c, N) >= (uint32_t)thresh ? keep_scale
+                                                                : 0.f;
       acc += v;
     }
   }
@@ -153,15 +158,15 @@ int launch_ln_bwd(int resid_code, int out_f32, const void* x, const void* dy,
 }
 
 template <typename TI>
-int launch_sum_rows(const void* x, const void* drop, int thresh,
-                    float keep_scale, void* out, int R, int N, int splits,
-                    cudaStream_t stream) {
+int launch_sum_rows(const void* x, const void* drop, DropPrng prng,
+                    int thresh, float keep_scale, void* out, int R, int N,
+                    int splits, cudaStream_t stream) {
   if (splits < 1) return (int)cudaErrorInvalidValue;
   const int rps = (R + splits - 1) / splits;
   const dim3 grid((N + 31) / 32, splits);
   sum_rows_kernel<TI><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TI*>(x), static_cast<const uint8_t*>(drop), thresh,
-      keep_scale, static_cast<float*>(out), R, N, rps);
+      static_cast<const TI*>(x), static_cast<const uint8_t*>(drop), prng,
+      thresh, keep_scale, static_cast<float*>(out), R, N, rps);
   return (int)cudaGetLastError();
 }
 
@@ -184,17 +189,20 @@ int sk_layernorm_bwd(int dtype, int resid_code, int out_f32, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
-// in_code: 0 float32 rows, 1 bfloat16 rows
-int sk_sum_rows(int in_code, const void* x, const void* drop, int thresh,
-                float keep_scale, void* out, int R, int N, int splits,
-                void* stream) {
+// in_code: 0 float32 rows, 1 bfloat16 rows; the dropout operand as
+// sk_linear's (encoder_stack.cu)
+int sk_sum_rows(int in_code, const void* x, const void* drop,
+                unsigned long long seed, int layer, int site, int prng_T,
+                int thresh, float keep_scale, void* out, int R, int N,
+                int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DropPrng p = make_prng(seed, layer, site, prng_T);
   if (in_code == 0)
-    return launch_sum_rows<float>(x, drop, thresh, keep_scale, out, R, N,
+    return launch_sum_rows<float>(x, drop, p, thresh, keep_scale, out, R, N,
                                   splits, s);
   if (in_code == 1)
-    return launch_sum_rows<__nv_bfloat16>(x, drop, thresh, keep_scale, out, R,
-                                          N, splits, s);
+    return launch_sum_rows<__nv_bfloat16>(x, drop, p, thresh, keep_scale, out,
+                                          R, N, splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

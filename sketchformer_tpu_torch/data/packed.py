@@ -4,9 +4,8 @@ Port of ``sketchformer_tpu/data/packed.py``. :func:`pack_batch` (numpy, on
 the host) reduces a pipeline batch to the stroke rows, per-sketch lengths,
 labels and ``is_real``; :func:`unpack_batch` rebuilds the continuous
 batch's masks, targets and shifted decoder rows with torch ops on whatever
-device the packed tensors lie, an exact mirror of ``make_batch_cont``
-(``data/pipeline.py``). Token batches are not ported here (token-mode
-training is not ported yet).
+device the packed tensors lie, an exact mirror of ``make_batch_tok`` and
+``make_batch_cont`` (``data/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from sketchformer_tpu_torch.data.tokenizer import SOS_ID
 
 PEN_END = 2
 _SOS_ROW = (0.0, 0.0, 0.0, 1.0, 0.0)  # pipeline.SOS_ROW: "pen just lifted"
@@ -41,14 +42,16 @@ def pack_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def unpack_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Packed continuous batch (torch tensors) -> the full batch."""
+    """Packed batch (torch tensors) -> the full batch."""
     if not is_packed(batch):
         return batch
-    if "n" not in batch:
-        raise ValueError("token-mode batches are not supported by the port's "
-                         "training path yet")
     enc = batch["enc"]
     out = dict(batch)
+    if "n" not in batch:  # token ids: shift right, SOS first; PAD carries
+        out["dec_in"] = torch.cat(
+            [torch.full_like(enc[:, :1], SOS_ID), enc[:, :-1]], dim=1)
+        out["dec_tgt"] = enc
+        return out
     n = out.pop("n")
     B, T = enc.shape[:2]
     pos = torch.arange(T, dtype=torch.int32, device=enc.device)[None, :]

@@ -13,6 +13,7 @@ come from ``convert.init_params`` or a converted checkpoint.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -63,7 +64,10 @@ class LayerNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """``flax.linen.Embed``: a table lookup in the compute dtype."""
+    """``flax.linen.Embed``: a table lookup in the compute dtype. The lookup
+    is ``F.embedding`` of the table cast to the compute dtype (the table's
+    gradient is summed there, as flax's is), whose backward is the
+    dedicated embedding backward rather than a general index scatter."""
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -72,4 +76,4 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(torch.zeros(num_embeddings, features))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding.to(self.dtype)[ids]
+        return F.embedding(ids.long(), self.embedding.to(self.dtype))

@@ -4,8 +4,10 @@ output head, and the classifier on z.
 Port of ``sketchformer_tpu/models/sketchformer.py``: ``encode`` / ``embed``,
 the teacher-forced ``forward`` (the flax ``__call__``; in training mode it
 is the flax call with ``deterministic=False``: every dropout site is active,
-and the fused stacks take their differentiable kernels), ``memory_from_z``,
-and the cached AR step ``decode_step`` with ``init_cache``. Submodule and
+and the fused stacks take their differentiable kernels), the token-mode
+loss forward ``forward_tok_loss`` (the CE inside the model, through
+``TokenHead.fused_ce``), ``memory_from_z``, and the cached AR step
+``decode_step`` with ``init_cache``. Submodule and
 parameter names follow the flax module, so ``state_dict`` keys are the flax
 param paths joined with dots. Serving paths run the model in eval mode,
 where dropout is the identity.
@@ -104,12 +106,8 @@ class Sketchformer(nn.Module):
             dec_in = dec_in.to(self.config.compute_dtype)
         return self.dec_embed(dec_in, pos)
 
-    def forward(self, enc: torch.Tensor, dec_in: torch.Tensor,
-                enc_mask: Optional[torch.Tensor] = None,
-                dec_key_mask: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
-        """Teacher-forced pass: ``recon`` (token logits or raw MDN
-        parameters, f32), ``cls`` logits and the f32 ``embedding``."""
+    def _trunk(self, enc, dec_in, enc_mask, dec_key_mask):
+        """The shared encode -> decode trunk: (z, decoder output)."""
         z, memory, memory_mask = self.encode(enc, enc_mask)
         if self.config.use_continuous:
             self_key = (None if dec_key_mask is None
@@ -119,8 +117,39 @@ class Sketchformer(nn.Module):
         dec_out = self.decoder(self.embed_dec(dec_in), memory,
                                self_key_mask=self_key, causal=True,
                                cross_key_mask=memory_mask)
+        return z, dec_out
+
+    def forward(self, enc: torch.Tensor, dec_in: torch.Tensor,
+                enc_mask: Optional[torch.Tensor] = None,
+                dec_key_mask: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced pass: ``recon`` (token logits or raw MDN
+        parameters, f32), ``cls`` logits and the f32 ``embedding``."""
+        z, dec_out = self._trunk(enc, dec_in, enc_mask, dec_key_mask)
         return {"recon": self.out_head(dec_out), "cls": self.classify(z),
                 "embedding": z.float()}
+
+    def forward_tok_loss(self, enc: torch.Tensor, dec_in: torch.Tensor,
+                         dec_tgt: torch.Tensor,
+                         enc_mask: Optional[torch.Tensor] = None,
+                         dec_key_mask: Optional[torch.Tensor] = None,
+                         pad_id: int = 0,
+                         row_weights: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """Token-mode forward with the reconstruction CE computed inside
+        the model (``TokenHead.fused_ce``; the kernels of ``ops/token_ce.py``
+        when ``attn_impl='pallas'``, the chunked composed head otherwise),
+        so the (B, T, V) f32 logits never exist: ``recon_loss`` and
+        ``recon_acc`` scalars, ``cls`` logits and the f32 ``embedding``.
+        ``row_weights`` (B,) zeroes repeat-padded rows out of the CE."""
+        if self.config.use_continuous:
+            raise ValueError("forward_tok_loss is token-mode only")
+        z, dec_out = self._trunk(enc, dec_in, enc_mask, dec_key_mask)
+        recon_loss, recon_acc = self.out_head.fused_ce(
+            dec_out, dec_tgt, pad_id=pad_id, row_weights=row_weights,
+            impl="pallas" if self.config.attn_impl == "pallas" else "xla")
+        return {"recon_loss": recon_loss, "recon_acc": recon_acc,
+                "cls": self.classify(z), "embedding": z.float()}
 
     def init_cache(self, batch_size: int,
                    max_len: Optional[int] = None) -> List[KVCache]:

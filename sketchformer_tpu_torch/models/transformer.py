@@ -18,8 +18,10 @@ decoder a causal teacher-forced pass), the port runs its kernel stacks:
   decode engine with whole steps in one kernel is ``infer/fast_decode.py``.
 
 In training mode the stack-entry dropout stays a composed site and the
-per-layer sites run inside the stacks, their bytes drawn from the
-generator of ``models/dropout.py``.
+per-layer sites run inside the stacks: on the card each stack draws its
+bytes in the kernels from the next seed of ``models/dropout.py``
+(``dropout_impl='auto'`` is 'prng' there), on the CPU from the context's
+generator ('bits').
 """
 
 from __future__ import annotations
@@ -31,7 +33,11 @@ from torch import nn
 
 from sketchformer_tpu_torch.convert import stacked_decoder_weights
 from sketchformer_tpu_torch.models.attention import KVCache, MultiHeadAttention
-from sketchformer_tpu_torch.models.dropout import Dropout, current_generator
+from sketchformer_tpu_torch.models.dropout import (
+    Dropout,
+    current_generator,
+    next_seed,
+)
 from sketchformer_tpu_torch.models.layers import Dense, LayerNorm
 from sketchformer_tpu_torch.ops import decoder_stack_train as dst
 from sketchformer_tpu_torch.ops import encoder_stack_train as est
@@ -132,7 +138,8 @@ class Encoder(nn.Module):
         w = self.stacked_weights(grad=True)
         y = est.fused_encoder_stack_train(
             x, key_mask, w, num_heads=self.num_heads, qk_norm=self.qk_norm,
-            dropout_rate=self.dropout, generator=current_generator())
+            dropout_rate=self.dropout, generator=current_generator(),
+            seed=next_seed() if x.is_cuda else None)
         return est.apply_final_ln(y, w)
 
 
@@ -239,5 +246,6 @@ class Decoder(nn.Module):
         y = dst.fused_decoder_stack_train(
             x, memory, self_key_mask, cross_key_mask, w,
             num_heads=self.num_heads, qk_norm=self.qk_norm,
-            dropout_rate=self.dropout, generator=current_generator())
+            dropout_rate=self.dropout, generator=current_generator(),
+            seed=next_seed() if x.is_cuda else None)
         return est.apply_final_ln(y, w)

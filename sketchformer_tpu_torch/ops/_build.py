@@ -33,13 +33,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
+_DROP = [_P, _U, _I, _I, _I]
 # C entry points of csrc/*.cu: (argtypes, restype)
 SIGNATURES = {
-    "sk_linear": ([_I, _P, _P, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _P],
-                  _I),
-    "sk_linear_nt": ([_I, _I, _P, _P, _P, _I, _F, _P, _P, _I, _P, _I, _I, _I,
-                      _P], _I),
-    "sk_linear_tn": ([_I, _I, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _P],
+    # a dropout operand is (bytes ptr, seed, layer, site, T): _DROP
+    "sk_linear": ([_I, _P, _P, _P, _P, *_DROP, _I, _F, _P, _I, _I, _I, _I,
+                   _P], _I),
+    "sk_linear_nt": ([_I, _I, _P, _P, *_DROP, _I, _F, _P, _P, _I, _P, _I, _I,
+                      _I, _P], _I),
+    "sk_linear_tn": ([_I, _I, _P, _P, *_DROP, _I, _F, _P, _I, _I, _I, _I, _P],
                      _I),
     "sk_attention_fwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _P, _P,
                           _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -50,7 +53,10 @@ SIGNATURES = {
                          _I),
     "sk_layernorm_bwd": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
                          _I),
-    "sk_sum_rows": ([_I, _P, _P, _I, _F, _P, _I, _I, _I, _P], _I),
+    "sk_sum_rows": ([_I, _P, *_DROP, _I, _F, _P, _I, _I, _I, _P], _I),
+    "sk_emit_dropout_bits": ([_U, _P, _I, _I, _I, _I, _P], _I),
+    "sk_token_ce_fwd": ([_I] + [_P] * 7 + [_I] * 4 + [_P], _I),
+    "sk_token_ce_bwd": ([_I] + [_P] * 9 + [_I] * 5 + [_P], _I),
     "sk_encoder_attention": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "sk_layernorm_rows": ([_I, _P, _P, _P, _P, _I, _I, _P], _I),

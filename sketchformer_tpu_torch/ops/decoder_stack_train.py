@@ -20,8 +20,8 @@ byte tensor.
   each layer's cross K/V backward rounded to the compute dtype and added,
   in the compute dtype, over the layers (``pallas_decoder_train.py:786``).
 
-Dropout, rounding sites and weight-gradient dtypes follow
-``ops/encoder_stack_train.py``.
+Dropout (three sites a layer, 'prng' or 'bits' mode), rounding sites and
+weight-gradient dtypes follow ``ops/encoder_stack_train.py``.
 """
 
 from __future__ import annotations
@@ -31,14 +31,15 @@ from typing import Mapping, Optional
 import torch
 
 from sketchformer_tpu_torch.ops import attention_train as at
+from sketchformer_tpu_torch.ops import dropout_prng as dp
 from sketchformer_tpu_torch.ops.encoder_stack_train import (
     KERNELS,
     PLAIN,
     StackOps,
-    _drop,
-    draw_dropout_bytes,
+    _site,
     keep_scales,
     key_bias_from_mask,
+    stack_dropout,
 )
 
 DWKEYS = (
@@ -57,9 +58,10 @@ def _norms(wl, qk_norm, a):
 
 
 def _layer_fwd(h, mem, sbias, cbias, drop, wl, *, B, T, num_heads, qk_norm,
-               thresh, keep_scale, ops):
-    """One decoder layer forward on (B*T, d) rows; returns (out, parts) with
-    the intermediates the backward reuses."""
+               thresh, keep_scale, ops, layer=0):
+    """One decoder layer forward on (B*T, d) rows (``drop`` the stack's
+    dropout source, this layer's sites at 3 * ``layer`` + k); returns (out,
+    parts) with the intermediates the backward reuses."""
     H = num_heads
     dargs = dict(thresh=thresh, keep_scale=keep_scale)
     Mq = mem.shape[0] // B
@@ -71,7 +73,7 @@ def _layer_fwd(h, mem, sbias, cbias, drop, wl, *, B, T, num_heads, qk_norm,
                            qk_norm=_norms(wl, qk_norm, "s"),
                            norm_p=True).reshape(B * T, HD)
     x1 = ops.linear(so, wl["s_wo"], wl["s_bo"], residual=h,
-                    drop=_drop(drop, 0), **dargs)
+                    drop=_site(drop, 3, layer, 0), **dargs)
     h2 = ops.layernorm(x1, wl["ln2s"], wl["ln2b"])
     cq = ops.linear(h2, wl["c_wq"], wl["c_bq"]).reshape(B, T, HD)
     ckv = ops.linear(mem, wl["c_wkv"], wl["c_bkv"]).reshape(B, Mq, 2 * HD)
@@ -80,11 +82,11 @@ def _layer_fwd(h, mem, sbias, cbias, drop, wl, *, B, T, num_heads, qk_norm,
                            qk_norm=_norms(wl, qk_norm, "c"),
                            norm_p=True).reshape(B * T, HD)
     x2 = ops.linear(co, wl["c_wo"], wl["c_bo"], residual=x1,
-                    drop=_drop(drop, 1), **dargs)
+                    drop=_site(drop, 3, layer, 1), **dargs)
     h3 = ops.layernorm(x2, wl["ln3s"], wl["ln3b"])
     f1 = ops.linear(h3, wl["w1"], wl["b1"], relu=True)
     out = ops.linear(f1, wl["w2"], wl["b2"], residual=x2,
-                     drop=_drop(drop, 2), **dargs)
+                     drop=_site(drop, 3, layer, 2), **dargs)
     parts = dict(h1=h1, q=q, k=k, v=v, so=so, x1=x1, h2=h2, cq=cq, ck=ck,
                  cv=cv, co=co, x2=x2, h3=h3, f1=f1)
     return out, parts
@@ -102,18 +104,19 @@ def decoder_stack_fwd(x, mem, sbias, cbias, drop, w, *, num_heads, qk_norm,
     for i in range(L):
         xins.append(h)
         wl = {k: w[k][i] for k in DWKEYS}
-        h, _ = _layer_fwd(h, m, sbias, cbias,
-                          None if drop is None else drop[3 * i:3 * i + 3],
-                          wl, B=B, T=T, num_heads=num_heads, qk_norm=qk_norm,
-                          thresh=thresh, keep_scale=ks_fwd, ops=ops)
+        h, _ = _layer_fwd(h, m, sbias, cbias, drop, wl, B=B, T=T,
+                          num_heads=num_heads, qk_norm=qk_norm, thresh=thresh,
+                          keep_scale=ks_fwd, ops=ops, layer=i)
     return h, xins
 
 
 def decoder_layer_bwd(x, mem, g, sbias, cbias, drop, wl, *, num_heads,
-                      qk_norm, thresh, dmem=None, ops: StackOps = KERNELS):
+                      qk_norm, thresh, dmem=None, layer=0,
+                      ops: StackOps = KERNELS):
     """One layer's backward (``_dec_layer_bwd_kernel``): ``x`` (B, T, d) and
-    ``g`` (B, T, d) in the compute dtype, ``mem`` (B, Mq, d), ``drop`` (3,
-    B, T, d) bytes or None. ``dmem`` is the running memory gradient of the
+    ``g`` (B, T, d) in the compute dtype, ``mem`` (B, Mq, d), ``drop`` the
+    stack's dropout source (bytes with this layer's sites at 3 * ``layer``
+    + k, a ``PrngDrop``, or None). ``dmem`` is the running memory gradient of the
     later layers (compute dtype) or None. Returns (dx, dmem + this layer's,
     {key: f32 gradient})."""
     B, T, d = x.shape
@@ -122,13 +125,14 @@ def decoder_layer_bwd(x, mem, g, sbias, cbias, drop, wl, *, num_heads,
     Mq = mem.shape[1]
     _, ks = keep_scales(thresh, x.dtype)
     dargs = dict(thresh=thresh, keep_scale=ks)
-    masks = [_drop(drop, s) for s in range(3)]
+    masks = [_site(drop, 3, layer, s) for s in range(3)]
     x = x.reshape(M, d)
     g = g.reshape(M, d)
     m = mem.reshape(B * Mq, d)
     # recompute the forward (the recompute scales kept values in f32)
     _, p = _layer_fwd(x, m, sbias, cbias, drop, wl, B=B, T=T, num_heads=H,
-                      qk_norm=qk_norm, thresh=thresh, keep_scale=ks, ops=ops)
+                      qk_norm=qk_norm, thresh=thresh, keep_scale=ks, ops=ops,
+                      layer=layer)
     HD = p["so"].shape[-1]
     dw = {}
     # FFN: y = x2 + drop(f1 W2 + b2)
@@ -206,7 +210,9 @@ class _DecoderStackTrain(torch.autograd.Function):
         ctx.meta = meta
         ctx.shape = x.shape
         ctx.num_layers = len(xins)
-        ctx.save_for_backward(mem, sbias, cbias, drop, *xins, *wlist)
+        ctx.prng = drop if isinstance(drop, dp.PrngDrop) else None
+        ctx.save_for_backward(mem, sbias, cbias, None if ctx.prng else drop,
+                              *xins, *wlist)
         return y.reshape(x.shape)
 
     @staticmethod
@@ -214,6 +220,7 @@ class _DecoderStackTrain(torch.autograd.Function):
         num_heads, qk_norm, thresh, ops = ctx.meta
         saved = ctx.saved_tensors
         mem, sbias, cbias, drop = saved[:4]
+        drop = ctx.prng or drop
         L = ctx.num_layers
         xins = saved[4:4 + L]
         w = dict(zip(DWKEYS, saved[4 + L:]))
@@ -225,25 +232,12 @@ class _DecoderStackTrain(torch.autograd.Function):
         for i in reversed(range(L)):
             wl = {k: w[k][i] for k in DWKEYS}
             g, dmem, dws[i] = decoder_layer_bwd(
-                xins[i].reshape(B, T, d), mem, g, sbias, cbias,
-                None if drop is None else drop[3 * i:3 * i + 3], wl,
+                xins[i].reshape(B, T, d), mem, g, sbias, cbias, drop, wl,
                 num_heads=num_heads, qk_norm=qk_norm, thresh=thresh,
-                dmem=dmem, ops=ops)
+                dmem=dmem, layer=i, ops=ops)
         grads = [torch.stack([dw[k] for dw in dws]).to(w[k].dtype)
                  for k in DWKEYS]
         return (g, dmem.to(mem.dtype), None, None, None, None, *grads)
-
-
-def _checked_drop(dropout_rate, generator, dropout_bytes, shape, device):
-    thresh = int(round(dropout_rate * 256))
-    if thresh <= 0:
-        return 0, None
-    if dropout_bytes is None:
-        dropout_bytes = draw_dropout_bytes(generator, shape, device)
-    if tuple(dropout_bytes.shape) != tuple(shape):
-        raise ValueError(f"dropout_bytes {tuple(dropout_bytes.shape)}, "
-                         f"expected {tuple(shape)}")
-    return thresh, dropout_bytes
 
 
 def fused_decoder_stack_train(
@@ -258,19 +252,22 @@ def fused_decoder_stack_train(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     dropout_bytes: Optional[torch.Tensor] = None,
+    dropout_impl: str = "auto",
+    seed: Optional[int] = None,
     ops: StackOps = KERNELS,
 ) -> torch.Tensor:
     """Differentiable causal decoder stack WITHOUT the final LayerNorm
     (apply ``encoder_stack_train.apply_final_ln`` after). ``memory`` (B, Mq,
     d); masks (B, T) / (B, Mq) bool or None; ``w`` from
-    ``convert.stacked_decoder_weights(..., grad=True)``; dropout bytes
-    (3L, B, T, d) given or drawn from ``generator``."""
+    ``convert.stacked_decoder_weights(..., grad=True)``; dropout as
+    ``fused_encoder_stack_train`` ((3L, B, T, d) bytes given, 'prng' from
+    ``seed`` or 'bits' from ``generator``)."""
     B, T, d = x.shape
     L = w["s_wqkv"].shape[0]
     if T > at.MAX_KEYS:
         raise ValueError(f"T={T} exceeds the fused limit {at.MAX_KEYS}")
-    thresh, drop = _checked_drop(dropout_rate, generator, dropout_bytes,
-                                 (3 * L, B, T, d), x.device)
+    thresh, drop = stack_dropout(dropout_rate, dropout_impl, seed, generator,
+                                 dropout_bytes, (3 * L, B, T, d), x.device)
     return _DecoderStackTrain.apply(
         x, memory, key_bias_from_mask(self_key_mask),
         key_bias_from_mask(cross_key_mask), drop,

@@ -13,7 +13,10 @@ VMEM; on the card the layer runs as three kernels from
     layernorm_rows     LN1, LN2 and the final LayerNorm
 
 and the two products of the training stacks' backward (``linear_nt``:
-dX = dY . W^T, ``linear_tn``: dW = X^T . dY summed over every row).
+dX = dY . W^T, ``linear_tn``: dW = X^T . dY summed over every row). A
+dropout operand is a u8 byte tensor ('bits' mode) or a
+``dropout_prng.PrngSite``, whose bytes the kernel draws itself ('prng'
+mode; the plain versions materialise them with the plain Philox).
 
 Each kernel has a wrapper here and a plain torch version beside it
 (``*_reference``) that computes the same math in the same rounding order.
@@ -34,6 +37,7 @@ import torch
 
 from sketchformer_tpu_torch.models.layers import layer_norm
 from sketchformer_tpu_torch.ops import _build
+from sketchformer_tpu_torch.ops import dropout_prng as dp
 
 NEG_INF = -1e9
 MAX_FUSED_LEN = 1024    # the JAX engine's limit (pallas_encoder.py)
@@ -53,9 +57,13 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def dropout_mask(drop, thresh, keep_scale):
-    """f32 multiplier of the u8-threshold dropout: ``keep_scale`` where the
-    byte is >= ``thresh``, else 0."""
+def dropout_mask(drop, thresh, keep_scale, like):
+    """f32 multiplier of the u8-threshold dropout of the (M, N) tensor
+    ``like``: ``keep_scale`` where the byte is >= ``thresh``, else 0.
+    ``drop`` is the (M, N) u8 bytes or a ``dropout_prng.PrngSite``, whose
+    bytes the plain Philox draws."""
+    M, N = like.shape
+    drop = dp.as_bytes(drop, M, N, like.device)
     return torch.where(drop >= thresh, keep_scale, 0.0).float()
 
 
@@ -63,14 +71,14 @@ def linear_reference(a, w, bias, *, relu=False, residual=None, drop=None,
                      thresh=0, keep_scale=1.0):
     """``epilogue(a @ w)``: the product accumulates in f32 and is rounded to
     ``a.dtype`` before the (rounded) bias is added; then ReLU, then dropout
-    (``drop`` u8 bytes of the output's shape: kept values times
-    ``keep_scale``, rounded), then the residual."""
+    (``drop`` u8 bytes of the output's shape or a ``PrngSite``: kept values
+    times ``keep_scale``, rounded), then the residual."""
     dt = a.dtype
     y = torch.matmul(a, w).to(dt) + bias.to(dt)
     if relu:
         y = torch.relu(y)
     if drop is not None:
-        y = (y.float() * dropout_mask(drop, thresh, keep_scale)).to(dt)
+        y = (y.float() * dropout_mask(drop, thresh, keep_scale, y)).to(dt)
     if residual is not None:
         y = residual + y
     return y
@@ -85,7 +93,7 @@ def linear_nt_reference(a, w, *, drop=None, thresh=0, keep_scale=1.0,
     dt = w.dtype
     av = a.float()
     if drop is not None:
-        av = av * dropout_mask(drop, thresh, keep_scale)
+        av = av * dropout_mask(drop, thresh, keep_scale, av)
     y = torch.matmul(av.to(dt).float(), w.float().t())
     if gate is not None:
         y = torch.where(gate > 0, y, 0.0)
@@ -99,7 +107,7 @@ def linear_tn_reference(x, y, *, drop=None, thresh=0, keep_scale=1.0):
     dropout mask is rounded to ``x.dtype`` first."""
     yv = y.float()
     if drop is not None:
-        yv = yv * dropout_mask(drop, thresh, keep_scale)
+        yv = yv * dropout_mask(drop, thresh, keep_scale, yv)
     return torch.matmul(x.float().t(), yv.to(x.dtype).float())
 
 
@@ -162,18 +170,18 @@ def linear(a, w, bias, *, relu=False, residual=None, drop=None, thresh=0,
     _build.require(bias, "bias", dev, torch.float32, (N,))
     if residual is not None:
         _build.require(residual, "residual", dev, a.dtype, (M, N))
-    if drop is not None:
-        _build.require(drop, "drop", dev, torch.uint8, (M, N))
+    dbytes, *prng = dp.kernel_args(drop, M, N, dev)
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.sk_linear(code, _build.ptr(a), _build.ptr(w),
                             _build.ptr(bias), _build.ptr(residual),
-                            _build.ptr(drop), int(thresh), float(keep_scale),
-                            _build.ptr(out), M, N, K, int(relu),
-                            _build.stream(a))
+                            _build.ptr(dbytes), *prng, int(thresh),
+                            float(keep_scale), _build.ptr(out), M, N, K,
+                            int(relu), _build.stream(a))
     _build.check(err, "linear")
     LAUNCHES["linear"] += 1
+    dp.note_launch(drop)
     return out
 
 
@@ -199,8 +207,7 @@ def linear_nt(a, w, *, drop=None, thresh=0, keep_scale=1.0, gate=None,
         raise TypeError(f"linear_nt: out_dtype {out_dtype}")
     _build.require(a, "a", dev, a.dtype, (M, N))
     _build.require(w, "w", dev, w.dtype, (K, N))
-    if drop is not None:
-        _build.require(drop, "drop", dev, torch.uint8, (M, N))
+    dbytes, *prng = dp.kernel_args(drop, M, N, dev)
     if gate is not None:
         _build.require(gate, "gate", dev, w.dtype, (M, K))
     if residual is not None:
@@ -213,12 +220,13 @@ def linear_nt(a, w, *, drop=None, thresh=0, keep_scale=1.0, gate=None,
     with torch.cuda.device(dev):
         err = lib.sk_linear_nt(
             code, int(a.dtype == torch.float32), _build.ptr(a), _build.ptr(w),
-            _build.ptr(drop), int(thresh), float(keep_scale),
+            _build.ptr(dbytes), *prng, int(thresh), float(keep_scale),
             _build.ptr(gate), _build.ptr(residual),
             int(out_dtype == torch.float32), _build.ptr(out), M, N, K,
             _build.stream(a))
     _build.check(err, "linear_nt")
     LAUNCHES["linear_nt"] += 1
+    dp.note_launch(drop)
     return out
 
 
@@ -251,8 +259,7 @@ def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0):
         raise TypeError(f"linear_tn: y is {y.dtype}")
     _build.require(x, "x", dev, x.dtype, (M, K))
     _build.require(y, "y", dev, y.dtype, (M, N))
-    if drop is not None:
-        _build.require(drop, "drop", dev, torch.uint8, (M, N))
+    dbytes, *prng = dp.kernel_args(drop, M, N, dev)
     splits = tn_splits(M, K, N, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     out = torch.empty((splits, K, N), dtype=torch.float32, device=dev)
@@ -260,10 +267,11 @@ def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0):
     with torch.cuda.device(dev):
         err = lib.sk_linear_tn(
             code, int(y.dtype == torch.float32), _build.ptr(x), _build.ptr(y),
-            _build.ptr(drop), int(thresh), float(keep_scale), _build.ptr(out),
-            M, K, N, splits, _build.stream(x))
+            _build.ptr(dbytes), *prng, int(thresh), float(keep_scale),
+            _build.ptr(out), M, K, N, splits, _build.stream(x))
     _build.check(err, "linear_tn")
     LAUNCHES["linear_tn"] += 1
+    dp.note_launch(drop)
     if splits == 1:
         return out[0]
     return sum_rows(out.reshape(splits, K * N)).reshape(K, N)

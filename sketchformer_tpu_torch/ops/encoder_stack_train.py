@@ -18,9 +18,19 @@ as a ``torch.autograd.Function``.
 - the final ``ln_out`` stays outside the Function: :func:`apply_final_ln`,
   a plain differentiable torch LayerNorm.
 
-Dropout: the u8-threshold semantics of ``models/dropout.py`` from one
-(2L, B, T, d) byte tensor drawn from a ``torch.Generator`` (or handed in by
-the caller), read by the forward and the backward, as the JAX 'bits' mode.
+Dropout: the u8-threshold semantics of ``models/dropout.py``, two sites a
+layer (after the attention and after the FFN), in one of the JAX package's
+two modes (``dropout_impl``):
+
+- 'prng' (the default on the card): every kernel that reads a site draws
+  its bytes itself from the stack's 64-bit seed (``ops/dropout_prng.py``,
+  K7), so no byte tensor exists; on the CPU the plain versions draw the
+  same bytes with the plain Philox.
+- 'bits' (the default on the CPU): one (2L, B, T, d) byte tensor, drawn
+  from a ``torch.Generator`` or handed in by the caller, read by the
+  forward and the backward. A 'prng' stack equals the 'bits' stack fed
+  ``emit_dropout_bits`` of its seed, bit for bit.
+
 The forward scales kept values by the keep scale rounded to the compute
 dtype, the recompute and the gradient masks by the f32 one, as the TPU
 kernels do.
@@ -45,6 +55,7 @@ import torch
 
 from sketchformer_tpu_torch.models.layers import layer_norm
 from sketchformer_tpu_torch.ops import attention_train as at
+from sketchformer_tpu_torch.ops import dropout_prng as dp
 from sketchformer_tpu_torch.ops import encoder_stack as es
 from sketchformer_tpu_torch.ops import norm_train as nt
 
@@ -82,11 +93,38 @@ def keep_scales(thresh: int, dtype: torch.dtype):
     return float(torch.tensor(ks, dtype=torch.float32).to(dtype)), ks
 
 
+# calls of draw_dropout_bytes (a 'prng' stack on the card makes none)
+DRAWS = {"draw_dropout_bytes": 0}
+
+
 def draw_dropout_bytes(generator: torch.Generator, shape, device):
     """Uniform u8 bytes from ``generator`` (PyTorch's default generator of
-    the device when None), one tensor for every site of a stack."""
+    the device when None), one tensor for every site of a 'bits' stack."""
+    DRAWS["draw_dropout_bytes"] += 1
     return torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
                          generator=generator, device=device)
+
+
+def stack_dropout(rate, dropout_impl, seed, generator, dropout_bytes, shape,
+                  device):
+    """(thresh, the stack's dropout source): None, the (L * nsites, B, T,
+    d) bytes (given, or drawn from ``generator`` in 'bits' mode), or a
+    ``dropout_prng.PrngDrop`` of ``seed`` in 'prng' mode (a seed drawn
+    from PyTorch's CPU generator when None)."""
+    thresh = int(round(rate * 256))
+    if thresh <= 0:
+        return 0, None
+    if dropout_bytes is None and dp.resolve_impl(dropout_impl,
+                                                 device) == "prng":
+        if seed is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,)).item())
+        return thresh, dp.PrngDrop(int(seed), shape[2])
+    if dropout_bytes is None:
+        dropout_bytes = draw_dropout_bytes(generator, shape, device)
+    if tuple(dropout_bytes.shape) != tuple(shape):
+        raise ValueError(f"dropout_bytes {tuple(dropout_bytes.shape)}, "
+                         f"expected {tuple(shape)}")
+    return thresh, dropout_bytes
 
 
 def key_bias_from_mask(key_mask: Optional[torch.Tensor]):
@@ -102,8 +140,14 @@ def _norms(wl, qk_norm, prefix=""):
     return tuple(wl[prefix + k] for k in ("qns", "qnb", "kns", "knb"))
 
 
-def _drop(drop, site):
-    return None if drop is None else drop[site].reshape(-1, drop.shape[-1])
+def _site(drop, nsites, layer, k):
+    """Site k of ``layer``'s dropout operand: a (B*T, d) view of the bytes,
+    a ``PrngSite``, or None."""
+    if drop is None:
+        return None
+    if isinstance(drop, dp.PrngDrop):
+        return drop.site(layer, k)
+    return drop[layer * nsites + k].reshape(-1, drop.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -129,29 +173,30 @@ def encoder_stack_fwd(x, key_bias, drop, w, *, num_heads, qk_norm, thresh,
             qk_norm=_norms({k: w[k][i] for k in ("qns", "qnb", "kns", "knb")},
                            qk_norm))
         h = ops.linear(o.reshape(B * T, -1), w["wo"][i], w["bo"][i],
-                       residual=h, drop=_drop(drop, 2 * i), thresh=thresh,
+                       residual=h, drop=_site(drop, 2, i, 0), thresh=thresh,
                        keep_scale=ks_fwd)
         f = ops.linear(ops.layernorm(h, w["ln2s"][i], w["ln2b"][i]),
                        w["w1"][i], w["b1"][i], relu=True)
         h = ops.linear(f, w["w2"][i], w["b2"][i], residual=h,
-                       drop=_drop(drop, 2 * i + 1), thresh=thresh,
+                       drop=_site(drop, 2, i, 1), thresh=thresh,
                        keep_scale=ks_fwd)
     return h, xins
 
 
 def encoder_layer_bwd(x, g, key_bias, drop, wl, *, num_heads, qk_norm,
-                      thresh, ops: StackOps = KERNELS):
+                      thresh, layer=0, ops: StackOps = KERNELS):
     """One layer's backward (``_layer_bwd_kernel``): ``x`` (B, T, d) the
     layer's input, ``g`` (B, T, d) the gradient of its output, both in the
-    compute dtype; ``drop`` (2, B, T, d) bytes or None; ``wl`` this layer's
-    weights (1-D parameters as (n,) rows). Returns (dx in the compute dtype,
-    {key: f32 gradient})."""
+    compute dtype; ``drop`` the stack's dropout source (bytes with the
+    layer's two sites at 2 * ``layer`` + k, a ``PrngDrop``, or None);
+    ``wl`` this layer's weights (1-D parameters as (n,) rows). Returns (dx
+    in the compute dtype, {key: f32 gradient})."""
     B, T, d = x.shape
     M = B * T
     H = num_heads
     _, ks = keep_scales(thresh, x.dtype)
     dargs = dict(thresh=thresh, keep_scale=ks)
-    m_attn, m_ffn = _drop(drop, 0), _drop(drop, 1)
+    m_attn, m_ffn = _site(drop, 2, layer, 0), _site(drop, 2, layer, 1)
     norms = _norms(wl, qk_norm)
     x = x.reshape(M, d)
     g = g.reshape(M, d)
@@ -197,10 +242,11 @@ def encoder_layer_bwd(x, g, key_bias, drop, wl, *, num_heads, qk_norm,
 
 
 def encoder_layer_bwd_reference(x, g, key_bias, drop, wl, *, num_heads,
-                                qk_norm, thresh):
+                                qk_norm, thresh, layer=0):
     """:func:`encoder_layer_bwd` on the plain versions, any device."""
     return encoder_layer_bwd(x, g, key_bias, drop, wl, num_heads=num_heads,
-                             qk_norm=qk_norm, thresh=thresh, ops=PLAIN)
+                             qk_norm=qk_norm, thresh=thresh, layer=layer,
+                             ops=PLAIN)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +264,9 @@ class _EncoderStackTrain(torch.autograd.Function):
                                     thresh=thresh, ops=ops)
         ctx.meta = meta
         ctx.shape = x.shape
-        ctx.save_for_backward(key_bias, drop, *xins, *wlist)
+        ctx.prng = drop if isinstance(drop, dp.PrngDrop) else None
+        ctx.save_for_backward(key_bias, None if ctx.prng else drop, *xins,
+                              *wlist)
         ctx.num_layers = len(xins)
         return y.reshape(x.shape)
 
@@ -226,7 +274,7 @@ class _EncoderStackTrain(torch.autograd.Function):
     def backward(ctx, gy):
         num_heads, qk_norm, thresh, ops = ctx.meta
         saved = ctx.saved_tensors
-        key_bias, drop = saved[0], saved[1]
+        key_bias, drop = saved[0], ctx.prng or saved[1]
         L = ctx.num_layers
         xins = saved[2:2 + L]
         wlist = saved[2 + L:]
@@ -237,9 +285,9 @@ class _EncoderStackTrain(torch.autograd.Function):
         for i in reversed(range(L)):
             wl = {k: w[k][i] for k in WKEYS}
             g, dws[i] = encoder_layer_bwd(
-                xins[i].reshape(B, T, d), g, key_bias,
-                None if drop is None else drop[2 * i:2 * i + 2], wl,
-                num_heads=num_heads, qk_norm=qk_norm, thresh=thresh, ops=ops)
+                xins[i].reshape(B, T, d), g, key_bias, drop, wl,
+                num_heads=num_heads, qk_norm=qk_norm, thresh=thresh, layer=i,
+                ops=ops)
         grads = [torch.stack([dw[k] for dw in dws]).to(w[k].dtype)
                  for k in WKEYS]
         return (g, None, None, None, *grads)
@@ -255,29 +303,24 @@ def fused_encoder_stack_train(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     dropout_bytes: Optional[torch.Tensor] = None,
+    dropout_impl: str = "auto",
+    seed: Optional[int] = None,
     ops: StackOps = KERNELS,
 ) -> torch.Tensor:
     """Differentiable encoder stack WITHOUT the final LayerNorm.
 
     ``x`` (B, T, d) in the compute dtype; ``key_mask`` (B, T) bool (True =
     attend) or None; ``w`` from ``stack_encoder_weights(..., grad=True)``.
-    With ``dropout_rate > 0`` the (2L, B, T, d) dropout bytes are
-    ``dropout_bytes`` or drawn from ``generator`` (the device's default
-    generator when None). Apply
-    :func:`apply_final_ln` after.
+    With ``dropout_rate > 0``: given ``dropout_bytes`` ((2L, B, T, d) u8)
+    run 'bits' mode; otherwise ``dropout_impl`` ('auto' = 'prng' on the
+    card, 'bits' on the CPU) draws the bytes in the kernels from ``seed``
+    ('prng') or from ``generator`` (the device's default generator when
+    None; 'bits'). Apply :func:`apply_final_ln` after.
     """
     B, T, d = x.shape
     L = w["wqkv"].shape[0]
-    thresh = int(round(dropout_rate * 256))
-    drop = None
-    if thresh > 0:
-        if dropout_bytes is None:
-            dropout_bytes = draw_dropout_bytes(generator, (2 * L, B, T, d),
-                                               x.device)
-        drop = dropout_bytes
-        if tuple(drop.shape) != (2 * L, B, T, d):
-            raise ValueError(f"dropout_bytes {tuple(drop.shape)}, expected "
-                             f"{(2 * L, B, T, d)}")
+    thresh, drop = stack_dropout(dropout_rate, dropout_impl, seed, generator,
+                                 dropout_bytes, (2 * L, B, T, d), x.device)
     if T > at.MAX_KEYS:
         raise ValueError(f"T={T} exceeds the fused limit {at.MAX_KEYS}")
     return _EncoderStackTrain.apply(

@@ -19,6 +19,7 @@ import torch
 
 from sketchformer_tpu_torch.models.layers import LN_EPS
 from sketchformer_tpu_torch.ops import _build
+from sketchformer_tpu_torch.ops import dropout_prng as dp
 from sketchformer_tpu_torch.ops.encoder_stack import dropout_mask
 
 LAUNCHES = {"layernorm_bwd": 0, "sum_rows": 0}
@@ -64,7 +65,7 @@ def layernorm_bwd_reference(x, dy, scale, *, resid=None,
 def sum_rows_reference(x, *, drop=None, thresh=0, keep_scale=1.0):
     v = x.float()
     if drop is not None:
-        v = v * dropout_mask(drop, thresh, keep_scale)
+        v = v * dropout_mask(drop, thresh, keep_scale, v)
     return v.sum(dim=0)
 
 
@@ -110,7 +111,8 @@ def layernorm_bwd(x, dy, scale, *, resid: Optional[torch.Tensor] = None,
 
 def sum_rows(x, *, drop=None, thresh=0, keep_scale=1.0):
     """(R, N) f32 or compute-dtype rows -> (N,) f32 sums, each row times its
-    dropout mask when ``drop`` (u8, (R, N)) is given. Large R runs as
+    dropout mask when ``drop`` (u8 (R, N) bytes, or a ``PrngSite`` drawn
+    in-kernel) is given. Large R runs as
     parallel row slices whose partial rows a second launch adds."""
     if x.device.type == "cpu":
         return sum_rows_reference(x, drop=drop, thresh=thresh,
@@ -121,8 +123,7 @@ def sum_rows(x, *, drop=None, thresh=0, keep_scale=1.0):
     dev = x.device
     in_code = 0 if x.dtype == torch.float32 else _build.dtype_code(x)
     _build.require(x, "x", dev, x.dtype, (R, N))
-    if drop is not None:
-        _build.require(drop, "drop", dev, torch.uint8, (R, N))
+    dbytes, *prng = dp.kernel_args(drop, R, N, dev)
     col_blocks = -(-N // 32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # about eight blocks per SM: each warp walks its rows one load at a time
@@ -130,11 +131,12 @@ def sum_rows(x, *, drop=None, thresh=0, keep_scale=1.0):
     out = torch.empty((splits, N), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.sk_sum_rows(in_code, _build.ptr(x), _build.ptr(drop),
-                              int(thresh), float(keep_scale), _build.ptr(out),
-                              R, N, splits, _build.stream(x))
+        err = lib.sk_sum_rows(in_code, _build.ptr(x), _build.ptr(dbytes),
+                              *prng, int(thresh), float(keep_scale),
+                              _build.ptr(out), R, N, splits, _build.stream(x))
     _build.check(err, "sum_rows")
     LAUNCHES["sum_rows"] += 1
+    dp.note_launch(drop)
     if splits == 1:
         return out[0]
     return sum_rows(out)

@@ -14,7 +14,8 @@ Registered val metrics (``train/val_metrics.py``): ``retrieval`` and
 
 Not ported: ``steps_per_call``, ``device_prefetch`` (its asynchronous
 staging answered a remote TPU's blocking ``device_put``), ``remat``,
-``mesh``, ``prng_impl`` (dropout draws from a ``torch.Generator``),
+``mesh``, ``prng_impl`` (the card's dropout draws from the Philox streams
+of ``ops/dropout_prng.py``, the CPU's from a ``torch.Generator``),
 ``profile_steps`` and ``recon_grid_every`` (name ``recon_grid`` in
 ``metrics``).
 """

@@ -1,9 +1,9 @@
-"""Multi-task losses: reconstruction (GMM NLL + pen CE) + classification CE.
+"""Multi-task losses: reconstruction (token CE, or GMM NLL + pen CE) +
+classification CE.
 
-Port of ``classification_loss`` and ``cont_multitask_loss`` of
-``sketchformer_tpu/train/loss.py``, with the same metric keys. All losses
-run in f32 on the f32 head outputs. ``is_real`` (B,) row weights, when a
-batch has them, zero repeat-padded duplicate rows out of every term.
+Port of ``sketchformer_tpu/train/loss.py``, with the same metric keys. All
+losses run in f32 on the f32 head outputs. ``is_real`` (B,) row weights,
+when a batch has them, zero repeat-padded duplicate rows out of every term.
 """
 
 from __future__ import annotations
@@ -12,7 +12,25 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from sketchformer_tpu_torch.data.tokenizer import PAD_ID
 from sketchformer_tpu_torch.ops import mdn
+
+
+def token_reconstruction_loss(
+    logits: torch.Tensor, targets: torch.Tensor, pad_id: int = PAD_ID,
+    row_weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean CE and accuracy of (B, T, V) logits over non-pad target
+    positions; ``row_weights`` (B,) zeroes whole rows."""
+    logits = logits.float()
+    mask = (targets != pad_id).float()
+    if row_weights is not None:
+        mask = mask * row_weights.float()[:, None]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    ll = log_probs.gather(-1, targets.long()[..., None])[..., 0]
+    correct = (logits.argmax(dim=-1) == targets).float()
+    return -(ll * mask).sum() / denom, (correct * mask).sum() / denom
 
 
 def classification_loss(
@@ -29,6 +47,45 @@ def classification_loss(
     rw = row_weights.float()
     denom = torch.clamp(rw.sum(), min=1.0)
     return -(ll * rw).sum() / denom, (correct * rw).sum() / denom
+
+
+def _tok_total(recon, recon_acc, outputs, batch, w_recon, w_cls):
+    cls, cls_acc = classification_loss(outputs["cls"], batch["label"],
+                                       row_weights=batch.get("is_real"))
+    total = w_recon * recon + w_cls * cls
+    return total, {
+        "loss": total,
+        "recon_loss": recon,
+        "recon_acc": recon_acc,
+        "cls_loss": cls,
+        "cls_acc": cls_acc,
+    }
+
+
+def tok_multitask_loss(
+    outputs: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    w_recon: float = 1.0,
+    w_cls: float = 1.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token mode on full logits (``outputs["recon"]``): (total, metrics)
+    with keys loss, recon_loss, recon_acc, cls_loss, cls_acc."""
+    recon, recon_acc = token_reconstruction_loss(
+        outputs["recon"], batch["dec_tgt"], row_weights=batch.get("is_real"))
+    return _tok_total(recon, recon_acc, outputs, batch, w_recon, w_cls)
+
+
+def tok_multitask_loss_fused(
+    outputs: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    w_recon: float = 1.0,
+    w_cls: float = 1.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Loss assembly for ``Sketchformer.forward_tok_loss`` outputs (the
+    reconstruction loss and accuracy arrive computed); the metric keys of
+    :func:`tok_multitask_loss`."""
+    return _tok_total(outputs["recon_loss"], outputs["recon_acc"], outputs,
+                      batch, w_recon, w_cls)
 
 
 def cont_multitask_loss(

@@ -1,11 +1,19 @@
 """The train and eval steps.
 
-Port of ``sketchformer_tpu/train/step.py`` for one card, continuous (MDN)
-mode. A step unpacks the packed batch on the device
-(``data/packed.py``), runs the model in training mode with every dropout
-site drawing from a generator derived from (seed, step) (and the
-microbatch index), back-propagates the multi-task loss, and applies
-:class:`~sketchformer_tpu_torch.train.schedule.NoamAdam`.
+Port of ``sketchformer_tpu/train/step.py`` for one card, token and
+continuous (MDN) mode. A step unpacks the packed batch on the device
+(``data/packed.py``), runs the model in training mode, back-propagates the
+multi-task loss, and applies
+:class:`~sketchformer_tpu_torch.train.schedule.NoamAdam`. Token mode runs
+``Sketchformer.forward_tok_loss`` (the CE inside the model, on the K6
+kernels under ``attn_impl='pallas'``) with ``is_real`` as row weights;
+continuous mode runs the teacher-forced forward and the MDN loss.
+
+Dropout is keyed by (seed, step) and the microbatch index: on the CPU every
+site draws from a generator derived from them; on the card each dropout
+call (the fused stacks' in-kernel Philox draws, the composed sites' emits)
+takes a seed derived on the host from them and the call's index
+(``models/dropout.py``), so no device value is read to draw it.
 
 - ``grad_norm`` is the global norm of the unclipped gradients;
 - the non-finite guard rejects an update whose gradient norm is not
@@ -17,8 +25,7 @@ microbatch index), back-propagates the multi-task loss, and applies
 
 Not ported: ``steps_per_call`` (it amortised host dispatch on a remote
 TPU), ``mesh`` / ``explicit_spmd`` (one card) and ``remat`` (the fused
-stacks already save only their layers' inputs). Token-mode training
-(``forward_tok_loss``) is the next slice.
+stacks already save only their layers' inputs).
 """
 
 from __future__ import annotations
@@ -56,12 +63,13 @@ def create_train_state(model: Sketchformer, seed: int, warmup_steps: int,
     return TrainState(model, opt, 0, seed)
 
 
-def dropout_generator(device, seed: int, step: int,
-                      micro: int = 0) -> torch.Generator:
-    """The generator of one (micro)step's dropout sites."""
+def dropout_context(device, seed: int, step: int, micro: int = 0):
+    """The dropout state of one (micro)step: the generator of its CPU draws
+    and the seed key of the card's Philox draws."""
     s = np.random.SeedSequence([seed, step, micro]).generate_state(
         1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(s))
+    return use_generator(torch.Generator(device=device).manual_seed(int(s)),
+                         seed_key=(seed, step, micro))
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -70,18 +78,21 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
             for k, v in pack_batch(batch).items()}
 
 
-def _model_kwargs(cfg, batch) -> Dict:
+def _forward_loss(model, batch, w_recon, w_cls):
+    """(total, metrics) of the multi-task loss of ``batch`` (unpacked)."""
+    cfg = model.config
     if not cfg.use_continuous:
-        raise ValueError("the port trains continuous (MDN) models; token "
-                         "mode is not ported yet")
-    return dict(enc=batch["enc"], dec_in=batch["dec_in"],
-                enc_mask=batch["enc_mask"], dec_key_mask=batch["dec_mask"])
-
-
-def _loss(model, outputs, batch, w_recon, w_cls):
+        outputs = model.forward_tok_loss(
+            enc=batch["enc"], dec_in=batch["dec_in"],
+            dec_tgt=batch["dec_tgt"], row_weights=batch.get("is_real"))
+        return losses.tok_multitask_loss_fused(outputs, batch,
+                                               w_recon=w_recon, w_cls=w_cls)
+    outputs = model(enc=batch["enc"], dec_in=batch["dec_in"],
+                    enc_mask=batch["enc_mask"],
+                    dec_key_mask=batch["dec_mask"])
     return losses.cont_multitask_loss(
-        outputs, batch, num_mixtures=model.config.num_mixtures,
-        w_recon=w_recon, w_cls=w_cls)
+        outputs, batch, num_mixtures=cfg.num_mixtures, w_recon=w_recon,
+        w_cls=w_cls)
 
 
 def make_train_step(state: TrainState, w_recon: float = 1.0,
@@ -92,12 +103,11 @@ def make_train_step(state: TrainState, w_recon: float = 1.0,
     params = list(model.parameters())
     dev = params[0].device
 
-    def grads_for(batch, gen):
+    def grads_for(batch, micro):
         for p in params:
             p.grad = None
-        with use_generator(gen):
-            outputs = model(**_model_kwargs(model.config, batch))
-        total, metrics = _loss(model, outputs, batch, w_recon, w_cls)
+        with dropout_context(dev, state.seed, state.step, micro):
+            total, metrics = _forward_loss(model, batch, w_recon, w_cls)
         total.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
                  for p in params]
@@ -109,8 +119,7 @@ def make_train_step(state: TrainState, w_recon: float = 1.0,
         batch = unpack_batch(batch)
         model.train()
         if accum_steps == 1:
-            grads, metrics = grads_for(
-                batch, dropout_generator(dev, state.seed, state.step))
+            grads, metrics = grads_for(batch, 0)
         else:
             B = batch["enc"].shape[0]
             if B % accum_steps:
@@ -120,8 +129,7 @@ def make_train_step(state: TrainState, w_recon: float = 1.0,
             grads = metrics = None
             for i in range(accum_steps):
                 part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                g, m = grads_for(part, dropout_generator(
-                    dev, state.seed, state.step, i))
+                g, m = grads_for(part, i)
                 if grads is None:
                     grads, metrics = g, m
                 else:
@@ -154,8 +162,7 @@ def make_eval_step(model: Sketchformer, w_recon: float = 1.0,
             batch = batch_to_device(batch, dev)
         batch = unpack_batch(batch)
         model.eval()
-        outputs = model(**_model_kwargs(model.config, batch))
-        _, metrics = _loss(model, outputs, batch, w_recon, w_cls)
+        _, metrics = _forward_loss(model, batch, w_recon, w_cls)
         return metrics
 
     return step

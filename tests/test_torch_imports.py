@@ -48,7 +48,8 @@ def test_no_jax_package_imports(path):
 def test_the_walk_sees_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "pipeline.py", "encoder_stack_train.py",
-            "decoder_stack_train.py", "cli.py"} <= names
+            "decoder_stack_train.py", "cli.py", "token_ce.py",
+            "dropout_prng.py"} <= names
 
 
 def _batches(get_loader, token_mode, split, n=3):

@@ -554,3 +554,162 @@ def test_train_stack_fwd_bwd(cuda, decoder, H, qk):
                 name
             continue
         assert (g - r).norm().item() <= 1e-3 * r.norm().item(), name
+
+
+# ---------------------------------------------------------------------------
+# K6: the fused vocab-CE head; K7: the in-kernel dropout draw
+# ---------------------------------------------------------------------------
+
+from sketchformer_tpu_torch.ops import dropout_prng as dp  # noqa: E402
+from sketchformer_tpu_torch.ops import token_ce as tce  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,d,V", [(300, 64, 1000), (517, 256, 2003),
+                                   (70, 32, 131), (9, 16, 7)])
+def test_token_ce_fwd_bwd(cuda, dtype, M, d, V):
+    """ll, lse, dx, dW, db against the plain version within TOL; corr equal
+    wherever the plain version's top two f32 logits are 1e-3 apart."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = _rand(gen, cuda, M, d, dtype=dtype)
+    w = _rand(gen, cuda, d, V, scale=d ** -0.5)
+    b = _rand(gen, cuda, V, scale=0.1)
+    tgt = torch.randint(0, V, (M,), generator=gen, device=cuda).int()
+    gll = _rand(gen, cuda, M)
+    tce.reset_launches()
+    got = tce.token_ce_fwd(x, w, b, tgt)
+    want = tce.token_ce_fwd_reference(x, w, b, tgt)
+    _close(got[0], want[0], dtype)
+    _close(got[2], want[2], dtype)
+    top2 = tce.logits_reference(x, w, b).topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(got[1][clear], want[1][clear])
+    gb = tce.token_ce_bwd(x, w, b, tgt, want[2], gll)
+    wb = tce.token_ce_bwd_reference(x, w, b, tgt, want[2], gll)
+    for g, r in zip(gb, wb):
+        _close(g, r, dtype)
+    assert tce.LAUNCHES == {"token_ce_fwd": 1, "token_ce_dx": 1,
+                            "token_ce_dw": 1}
+
+
+@pytest.mark.cuda
+def test_token_ce_rows_autograd(cuda):
+    """The autograd Function: dx, dW (f32, the parameter's dtype), db."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = _rand(gen, cuda, 96, 64, dtype=torch.bfloat16).requires_grad_(True)
+    w = _rand(gen, cuda, 64, 300, scale=0.125).requires_grad_(True)
+    b = _rand(gen, cuda, 300, scale=0.1).requires_grad_(True)
+    tgt = torch.randint(0, 300, (96,), generator=gen, device=cuda)
+    ll, corr = tce.token_ce_rows(x, w, b, tgt)
+    assert not corr.requires_grad
+    gx, gw, gb = torch.autograd.grad(ll.sum(), (x, w, b))
+    assert gx.dtype == torch.bfloat16 and gw.dtype == torch.float32
+    lse = tce.token_ce_fwd_reference(x, w, b, tgt)[2]
+    want = tce.token_ce_bwd_reference(x.detach(), w, b, tgt, lse,
+                                      torch.ones(96, device=cuda))
+    for g, r in zip((gx, gw, gb), want):
+        _close(g, r, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_token_ce_raises_above_its_width(cuda):
+    x = torch.zeros(8, 320, device=cuda)
+    with pytest.raises(ValueError, match="above the kernels"):
+        tce.token_ce_fwd(x, torch.zeros(320, 10, device=cuda),
+                         torch.zeros(10, device=cuda),
+                         torch.zeros(8, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,nsites,B,T,d", [(3, 3, 5, 7, 9), (2, 2, 16, 96, 256),
+                                            (1, 1, 3, 1, 6)])
+def test_emit_dropout_bits_equals_the_plain_philox(cuda, L, nsites, B, T, d):
+    seed = 0x1234_5678_9ABC_DEF0
+    got = dp.emit_dropout_bits(seed, L, nsites, B, T, d, cuda)
+    assert torch.equal(got, dp.emit_dropout_bits_reference(seed, L, nsites, B,
+                                                           T, d, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prng_kernels_equal_bits_kernels(cuda, dtype):
+    """Each kernel drawing its site in-kernel gives exactly what it gives
+    when fed the emitted bytes of the same site."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    B, T, d, dff = 3, 40, 64, 96
+    M = B * T
+    site = dp.PrngSite(987654321, 2, 1, T)
+    byt = dp.emit_dropout_bits(site.seed, 3, 3, B, T, d, cuda)[
+        site.layer * 3 + site.site].reshape(M, d)
+    a = _rand(gen, cuda, M, dff, dtype=dtype)
+    w = _rand(gen, cuda, dff, d, scale=dff ** -0.5, dtype=dtype)
+    bias, res = _rand(gen, cuda, d, scale=0.1), _rand(gen, cuda, M, d,
+                                                       dtype=dtype)
+    g = _rand(gen, cuda, M, d)
+    kw = dict(thresh=26, keep_scale=1.11)
+    dp.reset_launches()
+    for drop_a, drop_b in ((site, byt),):
+        assert torch.equal(
+            es.linear(a, w, bias, residual=res, drop=drop_a, **kw),
+            es.linear(a, w, bias, residual=res, drop=drop_b, **kw))
+        assert torch.equal(
+            es.linear_nt(g, w, drop=drop_a, gate=a, **kw),
+            es.linear_nt(g, w, drop=drop_b, gate=a, **kw))
+        assert torch.equal(es.linear_tn(a, g, drop=drop_a, **kw),
+                           es.linear_tn(a, g, drop=drop_b, **kw))
+        assert torch.equal(nt.sum_rows(g, drop=drop_a, **kw),
+                           nt.sum_rows(g, drop=drop_b, **kw))
+    assert dp.LAUNCHES["prng_draw"] == 4
+    # and the plain versions draw the same bytes with the plain Philox
+    _close(es.linear_reference(a, w, bias, residual=res, drop=site, **kw),
+           es.linear(a, w, bias, residual=res, drop=site, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("decoder", [False, True], ids=["encoder",
+                                                         "decoder"])
+def test_prng_stack_equals_bits_stack(cuda, dtype, decoder):
+    """A 'prng' train stack equals the 'bits' stack fed emit_dropout_bits of
+    its seed: output and every gradient, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    mod, _, x, km = _train_stack_case(gen, cuda, decoder, 4, True)
+    B, T, d = x.shape
+    L, seed = 2, 424242
+    gy = _rand(gen, cuda, B, T, d)
+    mem = _rand(gen, cuda, B, 4, d)
+    mod = mod.to(dtype=torch.float32)
+    for m in mod.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = dtype
+    nsites = 3 if decoder else 2
+    byt = dp.emit_dropout_bits(seed, L, nsites, B, T, d, cuda)
+
+    def run(**drop):
+        w = mod.stacked_weights(grad=True)
+        xi = x.detach().to(dtype).requires_grad_(True)
+        inputs = [xi]
+        if decoder:
+            mi = mem.to(dtype).requires_grad_(True)
+            inputs.append(mi)
+            y = dst.fused_decoder_stack_train(
+                xi, mi, km, None, w, num_heads=4, qk_norm=True,
+                dropout_rate=0.1, **drop)
+        else:
+            y = est.fused_encoder_stack_train(
+                xi, km, w, num_heads=4, qk_norm=True, dropout_rate=0.1,
+                **drop)
+        return [y] + list(torch.autograd.grad(
+            (y.float() * gy).sum(), inputs + list(mod.parameters()),
+            allow_unused=True))
+
+    est.DRAWS["draw_dropout_bytes"] = 0
+    got = run(dropout_impl="prng", seed=seed)
+    want = run(dropout_bytes=byt)
+    assert est.DRAWS["draw_dropout_bytes"] == 0
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert torch.equal(g, r)
