@@ -40,7 +40,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and the in-kernel dropout draw (K7): ``emit_dropout_bits`` bit-equal to
    the plain Philox at (16, 512, 96, 256) with the kept share within 1e-3,
    and each 'prng' train stack equal to the 'bits' stack fed the emitted
-   bytes (output and every gradient, torch.equal; f32 and bf16);
+   bytes (output and every gradient, torch.equal; f32 and bf16); the
+   per-op attention (K8, ``flash_attention``: forward, dq, dk, dv) in every
+   mask mode (none, key, key + causal, a per-batch and a shared full pane,
+   a legacy key mask) with fully masked rows, at the post-LN
+   ``cont2cont_mdn`` width (B=64, T=192, H=8/Dh=32) and the ``cont_train``
+   geometry (B=512, T=96, H=2/Dh=128), f32 and bf16 (bf16 gradients also
+   within STACK_BF16_FACTOR x the plain path's error against f32), at
+   T=1024, and its decline at T=1040 to the composed math; the whole-step
+   decode (K13, ``decode_step``) at the ``ar_decode`` width for t = 0, 17
+   and 191, qk-norm off and on, H=8 and H=2 (bf16 against f32 as the
+   stacks), and a 32-step f32 step loop whose picks equal two
+   ``decode_chunk`` launches' up to each row's first near tie;
 4. main paths, each with every launch counter reset just before and read
    just after: the port's ``sbir`` CLI at the full width of the ``sbir``
    preset (seeded random weights) over 16 batches of 64 from the preset's
@@ -63,15 +74,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    token loader (its shards are not in the repo) and warmup 500, through
    the K6 kernels, the stacks drawing their dropout in-kernel (no dropout
    byte tensor drawn) and the composed sites through the emit kernel;
+   then the post-LN model (``--hparams norm_first=False``): ``sbir`` and
+   ``decode`` on K8 (engines and stacks declined), ``train`` for 30 steps
+   with K8 forward and backward 16 times a step and no stack kernel, and
+   ``eval`` against the composed model; and the K13 step loop on
+   ``ar_decode`` (192 launches; every CLI path launches it 0 times);
 5. times: kernel vs plain (CUDA events after warm-up), the end-to-end
    embed rate, per-chunk and per-call decode kernel times, and the
    whole-decode p50 at B=64/T=192 and sketches/s at B=512 for the chunk
-   engine and the composed decoder; each training kernel (one layer's
+   engine, the K13 step loop and the composed decoder; K8 forward and
+   backward against SDPA with the same mask (and its backward) at both
+   geometries; K13 per step beside ``decode_chunk``'s; each training kernel (one layer's
    calls) against its plain version and one PyTorch call where one
    computes the same function; the train stacks' forward + backward; K6
    and the emit kernel; the train step p50 and sketches/s at the
    ``cont2cont_mdn`` shape, the JAX benchmark's ``cont_train`` shape
-   (B=512, T=96, H=2; 'prng' and 'bits' dropout) and its token cells
+   (B=512, T=96, H=2; 'prng' and 'bits' dropout), ``cont2cont_mdn``
+   post-LN, and its token cells
    ``train`` (H=2) and ``train_h8`` (H=8), with a ``torch.profiler``
    breakdown of each; each with the card's name and power limit. Every kernel's bound (the least time for its bytes and
    operations at the card's published peaks) is computed from the timed
@@ -112,7 +131,10 @@ SOURCES = {"linear": "encoder_stack.cu", "encoder_attention":
            "layernorm_bwd": "norm_train.cu", "sum_rows": "norm_train.cu",
            "token_ce_fwd": "token_ce.cu", "token_ce_dx": "token_ce.cu",
            "token_ce_dw": "token_ce.cu",
-           "emit_dropout_bits": "dropout_prng.cu"}
+           "emit_dropout_bits": "dropout_prng.cu",
+           "flash_attention_fwd": "attention_train.cu",
+           "flash_attention_bwd": "attention_train.cu",
+           "decode_step": "decode_chunk.cu"}
 # the training kernels replace parts of the bodies of the TPU training
 # kernels: the backward products and the row LayerNorm backward of
 # _layer_bwd_kernel (:102, _ln_bwd32 :80, the cross-cell accumulation
@@ -136,6 +158,9 @@ REPLACES = {
     "token_ce_dx": "sketchformer_tpu/ops/pallas_ce.py:84",
     "token_ce_dw": "sketchformer_tpu/ops/pallas_ce.py:84",
     "emit_dropout_bits": "sketchformer_tpu/ops/pallas_dropout.py:95",
+    "flash_attention_fwd": "sketchformer_tpu/ops/pallas_attention.py:182",
+    "flash_attention_bwd": "sketchformer_tpu/ops/pallas_attention.py:249",
+    "decode_step": "sketchformer_tpu/ops/pallas_decode_stack.py:223",
 }
 # max |kernel - plain| / max |plain| allowed, by dtype
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -779,10 +804,21 @@ def check_train_stack(randn, dev, decoder, H, qk, dtype):
           f"{STACK_BF16_FACTOR})")
 
 
-def train_main_path(cli, counters, engines, tmp):
+def set_attn_impl(model, impl):
+    """Every module's attention implementation (the stacks' gates and each
+    layer's attention): 'xla' makes the model the plain composed one."""
+    for m in model.modules():
+        if hasattr(m, "attn_impl"):
+            m.attn_impl = impl
+
+
+def train_main_path(cli, counters, engines, tmp, post_ln=False):
     """The port's train CLI on cont2cont_mdn for TRAIN_STEPS steps, then
     eval on its checkpoint, each with every launch counter reset just
-    before and read just after. Returns (train launches, steps)."""
+    before and read just after. ``post_ln``: the post-LN model, whose
+    stacks decline their kernels and whose self-attention, 16 calls a step
+    (8 encoder and 8 decoder layers), runs K8 forward and backward.
+    Returns (train launches, steps)."""
     import torch
 
     run = os.path.join(tmp, "run")
@@ -791,6 +827,8 @@ def train_main_path(cli, counters, engines, tmp):
             "--loop-arg", f"total_steps={TRAIN_STEPS}",
             "--loop-arg", "log_every=1", "--loop-arg", "eval_every=1000",
             "--loop-arg", f"save_every={TRAIN_STEPS}"]
+    if post_ln:
+        argv += POST_LN
     engines.reset_seen()
     for m in counters:
         m.reset_launches()
@@ -807,14 +845,28 @@ def train_main_path(cli, counters, engines, tmp):
     final = json.loads(buf.getvalue().strip().splitlines()[-1])
     print(f"  train: {json.dumps(final)} ({secs:.1f} s)")
     print(f"  launches: {json.dumps(launches)}")
-    for k in STACK_KERNELS:
-        if launches[k] <= 0:
-            fail(f"kernel {k} was not launched by cli train")
     composed = sorted(s for s in engines._seen
                       if s[0] in ("encoder-stack", "decoder-stack")
                       and s[1] == "composed")
-    if composed:
-        fail(f"a stack declined its kernels: {composed}")
+    if post_ln:
+        calls = 2 * 8 * TRAIN_STEPS
+        if launches["flash_attention_bwd"] < calls or \
+                launches["flash_attention_fwd"] < calls:
+            fail(f"K8 launched fewer than {calls} times forward and "
+                 f"backward in {TRAIN_STEPS} post-LN steps")
+        for k in STACK_KERNELS:
+            if launches[k]:
+                fail(f"the post-LN model launched stack kernel {k}")
+        want = [(s, "composed", "post-LN config")
+                for s in ("decoder-stack", "encoder-stack")]
+        if composed != want:
+            fail(f"post-LN stacks' engine notes {composed}")
+    else:
+        for k in STACK_KERNELS:
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched by cli train")
+        if composed:
+            fail(f"a stack declined its kernels: {composed}")
     with open(os.path.join(run, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r["loss"] for r in recs if "loss" in r and "val_loss" not in r]
@@ -843,8 +895,9 @@ def train_main_path(cli, counters, engines, tmp):
     print(f"main path: python -m sketchformer_tpu_torch.cli eval --run-dir "
           f"{run} --device cuda\n  eval: {json.dumps(ev)}\n  launches: "
           f"{json.dumps(got)}")
-    for k in ("linear", "layernorm_rows", "encoder_attention",
-              "attention_fwd"):
+    for k in (("flash_attention_fwd",) if post_ln else
+              ("linear", "layernorm_rows", "encoder_attention",
+               "attention_fwd")):
         if got[k] <= 0:
             fail(f"kernel {k} was not launched by cli eval")
     if not all(np.isfinite(v) for v in ev.values()):
@@ -859,7 +912,7 @@ def train_main_path(cli, counters, engines, tmp):
 
     batches = loader.get_validation_set(max_batches=2)
     k_ev = evaluate(make_eval_step(model), batches)
-    model.encoder.attn_impl = model.decoder.attn_impl = "xla"
+    set_attn_impl(model, "xla")
     p_ev = evaluate(make_eval_step(model), batches)
     rel = abs(k_ev["loss"] - p_ev["loss"]) / abs(p_ev["loss"])
     print(f"check eval loss, kernels {k_ev['loss']:.5f} vs composed "
@@ -942,6 +995,8 @@ def train_step_times(gpu, dev, cli):
     resolve = dp.resolve_impl
     for label, shape, over, impl in (
             ("cont2cont_mdn", MDN, cont, "auto"),
+            ("cont2cont_mdn post-LN (K8)", MDN, dict(cont, norm_first=False),
+             "auto"),
             ("cont_train", CONT_TRAIN, cont_train, "auto"),
             ("cont_train (stacks in bits mode)", CONT_TRAIN, cont_train,
              "bits"),
@@ -1328,6 +1383,325 @@ def emit_times(dev, gpu, cuda_ms, paired):
 
 
 # ---------------------------------------------------------------------------
+# K8: per-op attention, the post-LN model's path; K13: the whole-step decode
+# ---------------------------------------------------------------------------
+
+# (B, T, H, Dh): the post-LN cont2cont_mdn width and the cont_train geometry
+FLASH_SHAPES = {"cont2cont_mdn": (64, 192, 8, 32),
+                "cont_train": (512, 96, 2, 128)}
+FLASH_MODES = ("none", "key", "key_causal", "full", "full_shared",
+               "legacy_key")
+POST_LN = ["--hparams", "norm_first=False"]
+STEP_LOOP = 32
+
+
+def flash_operands(randn, gen, dev, dtype, mode, B, T, H, Dh):
+    """One attention call's (q, k, v, g) (B, T, H, Dh) and its masks
+    (mask, key_mask, causal) in ``mode``, with fully masked rows: batch
+    element 0 has no key, and a full pane holds a query row with none."""
+    import torch
+
+    q, k, v, g = (randn(B, T, H, Dh, dtype=dtype) for _ in range(4))
+    lengths = torch.randint(T // 4, T + 1, (B,), generator=gen, device=dev)
+    lengths[0] = 0
+    km = torch.arange(T, device=dev)[None] < lengths[:, None]
+    mask, key_mask = None, None
+    if mode in ("key", "key_causal"):
+        key_mask = km
+    elif mode == "legacy_key":
+        mask = km[:, None, None, :]
+    elif mode in ("full", "full_shared"):
+        mask = torch.rand((B if mode == "full" else 1, 1, T, T),
+                          generator=gen, device=dev) < 0.8
+        mask[0, 0, 3] = False
+    return q, k, v, g, mask, key_mask, mode == "key_causal"
+
+
+def flash_plain(q, k, v, g, mask, key_mask, causal):
+    """The plain versions' [out, dq, dk, dv]."""
+    from sketchformer_tpu_torch.ops import flash_attention as fa
+
+    B, T = q.shape[:2]
+    bias = fa.structure_mask(mask, key_mask, B, T, T)
+    return [fa.flash_attention_reference(q, k, v, bias, causal),
+            *fa.flash_attention_bwd_reference(q, k, v, bias, g, causal)]
+
+
+def flash_kernel_and_plain(q, k, v, g, mask, key_mask, causal):
+    """The public flash_attention (autograd, the kernels) and the plain
+    versions on the same inputs: (kernel [out, dq, dk, dv], plain [...])."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import flash_attention as fa
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, mask=mask, key_mask=key_mask,
+                             causal=causal)
+    got = [out] + list(torch.autograd.grad(out, leaves, g))
+    return got, flash_plain(q, k, v, g, mask, key_mask, causal)
+
+
+def check_flash_attention(randn, gen, dev, errs, compare):
+    """K8 against its plain version: the forward and the three gradients,
+    every mask mode, at the post-LN cont2cont_mdn width and the cont_train
+    geometry, f32 and bf16 (bf16 also held to the f32 computation of the
+    same inputs within STACK_BF16_FACTOR x the plain bf16 path's error,
+    the sums being T long); then T = 1024 at a small batch, and the
+    decline past it (T = 1040) to the composed math, with no launch."""
+    import torch
+
+    from sketchformer_tpu_torch.models.attention import (
+        causal_mask,
+        combine_masks,
+        dot_product_attention,
+    )
+    from sketchformer_tpu_torch.ops import flash_attention as fa
+
+    parts = ("out", "dq", "dk", "dv")
+    for label, (B, T, H, Dh) in FLASH_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).replace("torch.", "")
+            for mode in FLASH_MODES:
+                ops = flash_operands(randn, gen, dev, dtype, mode, B, T, H,
+                                     Dh)
+                got, want = flash_kernel_and_plain(*ops)
+                main = (label == "cont2cont_mdn" and dtype == torch.bfloat16
+                        and mode in ("key", "key_causal"))
+                name = f"flash_attention {tag} {label} B={B} T={T} H={H} " \
+                       f"Dh={Dh} {mode}"
+                for i, (p, a, b) in enumerate(zip(parts, got, want)):
+                    rec = None
+                    if main:
+                        rec = ("flash_attention_fwd" if i == 0
+                               else "flash_attention_bwd")
+                    compare(f"{name} {p}", a, b, dtype, rec)
+                if dtype == torch.float32:
+                    continue
+                q, k, v, g, *masks = ops
+                ref = flash_plain(*(t.float() for t in (q, k, v, g)), *masks)
+                for p, a, b, r in zip(parts[1:], got[1:], want[1:], ref[1:]):
+                    err_k = (a.float() - r).abs().max().item()
+                    err_p = (b.float() - r).abs().max().item()
+                    if not err_k <= STACK_BF16_FACTOR * err_p + 1e-30:
+                        fail(f"{name} {p}: kernel error {err_k:.3e} vs "
+                             f"float32 above {STACK_BF16_FACTOR} x the "
+                             f"plain path's {err_p:.3e}")
+                print(f"check {name} dq/dk/dv vs float32: within "
+                      f"{STACK_BF16_FACTOR} x the plain bf16 path's error")
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for H, Dh in ((2, 128), (8, 32)):
+            ops = flash_operands(randn, gen, dev, dtype, "key_causal", 2,
+                                 fa.MAX_FUSED_LEN, H, Dh)
+            got, want = flash_kernel_and_plain(*ops)
+            for p, a, b in zip(parts, got, want):
+                compare(f"flash_attention {tag} B=2 T={fa.MAX_FUSED_LEN} "
+                        f"H={H} Dh={Dh} key_causal {p}", a, b, dtype)
+    Tl = fa.MAX_FUSED_LEN + 16
+    q, k, v, _, _, km, _ = flash_operands(randn, gen, dev, torch.bfloat16,
+                                          "key", 1, Tl, 2, 32)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, key_mask=km, causal=True)
+    torch.cuda.synchronize()
+    want = dot_product_attention(q, k, v, mask=combine_masks(
+        km[:, None, None, :], causal_mask(Tl, dev)))
+    if fa.LAUNCHES != before or not torch.equal(got, want):
+        fail(f"flash_attention at T={Tl}: expected the composed math with "
+             f"no launch")
+    print(f"check flash_attention bf16 T={Tl}: declined to the composed "
+          f"math (no launch, equal)")
+
+
+def step_operands(randn, gen, dev, dtype, H, qk, t, K=1):
+    """Operands of one whole decode step (or K steps of the loop) at the
+    ar_decode width, the cache rows from t on set to NaN: the step reads
+    rows [0, t) only."""
+    import torch
+
+    d, L, dff, V, T, Mq = (AR[k] for k in ("d", "L", "dff", "V", "T", "Mq"))
+    ops = chunk_operands(randn, gen, dev, B=64, L=L, d=d, H=H, dff=dff, N=V,
+                         Tmax=T, Mq=Mq, K=K, t0=t, dtype=dtype, cont=False)
+    if K == 1:
+        ops["k_cache"][:, :, t:] = float("nan")
+        ops["v_cache"][:, :, t:] = float("nan")
+    ops["x"] = randn(64, d, dtype=dtype)
+    return ops
+
+
+def check_decode_step(randn, gen, dev, errs):
+    """K13 against its plain version at the ar_decode width (B=64, L=8,
+    d=256, dff=512, Tmax=192) for t = 0, 17 and 191, qk-norm off and on,
+    at H=8/Dh=32 and H=2/Dh=128: h and the new k/v rows, f32 within TOL,
+    bf16 (8 layers deep) held to the f32 computation of the same inputs
+    within STACK_BF16_FACTOR x the plain bf16 path's error. Then a
+    STEP_LOOP-step f32 greedy loop, one launch a step, against two
+    decode_chunk launches from the same state: picks equal up to each
+    row's first near tie of the plain version."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import decode_chunk as dc
+    from sketchformer_tpu_torch.ops import decode_step as dstep
+
+    T = AR["T"]
+    cases = [(8, qk, t) for qk in (False, True) for t in (0, 17, T - 1)]
+    cases += [(2, False, 17), (2, True, T - 1)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        tol = TOL[tag]
+        for H, qk, t in cases:
+            o = step_operands(randn, gen, dev, dtype, H, qk, t)
+            args = (o["x"], o["k_cache"], o["v_cache"], o["cross_k"],
+                    o["cross_v"], o["w"], t)
+            kw = dict(num_heads=H, qk_norm=qk)
+            got = dstep.fused_decode_step(*args, **kw)
+            want = dstep.fused_decode_step_reference(*args, **kw)
+            torch.cuda.synchronize()
+            name = (f"decode_step {tag} B=64 L={AR['L']} d={AR['d']} H={H} "
+                    f"Tmax={T} t={t} qk_norm={qk}")
+            if dtype == torch.bfloat16:
+                ref = dstep.fused_decode_step_reference(
+                    *(a.float() for a in args[:5]),
+                    {k: v.float() for k, v in o["w"].items()}, t, **kw)
+            worst = 0.0
+            for part, a, b, *r in zip(("h", "k_new", "v_new"), got, want,
+                                      *([ref] if dtype == torch.bfloat16
+                                        else [])):
+                if not torch.isfinite(a).all():
+                    fail(f"{name}: {part} not finite")
+                err = (a.float() - b.float()).abs().max().item()
+                if H == 8 and not qk and dtype == torch.bfloat16:
+                    errs["decode_step"] = max(errs["decode_step"], err)
+                if dtype == torch.float32:
+                    rel = err / b.abs().max().item()
+                    worst = max(worst, rel)
+                    if not rel <= tol:
+                        fail(f"{name}: {part} rel err {rel:.3e}")
+                    continue
+                err_k = (a.float() - r[0]).abs().max().item()
+                err_p = (b.float() - r[0]).abs().max().item()
+                worst = max(worst, err_k / max(err_p, 1e-30))
+                if not err_k <= STACK_BF16_FACTOR * err_p + 1e-30:
+                    fail(f"{name}: {part} kernel error {err_k:.3e} vs "
+                         f"float32 above {STACK_BF16_FACTOR} x the plain "
+                         f"path's {err_p:.3e}")
+            print(f"check {name}: " + (
+                f"h, k_new, v_new worst rel err {worst:.3e} (tol {tol:.0e})"
+                if dtype == torch.float32 else
+                f"vs float32, worst kernel/plain error ratio {worst:.2f} "
+                f"(<= {STACK_BF16_FACTOR})"))
+    # the step loop against the chunk kernel, from the same state
+    K = STEP_LOOP
+    o = step_operands(randn, gen, dev, torch.float32, 8, False, 0, K=K)
+    kv = (o["k_cache"], o["v_cache"])
+    clone = lambda: tuple(c.clone() for c in kv)
+    head = (o["emb"], o["pos_chunk"], o["head_w"], o["head_b"], o["w"])
+    kw = dict(num_heads=8)
+    ids_step, _ = dstep.greedy_steps(o["prev"], o["finished"], *clone(),
+                                     o["cross_k"], o["cross_v"], *head, 0,
+                                     **kw)
+    kc, vc = clone()
+    prev, fin, chunks = o["prev"], o["finished"], []
+    for t0 in range(0, K, AR["K"]):
+        ids, fin = dc.decode_chunk(prev, fin, kc, vc, o["cross_k"],
+                                   o["cross_v"], o["emb"],
+                                   o["pos_chunk"][t0:t0 + AR["K"]],
+                                   o["head_w"], o["head_b"], o["w"], t0, **kw)
+        chunks.append(ids)
+        prev = ids[:, -1].contiguous()
+    ids_chunk = torch.cat(chunks, 1)
+    *_, margins = dc.decode_chunk_reference(
+        o["prev"], o["finished"], *clone(), o["cross_k"], o["cross_v"],
+        *head, 0, **kw, return_margins=True)
+    torch.cuda.synchronize()
+    tie = margins < 1
+    n = torch.where(tie.any(1), tie.int().argmax(1), K)
+    checked = torch.arange(K, device=dev)[None] < n[:, None]
+    compared = int(checked.sum())
+    if compared < ids_step.numel() // 2:
+        fail(f"step loop: only {compared} row-steps away from a near tie")
+    if not torch.equal(ids_step[checked], ids_chunk[checked]):
+        fail("step loop: picks differ from decode_chunk's away from ties")
+    print(f"check greedy step loop f32 ({K} decode_step launches) vs "
+          f"decode_chunk ({K // AR['K']} launches): picks equal on "
+          f"{compared}/{ids_step.numel()} row-steps up to each row's first "
+          f"near tie")
+
+
+def flash_times(randn, gen, dev, gpu, cuda_ms, paired):
+    """K8 forward and backward (bf16, key mask) against the plain versions
+    and SDPA with the same boolean mask (and its backward), at both
+    FLASH_SHAPES. Returns {kernel: (ms, plain_ms, library_ms)} at the
+    cont2cont_mdn width."""
+    import torch
+    import torch.nn.functional as F
+
+    from sketchformer_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for label, (B, T, H, Dh) in FLASH_SHAPES.items():
+        q, k, v, g, _, km, _ = flash_operands(
+            randn, gen, dev, torch.bfloat16, "key", B, T, H, Dh)
+        bias = fa.structure_mask(None, km, B, T, T)
+        q4, k4, v4, g4 = (t.transpose(1, 2) for t in (q, k, v, g))
+        amask = km[:, None, None, :]
+        leaves = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+        with torch.enable_grad():
+            sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+
+        def lib_bwd():
+            with torch.enable_grad():
+                torch.autograd.grad(sdpa, leaves, g4, retain_graph=True)
+
+        with torch.no_grad():
+            rows = {
+                "flash_attention_fwd": (
+                    *paired(lambda: fa.flash_attention_fwd(q, k, v, bias),
+                            lambda: fa.flash_attention_reference(q, k, v,
+                                                                 bias)),
+                    cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=amask))),
+                "flash_attention_bwd": (
+                    *paired(lambda: fa.flash_attention_bwd(q, k, v, bias, g),
+                            lambda: fa.flash_attention_bwd_reference(
+                                q, k, v, bias, g), iters=10),
+                    cuda_ms(lib_bwd, 10)),
+            }
+        for name, (k_ms, p_ms, l_ms) in rows.items():
+            lib_call = "SDPA backward" if "bwd" in name else "SDPA"
+            print(f"time {name} ({label}: bf16, B={B}, T={T}, H={H}, "
+                  f"Dh={Dh}, key mask): kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, library ({lib_call}, the same boolean "
+                  f"mask) {l_ms:.4f} ms [{gpu}]")
+        if label == "cont2cont_mdn":
+            out = rows
+        del sdpa, leaves
+    return out
+
+
+def decode_step_times(randn, gen, dev, gpu, cuda_ms, paired, chunk_ms):
+    """K13 per step at the ar_decode width (t = T/2) against its plain
+    version, beside decode_chunk's time per step. Returns (ms, plain_ms)."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import decode_step as dstep
+
+    t = AR["T"] // 2
+    o = step_operands(randn, gen, dev, torch.bfloat16, AR["H"], False, t)
+    args = (o["x"], o["k_cache"], o["v_cache"], o["cross_k"], o["cross_v"],
+            o["w"], t)
+    k_ms, p_ms = paired(
+        lambda: dstep.fused_decode_step(*args, num_heads=AR["H"]),
+        lambda: dstep.fused_decode_step_reference(*args, num_heads=AR["H"]),
+        iters=10, warm=2)
+    print(f"time decode_step (bf16, B=64, L={AR['L']}, d={AR['d']}, "
+          f"H={AR['H']}, Tmax={AR['T']}, t={t}, one step): kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; decode_chunk per step "
+          f"{chunk_ms / AR['K']:.4f} ms (a {AR['K']}-step chunk / {AR['K']}) "
+          f"[{gpu}]")
+    return k_ms, p_ms
+
+
+# ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a call's work
 # ---------------------------------------------------------------------------
 
@@ -1422,6 +1796,31 @@ def token_kernel_work(M, d, V, L):
                         + V * 4),
         "emit_dropout_bits": (0, 2 * L * M * d),
     }
+
+
+def flash_work(B, T, H, Dh):
+    """{kernel: (flops, bytes)} of K8 at (B, T, H, Dh), bf16, key mask: the
+    forward's two products (4 B H T^2 Dh); the backward as the TPU kernel
+    does it in one pass, the scores' recompute and four products (10 B H
+    T^2 Dh); bytes: each input read once (q, k, v, the (B, T) f32 bias, and
+    the output gradient) and each output written once."""
+    x = B * T * H * Dh * 2
+    return {"flash_attention_fwd": (4 * B * H * T * T * Dh,
+                                    4 * x + B * T * 4),
+            "flash_attention_bwd": (10 * B * H * T * T * Dh,
+                                    7 * x + B * T * 4)}
+
+
+def step_work(B, L, d, dff, t, Mq):
+    """(flops, bytes) of one whole decode step at position t (bf16): the
+    trunk's six products per layer and the attention over t cache rows,
+    the new one and Mq cross rows; bytes: the trunk's weights, the cache
+    rows [0, t), the cross K/V, the input, the output and the new rows."""
+    prod = 6 * d * d + 2 * d * dff
+    flops = B * L * (2 * prod + 4 * (t + 1 + Mq) * d)
+    nbytes = (L * prod * 2 + 2 * L * B * (t + Mq) * d * 2 + 2 * B * d * 2
+              + 2 * L * B * d * 2)
+    return flops, nbytes
 
 
 def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
@@ -1577,12 +1976,17 @@ def main() -> int:
     from sketchformer_tpu_torch.ops import decode_chunk as dc
     from sketchformer_tpu_torch.ops import attention_train as at
     from sketchformer_tpu_torch.ops import encoder_stack as es
+    from sketchformer_tpu_torch.infer.fast_decode import (
+        make_step_token_decoder,
+    )
+    from sketchformer_tpu_torch.ops import decode_step as dstep
     from sketchformer_tpu_torch.ops import dropout_prng as dp
+    from sketchformer_tpu_torch.ops import flash_attention as fa
     from sketchformer_tpu_torch.ops import norm_train as nt
     from sketchformer_tpu_torch.ops import token_ce as tce
     from sketchformer_tpu_torch.utils import engines
 
-    counters = (es, dc, da, at, nt, tce, dp)
+    counters = (es, dc, da, at, nt, tce, dp, fa, dstep)
 
     dev = torch.device("cuda")
     gpu = gpu_line()
@@ -1740,6 +2144,8 @@ def main() -> int:
     check_train_kernels(randn, dev, errs, compare)
     check_token_ce(randn, gen, dev, errs, compare)
     check_dropout_prng(dev, errs)
+    check_flash_attention(randn, gen, dev, errs, compare)
+    check_decode_step(randn, gen, dev, errs)
 
     # ---- 4. main path: the port's sbir CLI at the sbir preset's width ------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1771,6 +2177,8 @@ def main() -> int:
             fail("the sbir path launched a backward kernel")
         if dc.LAUNCHES["decode_chunk"] or da.LAUNCHES["decode_attention"]:
             fail("the sbir path launched a decode kernel")
+        if fa.LAUNCHES["flash_attention_fwd"]:
+            fail("the pre-LN sbir path launched K8 (its stack declined)")
         with np.load(out_npz) as data:
             Z, labels = data["embeddings"], data["labels"]
 
@@ -1833,6 +2241,8 @@ def main() -> int:
         for k in needs:
             if got[k] <= 0:
                 fail(f"kernel {k} was not launched by cli {' '.join(argv)}")
+        if got["decode_step"]:
+            fail(f"cli {argv[0]} launched the whole-step kernel")
         return got
 
     def check_sketches(path, n):
@@ -1926,6 +2336,55 @@ def main() -> int:
         tok_launches = train_tok_main_path(cli, counters, engines, tmp)
     for k in TOK_KERNELS:
         launches[k] = tok_launches[k]
+
+    # ---- 4e. main paths of the post-LN model: sbir, decode, train, eval ---
+    # (norm_first=False: the fused stacks and engines decline, the composed
+    # layers' self-attention runs K8)
+    with tempfile.TemporaryDirectory() as tmp:
+        engines.reset_seen()
+        got = drive(["sbir", "--preset", "sbir", *seeded, "--max-batches",
+                     "4", "--loader-arg",
+                     f"sketches_per_epoch={SKETCHES_PER_EPOCH}", *POST_LN,
+                     "--output", os.path.join(tmp, "z.npz")],
+                    ("flash_attention_fwd",))
+        if any(got[k] for k in enc_kernels) or got["flash_attention_bwd"]:
+            fail("the post-LN sbir path launched an encoder-stack or a "
+                 "backward kernel")
+        if ("embed", "composed", "post-LN config") not in engines._seen:
+            fail("the post-LN sbir path did not decline the fast engine")
+        with np.load(os.path.join(tmp, "z.npz")) as data:
+            if not np.isfinite(data["embeddings"]).all():
+                fail("post-LN embeddings not finite")
+        got = drive(["decode", "--preset", "ar_decode", *seeded, *POST_LN,
+                     "--output", os.path.join(tmp, "ar.npz")],
+                    ("flash_attention_fwd", "decode_attention"))
+        if got["decode_chunk"]:
+            fail("the post-LN decode ran the chunk kernel")
+        check_sketches(os.path.join(tmp, "ar.npz"), 64)
+    with tempfile.TemporaryDirectory() as tmp:
+        post_launches, post_steps = train_main_path(cli, counters, engines,
+                                                    tmp, post_ln=True)
+    for k in ("flash_attention_fwd", "flash_attention_bwd"):
+        launches[k] = post_launches[k]
+        print(f"  {k}: {post_launches[k]} launches in {post_steps} post-LN "
+              f"train steps and the final eval")
+
+    # ---- 4f. the whole-step kernel's step loop (no CLI path runs it) -------
+    step_model, step_loader = preset_model("ar_decode")
+    _, enc_s, _ = cli.first_batch(step_model, step_loader)
+    for m in counters:
+        m.reset_launches()
+    ids = make_step_token_decoder(step_model)(enc_s)
+    torch.cuda.synchronize()
+    launches["decode_step"] = dstep.LAUNCHES["decode_step"]
+    if tuple(ids.shape) != (64, AR["T"]) or \
+            launches["decode_step"] != AR["T"] or \
+            not bool(((ids >= 0) & (ids < AR["V"])).all()):
+        fail(f"step loop: ids {tuple(ids.shape)}, "
+             f"{launches['decode_step']} launches")
+    print(f"main path: make_step_token_decoder on ar_decode (B=64, "
+          f"T={AR['T']}): {launches['decode_step']} decode_step launches")
+    del step_model
 
     # ---- 5. times ----------------------------------------------------------
     def cuda_ms(fn, iters=20, warm=3):
@@ -2131,6 +2590,7 @@ def main() -> int:
 
     for label, decoder, reps in (
             ("chunk engine (decode_chunk)", dec.make_token_decoder(model), 7),
+            ("step loop (decode_step)", make_step_token_decoder(model), 3),
             ("composed (decode_attention)",
              dec.make_token_decoder(model, fast=False), 3)):
         ended = int((decoder(enc64) == EOS_ID).any(1).sum())
@@ -2155,6 +2615,12 @@ def main() -> int:
         lib[name] = l_ms
     times["emit_dropout_bits"] = emit_times(dev, gpu, cuda_ms, paired)
     lib["emit_dropout_bits"] = None
+    for name, (k_ms, p_ms, l_ms) in flash_times(
+            randn, gen, dev, gpu, cuda_ms, paired).items():
+        times[name] = (k_ms, p_ms)
+        lib[name] = l_ms
+    times["decode_step"] = decode_step_times(
+        randn, gen, dev, gpu, cuda_ms, paired, times["decode_chunk"][0])
     steps_ms = train_step_times(gpu, dev, cli)
     print(f"train steps: {json.dumps(steps_ms)} [{gpu}]")
 
@@ -2165,6 +2631,10 @@ def main() -> int:
                                                      "dff"))))
     work.update(token_kernel_work(TRAIN["B"] * TRAIN["T"], TRAIN["d"],
                                   TRAIN["V"], TRAIN["L"]))
+    work.update(flash_work(*FLASH_SHAPES["cont2cont_mdn"]))
+    work["decode_step"] = step_work(B=64, L=AR["L"], d=AR["d"],
+                                    dff=AR["dff"], t=AR["T"] // 2,
+                                    Mq=AR["Mq"])
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "jaxlib"))

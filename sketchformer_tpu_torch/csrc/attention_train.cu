@@ -37,6 +37,17 @@
 // qk-norm parameter gradients are per-block partial rows, summed in a fixed
 // order by sum_rows (norm_train.cu).
 //
+// The same three kernels are K8, the per-op attention of
+// sketchformer_tpu/ops/pallas_attention.py::flash_attention (_fwd_kernel,
+// _bwd_kernel), through their own entry points sk_flash_attention_fwd /
+// _bwd. There the bias is a (B, Tk) key-mask row or a (B or 1, Tq, Tk)
+// pane (a row stride and a batch stride, 0 for a shared pane), causal is
+// the TPU kernel's where() after the bias (causal = 2) rather than the
+// stacks' additive term before it (causal = 1), the backward's p is e *
+// (1 / sum) (recip) where the stacks divide, there is no qk-norm, and dO
+// and the gradients are in the compute dtype (io_dt), the gradients
+// rounded at the store as _bwd_kernel rounds them.
+//
 // What bounds these on the card: at Dh = 32 each score costs 2 * Dh FLOPs
 // against one f32 exponential, so they are bound by instruction issue on
 // the FMA and SFU units, not by memory. This first landing keeps the design
@@ -153,19 +164,29 @@ struct AttnArgs {
   const void *q, *k, *v;         // head 0 of batch element 0, row 0
   long long q_bs, k_bs, v_bs;    // batch strides (elements)
   int q_rs, k_rs, v_rs;          // row strides (elements)
-  const float* key_bias;         // (B, Tk) additive 0 / -1e9, or null
+  const float* bias;             // additive 0 / -1e9 f32, or null: row t of
+  long long bias_bs;             // batch element b at bias + b * bias_bs +
+  int bias_rs;                   // t * bias_rs (key mask: bias_rs = 0)
   const float *qn_s, *qn_b, *kn_s, *kn_b;  // (Dh) qk-norm, or null
-  int Tq, Tk, H, Dh, causal;
+  int Tq, Tk, H, Dh;
+  int causal;  // 0 none; 1 -1e9 added before the bias; 2 -1e9 set after it
+  int recip;   // the backward's p = e * (1 / sum), else e / sum
   float scale;
 };
 
-// s = (q . k) * scale (+ causal bias) (+ key bias), the TPU kernels' order
+// s = (q . k) * scale (+ causal bias) (+ bias) (causal where), the TPU
+// kernels' order; kb is batch element b's bias
 __device__ __forceinline__ float score(float acc, const AttnArgs& a,
                                        const float* kb, int t, int j) {
-  float s = acc * a.scale;
-  if (a.causal) s += j <= t ? 0.f : kNegInf;
-  if (kb != nullptr) s += kb[j];
+  float s = __fmul_rn(acc, a.scale);  // rounded before the bias, as in JAX
+  if (a.causal == 1) s += j <= t ? 0.f : kNegInf;
+  if (kb != nullptr) s += kb[(size_t)t * a.bias_rs + j];
+  if (a.causal == 2 && j > t) s = kNegInf;
   return s;
+}
+
+__device__ __forceinline__ const float* batch_bias(const AttnArgs& a, int b) {
+  return a.bias != nullptr ? a.bias + (size_t)b * a.bias_bs : nullptr;
 }
 
 // stage key rows [c0, c0 + nk) of head h, qk-normed and rounded, into kv
@@ -266,8 +287,7 @@ attention_fwd_kernel(AttnArgs a, T* __restrict__ out, long long o_bs,
   const T* qb0 = static_cast<const T*>(a.q) + b * a.q_bs + h * a.Dh;
   const T* kb0 = static_cast<const T*>(a.k) + b * a.k_bs + h * a.Dh;
   const T* vb0 = static_cast<const T*>(a.v) + b * a.v_bs + h * a.Dh;
-  const float* kb = a.key_bias != nullptr ? a.key_bias + (size_t)b * a.Tk
-                                          : nullptr;
+  const float* kb = batch_bias(a, b);
 #pragma unroll
   for (int rr = 0; rr < kFwdRows; ++rr) {
     const int r = warp * kFwdRows + rr;
@@ -352,15 +372,31 @@ constexpr int kBwdRows = 2;                  // query rows per warp
 constexpr int kBwdQT = kWarps * kBwdRows;    // query rows per block
 
 struct GradArgs {
-  const float* dout;   // dL/d(attention output), f32, head 0 of element 0
+  const void* dout;    // dL/d(attention output), head 0 of element 0
   long long do_bs;
   int do_rs;
   float* stats;        // (B, H, Tq, 3): row max, row sum, delta
-  float *dq, *dk, *dv; // f32 outputs at head 0 of element 0
+  void *dq, *dk, *dv;  // outputs at head 0 of element 0
   long long dq_bs, dk_bs, dv_bs;
   int dq_rs, dk_rs, dv_rs;
   float *part_s, *part_b;  // (blocks, Dh) qk-norm parameter-gradient partials
+  int io_dt;           // dout and dq / dk / dv in the compute dtype, else f32
 };
+
+template <typename T>
+__device__ __forceinline__ float load_dout(const GradArgs& g, size_t i) {
+  return g.io_dt ? to_f<T>(static_cast<const T*>(g.dout)[i])
+                 : static_cast<const float*>(g.dout)[i];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_grad(const GradArgs& g, void* p,
+                                           size_t i, float v) {
+  if (g.io_dt)
+    static_cast<T*>(p)[i] = from_f<T>(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
 
 template <typename T, int NI>
 __global__ void __launch_bounds__(kThreads)
@@ -377,8 +413,7 @@ attention_bwd_q_kernel(AttnArgs a, GradArgs g) {
   const T* qb0 = static_cast<const T*>(a.q) + b * a.q_bs + h * a.Dh;
   const T* kb0 = static_cast<const T*>(a.k) + b * a.k_bs + h * a.Dh;
   const T* vb0 = static_cast<const T*>(a.v) + b * a.v_bs + h * a.Dh;
-  const float* kb = a.key_bias != nullptr ? a.key_bias + (size_t)b * a.Tk
-                                          : nullptr;
+  const float* kb = batch_bias(a, b);
   float qxh[kBwdRows][NI], qrs[kBwdRows];
 #pragma unroll
   for (int rr = 0; rr < kBwdRows; ++rr) {
@@ -388,13 +423,13 @@ attention_bwd_q_kernel(AttnArgs a, GradArgs g) {
     load_row<T, NI>(qb0 + (size_t)t * a.q_rs, a.Dh, lane, v);
     if (a.qn_s != nullptr)
       head_norm<T, NI>(v, a.Dh, lane, a.qn_s, a.qn_b, qxh[rr], qrs[rr]);
-    const float* dp = g.dout + b * g.do_bs + (size_t)t * g.do_rs + h * a.Dh;
+    const size_t dp = b * g.do_bs + (size_t)t * g.do_rs + h * a.Dh;
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int d = lane + 32 * i;
       if (d < a.Dh) {
         qs[r * a.Dh + d] = v[i];
-        dos[r * a.Dh + d] = round_dt<T>(dp[d]);
+        dos[r * a.Dh + d] = round_dt<T>(load_dout<T>(g, dp + d));
       }
     }
   }
@@ -416,7 +451,9 @@ attention_bwd_q_kernel(AttnArgs a, GradArgs g) {
     }
     sum = warp_sum(sum);
     __syncwarp();
-    for (int j = lane; j < a.Tk; j += 32) row[j] = row[j] / sum;
+    const float r = 1.f / sum;
+    for (int j = lane; j < a.Tk; j += 32)
+      row[j] = a.recip ? row[j] * r : row[j] / sum;
     rmax[rr] = m;
     rsum[rr] = sum;
   }
@@ -509,11 +546,11 @@ attention_bwd_q_kernel(AttnArgs a, GradArgs g) {
       head_norm_bwd<NI>(dq[rr], a.Dh, lane, a.qn_s, qxh[rr], qrs[rr], ps, pb,
                         t < a.Tq);
     if (t < a.Tq) {
-      float* dst = g.dq + b * g.dq_bs + (size_t)t * g.dq_rs + h * a.Dh;
+      const size_t dst = b * g.dq_bs + (size_t)t * g.dq_rs + h * a.Dh;
 #pragma unroll
       for (int i = 0; i < NI; ++i) {
         const int d = lane + 32 * i;
-        if (d < a.Dh) dst[d] = dq[rr][i];
+        if (d < a.Dh) store_grad<T>(g, g.dq, dst + d, dq[rr][i]);
       }
       if (lane == 0) {
         float* st = g.stats + (((size_t)b * a.H + h) * a.Tq + t) * 3;
@@ -553,8 +590,7 @@ attention_bwd_kv_kernel(AttnArgs a, GradArgs g) {
   const T* qb0 = static_cast<const T*>(a.q) + b * a.q_bs + h * a.Dh;
   const T* kb0 = static_cast<const T*>(a.k) + b * a.k_bs + h * a.Dh;
   const T* vb0 = static_cast<const T*>(a.v) + b * a.v_bs + h * a.Dh;
-  const float* kb = a.key_bias != nullptr ? a.key_bias + (size_t)b * a.Tk
-                                          : nullptr;
+  const float* kb = batch_bias(a, b);
   const float* stats = g.stats + ((size_t)b * a.H + h) * a.Tq * 3;
   float kxh[kKeysPerWarp][NI], krs[kKeysPerWarp];
 #pragma unroll
@@ -590,13 +626,13 @@ attention_bwd_kv_kernel(AttnArgs a, GradArgs g) {
         load_row<T, NI>(qb0 + (size_t)t * a.q_rs, a.Dh, lane, v);
         if (a.qn_s != nullptr)
           head_norm<T, NI>(v, a.Dh, lane, a.qn_s, a.qn_b, xh, rs);
-        const float* dp = g.dout + b * g.do_bs + (size_t)t * g.do_rs + h * a.Dh;
+        const size_t dp = b * g.do_bs + (size_t)t * g.do_rs + h * a.Dh;
 #pragma unroll
         for (int i = 0; i < NI; ++i) {
           const int d = lane + 32 * i;
           if (d < a.Dh) {
             qc[qi * ld + d] = v[i];
-            doc[qi * ld + d] = round_dt<T>(dp[d]);
+            doc[qi * ld + d] = round_dt<T>(load_dout<T>(g, dp + d));
           }
         }
         if (lane < 3) st[qi * 3 + lane] = stats[(size_t)t * 3 + lane];
@@ -618,8 +654,11 @@ attention_bwd_kv_kernel(AttnArgs a, GradArgs g) {
         sacc = fmaf(qc[lane * ld + d], kn[r * a.Dh + d], sacc);
         dpacc = fmaf(doc[lane * ld + d], vs[r * a.Dh + d], dpacc);
       }
-      const float s = score(sacc, a, kb, t, j);
-      const float p = expf(s - st[lane * 3]) / st[lane * 3 + 1];
+      // a dead lane scores the last row: its bias row exists
+      const float s = score(sacc, a, kb, live ? t : a.Tq - 1, j);
+      const float e = expf(s - st[lane * 3]);
+      const float p = a.recip ? e * (1.f / st[lane * 3 + 1])
+                              : e / st[lane * 3 + 1];
       PT[r * kQC + lane] = live ? round_dt<T>(p) : 0.f;
       DST[r * kQC + lane] = live ? round_dt<T>(p * (dpacc - st[lane * 3 + 2])) : 0.f;
     }
@@ -653,14 +692,14 @@ attention_bwd_kv_kernel(AttnArgs a, GradArgs g) {
       head_norm_bwd<NI>(dk[rr], a.Dh, lane, a.kn_s, kxh[rr], krs[rr], ps, pb,
                         j < a.Tk);
     if (j < a.Tk) {
-      float* dkd = g.dk + b * g.dk_bs + (size_t)j * g.dk_rs + h * a.Dh;
-      float* dvd = g.dv + b * g.dv_bs + (size_t)j * g.dv_rs + h * a.Dh;
+      const size_t dkd = b * g.dk_bs + (size_t)j * g.dk_rs + h * a.Dh;
+      const size_t dvd = b * g.dv_bs + (size_t)j * g.dv_rs + h * a.Dh;
 #pragma unroll
       for (int i = 0; i < NI; ++i) {
         const int d = lane + 32 * i;
         if (d < a.Dh) {
-          dkd[d] = dk[rr][i];
-          dvd[d] = dv[rr][i];
+          store_grad<T>(g, g.dk, dkd + d, dk[rr][i]);
+          store_grad<T>(g, g.dv, dvd + d, dv[rr][i]);
         }
       }
     }
@@ -744,7 +783,7 @@ int dispatch_dtype(int dtype, int pass, const AttnArgs& a, const GradArgs& g,
                    void* out, long long o_bs, int o_rs, int norm_p, int B,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.Tq < 1 || a.Tk < 1 || a.Dh < 1 || (a.causal && a.Tq != a.Tk))
+  if (a.Tq < 1 || a.Tk < 1 || a.Dh < 1 || (a.causal == 1 && a.Tq != a.Tk))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return dispatch<float>(pass, a, g, out, o_bs, o_rs, norm_p, B, s);
   if (dtype == 1)
@@ -754,21 +793,43 @@ int dispatch_dtype(int dtype, int pass, const AttnArgs& a, const GradArgs& g,
 
 AttnArgs make_args(const void* q, long long q_bs, int q_rs, const void* k,
                    long long k_bs, int k_rs, const void* v, long long v_bs,
-                   int v_rs, const void* key_bias, const void* qn_s,
-                   const void* qn_b, const void* kn_s, const void* kn_b,
-                   int Tq, int Tk, int H, int Dh, int causal, float scale) {
+                   int v_rs, const void* bias, long long bias_bs, int bias_rs,
+                   const void* qn_s, const void* qn_b, const void* kn_s,
+                   const void* kn_b, int Tq, int Tk, int H, int Dh,
+                   int causal, int recip, float scale) {
   AttnArgs a;
   a.q = q; a.k = k; a.v = v;
   a.q_bs = q_bs; a.k_bs = k_bs; a.v_bs = v_bs;
   a.q_rs = q_rs; a.k_rs = k_rs; a.v_rs = v_rs;
-  a.key_bias = static_cast<const float*>(key_bias);
+  a.bias = static_cast<const float*>(bias);
+  a.bias_bs = bias_bs; a.bias_rs = bias_rs;
   a.qn_s = static_cast<const float*>(qn_s);
   a.qn_b = static_cast<const float*>(qn_b);
   a.kn_s = static_cast<const float*>(kn_s);
   a.kn_b = static_cast<const float*>(kn_b);
   a.Tq = Tq; a.Tk = Tk; a.H = H; a.Dh = Dh; a.causal = causal;
+  a.recip = recip;
   a.scale = scale;
   return a;
+}
+
+GradArgs make_grads(const void* dout, long long do_bs, int do_rs,
+                    void* stats, void* dq, long long dq_bs, int dq_rs,
+                    void* dk, long long dk_bs, int dk_rs, void* dv,
+                    long long dv_bs, int dv_rs, void* part_s, void* part_b,
+                    int io_dt) {
+  GradArgs g;
+  g.dout = dout;
+  g.do_bs = do_bs;
+  g.do_rs = do_rs;
+  g.stats = static_cast<float*>(stats);
+  g.dq = dq; g.dk = dk; g.dv = dv;
+  g.dq_bs = dq_bs; g.dk_bs = dk_bs; g.dv_bs = dv_bs;
+  g.dq_rs = dq_rs; g.dk_rs = dk_rs; g.dv_rs = dv_rs;
+  g.part_s = static_cast<float*>(part_s);
+  g.part_b = static_cast<float*>(part_b);
+  g.io_dt = io_dt;
+  return g;
 }
 
 }  // namespace
@@ -777,6 +838,8 @@ AttnArgs make_args(const void* q, long long q_bs, int q_rs, const void* k,
 // pointer is the first element of head 0 of batch element 0.
 extern "C" {
 
+// the training stacks' attention: a (B, Tk) key bias, causal added before
+// it, f32 dO and gradients
 int sk_attention_fwd(int dtype, const void* q, long long q_bs, int q_rs,
                      const void* k, long long k_bs, int k_rs, const void* v,
                      long long v_bs, int v_rs, const void* key_bias,
@@ -785,8 +848,8 @@ int sk_attention_fwd(int dtype, const void* q, long long q_bs, int q_rs,
                      int B, int Tq, int Tk, int H, int Dh, int causal,
                      int norm_p, float scale, void* stream) {
   const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
-                               key_bias, qn_s, qn_b, kn_s, kn_b, Tq, Tk, H, Dh,
-                               causal, scale);
+                               key_bias, Tk, 0, qn_s, qn_b, kn_s, kn_b, Tq,
+                               Tk, H, Dh, causal ? 1 : 0, 0, scale);
   GradArgs g = {};
   return dispatch_dtype(dtype, 0, a, g, out, o_bs, o_rs, norm_p, B, stream);
 }
@@ -803,20 +866,52 @@ int sk_attention_bwd(int dtype, int pass, const void* q, long long q_bs,
                      int Dh, int causal, float scale, void* stream) {
   if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
   const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
-                               key_bias, qn_s, qn_b, kn_s, kn_b, Tq, Tk, H, Dh,
-                               causal, scale);
-  GradArgs g;
-  g.dout = static_cast<const float*>(dout);
-  g.do_bs = do_bs;
-  g.do_rs = do_rs;
-  g.stats = static_cast<float*>(stats);
-  g.dq = static_cast<float*>(dq);
-  g.dk = static_cast<float*>(dk);
-  g.dv = static_cast<float*>(dv);
-  g.dq_bs = dq_bs; g.dk_bs = dk_bs; g.dv_bs = dv_bs;
-  g.dq_rs = dq_rs; g.dk_rs = dk_rs; g.dv_rs = dv_rs;
-  g.part_s = static_cast<float*>(part_s);
-  g.part_b = static_cast<float*>(part_b);
+                               key_bias, Tk, 0, qn_s, qn_b, kn_s, kn_b, Tq,
+                               Tk, H, Dh, causal ? 1 : 0, 0, scale);
+  const GradArgs g = make_grads(dout, do_bs, do_rs, stats, dq, dq_bs, dq_rs,
+                                dk, dk_bs, dk_rs, dv, dv_bs, dv_rs, part_s,
+                                part_b, 0);
+  return dispatch_dtype(dtype, pass, a, g, nullptr, 0, 0, 0, B, stream);
+}
+
+// K8: a bias of row stride bias_rs and batch stride bias_bs (or null),
+// causal as a where() after it, no qk-norm; the forward rounds the
+// unnormalised e and divides after
+int sk_flash_attention_fwd(int dtype, const void* q, long long q_bs, int q_rs,
+                           const void* k, long long k_bs, int k_rs,
+                           const void* v, long long v_bs, int v_rs,
+                           const void* bias, long long bias_bs, int bias_rs,
+                           void* out, long long o_bs, int o_rs, int B, int Tq,
+                           int Tk, int H, int Dh, int causal, float scale,
+                           void* stream) {
+  const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
+                               bias, bias_bs, bias_rs, nullptr, nullptr,
+                               nullptr, nullptr, Tq, Tk, H, Dh,
+                               causal ? 2 : 0, 1, scale);
+  GradArgs g = {};
+  return dispatch_dtype(dtype, 0, a, g, out, o_bs, o_rs, 0, B, stream);
+}
+
+// K8's backward, pass 1 (dq and the row statistics) or 2 (dk, dv); dO and
+// the gradients in the compute dtype
+int sk_flash_attention_bwd(int dtype, int pass, const void* q, long long q_bs,
+                           int q_rs, const void* k, long long k_bs, int k_rs,
+                           const void* v, long long v_bs, int v_rs,
+                           const void* bias, long long bias_bs, int bias_rs,
+                           const void* dout, long long do_bs, int do_rs,
+                           void* stats, void* dq, long long dq_bs, int dq_rs,
+                           void* dk, long long dk_bs, int dk_rs, void* dv,
+                           long long dv_bs, int dv_rs, int B, int Tq, int Tk,
+                           int H, int Dh, int causal, float scale,
+                           void* stream) {
+  if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
+  const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
+                               bias, bias_bs, bias_rs, nullptr, nullptr,
+                               nullptr, nullptr, Tq, Tk, H, Dh,
+                               causal ? 2 : 0, 1, scale);
+  const GradArgs g = make_grads(dout, do_bs, do_rs, stats, dq, dq_bs, dq_rs,
+                                dk, dk_bs, dk_rs, dv, dv_bs, dv_rs, nullptr,
+                                nullptr, 1);
   return dispatch_dtype(dtype, pass, a, g, nullptr, 0, 0, 0, B, stream);
 }
 

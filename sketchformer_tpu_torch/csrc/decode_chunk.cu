@@ -57,6 +57,18 @@
 // self-attention: the TPU kernel runs it online over 128-row cache tiles,
 // this kernel over the whole filled row with one max.
 //
+// decode_step is K13, sketchformer_tpu/ops/pallas_decode_stack.py::
+// fused_decode_step (_step_kernel): one whole L-layer step of an embedded
+// (B, d) input at position t, on the same trunk, returning the final
+// LayerNorm's output and each layer's new k/v row (L, B*H, Dh) for the
+// caller to scatter; the caches are only read, rows [0, t). Its one
+// numerical difference from the chunk trunk is the TPU kernel's: the new
+// position enters the self-attention from its f32 values before any
+// rounding (s_new = q.kn and e_new * vn in f32, o = (ctx + e_new * vn) /
+// denom), where the chunk kernels attend to the rounded row they wrote
+// into the cache. Only the step loop of ops/decode_step.py (and the probe
+// it ports) drives it: the chunk kernels superseded it on the TPU.
+//
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
 #include <limits.h>
@@ -123,6 +135,10 @@ struct Args {
   int* pen;                // (B, K)
   int* valid;              // (B, K)
   int* fin_out;            // (B,)
+  const T* x_in;           // decode_step: (B, d) embedded input
+  T* h_out;                // decode_step: (B, d) final LayerNorm output
+  T* k_new;                // decode_step: (L, B*H, Dh) new cache rows
+  T* v_new;
   int B, L, H, Dh, d, dff, Tmax, Mq, K, t0, N, qk_norm;
   int pad_id, eos_id, M, pen_end;
   float scale, sqrt_d;
@@ -303,11 +319,15 @@ __device__ void head_ln(float* base, int ld, int H, int Dh,
 // ``vec`` (16-byte aligned rows whose Dh / VW is a power of two), P.V takes
 // 32 / (Dh / VW) positions per warp step, each row read as 16-byte vectors
 // by Dh / VW lanes, and the partial sums meet in a butterfly; otherwise the
-// lanes take the head dimensions and walk the positions one by one.
+// lanes take the head dimensions and walk the positions one by one. With
+// ``kn`` / ``vn`` (f32 rows in shared memory), one more position follows
+// the n, in f32 throughout (decode_step's new position).
 template <typename T>
 __device__ void attend(const float* __restrict__ q, const T* k, const T* v,
                        int n, int Dh, float scale, bool normalized, int vec,
-                       float* __restrict__ sc, float* __restrict__ o) {
+                       float* __restrict__ sc, float* __restrict__ o,
+                       const float* __restrict__ kn = nullptr,
+                       const float* __restrict__ vn = nullptr) {
   const int lane = threadIdx.x & 31;
   constexpr int VW = 16 / sizeof(T);
   for (int p = lane; p < n; p += 32) {
@@ -327,9 +347,15 @@ __device__ void attend(const float* __restrict__ q, const T* k, const T* v,
     }
     sc[p] = s * scale;
   }
+  float s_new = -INFINITY;
+  if (kn != nullptr) {
+    float acc = 0.f;
+    for (int d = lane; d < Dh; d += 32) acc += q[d] * kn[d];
+    s_new = warp_sum(acc) * scale;
+  }
   float m = -INFINITY;
   for (int p = lane; p < n; p += 32) m = fmaxf(m, sc[p]);
-  m = warp_max(m);
+  m = fmaxf(warp_max(m), s_new);
   float sum = 0.f;
   for (int p = lane; p < n; p += 32) {
     const float e = expf(sc[p] - m);
@@ -337,6 +363,8 @@ __device__ void attend(const float* __restrict__ q, const T* k, const T* v,
     sum += e;
   }
   sum = warp_sum(sum);
+  const float e_new = kn != nullptr ? expf(s_new - m) : 0.f;
+  if (kn != nullptr) sum += e_new;
   __syncwarp();
   if (vec) {
     const int LP = Dh / VW;  // lanes per value row
@@ -359,8 +387,10 @@ __device__ void attend(const float* __restrict__ q, const T* k, const T* v,
         acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
     if (g == 0) {
 #pragma unroll
-      for (int i = 0; i < VW; ++i)
+      for (int i = 0; i < VW; ++i) {
+        if (vn != nullptr) acc[i] += e_new * vn[c0 + i];
         o[c0 + i] = round_dt<T>(normalized ? acc[i] : acc[i] / sum);
+      }
     }
   } else {
     float acc[kMaxNI];
@@ -379,6 +409,7 @@ __device__ void attend(const float* __restrict__ q, const T* k, const T* v,
 #pragma unroll
     for (int i = 0; i < kMaxNI; ++i) {
       const int d = lane + 32 * i;
+      if (d < Dh && vn != nullptr) acc[i] += e_new * vn[d];
       if (d < Dh) o[d] = round_dt<T>(normalized ? acc[i] : acc[i] / sum);
     }
   }
@@ -386,9 +417,10 @@ __device__ void attend(const float* __restrict__ q, const T* k, const T* v,
 }
 
 // L decoder layers and the final LayerNorm for the block's rows at
-// position t: xs (the embedded input) -> hs; writes each layer's new k/v
-// cache row.
-template <typename T, int R>
+// position t: xs (the embedded input) -> hs. The chunk kernels write each
+// layer's new k/v row into the cache and attend to it there; decode_step
+// (kStep) writes it to k_new / v_new and attends to it in f32.
+template <typename T, int R, bool kStep>
 __device__ void trunk(const Args<T>& a, const Smem& sm, float* smem, int b0,
                       int t) {
   float* xs = smem + sm.xs;
@@ -428,11 +460,15 @@ __device__ void trunk(const Args<T>& a, const Smem& sm, float* smem, int b0,
       const int r = idx / HD, c = idx % HD;
       if (b0 + r >= a.B) continue;
       const float* row = big + r * 3 * HD;
-      const size_t off =
-          (((size_t)i * BH + (size_t)(b0 + r) * H + c / Dh) * a.Tmax + t) *
-              Dh + c % Dh;
-      a.kc[off] = from_f<T>(row[HD + c]);
-      a.vc[off] = from_f<T>(row[2 * HD + c]);
+      const size_t head = (size_t)i * BH + (size_t)(b0 + r) * H + c / Dh;
+      if constexpr (kStep) {
+        a.k_new[head * Dh + c % Dh] = from_f<T>(row[HD + c]);
+        a.v_new[head * Dh + c % Dh] = from_f<T>(row[2 * HD + c]);
+      } else {
+        const size_t off = (head * a.Tmax + t) * Dh + c % Dh;
+        a.kc[off] = from_f<T>(row[HD + c]);
+        a.vc[off] = from_f<T>(row[2 * HD + c]);
+      }
     }
     __syncthreads();
     for (int pair = warp; pair < R * H; pair += kWarps) {
@@ -444,8 +480,13 @@ __device__ void trunk(const Args<T>& a, const Smem& sm, float* smem, int b0,
       }
       const size_t base = ((size_t)i * BH + (size_t)(b0 + r) * H + h) *
                           a.Tmax * Dh;
-      attend<T>(big + r * 3 * HD + h * Dh, a.kc + base, a.vc + base,
-                    t + 1, Dh, a.scale, false, vec, sc + pair * trow, o);
+      const float* row = big + r * 3 * HD + h * Dh;
+      if constexpr (kStep)
+        attend<T>(row, a.kc + base, a.vc + base, t, Dh, a.scale, false, vec,
+                  sc + pair * trow, o, row + HD, row + 2 * HD);
+      else
+        attend<T>(row, a.kc + base, a.vc + base, t + 1, Dh, a.scale, false,
+                  vec, sc + pair * trow, o);
     }
     __syncthreads();
     const float* bo = w.s_bo + (size_t)i * d;
@@ -590,7 +631,7 @@ decode_chunk_kernel(const Args<T> a, const Smem sm) {
                             to_f<T>(a.pos[(size_t)j * d + n]));
     }
     __syncthreads();
-    trunk<T, R>(a, sm, smem, b0, t);
+    trunk<T, R, false>(a, sm, smem, b0, t);
 
     if constexpr (kCont) {
       // ---- MDN head: greedy component mean and pen state -------------------
@@ -682,11 +723,34 @@ decode_chunk_kernel(const Args<T> a, const Smem sm) {
   if (tid < R && b0 + tid < a.B) a.fin_out[b0 + tid] = fin_s[tid];
 }
 
-template <typename T, int R, bool kCont>
+// decode_step: the embedded rows in, one trunk pass, the final LayerNorm's
+// output out
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+decode_step_kernel(const Args<T> a, const Smem sm) {
+  extern __shared__ float smem[];
+  const int b0 = blockIdx.x * R, d = a.d;
+  float* xs = smem + sm.xs;
+  const float* hs = smem + sm.hs;
+  for (int idx = threadIdx.x; idx < R * d; idx += kThreads) {
+    const int b = b0 + idx / d;
+    xs[idx] = b < a.B ? to_f<T>(a.x_in[(size_t)b * d + idx % d]) : 0.f;
+  }
+  __syncthreads();
+  trunk<T, R, true>(a, sm, smem, b0, a.t0);
+  for (int idx = threadIdx.x; idx < R * d; idx += kThreads) {
+    const int b = b0 + idx / d;
+    if (b < a.B) a.h_out[(size_t)b * d + idx % d] = from_f<T>(hs[idx]);
+  }
+}
+
+// kind: 0 token chunk, 1 MDN chunk, 2 decode step
+template <typename T, int R, int kKind>
 int launch(const Args<T>& a, cudaStream_t stream) {
-  const Smem sm(R, a.d, a.dff, a.H, a.Dh, a.Tmax, a.Mq, kCont ? a.N : 0);
+  const Smem sm(R, a.d, a.dff, a.H, a.Dh, a.Tmax, a.Mq, kKind == 1 ? a.N : 0);
   const size_t bytes = sizeof(float) * (size_t)sm.total;
-  auto kernel = decode_chunk_kernel<T, R, kCont>;
+  auto kernel = kKind == 2 ? decode_step_kernel<T, R>
+                           : decode_chunk_kernel<T, R, kKind == 1>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -699,43 +763,29 @@ int launch(const Args<T>& a, cudaStream_t stream) {
 // the weights once per step, so more blocks buy bandwidth); two per block
 // beyond that, which halves the weight traffic of a larger batch (see
 // PERF.md, PR 2, for the measured choice).
-template <typename T, bool kCont>
+template <typename T, int kKind>
 int launch_rows(const Args<T>& a, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  if (a.B <= sms) return launch<T, 1, kCont>(a, stream);
-  return launch<T, 2, kCont>(a, stream);
+  if (a.B <= sms) return launch<T, 1, kKind>(a, stream);
+  return launch<T, 2, kKind>(a, stream);
 }
 
+// the weights, caches, dims and scalars every kernel of this file reads;
+// the rest null. Returns 0, or an error for a geometry it cannot run.
 template <typename T>
-int run(int cont, const void* const* weights, void* kc, void* vc,
-        const void* ck, const void* cv, const void* pos, const void* head_w,
-        const void* head_b, const void* in_w, const void* in_b,
-        const void* prev_tok, const void* prev_row, const void* fin_in,
-        void* ids, void* xy, void* pen, void* valid, void* fin_out,
-        const int* dims, const float* fdims, cudaStream_t stream) {
-  Args<T> a;
+int common_args(Args<T>& a, const void* const* weights, void* kc, void* vc,
+                const void* ck, const void* cv, const int* dims,
+                const float* fdims) {
+  memset(&a, 0, sizeof(a));
   memcpy(&a.w, weights, sizeof(a.w));
   a.kc = static_cast<T*>(kc);
   a.vc = static_cast<T*>(vc);
   a.ck = static_cast<const T*>(ck);
   a.cv = static_cast<const T*>(cv);
-  a.pos = static_cast<const T*>(pos);
-  a.head_w = static_cast<const T*>(head_w);
-  a.head_b = static_cast<const float*>(head_b);
-  a.in_w = static_cast<const T*>(in_w);
-  a.in_b = static_cast<const float*>(in_b);
-  a.prev_tok = static_cast<const int*>(prev_tok);
-  a.prev_row = static_cast<const float*>(prev_row);
-  a.fin_in = static_cast<const int*>(fin_in);
-  a.ids = static_cast<int*>(ids);
-  a.xy = static_cast<float*>(xy);
-  a.pen = static_cast<int*>(pen);
-  a.valid = static_cast<int*>(valid);
-  a.fin_out = static_cast<int*>(fin_out);
   a.B = dims[kB];
   a.L = dims[kL];
   a.H = dims[kH];
@@ -754,11 +804,52 @@ int run(int cont, const void* const* weights, void* kc, void* vc,
   a.pen_end = dims[kPenEnd];
   a.scale = fdims[0];
   a.sqrt_d = fdims[1];
-  if (a.t0 < 0 || a.t0 + a.K > a.Tmax || a.Dh * a.H != a.d ||
+  if (a.t0 < 0 || a.K < 1 || a.t0 + a.K > a.Tmax || a.Dh * a.H != a.d ||
       a.Dh > 32 * kMaxNI)
     return (int)cudaErrorInvalidValue;
-  return cont ? launch_rows<T, true>(a, stream)
-              : launch_rows<T, false>(a, stream);
+  return 0;
+}
+
+template <typename T>
+int run(int cont, const void* const* weights, void* kc, void* vc,
+        const void* ck, const void* cv, const void* pos, const void* head_w,
+        const void* head_b, const void* in_w, const void* in_b,
+        const void* prev_tok, const void* prev_row, const void* fin_in,
+        void* ids, void* xy, void* pen, void* valid, void* fin_out,
+        const int* dims, const float* fdims, cudaStream_t stream) {
+  Args<T> a;
+  const int err = common_args(a, weights, kc, vc, ck, cv, dims, fdims);
+  if (err) return err;
+  a.pos = static_cast<const T*>(pos);
+  a.head_w = static_cast<const T*>(head_w);
+  a.head_b = static_cast<const float*>(head_b);
+  a.in_w = static_cast<const T*>(in_w);
+  a.in_b = static_cast<const float*>(in_b);
+  a.prev_tok = static_cast<const int*>(prev_tok);
+  a.prev_row = static_cast<const float*>(prev_row);
+  a.fin_in = static_cast<const int*>(fin_in);
+  a.ids = static_cast<int*>(ids);
+  a.xy = static_cast<float*>(xy);
+  a.pen = static_cast<int*>(pen);
+  a.valid = static_cast<int*>(valid);
+  a.fin_out = static_cast<int*>(fin_out);
+  return cont ? launch_rows<T, 1>(a, stream) : launch_rows<T, 0>(a, stream);
+}
+
+template <typename T>
+int run_step(const void* const* weights, const void* kc, const void* vc,
+             const void* ck, const void* cv, const void* x, void* h,
+             void* k_new, void* v_new, const int* dims, const float* fdims,
+             cudaStream_t stream) {
+  Args<T> a;
+  const int err = common_args(a, weights, const_cast<void*>(kc),
+                              const_cast<void*>(vc), ck, cv, dims, fdims);
+  if (err) return err;
+  a.x_in = static_cast<const T*>(x);
+  a.h_out = static_cast<T*>(h);
+  a.k_new = static_cast<T*>(k_new);
+  a.v_new = static_cast<T*>(v_new);
+  return launch_rows<T, 2>(a, stream);
 }
 
 }  // namespace
@@ -785,5 +876,22 @@ extern "C" int sk_decode_chunk(int dtype, int cont, const void* const* weights,
     return run<__nv_bfloat16>(cont, weights, kc, vc, ck, cv, pos, head_w,
                               head_b, in_w, in_b, prev_tok, prev_row, fin_in,
                               ids, xy, pen, valid, fin_out, dims, fdims, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// decode_step at position dims[kT0] (dims[kK] = 1): x (B, d) in, h (B, d)
+// and the new rows k_new / v_new (L, B*H, Dh) out; the caches are read.
+extern "C" int sk_decode_step(int dtype, const void* const* weights,
+                              const void* kc, const void* vc, const void* ck,
+                              const void* cv, const void* x, void* h,
+                              void* k_new, void* v_new, const int* dims,
+                              const float* fdims, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_step<float>(weights, kc, vc, ck, cv, x, h, k_new, v_new, dims,
+                           fdims, s);
+  if (dtype == 1)
+    return run_step<__nv_bfloat16>(weights, kc, vc, ck, cv, x, h, k_new,
+                                   v_new, dims, fdims, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,11 @@ The configurations declined are the JAX engine's (post-LN, the ``direct``
 bottleneck, d_model not divisible by num_heads), logged once through
 ``note_engine`` and served by the composed decoder. The decode cache holds
 ``ceil(T / K) * K`` positions.
+
+:func:`make_step_token_decoder` is the same greedy token decode as a step
+loop on the whole-step kernel (``ops/decode_step.py``, K13, one launch per
+step and no early exit), which the chunk kernels superseded; no CLI path
+runs it.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from sketchformer_tpu_torch.ops.decode_chunk import (
     decode_cont_chunk,
     precompute_cross_kv,
 )
+from sketchformer_tpu_torch.ops.decode_step import greedy_steps
 
 # Steps per launch: K launches per decode of ceil(T / K) * K steps, and the
 # early exit can stop only on a chunk boundary (the JAX engine's default).
@@ -153,6 +159,35 @@ def make_fast_token_decoder(model: Sketchformer,
     def decode(enc):
         _, memory, _ = model.encode(enc)
         return _decode_ids_from_memory(model, ops, memory, T, steps_per_call)
+
+    return decode
+
+
+def make_step_token_decoder(model: Sketchformer,
+                            max_len: Optional[int] = None) -> Callable:
+    """``decode(enc) -> (B, T) int32`` ids, one whole-step kernel launch
+    per position (:func:`greedy_steps`); the configurations the chunk
+    engine declines raise."""
+    ok, why = fast_decode_support(model)
+    if not ok:
+        raise ValueError(f"the step kernel does not serve this model: {why}")
+    cfg = model.config
+    T = composed.check_len(cfg, max_len)
+    ops = decoder_operands(model)
+
+    @torch.inference_mode()
+    def decode(enc):
+        _, memory, _ = model.encode(enc)
+        _, _, ck, cv, kc, vc, pos = _chunk_state(model, ops, memory, T, T)
+        B = memory.shape[0]
+        prev = torch.full((B,), SOS_ID, dtype=torch.int32,
+                          device=memory.device)
+        ids, _ = greedy_steps(
+            prev, torch.zeros_like(prev), kc, vc, ck, cv, ops["emb"],
+            pos[:T], ops["head_w"], ops["head_b"], ops["w"], 0,
+            num_heads=cfg.num_heads, qk_norm=cfg.qk_norm, pad_id=PAD_ID,
+            sos_id=SOS_ID, eos_id=EOS_ID)
+        return ids
 
     return decode
 

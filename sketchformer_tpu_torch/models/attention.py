@@ -1,11 +1,12 @@
 """Multi-head attention (composed path) and key-mask helpers.
 
 Port of ``sketchformer_tpu/models/attention.py``: ``dot_product_attention``
-(the plain XLA formulation), ``cached_decode_attention``, the per-head
-projections with flax-compatible parameter layouts, and
-``MultiHeadAttention`` with its KV-cache decode branch. The cache is an
-explicit :class:`KVCache` object, where flax keeps a mutable ``cache``
-collection. Softmax runs in f32 even when activations are bf16.
+(the plain XLA formulation, or the K8 kernel with ``impl='pallas'``),
+``cached_decode_attention``, the per-head projections with
+flax-compatible parameter layouts, and ``MultiHeadAttention`` with its
+KV-cache decode branch. The cache is an explicit :class:`KVCache` object,
+where flax keeps a mutable ``cache`` collection. Softmax runs in f32 even
+when activations are bf16.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 from sketchformer_tpu_torch.models.dropout import Dropout
 from sketchformer_tpu_torch.models.layers import LayerNorm
 from sketchformer_tpu_torch.ops.decode_attention import decode_attention
+from sketchformer_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e9
 
@@ -32,9 +34,15 @@ def _scale(q: torch.Tensor) -> torch.Tensor:
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          mask: Optional[torch.Tensor] = None,
+                          impl: str = "xla") -> torch.Tensor:
     """Attention over (B, T, H, Dh) tensors; ``mask`` is boolean,
-    True = attend, broadcasting against (B, H, Tq, Tk)."""
+    True = attend, broadcasting against (B, H, Tq, Tk). ``impl='pallas'``
+    runs :func:`flash_attention` (K8), ``'xla'`` the composed math."""
+    if impl == "pallas":
+        return flash_attention(q, k, v, mask=mask)
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl {impl!r}")
     logits = torch.einsum("bqhd,bkhd->bhqk", q * _scale(q), k).float()
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
@@ -106,9 +114,11 @@ class HeadOutProjection(nn.Module):
 class MultiHeadAttention(nn.Module):
     """MHA with separate q and kv inputs; ``qk_norm`` applies a LayerNorm
     over head_dim (one (Dh,) scale/bias shared by all heads) to q and k.
-    ``attn_impl`` picks the decode branch's attention
-    (:func:`cached_decode_attention`). ``dropout`` is the rate of the site
-    after the output projection (training mode only)."""
+    ``attn_impl='pallas'`` runs the full-sequence branch on
+    :func:`flash_attention` (K8) with the structured masks, and the decode
+    branch on :func:`cached_decode_attention`'s kernel (K12); ``'xla'`` the
+    composed math of both. ``dropout`` is the rate of the site after the
+    output projection (training mode only)."""
 
     def __init__(self, num_heads: int, d_model: int,
                  dtype: torch.dtype = torch.float32,
@@ -137,9 +147,12 @@ class MultiHeadAttention(nn.Module):
                 causal: bool = False,
                 cache: Optional[KVCache] = None) -> torch.Tensor:
         """``mask``: legacy 4-D boolean mask; ``key_mask``: (B, Tk) bool;
-        ``causal``: the look-ahead mask. They are combined. With ``cache``
-        (decode), kv_inp's positions are appended to the cache and q
-        attends to every filled position; the masks are not used."""
+        ``causal``: the look-ahead mask. They are combined (the K8 kernel
+        applies ``key_mask`` and ``causal`` without a (Tq, Tk) mask, and a
+        legacy ``mask`` given with them has them folded in, as flax does).
+        With ``cache`` (decode), kv_inp's positions are appended to the
+        cache and q attends to every filled position; the masks are not
+        used."""
         q = self.query(q_inp)
         k = self.key(kv_inp)
         v = self.value(kv_inp)
@@ -159,12 +172,15 @@ class MultiHeadAttention(nn.Module):
             out = cached_decode_attention(fold(q), cache.k, cache.v,
                                           cache.index, impl=self.attn_impl)
             out = out.reshape(B, H, q.shape[1], Dh).transpose(1, 2)
+        elif self.attn_impl == "pallas" and mask is None:
+            out = flash_attention(q, k, v, key_mask=key_mask, causal=causal)
         else:
             full = combine_masks(
                 mask,
                 None if key_mask is None else key_mask[:, None, None, :],
                 causal_mask(q.shape[1], q.device) if causal else None)
-            out = dot_product_attention(q, k, v, mask=full)
+            out = dot_product_attention(q, k, v, mask=full,
+                                        impl=self.attn_impl)
         return self.drop(self.out(out))
 
 

@@ -17,6 +17,11 @@ decoder a causal teacher-forced pass), the port runs its kernel stacks:
   per call against a :class:`KVCache` per layer) stays composed; the AR
   decode engine with whole steps in one kernel is ``infer/fast_decode.py``.
 
+Where they decline (the post-LN model, a legacy 4-D mask, T > 1024), the
+composed layers run, and with ``attn_impl='pallas'`` their self-attention
+is the K8 kernel (``ops/flash_attention.py``, forward and backward), as the
+flax layers' is; cross-attention stays the composed math, as in flax.
+
 In training mode the stack-entry dropout stays a composed site and the
 per-layer sites run inside the stacks: on the card each stack draws its
 bytes in the kernels from the next seed of ``models/dropout.py``
@@ -65,13 +70,14 @@ class FeedForward(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, num_heads: int, d_model: int, dff: int,
-                 dtype: torch.dtype = torch.float32, norm_first: bool = True,
-                 qk_norm: bool = False, dropout: float = 0.0) -> None:
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
+                 norm_first: bool = True, qk_norm: bool = False,
+                 dropout: float = 0.0) -> None:
         super().__init__()
         self.norm_first = norm_first
         self.ln1 = LayerNorm(d_model, dtype)
         self.self_attn = MultiHeadAttention(num_heads, d_model, dtype, qk_norm,
-                                            dropout=dropout)
+                                            attn_impl, dropout)
         self.ln2 = LayerNorm(d_model, dtype)
         self.ffn = FeedForward(d_model, dff, dtype, dropout)
 
@@ -100,7 +106,8 @@ class Encoder(nn.Module):
         self.drop = Dropout(dropout)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
-                num_heads, d_model, dff, dtype, norm_first, qk_norm, dropout))
+                num_heads, d_model, dff, dtype, attn_impl, norm_first,
+                qk_norm, dropout))
         if norm_first:
             self.ln_out = LayerNorm(d_model, dtype)
 
@@ -144,8 +151,9 @@ class Encoder(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Causal self-attention (``attn_impl`` in decode), cross-attention to
-    the bottleneck memory (always the composed math, as in flax), FFN."""
+    """Causal self-attention (``attn_impl``: K8 teacher-forced, K12 in
+    decode), cross-attention to the bottleneck memory (always the composed
+    math, as in flax), FFN."""
 
     def __init__(self, num_heads: int, d_model: int, dff: int,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "xla",

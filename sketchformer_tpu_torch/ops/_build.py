@@ -51,6 +51,13 @@ SIGNATURES = {
                           _P, _P, _P, _P, _L, _I, _P, _P, _L, _I, _P, _L, _I,
                           _P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
                          _I),
+    "sk_flash_attention_fwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P,
+                                _L, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _P], _I),
+    "sk_flash_attention_bwd": ([_I, _I, _P, _L, _I, _P, _L, _I, _P, _L, _I,
+                                _P, _L, _I, _P, _L, _I, _P, _P, _L, _I, _P,
+                                _L, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _P], _I),
     "sk_layernorm_bwd": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
                          _I),
     "sk_sum_rows": ([_I, _P, *_DROP, _I, _F, _P, _I, _I, _I, _P], _I),
@@ -63,6 +70,7 @@ SIGNATURES = {
     "sk_decode_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
                             _I),
     "sk_decode_chunk": ([_I, _I] + [_P] * 21, _I),
+    "sk_decode_step": ([_I] + [_P] * 12, _I),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -97,10 +97,28 @@ def _attend(q, k, v, *, scale, normalized):
     return o if normalized else o / denom
 
 
+def _attend_new(q, kn, vn, k, v, *, scale):
+    """decode_step's self-attention: (B, H, Dh) f32 queries over the (B, H,
+    t, Dh) dt cache rows, as :func:`_attend`, and the new position's f32
+    key and value ``kn`` / ``vn``, entered before any rounding."""
+    dt = k.dtype
+    s = (k * q.to(dt)[:, :, None, :]).float().sum(-1) * scale
+    s_new = (q * kn).sum(-1, keepdim=True) * scale
+    m = s_new if s.shape[-1] == 0 else torch.maximum(
+        s.amax(dim=-1, keepdim=True), s_new)
+    e = torch.exp(s - m)
+    e_new = torch.exp(s_new - m)
+    ctx = (e.to(dt)[..., None] * v).float().sum(-2)
+    return (ctx + e_new * vn) / (e.sum(dim=-1, keepdim=True) + e_new)
+
+
 def _trunk_reference(x, t, k_cache, v_cache, cross_k, cross_v, w, *,
-                     num_heads, qk_norm):
+                     num_heads, qk_norm, new_rows=None):
     """One position ``t`` of a (B, d) dt batch through the L layers and the
-    final LayerNorm; writes each layer's k/v row at ``t`` into the caches."""
+    final LayerNorm. Writes each layer's k/v row at ``t`` into the caches
+    and attends to it there; with a list ``new_rows`` (decode_step), reads
+    the caches' rows [0, t) only, attends to the new row in f32 and appends
+    each layer's (k, v) row, in the compute dtype, to the list."""
     B, d = x.shape
     dt = x.dtype
     f32 = torch.float32
@@ -119,10 +137,15 @@ def _trunk_reference(x, t, k_cache, v_cache, cross_k, cross_v, w, *,
         if qk_norm:
             q = layer_norm(q, w["s_qns"][i], w["s_qnb"][i], f32)
             kn = layer_norm(kn, w["s_kns"][i], w["s_knb"][i], f32)
-        kc[:, :, t] = kn.to(dt)
-        vc[:, :, t] = vn.to(dt)
-        o = _attend(q, kc[:, :, :t + 1], vc[:, :, :t + 1], scale=scale,
-                    normalized=False)
+        if new_rows is None:
+            kc[:, :, t] = kn.to(dt)
+            vc[:, :, t] = vn.to(dt)
+            o = _attend(q, kc[:, :, :t + 1], vc[:, :, :t + 1], scale=scale,
+                        normalized=False)
+        else:
+            new_rows.append((kn.to(dt), vn.to(dt)))
+            o = _attend_new(q, kn, vn, kc[:, :, :t], vc[:, :, :t],
+                            scale=scale)
         x = x + (_mm(o.reshape(B, HD).to(dt), w["s_wo"][i])
                  + w["s_bo"][i]).to(dt)
         h = layer_norm(x, w["ln2s"][i], w["ln2b"][i], dt)
@@ -246,17 +269,15 @@ def decode_cont_chunk_reference(prev_row, finished, k_cache, v_cache,
 # ---------------------------------------------------------------------------
 
 
-def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
-            cross_v, in_w, in_b, pos_chunk, head_w, head_b, w, t0, num_heads,
-            qk_norm, outs, ints):
-    """Check every operand against the kernel's contract and launch."""
-    dev = prev.device
-    dt = pos_chunk.dtype
-    code = _build.dtype_code(pos_chunk)
+def check_trunk(w, k_cache, v_cache, cross_k, cross_v, *, B, d, t0, K,
+                num_heads, dtype, device):
+    """Check the trunk's operands (stacked weights, caches, cross K/V)
+    against the kernels' contract for K steps from ``t0``; returns the
+    kernels' 16 int dims with the head's filled by the caller, the weight
+    pointer array and the f32 attention scale."""
+    dev, dt = device, dtype
     L, BH, Tmax, Dh = k_cache.shape
     H = num_heads
-    B = prev.shape[0]
-    K, d = pos_chunk.shape
     Mq = cross_k.shape[2]
     dff = w["w1"].shape[2]
     HD = H * Dh
@@ -267,7 +288,7 @@ def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
         raise ValueError(f"head_dim {Dh} outside the kernel's "
                          f"1..{MAX_HEAD_DIM}")
     if not 0 <= t0 <= Tmax - K:
-        raise ValueError(f"chunk [{t0}, {t0 + K}) outside the cache of "
+        raise ValueError(f"steps [{t0}, {t0 + K}) outside the cache of "
                          f"{Tmax} positions")
     shapes = {"s_wqkv": (L, d, 3 * HD), "s_bqkv": (L, 3 * HD),
               "s_wo": (L, HD, d), "c_wq": (L, d, HD), "c_bq": (L, HD),
@@ -283,6 +304,23 @@ def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
         _build.require(t, name, dev, dt, (L, BH, Tmax, Dh))
     for name, t in (("cross_k", cross_k), ("cross_v", cross_v)):
         _build.require(t, name, dev, dt, (L, BH, Mq, Dh))
+    wptrs = (ctypes.c_void_p * len(TRUNK_KEYS))(
+        *(w[key].data_ptr() for key in TRUNK_KEYS))
+    return [B, L, H, Dh, d, dff, Tmax, Mq, K, t0], wptrs, 1.0 / Dh ** 0.5
+
+
+def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
+            cross_v, in_w, in_b, pos_chunk, head_w, head_b, w, t0, num_heads,
+            qk_norm, outs, ints):
+    """Check every operand against the kernel's contract and launch."""
+    dev = prev.device
+    dt = pos_chunk.dtype
+    code = _build.dtype_code(pos_chunk)
+    B = prev.shape[0]
+    K, d = pos_chunk.shape
+    dims, wptrs, scale = check_trunk(
+        w, k_cache, v_cache, cross_k, cross_v, B=B, d=d, t0=t0, K=K,
+        num_heads=num_heads, dtype=dt, device=dev)
     _build.require(pos_chunk, "pos_chunk", dev, dt, (K, d))
     _build.require(head_w, "head_w", dev, dt, (d, head_b.shape[0]))
     _build.require(head_b, "head_b", dev, torch.float32, head_b.shape)
@@ -290,13 +328,9 @@ def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
     if in_b is not None:
         _build.require(in_b, "in_b", dev, torch.float32, (d,))
     _build.require(finished, "finished", dev, torch.int32, (B,))
-    wptrs = (ctypes.c_void_p * len(TRUNK_KEYS))(
-        *(w[key].data_ptr() for key in TRUNK_KEYS))
-    dims = (ctypes.c_int * 16)(
-        B, L, H, Dh, d, dff, Tmax, Mq, K, t0, head_b.shape[0], int(qk_norm),
-        *ints)
+    dims = (ctypes.c_int * 16)(*dims, head_b.shape[0], int(qk_norm), *ints)
     fdims = (ctypes.c_float * 2)(
-        1.0 / Dh ** 0.5, float(torch.tensor(d ** 0.5, dtype=dt)))
+        scale, float(torch.tensor(d ** 0.5, dtype=dt)))
     prev_tok = None if cont else prev
     prev_row = prev if cont else None
     lib = _build.library()

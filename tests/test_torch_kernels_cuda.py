@@ -713,3 +713,146 @@ def test_prng_stack_equals_bits_stack(cuda, dtype, decoder):
         assert (g is None) == (r is None)
         if g is not None:
             assert torch.equal(g, r)
+
+
+# ---------------------------------------------------------------------------
+# K8: per-op attention (ops/flash_attention.py), and K13: the whole decode
+# step (ops/decode_step.py)
+# ---------------------------------------------------------------------------
+
+from sketchformer_tpu_torch.ops import decode_step as dstep  # noqa: E402
+from sketchformer_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+
+def _flash_case(gen, dev, dtype, mode, B, Tq, Tk, H, Dh):
+    """(q, k, v) (B, T, H, Dh) with q a strided view, a structured bias
+    with fully masked rows, and causal."""
+    q = _rand(gen, dev, B, Tq, 2 * H, Dh, dtype=dtype)[:, :, :H]
+    k, v = (_rand(gen, dev, B, Tk, H, Dh, dtype=dtype) for _ in range(2))
+    km = torch.arange(Tk, device=dev)[None] < torch.tensor(
+        [Tk - 3 * i for i in range(B)], device=dev)[:, None]
+    km[-1] = False                      # a batch element with no key
+    mask = None
+    if mode.startswith("full"):
+        mask = torch.rand((B if mode == "full" else 1, 1, Tq, Tk),
+                          generator=gen, device=dev) < 0.7
+        mask[0, 0, 1] = False           # a query row with no key
+        km = None
+    elif mode == "none":
+        km = None
+    return q, k, v, fa.structure_mask(mask, km, B, Tq, Tk), \
+        mode == "key_causal"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["none", "key", "key_causal", "full",
+                                  "full_shared"])
+@pytest.mark.parametrize("B,T,H,Dh", [(3, 40, 4, 32), (2, 70, 2, 128),
+                                      (2, 33, 3, 64)])
+def test_flash_attention_fwd_bwd(cuda, dtype, mode, B, T, H, Dh):
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, bias, causal = _flash_case(gen, cuda, dtype, mode, B, T, T, H,
+                                        Dh)
+    before = dict(fa.LAUNCHES)
+    _close(fa.flash_attention_fwd(q, k, v, bias, causal),
+           fa.flash_attention_reference(q, k, v, bias, causal), dtype)
+    g = _rand(gen, cuda, B, T, H, Dh, dtype=dtype)
+    got = fa.flash_attention_bwd(q, k, v, bias, g, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, bias, g, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _close(a, b, dtype)
+    assert fa.LAUNCHES == {"flash_attention_fwd":
+                           before["flash_attention_fwd"] + 1,
+                           "flash_attention_bwd":
+                           before["flash_attention_bwd"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_autograd_and_t1024(cuda, dtype):
+    """The autograd Function through head-major views at T = 1024, the
+    kernels' longest rows (f32 score rows of 128 KB in shared memory)."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    B, T, H, Dh = 1, fa.MAX_FUSED_LEN, 2, 128
+    q, k, v = (_rand(gen, cuda, B, H, T, Dh, dtype=dtype).requires_grad_(True)
+               for _ in range(3))
+    km = torch.arange(T, device=cuda)[None] < 1000
+    g = _rand(gen, cuda, B, H, T, Dh, dtype=dtype)
+    out = fa.flash_attention(q, k, v, head_major=True, key_mask=km,
+                             causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    bias = fa.structure_mask(None, km, B, T, T)
+    qs, ks, vs, gs = (x.detach().transpose(1, 2) for x in (q, k, v, g))
+    _close(out.transpose(1, 2),
+           fa.flash_attention_reference(qs, ks, vs, bias, True), dtype)
+    for a, b in zip(grads, fa.flash_attention_bwd_reference(
+            qs, ks, vs, bias, gs, True)):
+        _close(a.transpose(1, 2), b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,qk,t,rows", [(4, False, 0, 1), (4, True, 9, 1),
+                                         (1, True, 31, 1), (2, False, 17, 2)])
+def test_decode_step(cuda, dtype, H, qk, t, rows):
+    """h and the new k/v rows against the plain version; the caches are
+    not written."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    B = 7 if rows == 1 else torch.cuda.get_device_properties(
+        cuda).multi_processor_count + 3
+    L, d, dff, Tmax = 2, 128, 256, 32
+    ops = _chunk_operands(gen, cuda, B=B, L=L, d=d, H=H, dff=dff, N=8,
+                          Tmax=Tmax, Mq=3, K=1, t0=t, dtype=dtype, cont=False)
+    ops["k_cache"][:, :, t:] = 7.0      # rows the step must not read
+    kc = ops["k_cache"].clone()
+    x = _rand(gen, cuda, B, d, dtype=dtype)
+    args = (x, ops["k_cache"], ops["v_cache"], ops["cross_k"],
+            ops["cross_v"], ops["w"], t)
+    before = dstep.LAUNCHES["decode_step"]
+    got = dstep.fused_decode_step(*args, num_heads=H, qk_norm=qk)
+    want = dstep.fused_decode_step_reference(*args, num_heads=H, qk_norm=qk)
+    assert dstep.LAUNCHES["decode_step"] == before + 1
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+    assert torch.equal(ops["k_cache"], kc)
+
+
+@pytest.mark.cuda
+def test_step_loop_picks_equal_the_plain_loop(cuda):
+    """f32: 12 greedy steps, one kernel launch each, against the plain
+    step loop from the same caches, up to each row's first near tie."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    B, L, d, H, N, K = 7, 2, 128, 4, 517, 12
+    ops = _chunk_operands(gen, cuda, B=B, L=L, d=d, H=H, dff=256, N=N,
+                          Tmax=32, Mq=3, K=K, t0=4, dtype=torch.float32,
+                          cont=False)
+    kv = (ops["k_cache"].clone(), ops["v_cache"].clone())
+    args = lambda kc, vc: (ops["prev"], ops["finished"], kc, vc,
+                           ops["cross_k"], ops["cross_v"], ops["emb"],
+                           ops["pos_chunk"], ops["head_w"], ops["head_b"],
+                           ops["w"], 4)
+    before = dstep.LAUNCHES["decode_step"]
+    got, _ = dstep.greedy_steps(*args(ops["k_cache"], ops["v_cache"]),
+                                num_heads=H)
+    assert dstep.LAUNCHES["decode_step"] == before + K
+    *_, margins = dc.decode_chunk_reference(*args(*(t.clone() for t in kv)),
+                                            num_heads=H, return_margins=True)
+    want, _ = dstep.greedy_steps(*args(*kv), num_heads=H,
+                                 step=dstep.fused_decode_step_reference)
+    n = _agreeing_steps(margins)
+    before = torch.arange(K, device=cuda)[None] < n[:, None]
+    assert int(before.sum()) >= B * K // 2
+    assert torch.equal(got[before], want[before])
+
+
+def test_flash_attention_and_decode_step_other_devices_raise():
+    a = torch.zeros(1, 4, 1, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_fwd(a, a, a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_bwd(a, a, a, None, a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dstep.fused_decode_step(torch.zeros(2, 8, device="meta"), *(None,) * 5,
+                                0, num_heads=1)
