@@ -26,7 +26,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    those steps; then the training kernels at the ``cont2cont_mdn`` width
    (B=64, T=192, d=256, dff=512) with H=8/Dh=32 and qk-norm and at
    H=2/Dh=128 without: ``linear_nt`` and ``linear_tn`` (one encoder
-   layer's four backward products, with dropout masks and the ReLU gate),
+   layer's four backward products, with dropout masks and the ReLU gate;
+   ``linear_tn``'s weight and bias gradients with 'bits' and in-kernel
+   'prng' masks, and equal across two runs),
    ``linear``'s dropout epilogue, ``attention_fwd`` / ``attention_bwd_q``
    / ``attention_bwd_kv`` (self-attention under a key mask, and
    cross-attention to 4 memory rows), ``layernorm_bwd``, ``sum_rows``; and
@@ -43,7 +45,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    bytes (output and every gradient, torch.equal; f32 and bf16); the
    per-op attention (K8, ``flash_attention``: forward, dq, dk, dv) in every
    mask mode (none, key, key + causal, a per-batch and a shared full pane,
-   a legacy key mask) with fully masked rows, at the post-LN
+   a legacy key mask) with fully masked rows (the bf16 backward equal
+   across two runs), at the post-LN
    ``cont2cont_mdn`` width (B=64, T=192, H=8/Dh=32) and the ``cont_train``
    geometry (B=512, T=96, H=2/Dh=128), f32 and bf16 (bf16 gradients also
    within STACK_BF16_FACTOR x the plain path's error against f32), at
@@ -86,7 +89,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    backward against SDPA with the same mask (and its backward) at both
    geometries; K13 per step beside ``decode_chunk``'s; each training kernel (one layer's
    calls) against its plain version and one PyTorch call where one
-   computes the same function; the train stacks' forward + backward; K6
+   computes the same function (``linear_tn`` and K8's backward as the
+   median and spread of 60 calls' device time, the host's launches queued
+   ahead, and back to back with them); ``sum_rows`` launches a
+   ``cont2cont_mdn`` step; the train stacks' forward + backward; K6
    and the emit kernel; the train step p50 and sketches/s at the
    ``cont2cont_mdn`` shape, the JAX benchmark's ``cont_train`` shape
    (B=512, T=96, H=2; 'prng' and 'bits' dropout), ``cont2cont_mdn``
@@ -497,6 +503,11 @@ def teacher_forced_check(name, model, enc, mask, out):
 MDN = dict(B=64, T=192, d=256, H=8, dff=512, L=8)
 CONT_TRAIN = dict(B=512, T=96, d=256, H=2, dff=512, L=8)
 TRAIN_STEPS = 30
+SPREAD_CALLS = 60   # per-call timings of the redesigned kernels' rows
+# sum_rows launches a cont2cont_mdn step while linear_tn's partials and the
+# bias gradients each took a sum_rows launch (this script's train path on
+# an NVIDIA H100 80GB HBM3, 11,760 in 30 steps)
+SUM_ROWS_PER_STEP_BEFORE = 392
 TRAIN_KERNELS = ("linear_nt", "linear_tn", "attention_fwd", "attention_bwd_q",
                  "attention_bwd_kv", "layernorm_bwd", "sum_rows")
 TOK_KERNELS = ("token_ce_fwd", "token_ce_dx", "token_ce_dw",
@@ -548,12 +559,16 @@ def layer_nt_calls(o, fn):
     return run
 
 
-def layer_tn_calls(o, fn):
-    """The four weight-gradient products of one encoder layer's backward."""
+def layer_tn_calls(o, fn, drop=None):
+    """The four weight-gradient products of one encoder layer's backward,
+    each with its bias gradient: [(dW, db)] x 4. ``drop`` replaces the
+    dropout bytes (a ``PrngSite`` draws them in-kernel)."""
     def run():
-        ks = dict(drop=o["drop"], thresh=o["thresh"], keep_scale=o["ks"])
-        return [fn(o["f1"], o["g"], **ks), fn(o["x"], o["gf"]),
-                fn(o["x"], o["g32"], **ks), fn(o["x"], o["gqkv"])]
+        ks = dict(drop=o["drop"] if drop is None else drop,
+                  thresh=o["thresh"], keep_scale=o["ks"], bias_grad=True)
+        return [fn(o["f1"], o["g"], **ks), fn(o["x"], o["gf"], bias_grad=True),
+                fn(o["x"], o["g32"], **ks),
+                fn(o["x"], o["gqkv"], bias_grad=True)]
     return run
 
 
@@ -582,6 +597,7 @@ def check_train_kernels(randn, dev, errs, compare):
     bf16; then each whole stack's forward and backward."""
     import torch
 
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
     from sketchformer_tpu_torch.ops import encoder_stack as es
     from sketchformer_tpu_torch.ops import norm_train as nt
 
@@ -594,13 +610,29 @@ def check_train_kernels(randn, dev, errs, compare):
                                dtype=dtype, qk=qk)
             shape = f"{tag} B={B} T={T} d={d} H={H} qk_norm={qk}"
             if H == 8:   # the products and norms do not depend on H
-                for name, calls in (("linear_nt", layer_nt_calls),
-                                    ("linear_tn", layer_tn_calls)):
-                    got = calls(o, getattr(es, name))()
-                    want = calls(o, getattr(es, name + "_reference"))()
-                    for i, (g, w) in enumerate(zip(got, want)):
-                        compare(f"{name} {shape} call {i}", g, w, dtype,
-                                name if main else None)
+                got = layer_nt_calls(o, es.linear_nt)()
+                want = layer_nt_calls(o, es.linear_nt_reference)()
+                for i, (g, w) in enumerate(zip(got, want)):
+                    compare(f"linear_nt {shape} call {i}", g, w, dtype,
+                            "linear_nt" if main else None)
+                # linear_tn: dW and db of each call, 'bits' and 'prng'
+                # masks, and bit-equal re-runs (the splits' partials are
+                # added in a fixed order)
+                site = dp.PrngSite(PRNG_SEED, 3, 1, T)
+                for mode, drop in (("bits", None), ("prng", site)):
+                    got = layer_tn_calls(o, es.linear_tn, drop)()
+                    again = layer_tn_calls(o, es.linear_tn, drop)()
+                    want = layer_tn_calls(o, es.linear_tn_reference, drop)()
+                    for i, (g, w, a) in enumerate(zip(got, want, again)):
+                        for part, gp, wp, ap in zip(("dW", "db"), g, w, a):
+                            compare(f"linear_tn {mode} {shape} call {i} "
+                                    f"{part}", gp, wp, dtype,
+                                    "linear_tn" if main else None)
+                            if not torch.equal(gp, ap):
+                                fail(f"linear_tn {mode} {shape} call {i} "
+                                     f"{part}: two runs differ")
+                    print(f"check linear_tn {mode} {shape}: dW and db of 4 "
+                          f"calls equal across two runs")
                 ks = dict(drop=o["drop"], thresh=o["thresh"],
                           keep_scale=o["ks"])
                 compare(f"linear+dropout {shape}",
@@ -1294,6 +1326,52 @@ def train_tok_main_path(cli, counters, engines, tmp):
     return launches
 
 
+# cycles the card spins before each timed call, long enough for the host to
+# queue the call's launches (a few ms at the H100's clock): the events then
+# time the device's work alone, not the host's launch overhead
+QUEUE_AHEAD_CYCLES = 4_000_000
+
+
+def call_ms(fn, n, warm=5):
+    """Device time (ms) of each of ``n`` calls after ``warm`` calls: each
+    call between its own CUDA events, queued behind a spin of the card so
+    that the host's launch overhead is not in it."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    out = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def spread_ms(kernel_fn, plain_fn, lib_fn, n=SPREAD_CALLS):
+    """(median, min, max) device ms (``call_ms``) of the kernel, the plain
+    version and the library call (or None): n calls each, in turns plain,
+    kernel, library, kernel, plain, library (n / 2 a turn)."""
+    out = {"kernel": [], "plain": [], "lib": []}
+    for name, fn in (("plain", plain_fn), ("kernel", kernel_fn),
+                     ("lib", lib_fn), ("kernel", kernel_fn),
+                     ("plain", plain_fn), ("lib", lib_fn)):
+        if fn is not None:
+            out[name] += call_ms(fn, n // 2)
+    return {k: (float(np.median(v)), min(v), max(v)) if v else None
+            for k, v in out.items()}
+
+
+def fmt_spread(t):
+    return "n/a" if t is None else \
+        f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
+
+
 def device_ms(fn, names, n=3):
     """Device time per call of each kernel whose name holds one of
     ``names``, from a torch.profiler trace of ``n`` calls of ``fn``."""
@@ -1478,6 +1556,12 @@ def check_flash_attention(randn, gen, dev, errs, compare):
                 if dtype == torch.float32:
                     continue
                 q, k, v, g, *masks = ops
+                bias = fa.structure_mask(masks[0], masks[1], B, T, T)
+                runs = [fa.flash_attention_bwd(q, k, v, bias, g, masks[2])
+                        for _ in range(2)]
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    fail(f"{name}: two backward runs differ")
+                print(f"check {name}: dq/dk/dv equal across two runs")
                 ref = flash_plain(*(t.float() for t in (q, k, v, g)), *masks)
                 for p, a, b, r in zip(parts[1:], got[1:], want[1:], ref[1:]):
                     err_k = (a.float() - r).abs().max().item()
@@ -1497,6 +1581,14 @@ def check_flash_attention(randn, gen, dev, errs, compare):
             for p, a, b in zip(parts, got, want):
                 compare(f"flash_attention {tag} B=2 T={fa.MAX_FUSED_LEN} "
                         f"H={H} Dh={Dh} key_causal {p}", a, b, dtype)
+            q, k, v, g, _, km, _ = ops
+            bias = fa.structure_mask(None, km, 2, fa.MAX_FUSED_LEN,
+                                     fa.MAX_FUSED_LEN)
+            runs = [fa.flash_attention_bwd(q, k, v, bias, g, True)
+                    for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"flash_attention {tag} T={fa.MAX_FUSED_LEN}: two "
+                     f"backward runs differ")
     Tl = fa.MAX_FUSED_LEN + 16
     q, k, v, _, _, km, _ = flash_operands(randn, gen, dev, torch.bfloat16,
                                           "key", 1, Tl, 2, 32)
@@ -1660,12 +1752,21 @@ def flash_times(randn, gen, dev, gpu, cuda_ms, paired):
                                                                  bias)),
                     cuda_ms(lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, attn_mask=amask))),
-                "flash_attention_bwd": (
-                    *paired(lambda: fa.flash_attention_bwd(q, k, v, bias, g),
-                            lambda: fa.flash_attention_bwd_reference(
-                                q, k, v, bias, g), iters=10),
-                    cuda_ms(lib_bwd, 10)),
             }
+            sp = spread_ms(lambda: fa.flash_attention_bwd(q, k, v, bias, g),
+                           lambda: fa.flash_attention_bwd_reference(
+                               q, k, v, bias, g), lib_bwd)
+            rows["flash_attention_bwd"] = (sp["kernel"][0], sp["plain"][0],
+                                           sp["lib"][0])
+            host = paired(lambda: fa.flash_attention_bwd(q, k, v, bias, g),
+                          lambda: fa.flash_attention_bwd_reference(
+                              q, k, v, bias, g), iters=10)
+        print(f"time flash_attention_bwd ({label}, device time, median of "
+              f"{SPREAD_CALLS}): kernel {fmt_spread(sp['kernel'])}, plain "
+              f"{fmt_spread(sp['plain'])}, SDPA backward "
+              f"{fmt_spread(sp['lib'])}; back to back with the host's "
+              f"launches: kernel {host[0]:.4f} ms, plain {host[1]:.4f} ms "
+              f"[{gpu}]")
         for name, (k_ms, p_ms, l_ms) in rows.items():
             lib_call = "SDPA backward" if "bwd" in name else "SDPA"
             print(f"time {name} ({label}: bf16, B={B}, T={T}, H={H}, "
@@ -1737,8 +1838,11 @@ def train_kernel_work(B, T, d, H, dff):
                     (M, dff, d, 4, 2, 4, 0),
                     (M, d, HD, 4, 2, 4, u8),
                     (M, 3 * HD, d, 4, 2, 4, 0)])
-    tn = gemm_work([(dff, M, d, 2, 2, 4, u8), (d, M, dff, 2, 4, 4, 0),
-                    (d, M, d, 2, 4, 4, u8), (d, M, 3 * HD, 2, 4, 4, 0)])
+    # linear_tn: each call's dW (f32) and db (N f32) written once
+    tn = gemm_work([(dff, M, d, 2, 2, 4, u8 + d * 4),
+                    (d, M, dff, 2, 4, 4, dff * 4),
+                    (d, M, d, 2, 4, 4, u8 + d * 4),
+                    (d, M, 3 * HD, 2, 4, 4, 3 * HD * 4)])
     qkv = 3 * M * HD * 2
     att = 4 * B * H * T * T * Dh
     return {
@@ -1874,11 +1978,23 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
             [True, True, True])
 
     with torch.no_grad():
+        sp = spread_ms(layer_tn_calls(o, es.linear_tn),
+                       layer_tn_calls(o, es.linear_tn_reference), lib_tn)
+        out["linear_tn"] = (sp["kernel"][0], sp["plain"][0], sp["lib"][0])
+        host = paired(layer_tn_calls(o, es.linear_tn),
+                      layer_tn_calls(o, es.linear_tn_reference), iters=10,
+                      warm=2)
+        print(f"time linear_tn (bf16, B={B}, T={T}, d={d}, dff={dff}, the "
+              f"layer: 4 calls with their bias gradients, device time, "
+              f"median of {SPREAD_CALLS}): kernel "
+              f"{fmt_spread(sp['kernel'])}, plain "
+              f"{fmt_spread(sp['plain'])}, library (4 matmuls) "
+              f"{fmt_spread(sp['lib'])}; back to back with the host's "
+              f"launches: kernel {host[0]:.4f} ms, plain {host[1]:.4f} ms "
+              f"[{gpu}]")
         for name, kern, plain, lib in (
                 ("linear_nt", layer_nt_calls(o, es.linear_nt),
                  layer_nt_calls(o, es.linear_nt_reference), lib_nt),
-                ("linear_tn", layer_tn_calls(o, es.linear_tn),
-                 layer_tn_calls(o, es.linear_tn_reference), lib_tn),
                 ("attention_fwd", attn_calls(o, H, True, "fwd", "kernel"),
                  attn_calls(o, H, True, "fwd", "plain"),
                  lambda: F.scaled_dot_product_attention(q4, k4, v4,
@@ -2330,6 +2446,12 @@ def main() -> int:
         train_launches, _ = train_main_path(cli, counters, engines, tmp)
     for k in TRAIN_KERNELS:
         launches[k] = train_launches[k]
+    # linear_tn adds its split partials and computes the bias gradient in
+    # its own launch: what stays is LayerNorm's and qk-norm's partial sums
+    print(f"sum_rows launches a cont2cont_mdn train step: "
+          f"{train_launches['sum_rows'] / TRAIN_STEPS:.1f} (before the bias "
+          f"gradients moved into linear_tn: {SUM_ROWS_PER_STEP_BEFORE}); "
+          f"linear_tn {train_launches['linear_tn'] / TRAIN_STEPS:.1f}")
 
     # ---- 4d. main path: token-mode training, then eval -------------------
     with tempfile.TemporaryDirectory() as tmp:

@@ -6,9 +6,9 @@ Port of the ``train``, ``eval``, ``embed``, ``sbir``, ``decode`` and
 ``interpolate`` subcommands of ``sketchformer_tpu.cli``, with the same
 outputs. Loaders and presets are the port's copies (``data/``,
 ``presets.py``). ``train`` writes a run dir (config, loader config,
-checkpoints, metrics) that ``eval`` reads; the serving subcommands take
-weights from an ``.npz`` written by ``convert.save_npz`` or a seeded
-initialisation::
+checkpoints, metrics) that ``eval`` and the serving subcommands read
+(``--run-dir``); the serving subcommands also take weights from an
+``.npz`` written by ``convert.save_npz`` or a seeded initialisation::
 
     python -m sketchformer_tpu_torch.cli train --preset cont2cont_mdn \
         --run-dir R --device cuda --loop-arg total_steps=30
@@ -17,6 +17,7 @@ initialisation::
         --device cuda --loop-arg total_steps=30 --loop-arg warmup_steps=500
     python -m sketchformer_tpu_torch.cli eval --run-dir R --device cuda
 
+    python -m sketchformer_tpu_torch.cli decode --run-dir R --device cuda
     python -m sketchformer_tpu_torch.cli embed --preset sbir --init-seed 0 \\
         --device cuda --output z.npz
     python -m sketchformer_tpu_torch.cli sbir --preset sbir \\
@@ -101,10 +102,14 @@ def resolve_config(args):
 
 
 def build_model_and_loader(args):
-    """(model on ``args.device`` in eval mode, loader) from preset/flags."""
+    """(model on ``args.device`` in eval mode, loader): a run dir's config,
+    newest checkpoint and saved loader (``--run-dir``, no model flags
+    needed), or preset/flags with ``--weights`` or ``--init-seed``."""
     from sketchformer_tpu_torch.convert import init_params, load_npz
     from sketchformer_tpu_torch.models.sketchformer import Sketchformer
 
+    if getattr(args, "run_dir", None):
+        return restore_for_eval(args)
     cfg, loader = resolve_config(args)
     if args.weights:
         state = load_npz(args.weights)
@@ -357,6 +362,9 @@ def build_parser() -> argparse.ArgumentParser:
                          help="npz from sketchformer_tpu_torch.convert")
         src.add_argument("--init-seed", type=int, default=None,
                          help="seeded random initialisation")
+        src.add_argument("--run-dir", default=None,
+                         help="a run dir written by train: its newest "
+                              "checkpoint, config and loader")
 
     sp = sub.add_parser("embed", help="extract bottleneck embeddings")
     common(sp)

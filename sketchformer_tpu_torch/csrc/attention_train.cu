@@ -40,7 +40,8 @@
 // The same three kernels are K8, the per-op attention of
 // sketchformer_tpu/ops/pallas_attention.py::flash_attention (_fwd_kernel,
 // _bwd_kernel), through their own entry points sk_flash_attention_fwd /
-// _bwd. There the bias is a (B, Tk) key-mask row or a (B or 1, Tq, Tk)
+// _bwd (the bf16 backward has its own kernel, below). There the bias is a
+// (B, Tk) key-mask row or a (B or 1, Tq, Tk)
 // pane (a row stride and a batch stride, 0 for a shared pane), causal is
 // the TPU kernel's where() after the bias (causal = 2) rather than the
 // stacks' additive term before it (causal = 1), the backward's p is e *
@@ -48,11 +49,14 @@
 // and the gradients are in the compute dtype (io_dt), the gradients
 // rounded at the store as _bwd_kernel rounds them.
 //
-// What bounds these on the card: at Dh = 32 each score costs 2 * Dh FLOPs
-// against one f32 exponential, so they are bound by instruction issue on
-// the FMA and SFU units, not by memory. This first landing keeps the design
-// simple to hold against the plain version; the tensor cores (QK^T and P.V
-// as WMMA or wgmma tiles) are later work.
+// K8's backward in bf16 is a kernel of its own on the tensor cores
+// (flash_bwd_mma_kernel, see its note); in f32 it runs the two passes
+// above.
+//
+// What bounds the three stack kernels on the card: at Dh = 32 each score
+// costs 2 * Dh FLOPs against one f32 exponential, so they are bound by
+// instruction issue on the FMA and SFU units, not by memory. Their tensor-
+// core redesign is later work.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
@@ -719,6 +723,371 @@ int set_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// ---------------------------------------------------------------------------
+// K8's backward in bf16: the five products on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replaces sketchformer_tpu/ops/pallas_attention.py::_bwd_kernel (:207), which
+// holds a whole (Tq, Tk) pane in VMEM and runs five MXU products. Here one
+// kernel template runs as two launches over 64-row tiles, 4 warps a block,
+// each warp owning 16 rows, and sweeps the other side in 32-row tiles staged
+// by cp.async into a double buffer (rows padded by 8 elements, so ldmatrix
+// reads hit distinct banks). Every product is mma.sync m16n8k16 (bf16 in,
+// f32 accumulate); the score tiles stay in registers, and a product's C
+// fragments are the next product's A fragments.
+//   kDkv false  a block owns 64 query rows: the first sweep over the keys
+//               forms S = Q.K^T and dP = dO.V^T and keeps the running max,
+//               sum of exp and sum of exp * dp (online, rescaled as the max
+//               grows); then p = exp(s - max) * (1 / sum) and delta = the
+//               last over the sum, which is sum_j(dp * p) over every key (the
+//               TPU kernel's form). The second sweep recomputes S and dP,
+//               forms ds = round(p * (dp - delta)) and dq += ds.K; it stores
+//               dq and each row's (max, sum, delta).
+//   kDkv true   a block owns 64 key rows and sweeps the queries: S^T =
+//               K.Q^T, dP^T = V.dO^T, p and ds from the saved statistics,
+//               dv += round(p)^T.dO and dk += ds^T.Q.
+// Every dq, dk and dv row has one owner, so there are no atomics and re-runs
+// are bit-stable. What bounds it: at T = 192 and Dh = 32 the products are
+// small, so the exponentials (three a score) and the score tiles' register
+// traffic set the time, not the bytes (each operand is read ~T/32 times from
+// L2).
+
+constexpr int kFbOwn = 64, kFbIn = 32, kFbThreads = 128;
+
+__device__ __forceinline__ uint32_t fb_smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [row0, row0 + n) of a (T, Dh) head pane (row stride rs) into smem
+// rows of ld elements; rows past T are zero
+template <int kLd>
+__device__ __forceinline__ void fb_stage(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src, int rs,
+                                         int row0, int n, int T, int Dh) {
+  const int cpr = Dh / 8;
+  for (int i = threadIdx.x; i < n * cpr; i += kFbThreads) {
+    const int r = i / cpr, c = (i - r * cpr) * 8;
+    const bool ok = row0 + r < T;
+    cp_async16(fb_smem_u32(dst + r * kLd + c),
+               src + (size_t)(ok ? row0 + r : 0) * rs + c, ok);
+  }
+}
+
+// acc[16 x 32] = own[16 rows of this warp] . in[32 rows]^T over kDh
+template <int kDh, int kLd>
+__device__ __forceinline__ void fb_qk(float (&acc)[4][4],
+                                      const __nv_bfloat16* own,
+                                      const __nv_bfloat16* in) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, fb_smem_u32(own + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                           kk * 16 + 8 * (lane >> 4)));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, fb_smem_u32(in + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * kLd +
+                             kk * 16 + 8 * ((lane >> 3) & 1)));
+      mma16816(acc[2 * np], a, b[0], b[1]);
+      mma16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// out[16 x kDh] += P[16 x 32] (C fragments, packed to bf16) . in[32 x kDh]
+template <int kDh, int kLd>
+__device__ __forceinline__ void fb_pv(float (&out)[kDh / 8][4],
+                                      const uint32_t (&pa)[2][4],
+                                      const __nv_bfloat16* in) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int nd = 0; nd < kDh / 16; ++nd) {
+      uint32_t b[4];
+      ldsm_x4_t(b, fb_smem_u32(in + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                               nd * 16 + 8 * (lane >> 4)));
+      mma16816(out[2 * nd], pa[kk], b[0], b[1]);
+      mma16816(out[2 * nd + 1], pa[kk], b[2], b[3]);
+    }
+}
+
+// C fragments of a 16 x 32 f32 tile (rounded to bf16) as the A fragments of
+// its two k16 halves
+__device__ __forceinline__ void fb_to_a(uint32_t (&pa)[2][4],
+                                        const float (&c)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    pa[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    pa[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    pa[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// the K8 score of query t and key j (both clamped into the bias pane)
+__device__ __forceinline__ float fb_score(float acc, const AttnArgs& a,
+                                          const float* kb, int t, int j) {
+  float s = __fmul_rn(acc, a.scale);
+  if (kb != nullptr)
+    s += kb[(size_t)min(t, a.Tq - 1) * a.bias_rs + min(j, a.Tk - 1)];
+  if (a.causal == 2 && j > t) s = kNegInf;
+  return s;
+}
+
+template <int kDh, bool kDkv>
+__global__ void __launch_bounds__(kFbThreads)
+flash_bwd_mma_kernel(AttnArgs a, GradArgs g) {
+  using bf = __nv_bfloat16;
+  constexpr int kLd = kDh + 8;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  bf* own1 = reinterpret_cast<bf*>(fb_smem);  // [64][kLd]: Q (K for dkv)
+  bf* own2 = own1 + kFbOwn * kLd;             //           dO (V)
+  bf* inb = own2 + kFbOwn * kLd;              // [2][2][32][kLd]: K, V (Q, dO)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int r0 = blockIdx.x * kFbOwn, h = blockIdx.y, b = blockIdx.z;
+  const int Tow = kDkv ? a.Tk : a.Tq, Tin = kDkv ? a.Tq : a.Tk;
+  const bf* q = static_cast<const bf*>(a.q) + b * a.q_bs + h * a.Dh;
+  const bf* k = static_cast<const bf*>(a.k) + b * a.k_bs + h * a.Dh;
+  const bf* v = static_cast<const bf*>(a.v) + b * a.v_bs + h * a.Dh;
+  const bf* dO = static_cast<const bf*>(g.dout) + b * g.do_bs + h * a.Dh;
+  const bf* o1 = kDkv ? k : q;
+  const bf* o2 = kDkv ? v : dO;
+  const bf* i1 = kDkv ? q : k;
+  const bf* i2 = kDkv ? dO : v;
+  const int o1s = kDkv ? a.k_rs : a.q_rs, o2s = kDkv ? a.v_rs : g.do_rs;
+  const int i1s = kDkv ? a.q_rs : a.k_rs, i2s = kDkv ? g.do_rs : a.v_rs;
+  const float* kb = batch_bias(a, b);
+
+  // zero everything once: the columns past Dh are never written again
+  for (int i = tid; i < (2 * kFbOwn + 4 * kFbIn) * kLd / 8; i += kFbThreads)
+    reinterpret_cast<uint4*>(fb_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  fb_stage<kLd>(own1, o1, o1s, r0, kFbOwn, Tow, a.Dh);
+  fb_stage<kLd>(own2, o2, o2s, r0, kFbOwn, Tow, a.Dh);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  const int ntiles = (Tin + kFbIn - 1) / kFbIn;
+  // one sweep over the other side: body(tile start, its two smem tiles)
+  auto sweep = [&](auto&& body) {
+    fb_stage<kLd>(inb, i1, i1s, 0, kFbIn, Tin, a.Dh);
+    fb_stage<kLd>(inb + kFbIn * kLd, i2, i2s, 0, kFbIn, Tin, a.Dh);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    for (int it = 0; it < ntiles; ++it) {
+      if (it + 1 < ntiles) {
+        bf* nb = inb + ((it + 1) & 1) * 2 * kFbIn * kLd;
+        fb_stage<kLd>(nb, i1, i1s, (it + 1) * kFbIn, kFbIn, Tin, a.Dh);
+        fb_stage<kLd>(nb + kFbIn * kLd, i2, i2s, (it + 1) * kFbIn, kFbIn, Tin,
+                      a.Dh);
+        asm volatile("cp.async.commit_group;" ::: "memory");
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+      }
+      __syncthreads();
+      const bf* cb = inb + (it & 1) * 2 * kFbIn * kLd;
+      body(it * kFbIn, cb, cb + kFbIn * kLd);
+      __syncthreads();
+    }
+  };
+
+  // this thread's two owned rows: gq and gq + 8 of the warp's 16
+  const int rowA = r0 + warp * 16 + gq;
+  float acc1[kDh / 8][4], acc2[kDh / 8][4];
+#pragma unroll
+  for (int i = 0; i < kDh / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc1[i][j] = acc2[i][j] = 0.f;
+
+  if constexpr (!kDkv) {
+    float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f},
+          sd[2] = {0.f, 0.f};
+    sweep([&](int j0, const bf* kt, const bf* vt) {
+      float s[4][4], dp[4][4];
+      fb_qk<kDh, kLd>(s, own1, kt);
+      fb_qk<kDh, kLd>(dp, own2, vt);
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = rowA + 8 * (i >> 1), j = j0 + nt * 8 + 2 * cq + (i & 1);
+          s[nt][i] = j < a.Tk ? fb_score(s[nt][i], a, kb, t, j) : -INFINITY;
+          tmax[i >> 1] = fmaxf(tmax[i >> 1], s[nt][i]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+        const float mn = fmaxf(mx[r], tmax[r]);
+        const float f = expf(mx[r] - mn);  // 0 on the first tile
+        float es = 0.f, ed = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 2 * r; i < 2 * r + 2; ++i) {
+            const float e = expf(s[nt][i] - mn);
+            es += e;
+            ed += e * dp[nt][i];
+          }
+        es += __shfl_xor_sync(0xffffffffu, es, 1);
+        es += __shfl_xor_sync(0xffffffffu, es, 2);
+        ed += __shfl_xor_sync(0xffffffffu, ed, 1);
+        ed += __shfl_xor_sync(0xffffffffu, ed, 2);
+        sm[r] = sm[r] * f + es;
+        sd[r] = sd[r] * f + ed;
+        mx[r] = mn;
+      }
+    });
+    const float inv[2] = {1.f / sm[0], 1.f / sm[1]};
+    const float delta[2] = {sd[0] * inv[0], sd[1] * inv[1]};
+    sweep([&](int j0, const bf* kt, const bf* vt) {
+      float s[4][4], dp[4][4];
+      fb_qk<kDh, kLd>(s, own1, kt);
+      fb_qk<kDh, kLd>(dp, own2, vt);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const int t = rowA + 8 * r, j = j0 + nt * 8 + 2 * cq + (i & 1);
+          const float sv = j < a.Tk ? fb_score(s[nt][i], a, kb, t, j)
+                                    : -INFINITY;
+          const float p = expf(sv - mx[r]) * inv[r];
+          dp[nt][i] = p * (dp[nt][i] - delta[r]);
+        }
+      uint32_t pa[2][4];
+      fb_to_a(pa, dp);
+      fb_pv<kDh, kLd>(acc1, pa, kt);
+    });
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = rowA + 8 * r;
+      if (t >= a.Tq) continue;
+      bf* dst = static_cast<bf*>(g.dq) + b * g.dq_bs + (size_t)t * g.dq_rs +
+                h * a.Dh;
+#pragma unroll
+      for (int nd = 0; nd < kDh / 8; ++nd) {
+        const int c = nd * 8 + 2 * cq;
+        if (c < a.Dh)
+          *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(
+              acc1[nd][2 * r] * a.scale, acc1[nd][2 * r + 1] * a.scale);
+      }
+      if (cq == 0) {
+        float* st = g.stats + (((size_t)b * a.H + h) * a.Tq + t) * 3;
+        st[0] = mx[r];
+        st[1] = sm[r];
+        st[2] = delta[r];
+      }
+    }
+  } else {
+    const float* stats = g.stats + ((size_t)b * a.H + h) * a.Tq * 3;
+    sweep([&](int t0, const bf* qt, const bf* dot) {
+      float s[4][4], dp[4][4];
+      fb_qk<kDh, kLd>(s, own1, qt);
+      fb_qk<kDh, kLd>(dp, own2, dot);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = rowA + 8 * (i >> 1), t = t0 + nt * 8 + 2 * cq + (i & 1);
+          float p = 0.f, ds = 0.f;
+          if (t < a.Tq) {
+            const float* st = stats + (size_t)t * 3;
+            p = expf(fb_score(s[nt][i], a, kb, t, j) - st[0]) * (1.f / st[1]);
+            ds = p * (dp[nt][i] - st[2]);
+          }
+          s[nt][i] = p;
+          dp[nt][i] = ds;
+        }
+      uint32_t pa[2][4];
+      fb_to_a(pa, s);
+      fb_pv<kDh, kLd>(acc2, pa, dot);   // dv += p^T . dO
+      fb_to_a(pa, dp);
+      fb_pv<kDh, kLd>(acc1, pa, qt);    // dk += ds^T . Q
+    });
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = rowA + 8 * r;
+      if (j >= a.Tk) continue;
+      bf* dk = static_cast<bf*>(g.dk) + b * g.dk_bs + (size_t)j * g.dk_rs +
+               h * a.Dh;
+      bf* dv = static_cast<bf*>(g.dv) + b * g.dv_bs + (size_t)j * g.dv_rs +
+               h * a.Dh;
+#pragma unroll
+      for (int nd = 0; nd < kDh / 8; ++nd) {
+        const int c = nd * 8 + 2 * cq;
+        if (c >= a.Dh) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dk + c) = __floats2bfloat162_rn(
+            acc1[nd][2 * r] * a.scale, acc1[nd][2 * r + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + c) = __floats2bfloat162_rn(
+            acc2[nd][2 * r], acc2[nd][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int kDh>
+int launch_flash_bwd_mma(const AttnArgs& a, const GradArgs& g, int B,
+                         cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * kFbOwn + 4 * kFbIn) * (kDh + 8) * 2;
+  int err = set_smem(flash_bwd_mma_kernel<kDh, false>, smem);
+  if (err) return err;
+  err = set_smem(flash_bwd_mma_kernel<kDh, true>, smem);
+  if (err) return err;
+  flash_bwd_mma_kernel<kDh, false>
+      <<<dim3((a.Tq + kFbOwn - 1) / kFbOwn, a.H, B), kFbThreads, smem,
+         stream>>>(a, g);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  flash_bwd_mma_kernel<kDh, true>
+      <<<dim3((a.Tk + kFbOwn - 1) / kFbOwn, a.H, B), kFbThreads, smem,
+         stream>>>(a, g);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int NI>
 int launch_fwd(const AttnArgs& a, void* out, long long o_bs, int o_rs,
                int norm_p, int B, cudaStream_t stream) {
@@ -892,10 +1261,12 @@ int sk_flash_attention_fwd(int dtype, const void* q, long long q_bs, int q_rs,
   return dispatch_dtype(dtype, 0, a, g, out, o_bs, o_rs, 0, B, stream);
 }
 
-// K8's backward, pass 1 (dq and the row statistics) or 2 (dk, dv); dO and
-// the gradients in the compute dtype
-int sk_flash_attention_bwd(int dtype, int pass, const void* q, long long q_bs,
-                           int q_rs, const void* k, long long k_bs, int k_rs,
+// K8's backward: dq, dk, dv (and each row's (max, sum, delta) in stats);
+// dO and the gradients in the compute dtype. bf16 runs the tensor-core
+// kernel's two launches (Dh a multiple of 8, rows 16-byte aligned); f32 the
+// FMA passes of attention_bwd_q / _kv
+int sk_flash_attention_bwd(int dtype, const void* q, long long q_bs, int q_rs,
+                           const void* k, long long k_bs, int k_rs,
                            const void* v, long long v_bs, int v_rs,
                            const void* bias, long long bias_bs, int bias_rs,
                            const void* dout, long long do_bs, int do_rs,
@@ -904,7 +1275,6 @@ int sk_flash_attention_bwd(int dtype, int pass, const void* q, long long q_bs,
                            long long dv_bs, int dv_rs, int B, int Tq, int Tk,
                            int H, int Dh, int causal, float scale,
                            void* stream) {
-  if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
   const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
                                bias, bias_bs, bias_rs, nullptr, nullptr,
                                nullptr, nullptr, Tq, Tk, H, Dh,
@@ -912,7 +1282,20 @@ int sk_flash_attention_bwd(int dtype, int pass, const void* q, long long q_bs,
   const GradArgs g = make_grads(dout, do_bs, do_rs, stats, dq, dq_bs, dq_rs,
                                 dk, dk_bs, dk_rs, dv, dv_bs, dv_rs, nullptr,
                                 nullptr, 1);
-  return dispatch_dtype(dtype, pass, a, g, nullptr, 0, 0, 0, B, stream);
+  if (dtype == 0) {
+    const int err = dispatch_dtype(0, 1, a, g, nullptr, 0, 0, 0, B, stream);
+    if (err) return err;
+    return dispatch_dtype(0, 2, a, g, nullptr, 0, 0, 0, B, stream);
+  }
+  if (dtype != 1 || Tq < 1 || Tk < 1 || Dh < 1 || Dh % 8 != 0 ||
+      (q_rs | k_rs | v_rs | do_rs | dq_rs | dk_rs | dv_rs) % 8 != 0 ||
+      (q_bs | k_bs | v_bs | do_bs | dq_bs | dk_bs | dv_bs) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Dh <= 32) return launch_flash_bwd_mma<32>(a, g, B, s);
+  if (Dh <= 64) return launch_flash_bwd_mma<64>(a, g, B, s);
+  if (Dh <= 128) return launch_flash_bwd_mma<128>(a, g, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@
 // pallas_dropout.py::draw_layer_bytes (prng_seed / prng_random_bits inside
 // the stack kernels). What carries over is the requirement, not the bits:
 // every kernel that reads a dropout site (the forward's epilogue, the
-// backward's recompute, linear_nt, linear_tn, sum_rows) regenerates the
+// backward's recompute, linear_nt, linear_tn) regenerates the
 // same byte for the same element, whatever its tiling. So the byte is a
 // pure function of the element's coordinates:
 //

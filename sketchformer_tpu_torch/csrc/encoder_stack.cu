@@ -34,15 +34,14 @@
 // What bounds it on the card: at d_model=256 every product is small in K
 // (256 or 512), so each layer moves its activations through device memory
 // about seven times, and a product tile does little work per byte it loads.
-// The products run on the tensor cores (WMMA, bf16 in, f32 accumulate) in
-// 64x64 output tiles that load 16-byte vectors and prefetch the next
-// K-slab into registers while the current one is multiplied; the attention
-// runs on the FMA units. LayerNorm is its own pass and not a prologue of
-// the product: as a prologue, each of the N/64 column blocks of a row
-// block recomputed the same row statistics and normalisation, which took
-// as long again as the QKV product itself. This first landing keeps the
-// design simple to hold against the plain version: no TMA, no wgmma, no
-// fusion across the layer's kernels. Those are later work.
+// linear and linear_nt run on the tensor cores through WMMA (bf16 in, f32
+// accumulate) in 64x64 output tiles that load 16-byte vectors and prefetch
+// the next K-slab into registers while the current one is multiplied;
+// linear_tn runs on wgmma with TMA and a ring of mbarrier stages (see its
+// note); the attention runs on the FMA units. LayerNorm is its own pass and
+// not a prologue of the product: as a prologue, each of the N/64 column
+// blocks of a row block recomputed the same row statistics and
+// normalisation, which took as long again as the QKV product itself.
 //
 // Numerics follow _stack_kernel exactly: every product accumulates in f32,
 // is rounded to the compute dtype, and only then has the (rounded) bias
@@ -53,6 +52,7 @@
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
+#include <cuda.h>
 #include <mma.h>
 
 #include <stdint.h>
@@ -260,19 +260,18 @@ linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
 //   linear_nt  out[M, Ko] = a[M, K] . w[Ko, K]^T     (dX = dY . W^T)
 //   linear_tn  out[Ko, N] = x[M, Ko]^T . y[M, N]     (dW = X^T . dY)
 //
-// Both stage each operand's tile as its rows arrive from device memory
-// (coalesced loads, contiguous shared-memory stores) and run one WMMA / FMA
-// inner loop, reading a transposed operand through a column-major fragment.
-// The gradient operand (a for NT, y for TN) may be f32: it is multiplied by
-// the dropout mask of its site (byte >= thresh -> keep_scale, else 0) in
-// f32 and rounded to the compute dtype as it is staged (load_masked), which
-// is where the TPU kernel rounds it (df.astype(dt)).
-// linear_nt's epilogue optionally gates by a ReLU output (gate > 0, the
-// FFN backward) and writes f32, or rounds to the compute dtype and adds a
-// running sum (dmemory over the decoder's layers). linear_tn reduces over
-// all M rows: grid.z splits M into slices whose f32 partial tiles land in
-// out[z] and are summed in a fixed order by sum_rows, so the result does
-// not depend on scheduling.
+// linear_nt stages each operand's tile as its rows arrive from device
+// memory (coalesced loads, contiguous shared-memory stores) and runs one
+// WMMA / FMA inner loop, reading a transposed operand through a
+// column-major fragment. The gradient operand (a for NT, y for TN) may be
+// f32: it is multiplied by the dropout mask of its site (byte >= thresh ->
+// keep_scale, else 0) in f32 and rounded to the compute dtype as it is
+// staged (load_masked), which is where the TPU kernel rounds it
+// (df.astype(dt)). linear_nt's epilogue optionally gates by a ReLU output
+// (gate > 0, the FFN backward) and writes f32, or rounds to the compute
+// dtype and adds a running sum (dmemory over the decoder's layers).
+// linear_tn (below) reduces over all M rows in one launch, with the bias
+// gradient beside it.
 
 constexpr int TBK = 32;  // contraction slab of the NT / TN products
 
@@ -503,35 +502,404 @@ linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
   }
 }
 
-template <typename T, typename TB, bool kPrng>
+// ---------------------------------------------------------------------------
+// linear_tn: dW[K, N] = x[M, K]^T . (y[M, N] * mask) and db[N] = sum_m y * mask
+// ---------------------------------------------------------------------------
+//
+// The reduction runs over all M rows, and (K, N) is small (256 x 768 is 12
+// output tiles of 128 x 128), so M is cut into `splits` slices of
+// rows_per_split rows (a multiple of kTnSlab) to fill the SMs. Every block
+// writes its f32 partial tile to ws[tile][z]; the block that finishes a tile
+// last (a per-tile counter, reset by that block for the next launch) adds
+// the partials z = 0 .. S-1 in that fixed order and writes the result, so
+// re-runs are bit-stable and no second launch follows. The bias gradient db
+// is the f32 masked gradient summed before rounding (sum_rows_reference):
+// the blocks of the first K tile add their rows' columns, and the last block
+// of each of those tiles adds the partial rows in order too.
+//
+// bf16 (every main path): a warp-specialised block and a ring of kTnStages
+// shared-memory stages on mbarriers. One producer warp issues TMA loads of
+// a 64-row slab: x (two 64 x 64 boxes, 128-byte swizzle), the raw gradient
+// rows (f32 or bf16) and, in 'bits' mode, their mask bytes. Warpgroup 2
+// converts the slab in shared memory: times the mask (the bytes, or the
+// in-kernel Philox draw of 'prng' mode, one prng_words4 per four columns),
+// the f32 value added to its columns' db, rounded to bf16 into the MMA's
+// swizzled layout. Warpgroups 0 and 1 each run wgmma m64n128k16 on 64 of
+// the tile's 128 K rows; both operands are MN-major (the transposes are in
+// the descriptors), so nothing is staged element by element, and no thread
+// waits on a load from device memory.
+// f32: the FMA body of mma_slab (64 x 64 tiles, 32-row slabs), with the same
+// split reduction and db.
+
+constexpr int kTnSlab = 64;     // contraction rows a stage (bf16) / split unit
+constexpr int kTnTile = 128;    // bf16 output tile: 128 K rows x 128 columns
+constexpr int kTnStages = 3;
+constexpr int kTnThreads = 416;  // consumer WGs 0-1, converter WG 2, a TMA warp
+constexpr int kTnBox = kTnSlab * 64 * 2;        // one 64 x 64 bf16 box, bytes
+// a stage: x (2 boxes), the bf16 operand (2 blocks), the raw gradient rows
+// (64 x 128 f32 at most), their mask bytes (64 x 128)
+constexpr int kTnRaw = 4 * kTnBox, kTnBytes = 8 * kTnBox;
+constexpr int kTnStageBytes = 9 * kTnBox;
+// 128-byte swizzle atoms: 8 rows of 128 bytes; MN-major operand blocks of 64
+// columns are kTnBox apart (LBO), 8-row groups 1024 bytes apart (SBO)
+constexpr uint32_t kTnLbo = kTnBox, kTnSbo = 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor: 128-byte swizzle
+__device__ __forceinline__ uint64_t tn_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(kTnLbo >> 4) << 16) | ((uint64_t)(kTnSbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// one m64n128k16 product (bf16 in, f32 accumulate into d), both operands
+// MN-major (transposed) in 128-byte-swizzled shared memory
+__device__ __forceinline__ void wgmma_m64n128_tt(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The last block to finish a tile (of `splits`) gets true, after a fence
+// that makes every other block's partials visible to it; it resets the
+// tile's counter for the next launch. Every thread of the block calls it.
+__device__ __forceinline__ bool tn_last_block(unsigned* counter, int splits,
+                                              int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned seen = atomicAdd(counter, 1u);
+    *flag = seen == (unsigned)splits - 1;
+    if (*flag) *counter = 0u;
+  }
+  __syncthreads();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// the last block: out[r0 + r][c0 + c] = sum_z ws[z][r][c] in order z = 0..S-1
+// (tiles of TR x TC f32, the splits' partials S tiles apart); with db, the
+// same for the partial db rows ws_db[z][c]
+template <int TR, int TC>
+__device__ void tn_reduce(const float* __restrict__ ws, int splits,
+                          float* __restrict__ out, int K, int N, int r0,
+                          int c0, const float* __restrict__ ws_db,
+                          float* __restrict__ db) {
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  for (int i = threadIdx.x; i < TR * TC / 4; i += blockDim.x) {
+    const int r = i / (TC / 4), c = (i % (TC / 4)) * 4;
+    if (r0 + r >= K || c0 + c >= N) continue;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int z = 0; z < splits; ++z) {
+      const float4 v = w4[(size_t)z * TR * TC / 4 + i];
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    float* o = out + (size_t)(r0 + r) * N + c0 + c;
+    const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c0 + c + j < N) o[j] = sv[j];
+  }
+  if (ws_db != nullptr)
+    for (int c = threadIdx.x; c < TC; c += blockDim.x) {
+      if (c0 + c >= N) continue;
+      float s = 0.f;
+      for (int z = 0; z < splits; ++z) s += ws_db[(size_t)z * TC + c];
+      db[c0 + c] = s;
+    }
+}
+
+struct TnArgs {
+  const void* y;          // [M][N] f32 or bf16
+  const uint8_t* drop;    // [M][N] mask bytes, or null
+  DropPrng prng;
+  int thresh;
+  float keep_scale;
+  float* out;             // [K][N]
+  float* db;              // [N] or null
+  float* ws;              // [tiles][splits][tile] partials
+  float* ws_db;           // [column tiles][splits][tile columns] partials
+  unsigned* counters;     // [tiles], zero between launches
+  int M, K, N, rows_per_split;
+};
+
+// v (8 columns n .. n + 7 of row m) times the dropout mask: 8 mask bytes
+// ('bits'), or the in-kernel draw (one prng_words4 per four columns)
+template <bool kPrng>
+__device__ __forceinline__ void tn_mask8(const TnArgs& a, int m, int n,
+                                         uint2 bytes, float (&v)[8]) {
+  if constexpr (kPrng) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (m >= a.M || n + 4 * h >= a.N) continue;
+      const uint4 w = prng_words4(a.prng, m, n + 4 * h, a.N);
+      const uint32_t wj[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[4 * h + j] *= ((wj[j] >> a.prng.shift) & 255u) >= (uint32_t)a.thresh
+                            ? a.keep_scale
+                            : 0.f;
+    }
+  } else if (a.drop != nullptr) {
+    const uint32_t wb[2] = {bytes.x, bytes.y};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] *= ((wb[j >> 2] >> (8 * (j & 3))) & 255u) >= (uint32_t)a.thresh
+                  ? a.keep_scale
+                  : 0.f;
+  }
+}
+
+template <typename TB, bool kPrng>
+__global__ void __launch_bounds__(kTnThreads, 1)
+linear_tn_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap ymap,
+                       const __grid_constant__ CUtensorMap dmap, TnArgs a) {
+  extern __shared__ unsigned char tn_smem_raw[];
+  // 1024-byte alignment: the swizzle atoms and the TMA boxes assume it
+  unsigned char* smem = tn_smem_raw + ((1024u - (smem_u32(tn_smem_raw) &
+                                                 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kTnStages *
+                                               kTnStageBytes);
+  uint64_t* conv = full + kTnStages;
+  uint64_t* empty = conv + kTnStages;
+  int* flag = reinterpret_cast<int*>(empty + kTnStages);
+  float* red = reinterpret_cast<float*>(smem + kTnBytes);  // [8][128], after
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int n0 = blockIdx.x * kTnTile, k0 = blockIdx.y * kTnTile;
+  const int z = blockIdx.z, splits = gridDim.z;
+  const int mb = z * a.rows_per_split;
+  const int me = min(a.M, mb + a.rows_per_split);
+  const int slabs = (me - mb + kTnSlab - 1) / kTnSlab;
+  const bool with_db = a.db != nullptr && blockIdx.y == 0;
+  const bool bits = !kPrng && a.drop != nullptr;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kTnStages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(conv + s), 128);
+      mbar_init(smem_u32(empty + s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float dbp[8];  // a converter's db partial of its 8 columns
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dbp[j] = 0.f;
+  const int chunk = t & 15, rg = t >> 4;  // converter: 16B column chunk, rows
+
+  if (wg == 3) {
+    // the TMA warp: slab i into stage i % kTnStages once it is free
+    if (t == 0) {
+      const uint32_t tx = 2 * kTnBox + kTnSlab * kTnTile * sizeof(TB) +
+                          (bits ? kTnSlab * kTnTile : 0);
+      for (int i = 0; i < slabs; ++i) {
+        const int s = i % kTnStages;
+        mbar_wait(smem_u32(empty + s), ((i / kTnStages) & 1) ^ 1);
+        unsigned char* st = smem + s * kTnStageBytes;
+        const uint32_t bar = smem_u32(full + s);
+        const int m0 = mb + i * kTnSlab;
+        mbar_arrive_expect_tx(bar, tx);
+        tma_load_2d(smem_u32(st), &xmap, bar, k0, m0);
+        tma_load_2d(smem_u32(st + kTnBox), &xmap, bar, k0 + 64, m0);
+        tma_load_2d(smem_u32(st + kTnRaw), &ymap, bar, n0, m0);
+        if (bits) tma_load_2d(smem_u32(st + kTnBytes), &dmap, bar, n0, m0);
+      }
+    }
+  } else if (wg == 2) {
+    // converters: the raw rows of slab i, masked and rounded into the
+    // operand's swizzled blocks
+    for (int i = 0; i < slabs; ++i) {
+      const int s = i % kTnStages;
+      mbar_wait(smem_u32(full + s), (i / kTnStages) & 1);
+      unsigned char* st = smem + s * kTnStageBytes;
+      const TB* raw = reinterpret_cast<const TB*>(st + kTnRaw);
+      const uint8_t* byt = st + kTnBytes;
+      const int m0 = mb + i * kTnSlab, n = n0 + chunk * 8;
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        const int r = rg + 8 * rr;
+        float v[8];
+        if constexpr (std::is_same<TB, float>::value) {
+          const float4 u = reinterpret_cast<const float4*>(
+              raw + r * kTnTile + chunk * 8)[0];
+          const float4 w = reinterpret_cast<const float4*>(
+              raw + r * kTnTile + chunk * 8)[1];
+          v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+          v[4] = w.x; v[5] = w.y; v[6] = w.z; v[7] = w.w;
+        } else {
+          const uint4 u = *reinterpret_cast<const uint4*>(
+              raw + r * kTnTile + chunk * 8);
+          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
+        }
+        const uint2 bw = bits ? *reinterpret_cast<const uint2*>(
+                                    byt + r * kTnTile + chunk * 8)
+                              : make_uint2(0u, 0u);
+        tn_mask8<kPrng>(a, m0 + r, n, bw, v);
+        uint4 packed;
+        __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dbp[2 * j] += v[2 * j];
+          dbp[2 * j + 1] += v[2 * j + 1];
+          p2[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+        }
+        const int c = chunk & 7;
+        *reinterpret_cast<uint4*>(st + 2 * kTnBox + (chunk >> 3) * kTnBox +
+                                  r * 128 + ((c ^ (r & 7)) << 4)) = packed;
+      }
+      // the generic-proxy stores, visible to the tensor cores' async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(smem_u32(conv + s));
+    }
+  } else {
+    // consumers: warpgroup wg owns K rows k0 + 64 wg .. + 63
+    for (int i = 0; i < slabs; ++i) {
+      const int s = i % kTnStages;
+      mbar_wait(smem_u32(full + s), (i / kTnStages) & 1);
+      mbar_wait(smem_u32(conv + s), (i / kTnStages) & 1);
+      const uint32_t xs = smem_u32(smem + s * kTnStageBytes) + wg * kTnBox;
+      const uint32_t ys = smem_u32(smem + s * kTnStageBytes) + 2 * kTnBox;
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kTnSlab / 16; ++kk)
+        wgmma_m64n128_tt(acc, tn_desc(xs + kk * 2 * kTnSbo),
+                         tn_desc(ys + kk * 2 * kTnSbo));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      mbar_arrive(smem_u32(empty + s));
+    }
+  }
+  __syncthreads();  // every stage consumed: red may reuse stage 0
+
+  // this split's partial tile, in the accumulator's fragment order: thread
+  // (warp w, lane l) holds rows 16 w + l / 4 (+ 8) and columns 8 j +
+  // 2 (l % 4) (+ 1)
+  float* part = a.ws + ((size_t)tile * splits + z) * kTnTile * kTnTile;
+  if (wg < 2) {
+    const int warp = t >> 5, lane = t & 31;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+      const int c = (i >> 2) * 8 + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(part + r * kTnTile + c) =
+          make_float2(acc[i], acc[i + 1]);
+    }
+  } else if (wg == 2 && with_db) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[rg * kTnTile + chunk * 8 + j] = dbp[j];
+  }
+  __syncthreads();
+  if (with_db && tid < kTnTile) {  // the 8 row groups in order
+    float s = 0.f;
+#pragma unroll
+    for (int g = 0; g < 8; ++g) s += red[g * kTnTile + tid];
+    a.ws_db[((size_t)blockIdx.x * splits + z) * kTnTile + tid] = s;
+  }
+  if (tn_last_block(a.counters + tile, splits, flag))
+    tn_reduce<kTnTile, kTnTile>(
+        a.ws + (size_t)tile * splits * kTnTile * kTnTile, splits, a.out, a.K,
+        a.N, k0, n0,
+        with_db ? a.ws_db + (size_t)blockIdx.x * splits * kTnTile : nullptr,
+        a.db);
+}
+
+// f32: the 64 x 64 FMA tile of mma_slab over 32-row slabs
+template <bool kPrng>
 __global__ void __launch_bounds__(kThreads, 2)
-linear_tn_kernel(const T* __restrict__ x, const TB* __restrict__ y,
-                 const uint8_t* __restrict__ drop, DropPrng prng, int thresh,
-                 float keep_scale, float* __restrict__ out, int M, int K,
-                 int N, int rows_per_split) {
-  // x [M][K], y [M][N]; out[z] [K][N] sums rows [z*rps, (z+1)*rps)
-  __shared__ __align__(128) unsigned char smem[TrainSmem<T>::kBytes];
-  T* as = reinterpret_cast<T*>(smem);  // [TBK][kLdbT]: x rows (A^T)
-  T* bs = as + TBK * kLdbT;            // [TBK][kLdbT]: y rows
-  float* cs = reinterpret_cast<float*>(smem);
+linear_tn_f32_kernel(const float* __restrict__ x, TnArgs a) {
+  __shared__ __align__(128) unsigned char smem[TrainSmem<float>::kBytes];
+  __shared__ int flag;
+  float* as = reinterpret_cast<float*>(smem);  // [TBK][kLdbT]: x rows (A^T)
+  float* bs = as + TBK * kLdbT;                // [TBK][kLdbT]: y rows
+  const float* y = static_cast<const float*>(a.y);
+  const int M = a.M, K = a.K, N = a.N;
 
   const int tid = threadIdx.x;
   const int kr0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int mb = blockIdx.z * rows_per_split;
-  const int me = min(M, mb + rows_per_split);
-  FragC<T> cfrag[2];
+  const int z = blockIdx.z, splits = gridDim.z;
+  const int mb = z * a.rows_per_split;
+  const int me = min(M, mb + a.rows_per_split);
+  const bool with_db = a.db != nullptr && blockIdx.y == 0;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  FragC<float> cfrag[2];
   float acc[4][4];
-  zero_acc<T>(cfrag, acc);
-  T ra[kElemsA], rb[kElemsB];
+  zero_acc<float>(cfrag, acc);
+  float dbacc = 0.f;
+  float ra[kElemsA], rb[kElemsB];
   auto load_slab = [&](int m0) {
 #pragma unroll
     for (int i = 0; i < kElemsA; ++i) {
       const int e = tid + i * kThreads, r = e % BM, c = e / BM;
       const int m = m0 + c, k = kr0 + r;
-      ra[i] = m < me && k < K ? x[(size_t)m * K + k] : from_f<T>(0.f);
+      ra[i] = m < me && k < K ? x[(size_t)m * K + k] : 0.f;
     }
-    load_masked<T, TB, TBK, BN, kPrng>(rb, y, drop, prng, m0, n0, me, N,
-                                       thresh, keep_scale, tid);
+    load_masked<float, float, TBK, BN, kPrng>(rb, y, a.drop, a.prng, m0, n0,
+                                              me, N, a.thresh, a.keep_scale,
+                                              tid);
   };
   load_slab(mb);
   for (int m0 = mb; m0 < me; m0 += TBK) {
@@ -540,20 +908,28 @@ linear_tn_kernel(const T* __restrict__ x, const TB* __restrict__ y,
       const int e = tid + i * kThreads;
       as[(e / BM) * kLdbT + e % BM] = ra[i];
     }
-    store_masked<T, TBK, BN, kPrng>(rb, bs, kLdbT, tid);
+    store_masked<float, TBK, BN, kPrng>(rb, bs, kLdbT, tid);
     __syncthreads();
+    if (with_db && tid < BN)
+      for (int r = 0; r < TBK; ++r) dbacc += bs[r * kLdbT + tid];
     if (m0 + TBK < me) load_slab(m0 + TBK);
-    mma_slab<T, true, kLdbT, false, kLdbT>(as, bs, cfrag, acc, tid);
+    mma_slab<float, true, kLdbT, false, kLdbT>(as, bs, cfrag, acc, tid);
     __syncthreads();
   }
-  store_tile<T, kLdcT>(cs, cfrag, acc, tid);
-  __syncthreads();
-  float* dst = out + (size_t)blockIdx.z * K * N;
-  for (int idx = tid; idx < BM * BN; idx += kThreads) {
-    const int r = idx / BN, c = idx % BN;
-    const int k = kr0 + r, n = n0 + c;
-    if (k < K && n < N) dst[(size_t)k * N + n] = cs[r * kLdcT + c];
-  }
+  float* part = a.ws + ((size_t)tile * splits + z) * BM * BN;
+  const int ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) part[(ty + 16 * i) * BN + tx + 16 * j] = acc[i][j];
+  if (with_db && tid < BN)
+    a.ws_db[((size_t)blockIdx.x * splits + z) * BN + tid] = dbacc;
+  if (tn_last_block(a.counters + tile, splits, &flag))
+    tn_reduce<BM, BN>(a.ws + (size_t)tile * splits * BM * BN, splits, a.out,
+                      K, N, kr0, n0,
+                      with_db ? a.ws_db + (size_t)blockIdx.x * splits * BN
+                              : nullptr,
+                      a.db);
 }
 
 // ---------------------------------------------------------------------------
@@ -900,26 +1276,87 @@ int launch_linear_nt(int a_f32, const void* a, const void* w, const void* drop,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kPrng>
-int launch_linear_tn(int b_f32, const void* x, const void* y, const void* drop,
-                     DropPrng prng, int thresh, float keep_scale, void* out,
-                     int M, int K, int N, int splits, cudaStream_t stream) {
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  const int rps = ((M + splits - 1) / splits + TBK - 1) / TBK * TBK;
-  const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
-  const T* xp = static_cast<const T*>(x);
-  const uint8_t* dp = static_cast<const uint8_t*>(drop);
-  float* op = static_cast<float*>(out);
-  if (b_f32)
-    linear_tn_kernel<T, float, kPrng><<<grid, kThreads, 0, stream>>>(
-        xp, static_cast<const float*>(y), dp, prng, thresh, keep_scale, op, M,
-        K, N,
-        rps);
-  else
-    linear_tn_kernel<T, T, kPrng><<<grid, kThreads, 0, stream>>>(
-        xp, static_cast<const T*>(y), dp, prng, thresh, keep_scale, op, M, K,
-        N,
-        rps);
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query (so the library needs no link against libcuda)
+typedef CUresult (*TmapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                               void*, const cuuint64_t*, const cuuint64_t*,
+                               const cuuint32_t*, const cuuint32_t*,
+                               CUtensorMapInterleave, CUtensorMapSwizzle,
+                               CUtensorMapL2promotion,
+                               CUtensorMapFloatOOBfill);
+
+TmapEncode tmap_encode() {
+  static TmapEncode fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TmapEncode>(p);
+  }
+  return fn;
+}
+
+constexpr size_t kTnSmem = kTnStages * kTnStageBytes + 1024 +
+                           3 * kTnStages * sizeof(uint64_t) + 16;
+
+// a 2-D tensor map of a row-major (rows, pitch) array, box (64 rows, bw
+// elements); the pitch in bytes must be a multiple of 16
+bool tn_map(CUtensorMap* map, TmapEncode encode, CUtensorMapDataType type,
+            int esize, const void* base, int rows, int pitch, int bw,
+            CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)pitch, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)bw, (cuuint32_t)kTnSlab};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x (M, K) bf16; y (M, y_pitch) and the mask bytes (M, d_pitch), their
+// columns past N zero; pitches and bases 16-byte aligned
+template <typename TB, bool kPrng>
+int launch_linear_tn_bf16(const void* x, int y_pitch, int d_pitch,
+                          const TnArgs& a, int splits, cudaStream_t stream) {
+  const int ye = (int)sizeof(TB);
+  auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (a.K % 8 != 0 || (y_pitch * ye) % 16 != 0 || y_pitch < a.N ||
+      misaligned(x) || misaligned(a.y) ||
+      (a.drop != nullptr && (d_pitch % 16 != 0 || d_pitch < a.N ||
+                             misaligned(a.drop))))
+    return (int)cudaErrorInvalidValue;
+  TmapEncode encode = tmap_encode();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xmap, ymap, dmap;
+  const CUtensorMapDataType yt = ye == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!tn_map(&xmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, a.M,
+              a.K, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tn_map(&ymap, encode, yt, ye, a.y, a.M, y_pitch, kTnTile,
+              CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  dmap = xmap;  // unused without mask bytes
+  if (!kPrng && a.drop != nullptr &&
+      !tn_map(&dmap, encode, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.drop, a.M,
+              d_pitch, kTnTile, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;  // one instantiation, one attribute
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        linear_tn_wgmma_kernel<TB, kPrng>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTnSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid((a.N + kTnTile - 1) / kTnTile, (a.K + kTnTile - 1) / kTnTile,
+                  splits);
+  linear_tn_wgmma_kernel<TB, kPrng>
+      <<<grid, kTnThreads, kTnSmem, stream>>>(xmap, ymap, dmap, a);
   return (int)cudaGetLastError();
 }
 
@@ -965,22 +1402,54 @@ int sk_linear_nt(int dtype, int a_f32, const void* a, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
+// dW = x^T . (y * mask) over all M rows into out (K, N) f32 and, with db
+// non-null, db (N) = the f32 column sums of y * mask; M in `splits` slices
+// of rows_per_split rows (a multiple of 64), their partials in ws / ws_db
+// and counters (one a tile, zero) as the wrapper sizes them. bf16: y and
+// the mask bytes are read with row pitches y_pitch / d_pitch >= N (16-byte
+// rows, zero past N); f32: the pitches are N
 int sk_linear_tn(int dtype, int b_f32, const void* x, const void* y,
-                 const void* drop, unsigned long long seed, int layer,
-                 int site, int prng_T, int thresh, float keep_scale, void* out,
-                 int M, int K, int N, int splits, void* stream) {
+                 int y_pitch, const void* drop, int d_pitch,
+                 unsigned long long seed, int layer, int site, int prng_T,
+                 int thresh, float keep_scale, void* out, void* db, void* ws,
+                 void* ws_db, void* counters, int M, int K, int N, int splits,
+                 int rows_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DropPrng p = make_prng(seed, layer, site, prng_T);
   if (prng_T > 0 && N % 4 != 0) return (int)cudaErrorInvalidValue;
-#define SK_TN(T, P)                                                         \
-  return launch_linear_tn<T, P>(b_f32, x, y, drop, p, thresh, keep_scale, \
-                                out, M, K, N, splits, s)
-  if (dtype == 0 && prng_T > 0) SK_TN(float, true);
-  if (dtype == 0) SK_TN(float, false);
-  if (dtype == 1 && prng_T > 0) SK_TN(__nv_bfloat16, true);
-  if (dtype == 1) SK_TN(__nv_bfloat16, false);
+  if (M < 1 || splits < 1 || rows_per_split % kTnSlab != 0 ||
+      (long long)splits * rows_per_split < M ||
+      (long long)(splits - 1) * rows_per_split >= M)
+    return (int)cudaErrorInvalidValue;
+  TnArgs a;
+  a.y = y;
+  a.drop = static_cast<const uint8_t*>(drop);
+  a.prng = make_prng(seed, layer, site, prng_T);
+  a.thresh = thresh;
+  a.keep_scale = keep_scale;
+  a.out = static_cast<float*>(out);
+  a.db = static_cast<float*>(db);
+  a.ws = static_cast<float*>(ws);
+  a.ws_db = static_cast<float*>(ws_db);
+  a.counters = static_cast<unsigned*>(counters);
+  a.M = M; a.K = K; a.N = N; a.rows_per_split = rows_per_split;
+  if (dtype == 0) {
+    const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
+    if (prng_T > 0)
+      linear_tn_f32_kernel<true><<<grid, kThreads, 0, s>>>(
+          static_cast<const float*>(x), a);
+    else
+      linear_tn_f32_kernel<false><<<grid, kThreads, 0, s>>>(
+          static_cast<const float*>(x), a);
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+#define SK_TN(TB, P) \
+  return launch_linear_tn_bf16<TB, P>(x, y_pitch, d_pitch, a, splits, s)
+  if (b_f32 && prng_T > 0) SK_TN(float, true);
+  if (b_f32) SK_TN(float, false);
+  if (prng_T > 0) SK_TN(__nv_bfloat16, true);
+  SK_TN(__nv_bfloat16, false);
 #undef SK_TN
-  return (int)cudaErrorInvalidValue;
 }
 
 int sk_encoder_attention(int dtype, const void* qkv, const void* key_bias,

@@ -42,8 +42,8 @@ SIGNATURES = {
                    _P], _I),
     "sk_linear_nt": ([_I, _I, _P, _P, *_DROP, _I, _F, _P, _P, _I, _P, _I, _I,
                       _I, _P], _I),
-    "sk_linear_tn": ([_I, _I, _P, _P, *_DROP, _I, _F, _P, _I, _I, _I, _I, _P],
-                     _I),
+    "sk_linear_tn": ([_I, _I, _P, _P, _I, _P, _I, _U, _I, _I, _I, _I, _F,
+                      _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "sk_attention_fwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _P, _P,
                           _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                           _P], _I),
@@ -54,13 +54,13 @@ SIGNATURES = {
     "sk_flash_attention_fwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P,
                                 _L, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _P], _I),
-    "sk_flash_attention_bwd": ([_I, _I, _P, _L, _I, _P, _L, _I, _P, _L, _I,
+    "sk_flash_attention_bwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I,
                                 _P, _L, _I, _P, _L, _I, _P, _P, _L, _I, _P,
                                 _L, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _P], _I),
     "sk_layernorm_bwd": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
                          _I),
-    "sk_sum_rows": ([_I, _P, *_DROP, _I, _F, _P, _I, _I, _I, _P], _I),
+    "sk_sum_rows": ([_I, _P, _P, _I, _I, _I, _P], _I),
     "sk_emit_dropout_bits": ([_U, _P, _I, _I, _I, _I, _P], _I),
     "sk_token_ce_fwd": ([_I] + [_P] * 7 + [_I] * 4 + [_P], _I),
     "sk_token_ce_bwd": ([_I] + [_P] * 9 + [_I] * 5 + [_P], _I),
@@ -181,6 +181,12 @@ def require(t: torch.Tensor, name: str, device, dtype, shape) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs (the kernels size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dtype_code(t: torch.Tensor) -> int:

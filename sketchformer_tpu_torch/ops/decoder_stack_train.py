@@ -16,7 +16,7 @@ byte tensor.
 - backward: one layer at a time, newest first (``_dec_layer_bwd_kernel``):
   the layer's forward is recomputed from its input, then ``linear_tn`` /
   ``linear_nt``, ``attention_bwd_q`` / ``attention_bwd_kv`` (self and
-  cross), ``layernorm_bwd`` and ``sum_rows``. The gradient of the memory is
+  cross) and ``layernorm_bwd``. The gradient of the memory is
   each layer's cross K/V backward rounded to the compute dtype and added,
   in the compute dtype, over the layers (``pallas_decoder_train.py:786``).
 
@@ -136,17 +136,16 @@ def decoder_layer_bwd(x, mem, g, sbias, cbias, drop, wl, *, num_heads,
     HD = p["so"].shape[-1]
     dw = {}
     # FFN: y = x2 + drop(f1 W2 + b2)
-    dw["w2"] = ops.linear_tn(p["f1"], g, drop=masks[2], **dargs)
-    dw["b2"] = ops.sum_rows(g, drop=masks[2], **dargs)
+    dw["w2"], dw["b2"] = ops.linear_tn(p["f1"], g, drop=masks[2],
+                                       bias_grad=True, **dargs)
     dpre1 = ops.linear_nt(g, wl["w2"], drop=masks[2], gate=p["f1"], **dargs)
-    dw["w1"] = ops.linear_tn(p["h3"], dpre1)
-    dw["b1"] = ops.sum_rows(dpre1)
+    dw["w1"], dw["b1"] = ops.linear_tn(p["h3"], dpre1, bias_grad=True)
     dh3 = ops.linear_nt(dpre1, wl["w1"])
     dx2, dw["ln3s"], dw["ln3b"] = ops.layernorm_bwd(p["x2"], dh3, wl["ln3s"],
                                                     resid=g)
     # cross-attention: x2 = x1 + drop(co cWo + cbo)
-    dw["c_wo"] = ops.linear_tn(p["co"], dx2, drop=masks[1], **dargs)
-    dw["c_bo"] = ops.sum_rows(dx2, drop=masks[1], **dargs)
+    dw["c_wo"], dw["c_bo"] = ops.linear_tn(p["co"], dx2, drop=masks[1],
+                                           bias_grad=True, **dargs)
     dco = ops.linear_nt(dx2, wl["c_wo"], drop=masks[1],
                         **dargs).reshape(B, T, HD)
     cn = _norms(wl, qk_norm, "c")
@@ -157,10 +156,8 @@ def decoder_layer_bwd(x, mem, g, sbias, cbias, drop, wl, *, num_heads,
         qk_norm=cn)
     dcq = dcq.reshape(M, HD)
     dckv = torch.cat([dck, dcv], dim=-1).reshape(B * Mq, 2 * HD)
-    dw["c_wq"] = ops.linear_tn(p["h2"], dcq)
-    dw["c_bq"] = ops.sum_rows(dcq)
-    dw["c_wkv"] = ops.linear_tn(m, dckv)
-    dw["c_bkv"] = ops.sum_rows(dckv)
+    dw["c_wq"], dw["c_bq"] = ops.linear_tn(p["h2"], dcq, bias_grad=True)
+    dw["c_wkv"], dw["c_bkv"] = ops.linear_tn(m, dckv, bias_grad=True)
     dmem = ops.linear_nt(dckv, wl["c_wkv"], out_dtype=x.dtype,
                          residual=None if dmem is None
                          else dmem.reshape(B * Mq, d))
@@ -168,8 +165,8 @@ def decoder_layer_bwd(x, mem, g, sbias, cbias, drop, wl, *, num_heads,
     dx1, dw["ln2s"], dw["ln2b"] = ops.layernorm_bwd(p["x1"], dh2, wl["ln2s"],
                                                     resid=dx2)
     # self-attention: x1 = x + drop(so sWo + sbo)
-    dw["s_wo"] = ops.linear_tn(p["so"], dx1, drop=masks[0], **dargs)
-    dw["s_bo"] = ops.sum_rows(dx1, drop=masks[0], **dargs)
+    dw["s_wo"], dw["s_bo"] = ops.linear_tn(p["so"], dx1, drop=masks[0],
+                                           bias_grad=True, **dargs)
     dso = ops.linear_nt(dx1, wl["s_wo"], drop=masks[0],
                         **dargs).reshape(B, T, HD)
     sn = _norms(wl, qk_norm, "s")
@@ -180,8 +177,8 @@ def decoder_layer_bwd(x, mem, g, sbias, cbias, drop, wl, *, num_heads,
         p["q"], p["k"], p["v"], dso, sbias, stats, num_heads=H, causal=True,
         qk_norm=sn)
     dqkv = torch.cat([dq, dk, dv], dim=-1).reshape(M, 3 * HD)
-    dw["s_wqkv"] = ops.linear_tn(p["h1"], dqkv)
-    dw["s_bqkv"] = ops.sum_rows(dqkv)
+    dw["s_wqkv"], dw["s_bqkv"] = ops.linear_tn(p["h1"], dqkv,
+                                               bias_grad=True)
     dh1 = ops.linear_nt(dqkv, wl["s_wqkv"])
     dx, dw["ln1s"], dw["ln1b"] = ops.layernorm_bwd(x, dh1, wl["ln1s"],
                                                    resid=dx1,

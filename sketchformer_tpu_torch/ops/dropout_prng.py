@@ -19,8 +19,8 @@ with idx = t * d + c. The same draw in plain torch (uint32 arithmetic in
 int64 tensors) is here too, and gives the same bytes on any device.
 
 - :class:`PrngSite` names one site drawn in-kernel. The kernel wrappers of
-  the training stacks (``linear``, ``linear_nt``, ``linear_tn``,
-  ``sum_rows``) take it in place of a byte tensor: on a CUDA tensor the
+  the training stacks (``linear``, ``linear_nt``, ``linear_tn``) take it
+  in place of a byte tensor: on a CUDA tensor the
   kernel draws the bytes itself; on the CPU, and in every plain version,
   :func:`site_bytes_reference` materialises the site's bytes and the bits
   path runs.

@@ -102,13 +102,17 @@ def linear_nt_reference(a, w, *, drop=None, thresh=0, keep_scale=1.0,
     return y.to(out_dtype)
 
 
-def linear_tn_reference(x, y, *, drop=None, thresh=0, keep_scale=1.0):
+def linear_tn_reference(x, y, *, drop=None, thresh=0, keep_scale=1.0,
+                        bias_grad=False):
     """``x^T @ y`` over all rows (dW = X^T . dY) in f32; ``y`` times its
-    dropout mask is rounded to ``x.dtype`` first."""
+    dropout mask is rounded to ``x.dtype`` first. ``bias_grad``: also the
+    f32 column sums of the masked ``y`` before that rounding (db, what
+    ``sum_rows_reference`` gives), returned as (dW, db)."""
     yv = y.float()
     if drop is not None:
         yv = yv * dropout_mask(drop, thresh, keep_scale, yv)
-    return torch.matmul(x.float().t(), yv.to(x.dtype).float())
+    dw = torch.matmul(x.float().t(), yv.to(x.dtype).float())
+    return (dw, yv.sum(dim=0)) if bias_grad else dw
 
 
 def attention_reference(qkv, key_bias, *, num_heads, qk_norm=None):
@@ -230,27 +234,58 @@ def linear_nt(a, w, *, drop=None, thresh=0, keep_scale=1.0, gate=None,
     return out
 
 
-TN_ROWS_PER_SPLIT = 512   # linear_tn's M slice per block, at least
+TN_SLAB = 64                 # linear_tn's split unit (csrc: kTnSlab)
+TN_TILE = {torch.bfloat16: 128, torch.float32: 64}   # square output tiles
+TN_SMEM = 3 * 9 * 64 * 64 * 2 + 1024 + 72 + 16      # bf16 (csrc: kTnSmem)
+# device -> (per-tile counters, zero between calls; f32 scratch of the
+# split partials): launches on one stream run in order, so each call may
+# reuse the scratch of the last
+_TN_SCRATCH: dict = {}
 
 
-def tn_splits(M, K, N, sms=132):
-    """How many M slices linear_tn runs: enough blocks for about two waves
-    of the card's SMs, each slice at least TN_ROWS_PER_SPLIT rows."""
-    tiles = -(-K // 64) * -(-N // 64)
-    return max(1, min(M // TN_ROWS_PER_SPLIT, -(-2 * sms // tiles)))
+def tn_plan(M, K, N, dtype, sms=132):
+    """(tiles, column tiles, splits, rows_per_split) of a linear_tn call:
+    about one block a SM, each split a whole number of TN_SLAB rows."""
+    tile = TN_TILE[dtype]
+    cols = -(-N // tile)
+    tiles = -(-K // tile) * cols
+    slabs = max(1, -(-M // TN_SLAB))
+    splits = max(1, min(slabs, -(-sms // tiles)))
+    rps = -(-slabs // splits) * TN_SLAB
+    return tiles, cols, -(-max(M, 1) // rps), rps
 
 
-def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0):
+def _tn_scratch(dev, tiles, floats):
+    c, ws = _TN_SCRATCH.get(dev, (None, None))
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 256), dtype=torch.int32, device=dev)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    _TN_SCRATCH[dev] = (c, ws)
+    return c, ws
+
+
+def _tn_rows(t, mult):
+    """(t, its row pitch): the TMA boxes read rows of a multiple of 16
+    bytes from a 16-byte aligned base; other shapes get zero columns."""
+    n = t.shape[1]
+    if n % mult == 0 and t.data_ptr() % 16 == 0:
+        return t, n
+    t = torch.nn.functional.pad(t, (0, (-n) % mult))
+    return t, t.shape[1]
+
+
+def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0, bias_grad=False):
     """(M, K)^T x (M, N) -> (K, N) f32 over all M rows: the weight-gradient
-    product of a layer's backward. M is cut into slices that run in
-    parallel; ``sum_rows`` adds their partial products in a fixed order."""
+    product of a layer's backward; with ``bias_grad``, (dW, db) where db
+    (N,) f32 sums the masked ``y`` before rounding. One launch: M is cut
+    into slices whose partial tiles the last block of each tile adds in a
+    fixed order."""
     if x.device.type == "cpu":
         return linear_tn_reference(x, y, drop=drop, thresh=thresh,
-                                   keep_scale=keep_scale)
+                                   keep_scale=keep_scale, bias_grad=bias_grad)
     if x.device.type != "cuda":
         raise ValueError(f"linear_tn: unsupported device {x.device}")
-    from sketchformer_tpu_torch.ops.norm_train import sum_rows
-
     code = _build.dtype_code(x)
     M, K = x.shape
     N = y.shape[1]
@@ -260,21 +295,34 @@ def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0):
     _build.require(x, "x", dev, x.dtype, (M, K))
     _build.require(y, "y", dev, y.dtype, (M, N))
     dbytes, *prng = dp.kernel_args(drop, M, N, dev)
-    splits = tn_splits(M, K, N, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    out = torch.empty((splits, K, N), dtype=torch.float32, device=dev)
-    lib = _build.library()
+    Kp, y_pitch, d_pitch = K, N, N
+    if x.dtype == torch.bfloat16:
+        x, Kp = _tn_rows(x, 8)
+        y, y_pitch = _tn_rows(y, 16 // y.element_size())
+        if dbytes is not None:
+            dbytes, d_pitch = _tn_rows(dbytes, 16)
+    tiles, cols, splits, rps = tn_plan(M, Kp, N, x.dtype,
+                                       _build.sm_count(dev))
+    tile = TN_TILE[x.dtype]
+    out = torch.empty((Kp * N + (N if bias_grad else 0),),
+                      dtype=torch.float32, device=dev)
+    db = out[Kp * N:] if bias_grad else None
+    out = out[:Kp * N].view(Kp, N)
+    parts = tiles * splits * tile * tile
+    counters, ws = _tn_scratch(dev, tiles, parts + cols * splits * tile)
+    ws_db = ws[parts:] if bias_grad else None
     with torch.cuda.device(dev):
-        err = lib.sk_linear_tn(
-            code, int(y.dtype == torch.float32), _build.ptr(x), _build.ptr(y),
-            _build.ptr(dbytes), *prng, int(thresh), float(keep_scale),
-            _build.ptr(out), M, K, N, splits, _build.stream(x))
+        err = _build.library().sk_linear_tn(
+            code, int(y.dtype == torch.float32), _build.ptr(x),
+            _build.ptr(y), y_pitch, _build.ptr(dbytes), d_pitch, *prng,
+            int(thresh), float(keep_scale), _build.ptr(out), _build.ptr(db),
+            _build.ptr(ws), _build.ptr(ws_db), _build.ptr(counters), M, Kp,
+            N, splits, rps, _build.stream(x))
     _build.check(err, "linear_tn")
     LAUNCHES["linear_tn"] += 1
     dp.note_launch(drop)
-    if splits == 1:
-        return out[0]
-    return sum_rows(out.reshape(splits, K * N)).reshape(K, N)
+    dw = out if Kp == K else out[:K]
+    return (dw, db) if bias_grad else dw
 
 
 def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):

@@ -11,9 +11,10 @@ as a ``torch.autograd.Function``.
   x_i (the tensors the loop already holds) and the dropout bytes.
 - backward: one layer at a time, newest first (``_layer_bwd`` of the TPU
   kernel). Each layer recomputes LN / QKV / attention / FFN from x_i on the
-  kernels, then runs the backward on ``linear_tn`` / ``linear_nt``
+  kernels, then runs the backward on ``linear_tn`` (each weight gradient
+  with its bias gradient in one launch) / ``linear_nt``
   (``ops/encoder_stack.py``), ``attention_bwd_q`` / ``attention_bwd_kv``
-  (``ops/attention_train.py``), ``layernorm_bwd`` and ``sum_rows``
+  (``ops/attention_train.py``) and ``layernorm_bwd``
   (``ops/norm_train.py``).
 - the final ``ln_out`` stays outside the Function: :func:`apply_final_ln`,
   a plain differentiable torch LayerNorm.
@@ -73,17 +74,16 @@ class StackOps(NamedTuple):
     linear_nt: Callable
     linear_tn: Callable
     layernorm_bwd: Callable
-    sum_rows: Callable
 
 
 KERNELS = StackOps(es.linear, es.layernorm_rows, es.encoder_attention,
                    at.attention_fwd, at.attention_bwd_q, at.attention_bwd_kv,
-                   es.linear_nt, es.linear_tn, nt.layernorm_bwd, nt.sum_rows)
+                   es.linear_nt, es.linear_tn, nt.layernorm_bwd)
 PLAIN = StackOps(es.linear_reference, es.layernorm_rows_reference,
                  es.attention_reference, at.attention_fwd_reference,
                  at.attention_bwd_q_reference, at.attention_bwd_kv_reference,
                  es.linear_nt_reference, es.linear_tn_reference,
-                 nt.layernorm_bwd_reference, nt.sum_rows_reference)
+                 nt.layernorm_bwd_reference)
 
 
 def keep_scales(thresh: int, dtype: torch.dtype):
@@ -212,25 +212,23 @@ def encoder_layer_bwd(x, g, key_bias, drop, wl, *, num_heads, qk_norm,
     f1 = ops.linear(h2, wl["w1"], wl["b1"], relu=True)
     dw = {}
     # FFN: y = x1 + drop(relu(LN2(x1) W1 + b1) W2 + b2)
-    dw["w2"] = ops.linear_tn(f1, g, drop=m_ffn, **dargs)
-    dw["b2"] = ops.sum_rows(g, drop=m_ffn, **dargs)
+    dw["w2"], dw["b2"] = ops.linear_tn(f1, g, drop=m_ffn, bias_grad=True,
+                                       **dargs)
     dpre1 = ops.linear_nt(g, wl["w2"], drop=m_ffn, gate=f1, **dargs)
-    dw["w1"] = ops.linear_tn(h2, dpre1)
-    dw["b1"] = ops.sum_rows(dpre1)
+    dw["w1"], dw["b1"] = ops.linear_tn(h2, dpre1, bias_grad=True)
     dh2 = ops.linear_nt(dpre1, wl["w1"])
     dx1, dw["ln2s"], dw["ln2b"] = ops.layernorm_bwd(x1, dh2, wl["ln2s"],
                                                     resid=g)
     # attention: x1 = x + drop(attn Wo + bo)
-    dw["wo"] = ops.linear_tn(o, dx1, drop=m_attn, **dargs)
-    dw["bo"] = ops.sum_rows(dx1, drop=m_attn, **dargs)
+    dw["wo"], dw["bo"] = ops.linear_tn(o, dx1, drop=m_attn, bias_grad=True,
+                                       **dargs)
     do = ops.linear_nt(dx1, wl["wo"], drop=m_attn, **dargs).reshape(B, T, HD)
     dq, stats, dw["qns"], dw["qnb"] = ops.attention_bwd_q(
         q, k, v, do, key_bias, num_heads=H, qk_norm=norms)
     dk, dv, dw["kns"], dw["knb"] = ops.attention_bwd_kv(
         q, k, v, do, key_bias, stats, num_heads=H, qk_norm=norms)
     dqkv = torch.cat([dq, dk, dv], dim=-1).reshape(M, 3 * HD)
-    dw["wqkv"] = ops.linear_tn(h1, dqkv)
-    dw["bqkv"] = ops.sum_rows(dqkv)
+    dw["wqkv"], dw["bqkv"] = ops.linear_tn(h1, dqkv, bias_grad=True)
     dh1 = ops.linear_nt(dqkv, wl["wqkv"])
     dx, dw["ln1s"], dw["ln1b"] = ops.layernorm_bwd(x, dh1, wl["ln1s"],
                                                    resid=dx1,

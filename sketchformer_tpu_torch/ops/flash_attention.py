@@ -4,10 +4,12 @@ Port of ``sketchformer_tpu/ops/pallas_attention.py::flash_attention`` (K8),
 the attention of the composed layers when ``attn_impl='pallas'`` and the
 fused stacks decline: the post-LN model's encoder and teacher-forced
 decoder self-attention, and any caller with a legacy 4-D mask. The kernels
-are ``attention_fwd`` / ``attention_bwd_q`` / ``attention_bwd_kv`` of
-``csrc/attention_train.cu`` through their K8 entry points
-(``sk_flash_attention_fwd`` / ``_bwd``; see the note at the top of that
-file); ``flash_attention_reference`` and ``flash_attention_bwd_reference``
+are in ``csrc/attention_train.cu``: the forward is ``attention_fwd``
+through its K8 entry point ``sk_flash_attention_fwd``; the backward
+(``sk_flash_attention_bwd``) is a kernel of its own on the tensor cores in
+bf16 (``flash_bwd_mma_kernel``) and ``attention_bwd_q`` / ``_kv`` in f32
+(see the notes in that file); ``flash_attention_reference`` and
+``flash_attention_bwd_reference``
 are their plain torch versions, with the TPU kernel's rounding sites:
 
 - scores ``(q . k)`` in f32, scaled by the Python ``1/sqrt(Dh)`` after the
@@ -192,10 +194,34 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False):
     return out
 
 
+def flash_bwd_smem(Dh: int) -> int:
+    """Shared memory of a block of the bf16 backward kernel (bytes): two
+    64-row owned tiles and two double-buffered 32-row swept tiles of
+    Dh + 8 columns, Dh taken up to 32, 64 or 128; it does not grow with T."""
+    dhp = 32 if Dh <= 32 else 64 if Dh <= 64 else 128
+    return (2 * 64 + 4 * 32) * (dhp + 8) * 2
+
+
+def flash_bwd_f32_smem(Tq: int, Tk: int, Dh: int) -> int:
+    """Shared memory of the f32 backward's larger pass (``attention_bwd_q``:
+    16 query rows' f32 score and dp rows, T long, in csrc's launch_bwd_q)."""
+    return 4 * (2 * 16 * Dh + max(16 * Tk * 2, 2 * 8 * Dh) + 64 * (Dh + 1))
+
+
+def _pad8(x, Dh):
+    """The bf16 kernel reads 16-byte rows: Dh taken up to a multiple of 8
+    (zero columns add nothing to any product)."""
+    if Dh % 8 == 0 and x.data_ptr() % 16 == 0 and x.stride(1) % 8 == 0 \
+            and x.stride(0) % 8 == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, (-Dh) % 8)).contiguous()
+
+
 def flash_attention_bwd(q, k, v, bias, g, causal=False):
     """:func:`flash_attention_bwd_reference` on the kernels for CUDA
-    tensors: the dq pass, which saves each row's (max, sum, delta), then
-    the dk / dv pass (one launch count for the two)."""
+    tensors: in bf16 the tensor-core backward (a dq sweep that saves each
+    row's (max, sum, delta), then a dk / dv sweep), in f32 the FMA passes;
+    one launch count for either."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, bias, g, causal)
     if q.device.type != "cuda":
@@ -206,20 +232,25 @@ def flash_attention_bwd(q, k, v, bias, g, causal=False):
     if tuple(g.shape) != tuple(q.shape) or g.device != q.device:
         raise ValueError(f"gradient {tuple(g.shape)} on {g.device}, "
                          f"expected {tuple(q.shape)} on {q.device}")
+    scale = 1.0 / Dh ** 0.5
+    if q.dtype == torch.bfloat16:
+        q, k, v, g = (_pad8(x, Dh) for x in (q, k, v, g))
+    Dp = q.shape[-1]
     stats = torch.empty((B, H, Tq, 3), dtype=torch.float32, device=q.device)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dq = torch.empty((B, Tq, H, Dp), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Tk, H, Dp), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     lib = _build.library()
     with torch.cuda.device(q.device):
-        for pass_ in (1, 2):
-            err = lib.sk_flash_attention_bwd(
-                _build.dtype_code(q), pass_, *_strided(q), *_strided(k),
-                *_strided(v), _build.ptr(bias), bs, rs, *_strided(g),
-                _build.ptr(stats), *_strided(dq), *_strided(dk),
-                *_strided(dv), *dims, 1.0 / Dh ** 0.5, _build.stream(q))
-            _build.check(err, f"flash_attention_bwd pass {pass_}")
+        err = lib.sk_flash_attention_bwd(
+            _build.dtype_code(q), *_strided(q), *_strided(k), *_strided(v),
+            _build.ptr(bias), bs, rs, *_strided(g), _build.ptr(stats),
+            *_strided(dq), *_strided(dk), *_strided(dv), B, Tq, Tk, H, Dp,
+            dims[5], scale, _build.stream(q))
+    _build.check(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
+    if Dp != Dh:
+        dq, dk, dv = (x[..., :Dh] for x in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -7,8 +7,10 @@ version, given CUDA tensors it launches the kernel or raises.
 - :func:`layernorm_bwd`: the backward of the row LayerNorm (``_ln_bwd32``
   of ``sketchformer_tpu/ops/pallas_encoder_train.py``) plus the residual
   gradient, and the LayerNorm's parameter gradients.
-- :func:`sum_rows`: sum over rows, optionally times a dropout mask: the
-  bias gradients, and the second pass of every partial-row reduction.
+- :func:`sum_rows`: sum over rows in a fixed order, the second pass of the
+  partial-row reductions (LayerNorm's and qk-norm's parameter gradients,
+  K6's dW and db); the bias gradients come with their weight gradients
+  from ``encoder_stack.linear_tn``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,6 @@ import torch
 
 from sketchformer_tpu_torch.models.layers import LN_EPS
 from sketchformer_tpu_torch.ops import _build
-from sketchformer_tpu_torch.ops import dropout_prng as dp
-from sketchformer_tpu_torch.ops.encoder_stack import dropout_mask
 
 LAUNCHES = {"layernorm_bwd": 0, "sum_rows": 0}
 LN_ROWS_PER_BLOCK = 64     # 8 warps x 8 rows (csrc/norm_train.cu)
@@ -62,11 +62,8 @@ def layernorm_bwd_reference(x, dy, scale, *, resid=None,
     return dx.to(out_dtype), ds, db
 
 
-def sum_rows_reference(x, *, drop=None, thresh=0, keep_scale=1.0):
-    v = x.float()
-    if drop is not None:
-        v = v * dropout_mask(drop, thresh, keep_scale, v)
-    return v.sum(dim=0)
+def sum_rows_reference(x):
+    return x.float().sum(dim=0)
 
 
 def layernorm_bwd(x, dy, scale, *, resid: Optional[torch.Tensor] = None,
@@ -109,21 +106,17 @@ def layernorm_bwd(x, dy, scale, *, resid: Optional[torch.Tensor] = None,
     return dx, sums[:D], sums[D:]
 
 
-def sum_rows(x, *, drop=None, thresh=0, keep_scale=1.0):
-    """(R, N) f32 or compute-dtype rows -> (N,) f32 sums, each row times its
-    dropout mask when ``drop`` (u8 (R, N) bytes, or a ``PrngSite`` drawn
-    in-kernel) is given. Large R runs as
+def sum_rows(x):
+    """(R, N) f32 or compute-dtype rows -> (N,) f32 sums. Large R runs as
     parallel row slices whose partial rows a second launch adds."""
     if x.device.type == "cpu":
-        return sum_rows_reference(x, drop=drop, thresh=thresh,
-                                  keep_scale=keep_scale)
+        return sum_rows_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"sum_rows: unsupported device {x.device}")
     R, N = x.shape
     dev = x.device
     in_code = 0 if x.dtype == torch.float32 else _build.dtype_code(x)
     _build.require(x, "x", dev, x.dtype, (R, N))
-    dbytes, *prng = dp.kernel_args(drop, R, N, dev)
     col_blocks = -(-N // 32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # about eight blocks per SM: each warp walks its rows one load at a time
@@ -131,12 +124,10 @@ def sum_rows(x, *, drop=None, thresh=0, keep_scale=1.0):
     out = torch.empty((splits, N), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.sk_sum_rows(in_code, _build.ptr(x), _build.ptr(dbytes),
-                              *prng, int(thresh), float(keep_scale),
-                              _build.ptr(out), R, N, splits, _build.stream(x))
+        err = lib.sk_sum_rows(in_code, _build.ptr(x), _build.ptr(out), R, N,
+                              splits, _build.stream(x))
     _build.check(err, "sum_rows")
     LAUNCHES["sum_rows"] += 1
-    dp.note_launch(drop)
     if splits == 1:
         return out[0]
     return sum_rows(out)

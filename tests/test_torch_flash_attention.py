@@ -171,3 +171,15 @@ def test_bf16_forward_rounds_where_the_kernel_does(H, Dh):
     ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
     assert np.abs(got - want).max() <= ulp
     assert np.abs(got - composed).max() <= 4 * ulp
+
+
+SMEM_LIMIT = 232448   # bytes of shared memory a block may opt into (H100)
+
+
+@pytest.mark.parametrize("Dh", [8, 16, 32, 40, 64, 72, 128])
+def test_backward_blocks_fit_shared_memory(Dh):
+    """The bf16 backward's tiles do not grow with T; the f32 passes keep
+    16 query rows' score and dp rows, T long: both fit up to T = 1024."""
+    assert fa.flash_bwd_smem(Dh) <= SMEM_LIMIT
+    for T in (1, 96, 192, 1000, fa.MAX_FUSED_LEN):
+        assert fa.flash_bwd_f32_smem(T, T, Dh) <= SMEM_LIMIT

@@ -350,6 +350,7 @@ from sketchformer_tpu_torch.ops import attention_train as at  # noqa: E402
 from sketchformer_tpu_torch.ops import decoder_stack_train as dst  # noqa: E402
 from sketchformer_tpu_torch.ops import encoder_stack_train as est  # noqa: E402
 from sketchformer_tpu_torch.ops import norm_train as nt  # noqa: E402
+from sketchformer_tpu_torch.ops import dropout_prng as dp  # noqa: E402
 
 
 def _bytes(gen, dev, *shape):
@@ -395,26 +396,42 @@ def test_linear_nt(cuda, dtype, a_f32, gate, out_dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M,y_f32", [(1000, True), (4100, False)])
-def test_linear_tn(cuda, dtype, M, y_f32):
+@pytest.mark.parametrize("M,K,N,y_f32,mode,bias", [
+    (1000, 72, 130, True, "bits", True),     # ragged, a few splits
+    (4100, 72, 132, False, "prng", True),
+    (77, 50, 36, True, None, False),         # ragged K: bf16 pads the rows
+    (12288, 256, 768, True, "bits", True),   # the main path's QKV shape
+    (12288, 512, 256, False, "prng", False),
+])
+def test_linear_tn(cuda, dtype, M, K, N, y_f32, mode, bias):
     gen = torch.Generator(device=cuda).manual_seed(8)
-    x = _rand(gen, cuda, M, 72, dtype=dtype)
-    y = _rand(gen, cuda, M, 130, dtype=torch.float32 if y_f32 else dtype)
-    kw = dict(drop=_bytes(gen, cuda, M, 130), thresh=26, keep_scale=1.11)
-    _close(es.linear_tn(x, y, **kw), es.linear_tn_reference(x, y, **kw),
-           dtype)
+    x = _rand(gen, cuda, M, K, dtype=dtype)
+    y = _rand(gen, cuda, M, N, dtype=torch.float32 if y_f32 else dtype)
+    kw = dict(thresh=26, keep_scale=1.11, bias_grad=bias)
+    if mode == "bits":
+        kw["drop"] = _bytes(gen, cuda, M, N)
+    elif mode == "prng":
+        kw["drop"] = dp.PrngSite(1234567, 1, 2, M // 4 if M % 4 == 0 else M)
+    before = es.LAUNCHES["linear_tn"]
+    got = es.linear_tn(x, y, **kw)
+    assert es.LAUNCHES["linear_tn"] == before + 1
+    want = es.linear_tn_reference(x, y, **kw)
+    again = es.linear_tn(x, y, **kw)
+    got, want, again = ((t,) if not bias else t for t in (got, want, again))
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == torch.float32
+        _close(g, w, dtype)
+        assert torch.equal(g, a)    # a fixed order of the split partials
+    assert es.tn_plan(M, K, N, dtype)[2] > 1 or M < 1000
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("R,N,drop", [(50, 70, False), (9000, 256, True)])
-def test_sum_rows(cuda, dtype, R, N, drop):
+@pytest.mark.parametrize("R,N", [(50, 70), (9000, 256)])
+def test_sum_rows(cuda, dtype, R, N):
     gen = torch.Generator(device=cuda).manual_seed(9)
     x = _rand(gen, cuda, R, N, dtype=dtype)
-    kw = dict(drop=_bytes(gen, cuda, R, N), thresh=26, keep_scale=1.11) \
-        if drop else {}
-    _close(nt.sum_rows(x, **kw), nt.sum_rows_reference(x, **kw),
-           torch.float32)
+    _close(nt.sum_rows(x), nt.sum_rows_reference(x), torch.float32)
 
 
 @pytest.mark.cuda
@@ -560,7 +577,6 @@ def test_train_stack_fwd_bwd(cuda, decoder, H, qk):
 # K6: the fused vocab-CE head; K7: the in-kernel dropout draw
 # ---------------------------------------------------------------------------
 
-from sketchformer_tpu_torch.ops import dropout_prng as dp  # noqa: E402
 from sketchformer_tpu_torch.ops import token_ce as tce  # noqa: E402
 
 
@@ -656,11 +672,11 @@ def test_prng_kernels_equal_bits_kernels(cuda, dtype):
         assert torch.equal(
             es.linear_nt(g, w, drop=drop_a, gate=a, **kw),
             es.linear_nt(g, w, drop=drop_b, gate=a, **kw))
-        assert torch.equal(es.linear_tn(a, g, drop=drop_a, **kw),
-                           es.linear_tn(a, g, drop=drop_b, **kw))
-        assert torch.equal(nt.sum_rows(g, drop=drop_a, **kw),
-                           nt.sum_rows(g, drop=drop_b, **kw))
-    assert dp.LAUNCHES["prng_draw"] == 4
+        for got, want in zip(
+                es.linear_tn(a, g, drop=drop_a, bias_grad=True, **kw),
+                es.linear_tn(a, g, drop=drop_b, bias_grad=True, **kw)):
+            assert torch.equal(got, want)
+    assert dp.LAUNCHES["prng_draw"] == 3
     # and the plain versions draw the same bytes with the plain Philox
     _close(es.linear_reference(a, w, bias, residual=res, drop=site, **kw),
            es.linear(a, w, bias, residual=res, drop=site, **kw), dtype)
@@ -767,6 +783,39 @@ def test_flash_attention_fwd_bwd(cuda, dtype, mode, B, T, H, Dh):
                            before["flash_attention_fwd"] + 1,
                            "flash_attention_bwd":
                            before["flash_attention_bwd"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Tq,Tk,H,Dh,mode", [
+    (2, 1, 1, 2, 32, "key_causal"),
+    (2, 1, 1, 2, 128, "key"),
+    (4, 192, 192, 8, 32, "key"),
+    (4, 192, 192, 8, 32, "full_shared"),
+    (3, 96, 96, 2, 128, "key_causal"),
+    (2, 50, 70, 2, 64, "full"),
+    (2, 70, 33, 3, 64, "key"),
+    (2, 40, 90, 2, 32, "none"),
+    (1, 1024, 1024, 2, 128, "key_causal"),
+    (1, 1024, 1024, 8, 32, "full"),
+])
+def test_flash_attention_bwd_shapes(cuda, dtype, B, Tq, Tk, H, Dh, mode):
+    """The backward at T = 1, 192 and 1024, Tq != Tk, Dh 32 / 64 / 128,
+    with fully masked rows, against the plain version; and bit-stable from
+    run to run (every gradient row has one owner)."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v, bias, causal = _flash_case(gen, cuda, dtype, mode, B, Tq, Tk,
+                                        H, Dh)
+    g = _rand(gen, cuda, B, Tq, H, Dh, dtype=dtype)
+    got = fa.flash_attention_bwd(q, k, v, bias, g, causal)
+    again = fa.flash_attention_bwd(q, k, v, bias, g, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, bias, g, causal)
+    # with one key, dq and dk are zero: they are held at dv's scale
+    top = max(w.float().abs().max().item() for w in want)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a, b, dtype, scale=b.float().abs().max().item() or top)
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
