@@ -18,7 +18,8 @@
 //                     compute dtype before P.V (the decoder's forward and
 //                     the encoder's recompute), or the unnormalised e with
 //                     the division after (the encoder's forward, as
-//                     encoder_attention in encoder_stack.cu).
+//                     encoder_attention in encoder_stack.cu). f32 only:
+//                     bf16 runs attention_fwd_mma_kernel (see its note).
 //   attention_bwd_q   one block per (16 query rows, head, batch element):
 //                     recomputes each row's scores and softmax, dp = dO.V^T,
 //                     delta = sum(dp * p), ds = p * (dp - delta) in f32 (the
@@ -40,7 +41,7 @@
 // The same three kernels are K8, the per-op attention of
 // sketchformer_tpu/ops/pallas_attention.py::flash_attention (_fwd_kernel,
 // _bwd_kernel), through their own entry points sk_flash_attention_fwd /
-// _bwd (the bf16 backward has its own kernel, below). There the bias is a
+// _bwd. There the bias is a
 // (B, Tk) key-mask row or a (B or 1, Tq, Tk)
 // pane (a row stride and a batch stride, 0 for a shared pane), causal is
 // the TPU kernel's where() after the bias (causal = 2) rather than the
@@ -49,12 +50,12 @@
 // and the gradients are in the compute dtype (io_dt), the gradients
 // rounded at the store as _bwd_kernel rounds them.
 //
-// K8's backward in bf16 is a kernel of its own on the tensor cores
-// (flash_bwd_mma_kernel, see its note); in f32 it runs the two passes
-// above.
+// In bf16 the forward of the stacks and K8 (attention_fwd_mma_kernel) and
+// K8's backward (flash_bwd_mma_kernel) are kernels of their own on the
+// tensor cores (see their notes); in f32 they run the passes above.
 //
-// What bounds the three stack kernels on the card: at Dh = 32 each score
-// costs 2 * Dh FLOPs against one f32 exponential, so they are bound by
+// What bounds the stacks' two backward kernels on the card: at Dh = 32 each
+// score costs 2 * Dh FLOPs against one f32 exponential, so they are bound by
 // instruction issue on the FMA and SFU units, not by memory. Their tensor-
 // core redesign is later work.
 //
@@ -63,8 +64,10 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -754,118 +757,6 @@ int set_smem(K kernel, size_t smem) {
 
 constexpr int kFbOwn = 64, kFbIn = 32, kFbThreads = 128;
 
-__device__ __forceinline__ uint32_t fb_smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + n) of a (T, Dh) head pane (row stride rs) into smem
-// rows of ld elements; rows past T are zero
-template <int kLd>
-__device__ __forceinline__ void fb_stage(__nv_bfloat16* dst,
-                                         const __nv_bfloat16* src, int rs,
-                                         int row0, int n, int T, int Dh) {
-  const int cpr = Dh / 8;
-  for (int i = threadIdx.x; i < n * cpr; i += kFbThreads) {
-    const int r = i / cpr, c = (i - r * cpr) * 8;
-    const bool ok = row0 + r < T;
-    cp_async16(fb_smem_u32(dst + r * kLd + c),
-               src + (size_t)(ok ? row0 + r : 0) * rs + c, ok);
-  }
-}
-
-// acc[16 x 32] = own[16 rows of this warp] . in[32 rows]^T over kDh
-template <int kDh, int kLd>
-__device__ __forceinline__ void fb_qk(float (&acc)[4][4],
-                                      const __nv_bfloat16* own,
-                                      const __nv_bfloat16* in) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, fb_smem_u32(own + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
-                           kk * 16 + 8 * (lane >> 4)));
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, fb_smem_u32(in + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * kLd +
-                             kk * 16 + 8 * ((lane >> 3) & 1)));
-      mma16816(acc[2 * np], a, b[0], b[1]);
-      mma16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// out[16 x kDh] += P[16 x 32] (C fragments, packed to bf16) . in[32 x kDh]
-template <int kDh, int kLd>
-__device__ __forceinline__ void fb_pv(float (&out)[kDh / 8][4],
-                                      const uint32_t (&pa)[2][4],
-                                      const __nv_bfloat16* in) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int nd = 0; nd < kDh / 16; ++nd) {
-      uint32_t b[4];
-      ldsm_x4_t(b, fb_smem_u32(in + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
-                               nd * 16 + 8 * (lane >> 4)));
-      mma16816(out[2 * nd], pa[kk], b[0], b[1]);
-      mma16816(out[2 * nd + 1], pa[kk], b[2], b[3]);
-    }
-}
-
-// C fragments of a 16 x 32 f32 tile (rounded to bf16) as the A fragments of
-// its two k16 halves
-__device__ __forceinline__ void fb_to_a(uint32_t (&pa)[2][4],
-                                        const float (&c)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    pa[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    pa[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    pa[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
 // the K8 score of query t and key j (both clamped into the bias pane)
 __device__ __forceinline__ float fb_score(float acc, const AttnArgs& a,
                                           const float* kb, int t, int j) {
@@ -905,26 +796,28 @@ flash_bwd_mma_kernel(AttnArgs a, GradArgs g) {
   for (int i = tid; i < (2 * kFbOwn + 4 * kFbIn) * kLd / 8; i += kFbThreads)
     reinterpret_cast<uint4*>(fb_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
-  fb_stage<kLd>(own1, o1, o1s, r0, kFbOwn, Tow, a.Dh);
-  fb_stage<kLd>(own2, o2, o2s, r0, kFbOwn, Tow, a.Dh);
-  asm volatile("cp.async.commit_group;" ::: "memory");
+  auto stage = [&](bf* dst, const bf* src, int rs, int row0, int n, int T) {
+    stage_rows<kLd, kFbThreads>(dst, src, rs, row0, n, T, a.Dh);
+  };
+  stage(own1, o1, o1s, r0, kFbOwn, Tow);
+  stage(own2, o2, o2s, r0, kFbOwn, Tow);
+  cp_async_commit();
 
   const int ntiles = (Tin + kFbIn - 1) / kFbIn;
   // one sweep over the other side: body(tile start, its two smem tiles)
   auto sweep = [&](auto&& body) {
-    fb_stage<kLd>(inb, i1, i1s, 0, kFbIn, Tin, a.Dh);
-    fb_stage<kLd>(inb + kFbIn * kLd, i2, i2s, 0, kFbIn, Tin, a.Dh);
-    asm volatile("cp.async.commit_group;" ::: "memory");
+    stage(inb, i1, i1s, 0, kFbIn, Tin);
+    stage(inb + kFbIn * kLd, i2, i2s, 0, kFbIn, Tin);
+    cp_async_commit();
     for (int it = 0; it < ntiles; ++it) {
       if (it + 1 < ntiles) {
         bf* nb = inb + ((it + 1) & 1) * 2 * kFbIn * kLd;
-        fb_stage<kLd>(nb, i1, i1s, (it + 1) * kFbIn, kFbIn, Tin, a.Dh);
-        fb_stage<kLd>(nb + kFbIn * kLd, i2, i2s, (it + 1) * kFbIn, kFbIn, Tin,
-                      a.Dh);
-        asm volatile("cp.async.commit_group;" ::: "memory");
-        asm volatile("cp.async.wait_group 1;" ::: "memory");
+        stage(nb, i1, i1s, (it + 1) * kFbIn, kFbIn, Tin);
+        stage(nb + kFbIn * kLd, i2, i2s, (it + 1) * kFbIn, kFbIn, Tin);
+        cp_async_commit();
+        cp_async_wait<1>();
       } else {
-        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        cp_async_wait<0>();
       }
       __syncthreads();
       const bf* cb = inb + (it & 1) * 2 * kFbIn * kLd;
@@ -946,8 +839,8 @@ flash_bwd_mma_kernel(AttnArgs a, GradArgs g) {
           sd[2] = {0.f, 0.f};
     sweep([&](int j0, const bf* kt, const bf* vt) {
       float s[4][4], dp[4][4];
-      fb_qk<kDh, kLd>(s, own1, kt);
-      fb_qk<kDh, kLd>(dp, own2, vt);
+      warp_qk<kDh, kLd>(s, own1, kt);
+      warp_qk<kDh, kLd>(dp, own2, vt);
       float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
@@ -985,8 +878,8 @@ flash_bwd_mma_kernel(AttnArgs a, GradArgs g) {
     const float delta[2] = {sd[0] * inv[0], sd[1] * inv[1]};
     sweep([&](int j0, const bf* kt, const bf* vt) {
       float s[4][4], dp[4][4];
-      fb_qk<kDh, kLd>(s, own1, kt);
-      fb_qk<kDh, kLd>(dp, own2, vt);
+      warp_qk<kDh, kLd>(s, own1, kt);
+      warp_qk<kDh, kLd>(dp, own2, vt);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -999,8 +892,8 @@ flash_bwd_mma_kernel(AttnArgs a, GradArgs g) {
           dp[nt][i] = p * (dp[nt][i] - delta[r]);
         }
       uint32_t pa[2][4];
-      fb_to_a(pa, dp);
-      fb_pv<kDh, kLd>(acc1, pa, kt);
+      c_to_a(pa, dp);
+      warp_pv<kDh, kLd>(acc1, pa, kt);
     });
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1026,8 +919,8 @@ flash_bwd_mma_kernel(AttnArgs a, GradArgs g) {
     const float* stats = g.stats + ((size_t)b * a.H + h) * a.Tq * 3;
     sweep([&](int t0, const bf* qt, const bf* dot) {
       float s[4][4], dp[4][4];
-      fb_qk<kDh, kLd>(s, own1, qt);
-      fb_qk<kDh, kLd>(dp, own2, dot);
+      warp_qk<kDh, kLd>(s, own1, qt);
+      warp_qk<kDh, kLd>(dp, own2, dot);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -1043,10 +936,10 @@ flash_bwd_mma_kernel(AttnArgs a, GradArgs g) {
           dp[nt][i] = ds;
         }
       uint32_t pa[2][4];
-      fb_to_a(pa, s);
-      fb_pv<kDh, kLd>(acc2, pa, dot);   // dv += p^T . dO
-      fb_to_a(pa, dp);
-      fb_pv<kDh, kLd>(acc1, pa, qt);    // dk += ds^T . Q
+      c_to_a(pa, s);
+      warp_pv<kDh, kLd>(acc2, pa, dot);   // dv += p^T . dO
+      c_to_a(pa, dp);
+      warp_pv<kDh, kLd>(acc1, pa, qt);    // dk += ds^T . Q
     });
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1088,19 +981,317 @@ int launch_flash_bwd_mma(const AttnArgs& a, const GradArgs& g, int B,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// attention_fwd in bf16: the scores and P.V on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replaces, in bf16, the FMA body of attention_fwd_kernel (the f32 forward
+// keeps it) for every caller: the stacks' forward and recompute (qk-norm,
+// causal added before the key bias) and K8's forward (sk_flash_attention_fwd:
+// a bias row or pane, causal as a where() after it). A block owns 64 query
+// rows, 4 warps of 16, as flash_bwd_mma_kernel does; the keys and values
+// stream through a cp.async double buffer of 32-row tiles, every product is
+// mma.sync m16n8k16 (bf16 in, f32 accumulate), and a score tile stays in C
+// fragments, which become P.V's A fragments. The rounding sites need each
+// row's final max, so the keys are swept twice:
+//   1. S = Q.K^T, scaled and biased in score()'s order, gives the row max
+//      and, with kNormP, the f32 sum of exp (rescaled as the max grows);
+//   2. S again, then p = round(exp(s - max) / sum) (kNormP), or e =
+//      round(exp(s - max)) with the f32 sum of the unrounded exp taken
+//      here against the final max and the division after (!kNormP); O +=
+//      p.V.
+// qk-norm: the Q tile is normalised once in shared memory, each K tile after
+// it lands (f32 statistics, rounded as head_norm rounds). Keys past Tk are
+// excluded by index from the max, the sum and P.V. Each output row has one
+// owner, so re-runs are bit-stable. What bounds it: at Dh = 32 a score costs
+// 2 Dh FLOPs against one or two exponentials, so the SFU and the score
+// tiles' register traffic set the time, not the products (a 64-row wgmma
+// tile would buy nothing) or the bytes.
+
+// qk-norm of rows [0, n) of a bf16 tile in shared memory (row stride
+// kDh + 8), in place: kDh / 8 neighbouring threads a row, 16 bytes each, the
+// row's sums reduced across them; head_norm's f32 statistics and rounding
+template <int kDh>
+__device__ __forceinline__ void norm_rows(__nv_bfloat16* t, int n, int Dh,
+                                          const float* __restrict__ ps,
+                                          const float* __restrict__ pb) {
+  constexpr int kTpr = kDh / 8, kRows = kFbThreads / kTpr, kLd = kDh + 8;
+  const int c = (threadIdx.x % kTpr) * 8, rr = threadIdx.x / kTpr;
+  for (int r = rr; r < (n + kRows - 1) / kRows * kRows; r += kRows) {
+    const bool ok = r < n;  // every lane shuffles, in or past the tile
+    uint4 u = ok ? *reinterpret_cast<const uint4*>(t + r * kLd + c)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
+    float v[8], sum = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      v[i] = c + i < Dh ? __bfloat162float(e[i]) : 0.f;
+      sum += v[i];
+      ss += v[i] * v[i];
+    }
+#pragma unroll
+    for (int o = 1; o < kTpr; o <<= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    const float mu = sum / Dh;
+    const float rstd = 1.f / sqrtf(fmaxf(ss / Dh - mu * mu, 0.f) + kLnEps);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (c + i < Dh)
+        e[i] = __float2bfloat16((v[i] - mu) * rstd * ps[c + i] + pb[c + i]);
+    if (ok) *reinterpret_cast<uint4*>(t + r * kLd + c) = u;
+  }
+}
+
+// round(e / sum) to bf16 exactly as the IEEE quotient rounds: e * inv (inv
+// = 1 / sum, rounded) lies within 2 ulp of the quotient, so the two round
+// alike unless e * inv sits within 2 ulp of a bf16 rounding boundary (its
+// low 16 bits near 0x8000), where the division itself decides
+__device__ __forceinline__ float div_round_bf16(float e, float sum,
+                                                float inv) {
+  float q = e * inv;
+  if ((__float_as_uint(q) & 0xFFFFu) - 0x7FFEu <= 4u) q = e / sum;
+  return round_dt<__nv_bfloat16>(q);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// blocks an SM: 7 at Dh = 32, 5 at Dh = 64, 4 at Dh = 128 (72, 96 and 128
+// registers a thread); the compiler left alone takes more registers and
+// fewer blocks fit, which cost 10-15% (an A/B on one card)
+template <int kDh, bool kNormP>
+__global__ void __launch_bounds__(kFbThreads,
+                                  kDh == 32 ? 7 : kDh == 64 ? 5 : 4)
+attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
+                         long long o_bs, int o_rs) {
+  using bf = __nv_bfloat16;
+  constexpr int kLd = kDh + 8;
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  bf* qs = reinterpret_cast<bf*>(fa_smem);  // [64][kLd] the (normed) queries
+  bf* kvb = qs + kFbOwn * kLd;              // [2][2][32][kLd]: K, V tiles
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int r0 = blockIdx.x * kFbOwn, h = blockIdx.y, b = blockIdx.z;
+  const bf* q = static_cast<const bf*>(a.q) + b * a.q_bs + h * a.Dh;
+  const bf* k = static_cast<const bf*>(a.k) + b * a.k_bs + h * a.Dh;
+  const bf* v = static_cast<const bf*>(a.v) + b * a.v_bs + h * a.Dh;
+  const float* kb = batch_bias(a, b);
+
+  // zero everything once: the columns past Dh are never written again
+  for (int i = tid; i < (kFbOwn + 4 * kFbIn) * kLd / 8; i += kFbThreads)
+    reinterpret_cast<uint4*>(fa_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  auto stage = [&](bf* dst, const bf* src, int rs, int row0, int n, int T) {
+    stage_rows<kLd, kFbThreads>(dst, src, rs, row0, n, T, a.Dh);
+  };
+  // the two sweeps run as one cp.async pipeline of 2 ntiles steps: step it
+  // (key tile it % ntiles, with its V tile in the second sweep) lands in
+  // buffer it % 2 while step it - 1 computes
+  const int ntiles = (a.Tk + kFbIn - 1) / kFbIn;
+  auto load = [&](int it) {
+    bf* kt = kvb + (it & 1) * 2 * kFbIn * kLd;
+    const int j0 = (it % ntiles) * kFbIn;
+    stage(kt, k, a.k_rs, j0, kFbIn, a.Tk);
+    if (it >= ntiles) stage(kt + kFbIn * kLd, v, a.v_rs, j0, kFbIn, a.Tk);
+    cp_async_commit();
+  };
+  stage(qs, q, a.q_rs, r0, kFbOwn, a.Tq);
+  cp_async_commit();
+  load(0);
+  cp_async_wait<1>();
+  __syncthreads();
+  if (a.qn_s != nullptr) {
+    norm_rows<kDh>(qs, min(kFbOwn, a.Tq - r0), a.Dh, a.qn_s, a.qn_b);
+    __syncthreads();
+  }
+  // step it's K (normed) and V tiles, after every earlier step's reads
+  auto step_tiles = [&](int it) {
+    if (it + 1 < 2 * ntiles) {
+      load(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    bf* kt = kvb + (it & 1) * 2 * kFbIn * kLd;
+    if (a.kn_s != nullptr) {
+      norm_rows<kDh>(kt, min(kFbIn, a.Tk - (it % ntiles) * kFbIn), a.Dh,
+                     a.kn_s, a.kn_b);
+      __syncthreads();
+    }
+    return kt;
+  };
+
+  // this thread's two rows, gq and gq + 8 of the warp's 16 (a ragged tile's
+  // rows past Tq are computed at row Tq - 1 and not stored), and their bias
+  // rows (one row for a key bias, bias_rs = 0)
+  const int rowA = r0 + warp * 16 + gq;
+  const int tr[2] = {min(rowA, a.Tq - 1), min(rowA + 8, a.Tq - 1)};
+  const float* kbr[2] = {kb, kb};
+  if (kb != nullptr) {
+    kbr[0] = kb + (size_t)tr[0] * a.bias_rs;
+    kbr[1] = kb + (size_t)tr[1] * a.bias_rs;
+  }
+  // the scores of the tile at key j0 (C fragment element (nt, i): key j0 +
+  // 8 nt + 2 cq + i % 2), in score()'s order; -inf for a key past Tk
+  auto scores = [&](float (&s)[4][4], const bf* kt, int j0) {
+    warp_qk<kDh, kLd>(s, qs, kt);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + nt * 8 + 2 * cq + e;
+        float bj[2] = {0.f, 0.f};
+        if (kb != nullptr && j < a.Tk) {
+          bj[0] = kbr[0][j];
+          bj[1] = a.bias_rs == 0 ? bj[0] : kbr[1][j];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float v = __fmul_rn(s[nt][2 * r + e], a.scale);
+          if (a.causal == 1) v += j <= tr[r] ? 0.f : kNegInf;
+          if (kb != nullptr) v += bj[r];
+          if (a.causal == 2 && j > tr[r]) v = kNegInf;
+          s[nt][2 * r + e] = j < a.Tk ? v : -INFINITY;
+        }
+      }
+  };
+
+  float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+  for (int it = 0; it < ntiles; ++it) {
+    const bf* kt = step_tiles(it);
+    float s[4][4];
+    scores(s, kt, it * kFbIn);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        tmax = fmaxf(tmax, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+      const float mn = fmaxf(mx[r], quad_max(tmax));
+      if constexpr (kNormP) {
+        float es = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          es += expf(s[nt][2 * r] - mn) + expf(s[nt][2 * r + 1] - mn);
+        sm[r] = sm[r] * expf(mx[r] - mn) + quad_sum(es);  // 0 * 0 at first
+      }
+      mx[r] = mn;
+    }
+    __syncthreads();
+  }
+
+  float o[kDh / 8][4];
+#pragma unroll
+  for (int i = 0; i < kDh / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+  float es[2] = {0.f, 0.f};
+  const float inv[2] = {1.f / sm[0], 1.f / sm[1]};
+  for (int it = ntiles; it < 2 * ntiles; ++it) {
+    const bf* kt = step_tiles(it);
+    float s[4][4];
+    scores(s, kt, (it - ntiles) * kFbIn);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const float e = expf(s[nt][i] - mx[r]);  // 0 past Tk
+        if constexpr (kNormP) {
+          s[nt][i] = div_round_bf16(e, sm[r], inv[r]);
+        } else {
+          es[r] += e;
+          s[nt][i] = e;  // rounded to bf16 as c_to_a packs it
+        }
+      }
+    uint32_t pa[2][4];
+    c_to_a(pa, s);
+    warp_pv<kDh, kLd>(o, pa, kt + kFbIn * kLd);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = kNormP ? 1.f : quad_sum(es[r]);
+    const int t = rowA + 8 * r;
+    if (t >= a.Tq) continue;
+    bf* dst = out + b * o_bs + (size_t)t * o_rs + h * a.Dh;
+#pragma unroll
+    for (int nd = 0; nd < kDh / 8; ++nd) {
+      const int c = nd * 8 + 2 * cq;
+      if (c < a.Dh) {
+        const float v0 = o[nd][2 * r], v1 = o[nd][2 * r + 1];
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+            kNormP ? __floats2bfloat162_rn(v0, v1)
+                   : __floats2bfloat162_rn(v0 / den, v1 / den);
+      }
+    }
+  }
+}
+
+// the bf16 forward's shapes: Dh a multiple of 16 up to 128, q / k / v at
+// 16-byte-aligned addresses and strides (out: its rows 4-byte aligned)
+bool fwd_mma_shapes_ok(const AttnArgs& a, const void* out, long long o_bs,
+                       int o_rs) {
+  auto al16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return a.Dh % 16 == 0 && a.Dh <= 128 && al16(a.q) && al16(a.k) &&
+         al16(a.v) && (a.q_rs | a.k_rs | a.v_rs) % 8 == 0 &&
+         (a.q_bs | a.k_bs | a.v_bs) % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 4 == 0 && (o_rs | o_bs) % 2 == 0;
+}
+
+template <int kDh>
+int launch_fwd_mma_dh(const AttnArgs& a, void* out, long long o_bs, int o_rs,
+                      int norm_p, int B, cudaStream_t stream) {
+  const size_t smem = (size_t)(kFbOwn + 4 * kFbIn) * (kDh + 8) * 2;
+  auto kernel = norm_p ? attention_fwd_mma_kernel<kDh, true>
+                       : attention_fwd_mma_kernel<kDh, false>;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<dim3((a.Tq + kFbOwn - 1) / kFbOwn, a.H, B), kFbThreads, smem,
+           stream>>>(a, static_cast<__nv_bfloat16*>(out), o_bs, o_rs);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_mma(const AttnArgs& a, void* out, long long o_bs, int o_rs,
+                   int norm_p, int B, cudaStream_t s) {
+  if (!fwd_mma_shapes_ok(a, out, o_bs, o_rs))
+    return (int)cudaErrorInvalidValue;
+  if (a.Dh <= 32) return launch_fwd_mma_dh<32>(a, out, o_bs, o_rs, norm_p, B, s);
+  if (a.Dh <= 64) return launch_fwd_mma_dh<64>(a, out, o_bs, o_rs, norm_p, B, s);
+  return launch_fwd_mma_dh<128>(a, out, o_bs, o_rs, norm_p, B, s);
+}
+
+// f32 the FMA kernel; bf16 the tensor-core kernel above
 template <typename T, int NI>
 int launch_fwd(const AttnArgs& a, void* out, long long o_bs, int o_rs,
                int norm_p, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kFwdQT * a.Dh +
-                                       (size_t)kFwdQT * a.Tk +
-                                       (size_t)kKC * (a.Dh + 1));
-  const dim3 grid((a.Tq + kFwdQT - 1) / kFwdQT, a.H, B);
-  auto kernel = norm_p ? attention_fwd_kernel<T, NI, true>
-                       : attention_fwd_kernel<T, NI, false>;
-  int err = set_smem(kernel, smem);
-  if (err) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a, static_cast<T*>(out), o_bs, o_rs);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_fwd_mma(a, out, o_bs, o_rs, norm_p, B, stream);
+  } else {
+    const size_t smem = sizeof(float) * ((size_t)kFwdQT * a.Dh +
+                                         (size_t)kFwdQT * a.Tk +
+                                         (size_t)kKC * (a.Dh + 1));
+    const dim3 grid((a.Tq + kFwdQT - 1) / kFwdQT, a.H, B);
+    auto kernel = norm_p ? attention_fwd_kernel<T, NI, true>
+                         : attention_fwd_kernel<T, NI, false>;
+    int err = set_smem(kernel, smem);
+    if (err) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(a, static_cast<T*>(out), o_bs, o_rs);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int NI>

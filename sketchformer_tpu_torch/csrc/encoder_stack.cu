@@ -60,6 +60,7 @@
 
 #include "common.cuh"
 #include "dropout_prng.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -544,75 +545,6 @@ constexpr int kTnStageBytes = 9 * kTnBox;
 // columns are kTnBox apart (LBO), 8-row groups 1024 bytes apart (SBO)
 constexpr uint32_t kTnLbo = kTnBox, kTnSbo = 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// a wgmma shared-memory descriptor: 128-byte swizzle
-__device__ __forceinline__ uint64_t tn_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)(kTnLbo >> 4) << 16) | ((uint64_t)(kTnSbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-// one m64n128k16 product (bf16 in, f32 accumulate into d), both operands
-// MN-major (transposed) in 128-byte-swizzled shared memory
-__device__ __forceinline__ void wgmma_m64n128_tt(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // The last block to finish a tile (of `splits`) gets true, after a fence
 // that makes every other block's partials visible to it; it resets the
 // tile's counter for the next launch. Every thread of the block calls it.
@@ -823,13 +755,13 @@ linear_tn_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       mbar_wait(smem_u32(conv + s), (i / kTnStages) & 1);
       const uint32_t xs = smem_u32(smem + s * kTnStageBytes) + wg * kTnBox;
       const uint32_t ys = smem_u32(smem + s * kTnStageBytes) + 2 * kTnBox;
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kTnSlab / 16; ++kk)
-        wgmma_m64n128_tt(acc, tn_desc(xs + kk * 2 * kTnSbo),
-                         tn_desc(ys + kk * 2 * kTnSbo));
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        wgmma_m64n128_tt(acc, sw128_desc(xs + kk * 2 * kTnSbo, kTnLbo),
+                         sw128_desc(ys + kk * 2 * kTnSbo, kTnLbo));
+      wgmma_commit();
+      wgmma_wait<0>();
       mbar_arrive(smem_u32(empty + s));
     }
   }
@@ -1276,45 +1208,8 @@ int launch_linear_nt(int a_f32, const void* a, const void* w, const void* drop,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
-// query (so the library needs no link against libcuda)
-typedef CUresult (*TmapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                               void*, const cuuint64_t*, const cuuint64_t*,
-                               const cuuint32_t*, const cuuint32_t*,
-                               CUtensorMapInterleave, CUtensorMapSwizzle,
-                               CUtensorMapL2promotion,
-                               CUtensorMapFloatOOBfill);
-
-TmapEncode tmap_encode() {
-  static TmapEncode fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<TmapEncode>(p);
-  }
-  return fn;
-}
-
 constexpr size_t kTnSmem = kTnStages * kTnStageBytes + 1024 +
                            3 * kTnStages * sizeof(uint64_t) + 16;
-
-// a 2-D tensor map of a row-major (rows, pitch) array, box (64 rows, bw
-// elements); the pitch in bytes must be a multiple of 16
-bool tn_map(CUtensorMap* map, TmapEncode encode, CUtensorMapDataType type,
-            int esize, const void* base, int rows, int pitch, int bw,
-            CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {(cuuint64_t)pitch, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)bw, (cuuint32_t)kTnSlab};
-  const cuuint32_t estr[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // x (M, K) bf16; y (M, y_pitch) and the mask bytes (M, d_pitch), their
 // columns past N zero; pitches and bases 16-byte aligned
@@ -1335,15 +1230,15 @@ int launch_linear_tn_bf16(const void* x, int y_pitch, int d_pitch,
   CUtensorMap xmap, ymap, dmap;
   const CUtensorMapDataType yt = ye == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!tn_map(&xmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, a.M,
-              a.K, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tn_map(&ymap, encode, yt, ye, a.y, a.M, y_pitch, kTnTile,
-              CU_TENSOR_MAP_SWIZZLE_NONE))
+  if (!tmap_2d(&xmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, a.M,
+               a.K, 64, kTnSlab, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap_2d(&ymap, encode, yt, ye, a.y, a.M, y_pitch, kTnTile, kTnSlab,
+               CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
   dmap = xmap;  // unused without mask bytes
   if (!kPrng && a.drop != nullptr &&
-      !tn_map(&dmap, encode, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.drop, a.M,
-              d_pitch, kTnTile, CU_TENSOR_MAP_SWIZZLE_NONE))
+      !tmap_2d(&dmap, encode, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.drop, a.M,
+               d_pitch, kTnTile, kTnSlab, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;  // one instantiation, one attribute
   if (!attr_set) {

@@ -1,0 +1,324 @@
+// Tensor-core helpers shared by the kernel sources: the warp-level
+// mma.sync m16n8k16 tiles with ldmatrix and cp.async (attention_train.cu),
+// Hopper's mbarriers, TMA loads and wgmma products (encoder_stack.cu's
+// linear_tn, token_ce.cu's ce_dx), and the host's tensor-map encoder. Each
+// source includes this header into its own anonymous namespace scope, as
+// common.cuh, so the library links with no duplicate symbols.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k16 (bf16 in, f32 accumulate), a warp owning 16 rows
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [row0, row0 + n) of a (T, Dh) head pane (row stride rs) into smem
+// rows of kLd elements, by the block's kThreads threads; rows past T are
+// zero (Dh a multiple of 8, rows 16-byte aligned)
+template <int kLd, int kThreads>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int rs,
+                                           int row0, int n, int T, int Dh) {
+  const int cpr = Dh / 8;
+  for (int i = threadIdx.x; i < n * cpr; i += kThreads) {
+    const int r = i / cpr, c = (i - r * cpr) * 8;
+    const bool ok = row0 + r < T;
+    cp_async16(smem_u32(dst + r * kLd + c),
+               src + (size_t)(ok ? row0 + r : 0) * rs + c, ok);
+  }
+}
+
+// acc[16 x 32] = own[16 rows of this warp] . in[32 rows]^T over kDh. C
+// fragment acc[nt][i]: row lane / 4 + 8 (i / 2), column 8 nt + 2 (lane % 4)
+// + i % 2
+template <int kDh, int kLd>
+__device__ __forceinline__ void warp_qk(float (&acc)[4][4],
+                                        const __nv_bfloat16* own,
+                                        const __nv_bfloat16* in) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, smem_u32(own + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                        kk * 16 + 8 * (lane >> 4)));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, smem_u32(in + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * kLd +
+                          kk * 16 + 8 * ((lane >> 3) & 1)));
+      mma16816(acc[2 * np], a, b[0], b[1]);
+      mma16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// out[16 x kDh] += P[16 x 32] (C fragments, packed to bf16) . in[32 x kDh]
+template <int kDh, int kLd>
+__device__ __forceinline__ void warp_pv(float (&out)[kDh / 8][4],
+                                        const uint32_t (&pa)[2][4],
+                                        const __nv_bfloat16* in) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int nd = 0; nd < kDh / 16; ++nd) {
+      uint32_t b[4];
+      ldsm_x4_t(b, smem_u32(in + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                            nd * 16 + 8 * (lane >> 4)));
+      mma16816(out[2 * nd], pa[kk], b[0], b[1]);
+      mma16816(out[2 * nd + 1], pa[kk], b[2], b[3]);
+    }
+}
+
+// C fragments of a 16 x 32 f32 tile (rounded to bf16) as the A fragments of
+// its two k16 halves
+__device__ __forceinline__ void c_to_a(uint32_t (&pa)[2][4],
+                                       const float (&c)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    pa[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    pa[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    pa[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (a warpgroup's 64-row products)
+// ---------------------------------------------------------------------------
+
+// a wgmma shared-memory descriptor of a 128-byte-swizzled operand: 8-row
+// groups 1024 bytes apart (SBO); lbo the distance between 64-column blocks
+// of an MN-major operand (unused by a K-major one)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// one m64n128k16 product (bf16 in, f32 accumulate into d), both operands
+// MN-major (transposed) in 128-byte-swizzled shared memory
+__device__ __forceinline__ void wgmma_m64n128_tt(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// one m64n64k16 product (bf16 in, f32 accumulate into d): A K-major and B
+// MN-major, both 128-byte-swizzled in shared memory
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// one m64n64k16 product with A in registers (four bf16 pairs a thread, the
+// mma.sync A-fragment layout of the thread's warp's 16 rows) and B K-major,
+// 128-byte-swizzled in shared memory
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// host: 2-D tensor maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query (so the library needs no link against libcuda)
+typedef CUresult (*TmapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                               void*, const cuuint64_t*, const cuuint64_t*,
+                               const cuuint32_t*, const cuuint32_t*,
+                               CUtensorMapInterleave, CUtensorMapSwizzle,
+                               CUtensorMapL2promotion,
+                               CUtensorMapFloatOOBfill);
+
+TmapEncode tmap_encode() {
+  static TmapEncode fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TmapEncode>(p);
+  }
+  return fn;
+}
+
+// a 2-D tensor map of a row-major (rows, pitch) array, box (box_rows rows,
+// box_cols elements); the pitch in bytes must be a multiple of 16. Boxes
+// past the last row read zeros
+bool tmap_2d(CUtensorMap* map, TmapEncode encode, CUtensorMapDataType type,
+             int esize, const void* base, int rows, int pitch, int box_cols,
+             int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)pitch, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace

@@ -15,8 +15,10 @@
 //           f32 dl (pallas_ce.py:104), per M slice: each slice writes f32
 //           partials that sum_rows (norm_train.cu) adds in a fixed order.
 //
-// Design. A block owns a 64-row tile (forward and dx) or a 64-column vocab
-// tile and an M slice (dW). The operand it keeps (the rows, or the W tile)
+// Design. In bf16, dx is a warp-specialised wgmma kernel fed by TMA
+// (ce_dx_wgmma_kernel, see its note). The other kernels, and dx in f32: a
+// block owns a 64-row tile (forward and dx) or a 64-column vocab tile and an
+// M slice (dW). The operand it keeps (the rows, or the W tile)
 // stays in shared memory while it streams the other; each 64 x 64 logits
 // tile is a WMMA product (bf16 in, f32 accumulate; f32 inputs on the FMA
 // units) into shared memory and is reduced there on the spot: the forward
@@ -35,8 +37,9 @@
 // What bounds it on the card: the products, 2 M d V operations for the
 // forward and 3 x that for the backward (recompute, dx, dW). At d = 256 a
 // row tile does 2 * 64 * 256 operations per W element it stages, so the
-// tiles are tensor-core bound only with a well-fed pipeline; this first
-// landing stages synchronously (no TMA, no wgmma, no double buffering).
+// tiles are tensor-core bound only with a well-fed pipeline; the forward and
+// dW stage synchronously (no TMA, no wgmma, no double buffering), dx in bf16
+// runs a TMA ring into wgmma.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
@@ -48,6 +51,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -355,6 +359,183 @@ ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
+// backward, dx in bf16: wgmma products fed by a TMA ring
+// ---------------------------------------------------------------------------
+//
+// The forward of a flash-attention kernel with W in the place of K and V. A
+// block owns 128 rows: two consumer warpgroups of 64 and a producer
+// warpgroup whose first thread issues every TMA load. The x slab (128 x dp,
+// 128-byte swizzle) comes in once; W's 64-column vocab tiles (dp x 64) stream
+// through a ring of kDxStages mbarrier stages. For each tile a consumer
+//   - forms S = x . W_tile by wgmma m64n64k16, both operands in shared
+//     memory (x K-major, the tile MN-major);
+//   - turns the f32 accumulator into dl in registers, the bias, lse, gll and
+//     the target per row in registers, columns >= V excluded by index;
+//   - rounds dl to bf16 straight into wgmma A fragments (the accumulator's
+//     layout is the A-fragment layout);
+//   - runs dx += dl . W_tile^T by wgmma m64n64k16 with A in registers, the
+//     same staged tile read K-major through the descriptor: no transposed
+//     copy.
+// dx (64 x dp f32, dp / 2 registers a thread) stays in registers over all
+// vocab tiles, summed in one fixed order without atomics (bit-stable), and
+// setmaxnreg moves registers from the producer to the consumers. Rows >= M
+// come in as TMA zeros and get a zero gradient. W is read from L2 once per
+// 128 rows.
+
+constexpr int kDxRows = 128;           // rows a block: two warpgroups of 64
+constexpr int kDxStages = 4;           // W tiles in flight
+constexpr int kDxThreads = 384;        // consumers 0-1, producer warpgroup 2
+constexpr int kDxBox = kDxRows * 128;  // a 128-row x 64-column bf16 x box
+
+// dynamic shared memory of a dx block (bytes): 1024 to align the swizzle
+// atoms, the x slab (dp / 64 boxes), the ring (dp rows of 128 bytes a
+// stage) and its barriers
+constexpr size_t dx_smem_bytes(int dp) {
+  return 1024 + (size_t)dp / 64 * kDxBox + (size_t)kDxStages * dp * 128 +
+         (2 * kDxStages + 1) * sizeof(uint64_t);
+}
+
+template <int NG>
+__global__ void __launch_bounds__(kDxThreads, 1)
+ce_dx_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap,
+                   const float* __restrict__ bias, const int* __restrict__ tgt,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ gll,
+                   __nv_bfloat16* __restrict__ dx, int M, int V) {
+  constexpr int dp = NG * 64;
+  constexpr int kStage = dp * 128;  // a W tile: dp rows of 64 columns
+  extern __shared__ unsigned char dx_smem_raw[];
+  unsigned char* smem =
+      dx_smem_raw + ((1024u - (smem_u32(dx_smem_raw) & 1023u)) & 1023u);
+  unsigned char* xs = smem;                 // NG boxes of [128 rows][128 B]
+  unsigned char* ring = xs + NG * kDxBox;   // kDxStages tiles of [dp][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDxStages * kStage);
+  uint64_t* empty = full + kDxStages;
+  uint64_t* xbar = empty + kDxStages;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int m0 = blockIdx.x * kDxRows;
+  const int ntiles = (V + 63) / 64;
+
+  if (tid == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 256);
+    }
+    mbar_init(smem_u32(xbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: the x slab, then vocab tile i into stage i % kDxStages
+    // once both consumers have released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (t == 0) {
+      mbar_arrive_expect_tx(smem_u32(xbar), NG * kDxBox);
+      for (int g = 0; g < NG; ++g)
+        tma_load_2d(smem_u32(xs + g * kDxBox), &xmap, smem_u32(xbar), g * 64,
+                    m0);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kDxStages;
+        mbar_wait(smem_u32(empty + s), ((i / kDxStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(smem_u32(full + s), kStage);
+        tma_load_2d(smem_u32(ring + s * kStage), &wmap, smem_u32(full + s),
+                    i * 64, 0);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg owns rows m0 + 64 wg .. + 63; this thread rows
+  // rbase and rbase + 8, columns 8 j + c2 (+ 1) of each 8-column block j
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int warp = t >> 5, lane = t & 31, c2 = 2 * (lane & 3);
+  const int rbase = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  float rl[2], rg[2];
+  int rt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = rbase + 8 * r;
+    const bool ok = m < M;
+    rl[r] = ok ? lse[m] : INFINITY;  // exp(. - inf) = 0: no gradient
+    rg[r] = ok ? gll[m] : 0.f;
+    rt[r] = ok ? tgt[m] : -1;
+  }
+  float acc[NG][32];
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[g][i] = 0.f;
+  const uint32_t xa = smem_u32(xs) + wg * 64 * 128;
+  mbar_wait(smem_u32(xbar), 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kDxStages, n0 = i * 64;
+    float bv[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * j + c2 + e;
+        bv[2 * j + e] = n < V ? bias[n] : 0.f;
+      }
+    mbar_wait(smem_u32(full + s), (i / kDxStages) & 1);
+    const uint32_t ws = smem_u32(ring + s * kStage);
+    float sc[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) sc[q] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < dp / 16; ++kk)  // S = x . W_tile over dp
+      wgmma_m64n64_ss(sc, sw128_desc(xa + (kk >> 2) * kDxBox + (kk & 3) * 32,
+                                     16),
+                      sw128_desc(ws + kk * 2048, 16));
+    wgmma_commit();
+    wgmma_wait<0>();
+    // dl = (onehot - exp(l - lse)) * gll, l = S + bias, rounded into A
+    // fragments: element q of block j is row rbase + 8 (q / 2), column
+    // n0 + 8 j + c2 + q % 2
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = q >> 1, e = q & 1, n = n0 + 8 * j + c2 + e;
+        const float p = expf(sc[4 * j + q] + bv[2 * j + e] - rl[r]);
+        sc[4 * j + q] = n < V ? ((n == rt[r] ? 1.f : 0.f) - p) * rg[r] : 0.f;
+      }
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        af[kk][h] = pack_bf16(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // dx += dl . W_tile^T over the tile
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        wgmma_m64n64_rs(acc[g], af[kk],
+                        sw128_desc(ws + g * 64 * 128 + kk * 32, 16));
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(smem_u32(empty + s));
+  }
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = rbase + 8 * r;
+        if (m < M)
+          *reinterpret_cast<__nv_bfloat162*>(dx + (size_t)m * dp + g * 64 +
+                                             8 * j + c2) =
+              __floats2bfloat162_rn(acc[g][4 * j + 2 * r],
+                                    acc[g][4 * j + 2 * r + 1]);
+      }
+}
+
+// ---------------------------------------------------------------------------
 // backward, dW and db: one block per (64-column vocab tile, M slice); the W
 // tile stays in shared memory while the slice's row tiles stream through
 // ---------------------------------------------------------------------------
@@ -439,14 +620,41 @@ int launch_fwd(const void* x, const void* w, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// bf16 dx: x (M, dp) and w (dp, Vp) 16-byte aligned, their tensor maps
+// encoded per call
+template <int NG>
+int launch_dx_wgmma(const void* x, const void* w, const float* bias,
+                    const int* tgt, const float* lse, const float* gll,
+                    void* dx, int M, int V, int Vp, cudaStream_t stream) {
+  constexpr int dp = NG * 64;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  TmapEncode encode = tmap_encode();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xmap, wmap;
+  if (!tmap_2d(&xmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, dp,
+               64, kDxRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap_2d(&wmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dp, Vp,
+               64, dp, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = dx_smem_bytes(dp);
+  const cudaError_t err = set_smem(ce_dx_wgmma_kernel<NG>, smem);
+  if (err != cudaSuccess) return (int)err;
+  ce_dx_wgmma_kernel<NG><<<(M + kDxRows - 1) / kDxRows, kDxThreads, smem,
+                           stream>>>(xmap, wmap, bias, tgt, lse, gll,
+                                     static_cast<__nv_bfloat16*>(dx), M, V);
+  return (int)cudaGetLastError();
+}
+
+// dx (bf16: ce_dx_wgmma_kernel; f32: ce_dx_kernel), then dW and db
 template <typename T, int NG>
 int launch_bwd_ng(const void* x, const void* w, const void* bias,
                   const void* tgt, const void* lse, const void* gll, void* dx,
                   void* dw_part, void* db_part, int M, int dp, int V, int Vp,
                   int splits, cudaStream_t stream) {
   const size_t smem = Smem<T>::bytes(dp);
-  cudaError_t err = set_smem(ce_dx_kernel<T, NG>, smem);
-  if (err == cudaSuccess) err = set_smem(ce_dw_kernel<T, NG>, smem);
+  cudaError_t err = set_smem(ce_dw_kernel<T, NG>, smem);
   if (err != cudaSuccess) return (int)err;
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
@@ -454,10 +662,18 @@ int launch_bwd_ng(const void* x, const void* w, const void* bias,
   const int* tp = static_cast<const int*>(tgt);
   const float* lp = static_cast<const float*>(lse);
   const float* gp = static_cast<const float*>(gll);
-  ce_dx_kernel<T, NG><<<(M + BM - 1) / BM, kThreads, smem, stream>>>(
-      xp, wp, bp, tp, lp, gp, static_cast<T*>(dx), M, dp, V, Vp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if constexpr (kTC<T>) {
+    const int e = launch_dx_wgmma<NG>(x, w, bp, tp, lp, gp, dx, M, V, Vp,
+                                      stream);
+    if (e != 0) return e;
+  } else {
+    err = set_smem(ce_dx_kernel<T, NG>, smem);
+    if (err != cudaSuccess) return (int)err;
+    ce_dx_kernel<T, NG><<<(M + BM - 1) / BM, kThreads, smem, stream>>>(
+        xp, wp, bp, tp, lp, gp, static_cast<T*>(dx), M, dp, V, Vp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const int rps = ((M + splits - 1) / splits + BM - 1) / BM * BM;
   ce_dw_kernel<T, NG><<<dim3(Vp / BN, splits), kThreads, smem, stream>>>(
       xp, wp, bp, tp, lp, gp, static_cast<float*>(dw_part),

@@ -14,7 +14,10 @@ by the heads). ``key_bias`` is (B, Tk) f32, 0 to attend and -1e9 to mask;
 
 - :func:`attention_fwd`: the output (B, Tq, H*Dh) in the compute dtype;
   ``norm_p`` rounds the normalised p before P.V (else the unnormalised e,
-  dividing after).
+  dividing after). In bf16 it runs on the tensor cores (mma.sync, 64 query
+  rows a block, two sweeps over 32-key tiles), which take a head_dim that
+  is a multiple of 16 and 16-byte-aligned rows (:func:`mma_head_dim`); a
+  bf16 call outside those raises.
 - :func:`attention_bwd_q`: dq (B, Tq, H*Dh) f32 (through the qk-norm
   backward), the per-row statistics (B, H, Tq, 3) = (max, sum, delta) for
   the second pass, and the q-norm parameter gradients.
@@ -38,8 +41,10 @@ MAX_KEYS = 1024             # the score rows of a block stay in shared memory
 
 LAUNCHES = {"attention_fwd": 0, "attention_bwd_q": 0, "attention_bwd_kv": 0}
 
-# rows or key columns per block (csrc/attention_train.cu)
+# rows or key columns per block (csrc/attention_train.cu); the bf16 forward:
+# query rows a block and keys a tile
 FWD_ROWS, BWD_Q_ROWS, BWD_KV_COLS = 32, 16, 32
+MMA_ROWS, MMA_KEYS = 64, 32
 
 
 def reset_launches() -> None:
@@ -159,6 +164,34 @@ def attention_bwd_kv_reference(q, k, v, dout, key_bias, stats, *, num_heads,
 # ---------------------------------------------------------------------------
 
 
+def mma_head_dim(Dh: int) -> int:
+    """The head width the bf16 tensor-core kernels are built for (32, 64
+    or 128; the columns past Dh zero), or ValueError for a Dh they do not
+    take (not a multiple of 16, or above 128)."""
+    if Dh % 16 or not 0 < Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {Dh}: the bf16 kernel takes a multiple "
+                         f"of 16 up to {MAX_HEAD_DIM}")
+    return 32 if Dh <= 32 else 64 if Dh <= 64 else 128
+
+
+def fwd_mma_plan(B: int, Tq: int, Tk: int, H: int, Dh: int):
+    """(grid, key tiles, shared-memory bytes a block) of the bf16 forward
+    (csrc/attention_train.cu::launch_fwd_mma_dh): a 64-row query tile and a
+    double buffer of 32-row K and V tiles, rows padded by 8 elements."""
+    dhp = mma_head_dim(Dh)
+    smem = (MMA_ROWS + 4 * MMA_KEYS) * (dhp + 8) * 2
+    return (-(-Tq // MMA_ROWS), H, B), -(-Tk // MMA_KEYS), smem
+
+
+def check_mma_rows(*tensors) -> None:
+    """Raise unless each (B, T, ...) operand's rows start 16-byte aligned:
+    the bf16 kernels copy them with 16-byte cp.async."""
+    for t in tensors:
+        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(f"bf16 operand {tuple(t.shape)} stride "
+                             f"{t.stride()}: rows must be 16-byte aligned")
+
+
 def _geometry(q, k, v, key_bias, num_heads, qk_norm, causal):
     """Check the operands; returns (B, Tq, Tk, H, Dh, norm pointers)."""
     dev = q.device
@@ -185,6 +218,9 @@ def _geometry(q, k, v, key_bias, num_heads, qk_norm, causal):
                              f"contiguous last axis")
     if key_bias is not None:
         _build.require(key_bias, "key_bias", dev, torch.float32, (B, Tk))
+    if q.dtype == torch.bfloat16:
+        mma_head_dim(Dh)
+        check_mma_rows(q, k, v)
     norms = [None] * 4
     if qk_norm is not None:
         for p in qk_norm:

@@ -5,7 +5,9 @@ the attention of the composed layers when ``attn_impl='pallas'`` and the
 fused stacks decline: the post-LN model's encoder and teacher-forced
 decoder self-attention, and any caller with a legacy 4-D mask. The kernels
 are in ``csrc/attention_train.cu``: the forward is ``attention_fwd``
-through its K8 entry point ``sk_flash_attention_fwd``; the backward
+through its K8 entry point ``sk_flash_attention_fwd`` (in bf16 the
+tensor-core forward, which takes a head_dim that is a multiple of 16); the
+backward
 (``sk_flash_attention_bwd``) is a kernel of its own on the tensor cores in
 bf16 (``flash_bwd_mma_kernel``) and ``attention_bwd_q`` / ``_kv`` in f32
 (see the notes in that file); ``flash_attention_reference`` and
@@ -40,6 +42,10 @@ from typing import Optional
 import torch
 
 from sketchformer_tpu_torch.ops import _build
+from sketchformer_tpu_torch.ops.attention_train import (
+    check_mma_rows,
+    mma_head_dim,
+)
 from sketchformer_tpu_torch.utils.engines import note_engine
 
 NEG_INF = -1e9
@@ -182,6 +188,9 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     q, k, v, bias, bs, rs, dims = _operands(q, k, v, bias, causal)
+    if q.dtype == torch.bfloat16:
+        mma_head_dim(dims[4])
+        check_mma_rows(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):

@@ -10,9 +10,10 @@ memory:
 - ``token_ce_fwd``: per row the target log-likelihood ``ll``, the
   argmax-correct indicator ``corr`` (first index on ties) and the
   logsumexp ``lse`` (the backward's softmax residual);
-- ``token_ce_bwd``: ``dx`` (the ``ce_dx`` kernel, row tiles), ``dW`` and
-  ``db`` (the ``ce_dw`` kernel, vocab tiles over M slices, whose f32
-  partials ``sum_rows`` adds in a fixed order).
+- ``token_ce_bwd``: ``dx`` (the ``ce_dx`` kernel, row tiles; in bf16 a
+  wgmma kernel fed by a TMA ring, 128 rows a block), ``dW`` and ``db`` (the
+  ``ce_dw`` kernel, vocab tiles over M slices, whose f32 partials
+  ``sum_rows`` adds in a fixed order).
 
 Numerics are the TPU kernel's: the logits stay f32 end to end (the product
 of the compute-dtype operands accumulated in f32, the f32 bias added in
@@ -43,6 +44,7 @@ LAUNCHES = {"token_ce_fwd": 0, "token_ce_dx": 0, "token_ce_dw": 0}
 TILE = 64                  # the kernels' row and vocab tile (csrc/token_ce.cu)
 MAX_WIDTH = 4 * TILE       # d_model the backward keeps in registers
 DW_BLOCKS_PER_SM = 4       # ce_dw's M slices aim at about this many blocks
+DX_ROWS, DX_STAGES = 128, 4  # bf16 ce_dx: rows a block, W tiles in flight
 
 
 def reset_launches() -> None:
@@ -100,10 +102,35 @@ def _pad64(n: int) -> int:
     return -(-n // TILE) * TILE
 
 
+def padded_operands(x, w):
+    """x (M, dp) and W (dp, Vp) as the kernels read them: in x's dtype,
+    zero-padded to multiples of 64 (the padded columns of W are zero, and
+    the kernels exclude columns >= V by index) and 16-byte aligned."""
+    d, V = w.shape
+    dp, Vp = _pad64(d), _pad64(V)
+    if dp > MAX_WIDTH:
+        raise ValueError(f"token_ce: d={d} above the kernels' {MAX_WIDTH}")
+    xp = x.contiguous() if dp == d else F.pad(x, (0, dp - d))
+    if xp.data_ptr() % 16:
+        xp = xp.clone()
+    wp = torch.zeros((dp, Vp), dtype=x.dtype, device=x.device)
+    wp[:d, :V] = w
+    return xp, wp
+
+
+def dx_plan(M: int, dp: int) -> Tuple[int, int]:
+    """(blocks, shared-memory bytes a block) of the bf16 ``ce_dx`` kernel:
+    128-row blocks; 1024 bytes to align the swizzle atoms, the block's x
+    slab, DX_STAGES W tiles of dp x 64 and their barriers
+    (csrc/token_ce.cu::dx_smem_bytes)."""
+    smem = 1024 + DX_ROWS * dp * 2 + DX_STAGES * dp * TILE * 2 + \
+        (2 * DX_STAGES + 1) * 8
+    return -(-M // DX_ROWS), smem
+
+
 def _operands(x, w, b, tgt):
-    """The kernels' operands: x (M, dp) and W (dp, Vp) in the compute
-    dtype, zero-padded to multiples of 64 and 16-byte aligned; b f32; tgt
-    int32."""
+    """The kernels' operands (:func:`padded_operands`), b f32 and tgt
+    int32, checked."""
     M, d = x.shape
     V = w.shape[1]
     dev = x.device
@@ -116,16 +143,9 @@ def _operands(x, w, b, tgt):
     for t, name in ((w, "w"), (b, "b"), (tgt, "tgt")):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    dp, Vp = _pad64(d), _pad64(V)
-    if dp > MAX_WIDTH:
-        raise ValueError(f"token_ce: d={d} above the kernels' {MAX_WIDTH}")
-    xp = x.contiguous() if dp == d else F.pad(x, (0, dp - d))
-    if xp.data_ptr() % 16:
-        xp = xp.clone()
-    wp = torch.zeros((dp, Vp), dtype=x.dtype, device=dev)
-    wp[:d, :V] = w
+    xp, wp = padded_operands(x, w)
     return (code, xp, wp, b.float().contiguous(),
-            tgt.to(torch.int32).contiguous(), M, d, V, dp, Vp)
+            tgt.to(torch.int32).contiguous(), M, d, V, *wp.shape)
 
 
 def token_ce_fwd(x, w, b, tgt) -> Tuple[torch.Tensor, ...]:

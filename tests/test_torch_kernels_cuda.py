@@ -752,7 +752,7 @@ def _flash_case(gen, dev, dtype, mode, B, Tq, Tk, H, Dh):
     if mode.startswith("full"):
         mask = torch.rand((B if mode == "full" else 1, 1, Tq, Tk),
                           generator=gen, device=dev) < 0.7
-        mask[0, 0, 1] = False           # a query row with no key
+        mask[0, 0, min(1, Tq - 1)] = False  # a query row with no key
         km = None
     elif mode == "none":
         km = None
@@ -905,3 +905,127 @@ def test_flash_attention_and_decode_step_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         dstep.fused_decode_step(torch.zeros(2, 8, device="meta"), *(None,) * 5,
                                 0, num_heads=1)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core redesigns of K6's dx and of the attention forward (bf16)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [9, 127, 129, 49152])
+@pytest.mark.parametrize("dp", [64, 128, 192, 256])
+@pytest.mark.parametrize("V", [7, 2003, 10004])
+def test_token_ce_dx_wgmma(cuda, M, dp, V):
+    """bf16 ``ce_dx`` (wgmma, a TMA ring, 128-row blocks): dx within TOL of
+    the plain version at ragged M, every width the kernel is built for and
+    vocabularies below, across and far beyond one 64-column tile; equal
+    across two runs (one fixed summation order, no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    x = _rand(gen, cuda, M, dp, dtype=torch.bfloat16)
+    w = _rand(gen, cuda, dp, V, scale=dp ** -0.5)
+    b = _rand(gen, cuda, V, scale=0.1)
+    tgt = torch.randint(0, V, (M,), generator=gen, device=cuda).int()
+    gll = _rand(gen, cuda, M)
+    lse = tce.token_ce_fwd_reference(x, w, b, tgt)[2]
+    before = tce.LAUNCHES["token_ce_dx"]
+    dx = tce.token_ce_bwd(x, w, b, tgt, lse, gll)[0]
+    again = tce.token_ce_bwd(x, w, b, tgt, lse, gll)[0]
+    assert tce.LAUNCHES["token_ce_dx"] == before + 2
+    want = tce.token_ce_bwd_reference(x, w, b, tgt, lse, gll)[0]
+    assert dx.dtype == torch.bfloat16 and dx.shape == (M, dp)
+    _close(dx, want, torch.bfloat16)
+    assert torch.equal(dx, again)
+
+
+def _stack_attn_case(gen, dev, B, Tq, Tk, H, Dh, masked):
+    """q a strided view of a fused pane, k / v of a kv pane, and a key bias
+    whose last batch element has no key (a fully masked row set)."""
+    q = _rand(gen, dev, B, Tq, 3 * H * Dh, dtype=torch.bfloat16)[..., :H * Dh]
+    kv = _rand(gen, dev, B, Tk, 2 * H * Dh, dtype=torch.bfloat16)
+    bias = None
+    if masked:
+        lengths = torch.tensor([Tk, (Tk + 1) // 2, 0][:B], device=dev)
+        bias = torch.where(torch.arange(Tk, device=dev)[None] <
+                           lengths[:, None], 0.0, at.NEG_INF).float()
+    norms = tuple(1 + _rand(gen, dev, Dh, scale=0.1) if i % 2 == 0
+                  else _rand(gen, dev, Dh, scale=0.1) for i in range(4))
+    return q, kv[..., :H * Dh], kv[..., H * Dh:], bias, norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq", [1, 40, 65, 192])
+@pytest.mark.parametrize("Tk", [4, 33, 192])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_attention_fwd_mma_modes(cuda, Tq, Tk, Dh):
+    """The stacks' bf16 forward (mma.sync): with and without the key bias
+    (fully masked rows included), qk-norm and norm_p, causal where Tq ==
+    Tk, within TOL of the plain version and equal across two runs."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    B, H = 3, 2
+    for masked in (False, True):
+        q, k, v, bias, norms = _stack_attn_case(gen, cuda, B, Tq, Tk, H, Dh,
+                                                masked)
+        for causal in ((False, True) if Tq == Tk else (False,)):
+            for qk in (None, norms):
+                for norm_p in (True, False):
+                    kw = dict(num_heads=H, causal=causal, qk_norm=qk,
+                              norm_p=norm_p)
+                    before = at.LAUNCHES["attention_fwd"]
+                    got = at.attention_fwd(q, k, v, bias, **kw)
+                    again = at.attention_fwd(q, k, v, bias, **kw)
+                    assert at.LAUNCHES["attention_fwd"] == before + 2
+                    _close(got, at.attention_fwd_reference(q, k, v, bias,
+                                                           **kw),
+                           torch.bfloat16)
+                    assert torch.equal(got, again)
+
+
+FLASH_FWD_CASES = [(mode, Tq, Tk)
+                   for Tq, Tk in ((1, 4), (40, 33), (65, 192), (192, 192),
+                                  (192, 4), (1024, 1024))
+                   for mode in ("none", "key", "key_causal", "full",
+                                "full_shared")
+                   if mode != "key_causal" or Tq == Tk]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,Tq,Tk", FLASH_FWD_CASES)
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_flash_attention_fwd_mma_modes(cuda, mode, Tq, Tk, Dh):
+    """K8's bf16 forward on the mma.sync kernel: a key row, a per-batch or
+    shared pane (fully masked rows in each), causal as a where() where Tq ==
+    Tk, up to T = 1024; within TOL of the plain version, equal across two
+    runs."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    B = 1 if Tq == 1024 else 3
+    H = 2
+    q, k, v, bias, causal = _flash_case(gen, cuda, torch.bfloat16, mode, B,
+                                        Tq, Tk, H, Dh)
+    before = fa.LAUNCHES["flash_attention_fwd"]
+    got = fa.flash_attention_fwd(q, k, v, bias, causal)
+    again = fa.flash_attention_fwd(q, k, v, bias, causal)
+    assert fa.LAUNCHES["flash_attention_fwd"] == before + 2
+    _close(got, fa.flash_attention_reference(q, k, v, bias, causal),
+           torch.bfloat16)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_bf16_forward_raises_off_its_shapes(cuda):
+    """A bf16 head_dim that is not a multiple of 16 raises on both entry
+    points, with no launch; f32 still takes it (the FMA kernel)."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    before = (at.LAUNCHES["attention_fwd"], fa.LAUNCHES["flash_attention_fwd"])
+    q, k, v, _, _ = _stack_attn_case(gen, cuda, 2, 8, 8, 2, 40, False)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        at.attention_fwd(q, k, v, None, num_heads=2)
+    q4 = _rand(gen, cuda, 2, 8, 2, 40, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.flash_attention_fwd(q4, q4, q4)
+    assert (at.LAUNCHES["attention_fwd"],
+            fa.LAUNCHES["flash_attention_fwd"]) == before
+    q, k, v = (t.float() for t in (q, k, v))
+    _close(at.attention_fwd(q, k, v, None, num_heads=2),
+           at.attention_fwd_reference(q, k, v, None, num_heads=2),
+           torch.float32)
