@@ -40,7 +40,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at the JAX benchmark's ``train`` shape (bf16, M 49,152, d 256, V 10,004)
    and in f32 at M 4,096: ll, lse, dx, dW and db within TOL, corr equal
    away from near ties, the bf16 kernels against the f32 computation, and
-   the bf16 dx equal across two runs;
+   the bf16 dx, dW and db equal across two runs; the two bf16 kernels
+   redesigned on wgmma + TMA in every mode, each equal across two runs:
+   ``ce_dw`` (dW, db) at M 1 / 127 / 129 / 49,152, dp 64-256 and V 2,003
+   and 10,004, with no ``sum_rows`` launch, and ``linear_nt`` with a in
+   f32 and bf16, no mask / 'bits' / 'prng', the f32 output, the ReLU gate
+   and the bf16 residual, at ragged shapes and at each (N, K) of the
+   stacks at a ragged M;
    and the in-kernel dropout draw (K7): ``emit_dropout_bits`` bit-equal to
    the plain Philox at (16, 512, 96, 256) with the kept share within 1e-3,
    and each 'prng' train stack equal to the 'bits' stack fed the emitted
@@ -91,12 +97,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    backward against SDPA with the same mask (and its backward) at both
    geometries; K13 per step beside ``decode_chunk``'s; each training kernel (one layer's
    calls) against its plain version and one PyTorch call where one
-   computes the same function (``linear_tn``, ``attention_fwd`` at
+   computes the same function (``linear_tn``, ``linear_nt`` (also at the
+   ``train`` shape, M 49,152, beside its bound), ``attention_fwd`` at
    B=64/T=192/H=8 with qk-norm and at B=512/T=96/H=2/Dh=128, and K8's
    forward and backward at both geometries as the median and spread of 60
    calls' device time, the host's launches queued ahead; ``ce_dx`` and
    ``ce_dw`` from 60 calls' kernel events in a profiler trace, the
-   wrapper launching both); ``sum_rows`` launches a
+   wrapper launching both, also at d 64, 128 and 192; ``linear_nt``'s four
+   calls also one by one); ``sum_rows`` launches a
    ``cont2cont_mdn`` step; the train stacks' forward + backward; K6
    and the emit kernel; the train step p50 and sketches/s at the
    ``cont2cont_mdn`` shape, the JAX benchmark's ``cont_train`` shape
@@ -1152,11 +1160,13 @@ def check_token_ce(randn, gen, dev, errs, compare):
             compare(f"token_ce_bwd {name} {shape}", g, r, dtype,
                     rec if main else None)
         del wb
-        if main:   # ce_dx sums each row's dx in one fixed order
-            again = tce.token_ce_bwd(x, w, b, tgt, want[2], gll)[0]
-            if not torch.equal(gb[0], again):
-                fail(f"token_ce_bwd dx {shape}: two runs differ")
-            print(f"check token_ce_bwd dx {shape}: equal across two runs")
+        if main:   # dx, dW and db each summed in one fixed order
+            again = tce.token_ce_bwd(x, w, b, tgt, want[2], gll)
+            for name, g, a in zip(("dx", "dW", "db"), gb, again):
+                if not torch.equal(g, a):
+                    fail(f"token_ce_bwd {name} {shape}: two runs differ")
+            print(f"check token_ce_bwd dx, dW, db {shape}: equal across two "
+                  f"runs")
             del again
         if main:   # the bf16 kernel against the f32 computation
             ref32 = tce.token_ce_fwd_reference(x.float(), w, b, tgt)
@@ -1170,6 +1180,86 @@ def check_token_ce(randn, gen, dev, errs, compare):
             del ref32, r32
         del x, w, gb, got, want
         torch.cuda.empty_cache()
+
+
+# the redesigned bf16 kernels' modes: ce_dw at ragged M, every width and
+# vocabularies that are not a multiple of 64; linear_nt at small ragged
+# shapes and at each (N, K) of the stacks' calls, at a ragged M
+DW_MODES = dict(M=(1, 127, 129, 49152), dp=(64, 128, 192, 256),
+                V=(2003, 10004))
+NT_SHAPES = ((333, 96, 80), (50, 36, 20), (12321, 256, 512),
+             (12321, 512, 256), (12321, 256, 256), (12321, 768, 256))
+
+
+def check_redesigned_modes(randn, gen, dev, compare):
+    """bf16 ``ce_dw`` (dW and db) and ``linear_nt`` (a f32 or bf16; no
+    mask, 'bits' and 'prng'; the f32 output, the ReLU gate, the bf16
+    residual) against their plain versions within TOL in every mode, each
+    torch.equal across two runs; K6's backward launches no ``sum_rows``."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+    from sketchformer_tpu_torch.ops import norm_train as nt
+    from sketchformer_tpu_torch.ops import token_ce as tce
+
+    dt = torch.bfloat16
+    n = 0
+    for M in DW_MODES["M"]:
+        for dp_ in DW_MODES["dp"]:
+            for V in DW_MODES["V"]:
+                x, w, b, tgt, gll = ce_operands(randn, gen, dev, M, dp_, V,
+                                                dt)
+                lse = tce.token_ce_fwd_reference(x, w, b, tgt)[2]
+                before = nt.LAUNCHES["sum_rows"]
+                got = tce.token_ce_bwd(x, w, b, tgt, lse, gll)
+                again = tce.token_ce_bwd(x, w, b, tgt, lse, gll)
+                if nt.LAUNCHES["sum_rows"] != before:
+                    fail("token_ce_bwd launched sum_rows")
+                want = tce.token_ce_bwd_reference(x, w, b, tgt, lse, gll)
+                for name, g, r, a in zip(("dW", "db"), got[1:], want[1:],
+                                         again[1:]):
+                    compare(f"ce_dw {name} bf16 M={M} dp={dp_} V={V}", g, r,
+                            dt)
+                    if not torch.equal(g, a):
+                        fail(f"ce_dw {name} M={M} dp={dp_} V={V}: two runs "
+                             f"differ")
+                n += 1
+                del x, w, got, again, want
+    print(f"check ce_dw: {n} shapes, dW and db equal across two runs, no "
+          f"sum_rows launch")
+    torch.cuda.empty_cache()
+    n = 0
+    for M, N, K in NT_SHAPES:
+        for mode in (None, "bits", "prng"):
+            for a_f32 in (True, False):
+                for epi in ("f32", "gate", "residual"):
+                    a = randn(M, N, dtype=torch.float32 if a_f32 else dt)
+                    w = randn(K, N, scale=N ** -0.5, dtype=dt)
+                    kw = dict(thresh=26, keep_scale=1.0 / (1.0 - 26 / 256.0))
+                    if mode == "bits":
+                        kw["drop"] = torch.randint(0, 256, (M, N),
+                                                   dtype=torch.uint8,
+                                                   generator=gen, device=dev)
+                    elif mode == "prng":
+                        kw["drop"] = dp.PrngSite(PRNG_SEED, 2, 1, M)
+                    if epi == "gate":
+                        kw["gate"] = torch.relu(randn(M, K, dtype=dt))
+                    elif epi == "residual":
+                        kw.update(out_dtype=dt, residual=randn(M, K,
+                                                               dtype=dt))
+                    name = (f"linear_nt bf16 M={M} N={N} K={K} a "
+                            f"{'f32' if a_f32 else 'bf16'} mask {mode} "
+                            f"{epi}")
+                    got = es.linear_nt(a, w, **kw)
+                    again = es.linear_nt(a, w, **kw)
+                    compare(name, got, es.linear_nt_reference(a, w, **kw),
+                            dt)
+                    if not torch.equal(got, again):
+                        fail(f"{name}: two runs differ")
+                    n += 1
+    print(f"check linear_nt: {n} modes and shapes, each equal across two "
+          f"runs")
 
 
 def check_dropout_prng(dev, errs):
@@ -1450,7 +1540,7 @@ def token_ce_times(randn, gen, dev, gpu, cuda_ms, paired):
             iters=3, warm=1)
         parts = kernel_spread(
             lambda: tce.token_ce_bwd(x, w, b, tgt, lse, gll),
-            ("ce_dx_wgmma_kernel", "ce_dw_kernel"))
+            ("ce_dx_wgmma_kernel", "ce_dw_wgmma_kernel"))
         libs = {k: spread_ms(None, None, fn)["lib"] for k, fn in (
             ("dx", lambda: torch.matmul(dl, wd.t())),
             ("dw", lambda: torch.matmul(x.t(), dl)))}
@@ -1458,7 +1548,7 @@ def token_ce_times(randn, gen, dev, gpu, cuda_ms, paired):
               f"both kernels and the partial sums): kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms [{gpu}]")
         for kname, lkey in (("ce_dx_wgmma_kernel", "dx"),
-                            ("ce_dw_kernel", "dw")):
+                            ("ce_dw_wgmma_kernel", "dw")):
             print(f"time {kname} (bf16, M={M}, d={d}, V={V}, device time, "
                   f"median of {SPREAD_CALLS}): kernel "
                   f"{fmt_spread(parts[kname])}, library (matmul "
@@ -1466,11 +1556,35 @@ def token_ce_times(randn, gen, dev, gpu, cuda_ms, paired):
                   f"{fmt_spread(libs[lkey])} [{gpu}]")
         out["token_ce_dx"] = (parts["ce_dx_wgmma_kernel"][0], p_ms,
                               libs["dx"][0])
-        out["token_ce_dw"] = (parts["ce_dw_kernel"][0], p_ms, libs["dw"][0])
+        out["token_ce_dw"] = (parts["ce_dw_wgmma_kernel"][0], p_ms,
+                              libs["dw"][0])
+        own, tpu = (bound(fl, token_kernel_work(M, d, V, 1)["token_ce_dw"][1])
+                    for fl in (4 * M * d * V, 2 * M * d * V))
+        print(f"bound ce_dw (bf16, M={M}, d={d}, V={V}): {own[0]:.4f} ms "
+              f"({own[1]}) for its own work (the logits' recompute and the "
+              f"dW product, 4 M d V), {tpu[0]:.4f} ms ({tpu[1]}) for the "
+              f"TPU kernel's share (the dW product, 2 M d V); kernel / own "
+              f"bound {parts['ce_dw_wgmma_kernel'][0] / own[0]:.2f} [{gpu}]")
     for name, (k_ms, p_ms, l_ms) in out.items():
         print(f"time {name} (bf16, M={M}, d={d}, V={V}): kernel {k_ms:.4f} "
               f"ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms [{gpu}]")
     del dl, x
+    torch.cuda.empty_cache()
+    # the backward's kernels at narrower widths of the same rows and vocab:
+    # how their time scales with the work (4 M d V each)
+    with torch.no_grad():
+        for dn in (64, 128, 192):
+            x, w, b, tgt, gll = ce_operands(randn, gen, dev, M, dn, V, dt)
+            lse = tce.token_ce_fwd(x, w, b, tgt)[2]
+            sw = kernel_spread(
+                lambda: tce.token_ce_bwd(x, w, b, tgt, lse, gll),
+                ("ce_dx_wgmma_kernel", "ce_dw_wgmma_kernel"))
+            print(f"time token_ce_bwd at d={dn} (bf16, M={M}, V={V}, kernel "
+                  f"events, median of {SPREAD_CALLS}): " + ", ".join(
+                      f"{k} {fmt_spread(v)}, "
+                      f"{4 * M * dn * V / v[0] / 1e9:.1f} TFLOP/s"
+                      for k, v in sw.items()) + f" [{gpu}]")
+            del x, w
     torch.cuda.empty_cache()
     return out
 
@@ -1921,15 +2035,15 @@ def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn):
 
 def token_kernel_work(M, d, V, L):
     """{kernel: (flops, bytes)} of K6 and K7 at the train shape: the CE
-    forward (2 M d V), the backward as the TPU kernel does it (one logits
-    recompute and the dx and dW products, 6 M d V) split into dx (the
-    recompute and dx) and dW (its product; ce_dw's own recompute is work
-    the TPU design does not do); emit writes (2L, B*T, d) bytes."""
+    forward (2 M d V); the backward's two kernels each recompute the logits
+    from their inputs and do one product, 4 M d V each (the TPU kernel's
+    one recompute serves both products: 6 M d V in all, of which dW's
+    share is its 2 M d V product); emit writes (2L, B*T, d) bytes."""
     x, wb = M * d * 2, d * V * 2 + V * 4
     return {
         "token_ce_fwd": (2 * M * d * V, x + wb + M * 4 + 3 * M * 4),
         "token_ce_dx": (4 * M * d * V, x + wb + 3 * M * 4 + M * d * 2),
-        "token_ce_dw": (2 * M * d * V, x + wb + 3 * M * 4 + d * V * 4
+        "token_ce_dw": (4 * M * d * V, x + wb + 3 * M * 4 + d * V * 4
                         + V * 4),
         "emit_dropout_bits": (0, 2 * L * M * d),
     }
@@ -1982,6 +2096,44 @@ def attention_fwd_spread(o, B, T, d, H, qk, gpu):
     return sp["kernel"][0], sp["plain"][0], sp["lib"][0]
 
 
+def linear_nt_spread(o, B, T, d, dff, gpu):
+    """One encoder layer's four ``linear_nt`` calls (bf16) on
+    ``train_operands`` ``o``: the median and spread of SPREAD_CALLS calls'
+    device time of the kernel, the plain version and the layer's four
+    matmuls. Returns the three medians."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+
+    def lib_nt():
+        for a, w in ((o["g"], o["w2"]), (o["gf"], o["w1"]),
+                     (o["g32"], o["wo"]), (o["gqkv"], o["wqkv"])):
+            torch.matmul(a.to(w.dtype), w.t())
+
+    sp = spread_ms(layer_nt_calls(o, es.linear_nt),
+                   layer_nt_calls(o, es.linear_nt_reference), lib_nt)
+    print(f"time linear_nt (bf16, B={B}, T={T}, M={B * T}, d={d}, "
+          f"dff={dff}, the layer: 4 calls, device time, median of "
+          f"{SPREAD_CALLS}): kernel {fmt_spread(sp['kernel'])}, plain "
+          f"{fmt_spread(sp['plain'])}, library (4 matmuls) "
+          f"{fmt_spread(sp['lib'])} [{gpu}]")
+    # each call alone: which of the four the layer's time goes to
+    ks = dict(drop=o["drop"], thresh=o["thresh"], keep_scale=o["ks"])
+    for label, a, w, kw in (
+            ("dY.W2^T, bf16 dY, 'bits' mask, ReLU gate, N 256 K 512",
+             o["g"], o["w2"], dict(gate=o["f1"], **ks)),
+            ("dF.W1^T, f32 dF, N 512 K 256", o["gf"], o["w1"], {}),
+            ("dX1.Wo^T, f32, 'bits' mask, N 256 K 256", o["g32"], o["wo"],
+             ks),
+            ("dQKV.Wqkv^T, f32, N 768 K 256", o["gqkv"], o["wqkv"], {})):
+        one = spread_ms(lambda: es.linear_nt(a, w, **kw), None,
+                        lambda: torch.matmul(a.to(w.dtype), w.t()))
+        print(f"time linear_nt call {label} (M={B * T}, device time, median "
+              f"of {SPREAD_CALLS}): kernel {fmt_spread(one['kernel'])}, "
+              f"library (cast + matmul) {fmt_spread(one['lib'])} [{gpu}]")
+    return sp["kernel"][0], sp["plain"][0], sp["lib"][0]
+
+
 def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     """Each training kernel (the layer's call set) against its plain version
     and, where one PyTorch call computes the same function, that call; bf16
@@ -1999,11 +2151,6 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     o = train_operands(randn, dev, B=B, T=T, d=d, H=H, dff=dff, dtype=dt,
                        qk=True)
     out = {}
-
-    def lib_nt():
-        for a, w in ((o["g"], o["w2"]), (o["gf"], o["w1"]),
-                     (o["g32"], o["wo"]), (o["gqkv"], o["wqkv"])):
-            torch.matmul(a.to(dt), w.t())
 
     def lib_tn():
         for x, y in ((o["f1"], o["g"]), (o["x"], o["gf"]), (o["x"], o["g32"]),
@@ -2035,6 +2182,7 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
             [True, True, True])
 
     with torch.no_grad():
+        out["linear_nt"] = linear_nt_spread(o, B, T, d, dff, gpu)
         sp = spread_ms(layer_tn_calls(o, es.linear_tn),
                        layer_tn_calls(o, es.linear_tn_reference), lib_tn)
         out["linear_tn"] = (sp["kernel"][0], sp["plain"][0], sp["lib"][0])
@@ -2052,8 +2200,6 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
         out["attention_fwd"] = attention_fwd_spread(o, B, T, d, H, True,
                                                     gpu)
         for name, kern, plain, lib in (
-                ("linear_nt", layer_nt_calls(o, es.linear_nt),
-                 layer_nt_calls(o, es.linear_nt_reference), lib_nt),
                 ("attention_bwd_q", attn_calls(o, H, True, "bwd_q", "kernel"),
                  attn_calls(o, H, True, "bwd_q", "plain"), lib_attn_bwd),
                 ("attention_bwd_kv", attn_calls(o, H, True, "bwd_kv",
@@ -2081,6 +2227,13 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     o = train_operands(randn, dev, dtype=dt, qk=False, **ct)
     with torch.no_grad():
         attention_fwd_spread(o, ct["B"], ct["T"], ct["d"], ct["H"], False, gpu)
+        k_ms, _, l_ms = linear_nt_spread(o, ct["B"], ct["T"], ct["d"],
+                                         ct["dff"], gpu)
+        b_ms, b_by = bound(*train_kernel_work(**ct)["linear_nt"])
+        print(f"bound linear_nt (bf16, B={ct['B']}, T={ct['T']}, the layer: "
+              f"4 calls): {b_ms:.4f} ms ({b_by}); kernel / bound "
+              f"{k_ms / b_ms:.2f}, kernel / library {k_ms / l_ms:.2f} "
+              f"[{gpu}]")
     del o
     torch.cuda.empty_cache()
     return out
@@ -2322,6 +2475,7 @@ def main() -> int:
     check_decode_kernels(randn, gen, dev, errs)
     check_train_kernels(randn, dev, errs, compare)
     check_token_ce(randn, gen, dev, errs, compare)
+    check_redesigned_modes(randn, gen, dev, compare)
     check_dropout_prng(dev, errs)
     check_flash_attention(randn, gen, dev, errs, compare)
     check_decode_step(randn, gen, dev, errs)

@@ -34,11 +34,11 @@
 // What bounds it on the card: at d_model=256 every product is small in K
 // (256 or 512), so each layer moves its activations through device memory
 // about seven times, and a product tile does little work per byte it loads.
-// linear and linear_nt run on the tensor cores through WMMA (bf16 in, f32
-// accumulate) in 64x64 output tiles that load 16-byte vectors and prefetch
-// the next K-slab into registers while the current one is multiplied;
-// linear_tn runs on wgmma with TMA and a ring of mbarrier stages (see its
-// note); the attention runs on the FMA units. LayerNorm is its own pass and
+// linear runs on the tensor cores through WMMA (bf16 in, f32 accumulate)
+// in 64x64 output tiles that load 16-byte vectors and prefetch the next
+// K-slab into registers while the current one is multiplied; linear_tn and
+// (in bf16) linear_nt run on wgmma with TMA and a ring of mbarrier stages
+// (see their notes); the attention runs on the FMA units. LayerNorm is its own pass and
 // not a prologue of the product: as a prologue, each of the N/64 column
 // blocks of a row block recomputed the same row statistics and
 // normalisation, which took as long again as the QKV product itself.
@@ -60,6 +60,7 @@
 
 #include "common.cuh"
 #include "dropout_prng.cuh"
+#include "split_reduce.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -261,122 +262,60 @@ linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
 //   linear_nt  out[M, Ko] = a[M, K] . w[Ko, K]^T     (dX = dY . W^T)
 //   linear_tn  out[Ko, N] = x[M, Ko]^T . y[M, N]     (dW = X^T . dY)
 //
-// linear_nt stages each operand's tile as its rows arrive from device
-// memory (coalesced loads, contiguous shared-memory stores) and runs one
-// WMMA / FMA inner loop, reading a transposed operand through a
-// column-major fragment. The gradient operand (a for NT, y for TN) may be
-// f32: it is multiplied by the dropout mask of its site (byte >= thresh ->
-// keep_scale, else 0) in f32 and rounded to the compute dtype as it is
-// staged (load_masked), which is where the TPU kernel rounds it
-// (df.astype(dt)). linear_nt's epilogue optionally gates by a ReLU output
-// (gate > 0, the FFN backward) and writes f32, or rounds to the compute
-// dtype and adds a running sum (dmemory over the decoder's layers).
-// linear_tn (below) reduces over all M rows in one launch, with the bias
-// gradient beside it.
+// The gradient operand (a for NT, y for TN) may be f32: it is multiplied by
+// the dropout mask of its site (byte >= thresh -> keep_scale, else 0) in f32
+// and rounded to the compute dtype as it is staged, which is where the TPU
+// kernel rounds it (df.astype(dt)). linear_nt's epilogue optionally gates
+// by a ReLU output (gate > 0, the FFN backward) and writes f32, or rounds to
+// the compute dtype and adds a running sum (dmemory over the decoder's
+// layers). In f32, linear_nt_f32_kernel stages each operand's tile as its rows
+// arrive from device memory (load_masked) and runs the FMA inner loop of
+// mma_slab; in bf16 it is linear_nt_wgmma_kernel (below). linear_tn
+// reduces over all M rows in one launch, with the bias gradient beside it.
 
-constexpr int TBK = 32;  // contraction slab of the NT / TN products
+constexpr int TBK = 32;  // contraction slab of the f32 NT / TN products
 
-template <typename T>
-using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                     float>;
-
-// one TBK-deep slab: cfrag / acc += A[BM][TBK] . B[TBK][BN]. Each operand
-// sits in shared memory as its global rows arrive, so the stores are
-// contiguous: A as [BM][LDA] (kAT false) or [TBK][LDA] (kAT, A^T), B as
-// [TBK][LDB] (kBT false) or [BN][LDB] (kBT, B^T); a transposed operand is
-// read through a column-major WMMA fragment.
-template <typename T, bool kAT, int LDA, bool kBT, int LDB>
-__device__ __forceinline__ void mma_slab(const T* as, const T* bs,
-                                         FragC<T> (&cfrag)[2],
+// one TBK-deep slab on the FMA units: acc += A[BM][TBK] . B[TBK][BN], each
+// thread a 4 x 4 register tile strided by 16. Each operand sits in shared
+// memory as its global rows arrive, so the stores are contiguous: A as
+// [BM][LDA] (kAT false) or [TBK][LDA] (kAT, A^T), B as [TBK][LDB] (kBT
+// false) or [BN][LDB] (kBT, B^T).
+template <bool kAT, int LDA, bool kBT, int LDB>
+__device__ __forceinline__ void mma_slab(const float* as, const float* bs,
                                          float (&acc)[4][4], int tid) {
-  using namespace nvcuda;
-  using LayoutA = std::conditional_t<kAT, wmma::col_major, wmma::row_major>;
-  using LayoutB = std::conditional_t<kBT, wmma::col_major, wmma::row_major>;
-  const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
   const int ty = tid >> 4, tx = tid & 15;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-#pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA> fa;
-      wmma::load_matrix_sync(
-          fa, kAT ? &as[kk * LDA + wm * 16] : &as[wm * 16 * LDA + kk], LDA);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        const int c = wn * 32 + f * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB> fb;
-        wmma::load_matrix_sync(fb, kBT ? &bs[c * LDB + kk] : &bs[kk * LDB + c],
-                               LDB);
-        wmma::mma_sync(cfrag[f], fa, fb, cfrag[f]);
-      }
-    }
-  } else {
 #pragma unroll 8
-    for (int kk = 0; kk < TBK; ++kk) {
-      float av[4], bv[4];
+  for (int kk = 0; kk < TBK; ++kk) {
+    float av[4], bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        av[i] = to_f<T>(kAT ? as[kk * LDA + r] : as[r * LDA + kk]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        bv[j] = to_f<T>(kBT ? bs[c * LDB + kk] : bs[kk * LDB + c]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      av[i] = kAT ? as[kk * LDA + r] : as[r * LDA + kk];
     }
-  }
-}
-
-// the BM x BN f32 result tile into shared memory (cs, row stride LDC)
-template <typename T, int LDC>
-__device__ __forceinline__ void store_tile(float* cs, FragC<T> (&cfrag)[2],
-                                           float (&acc)[4][4], int tid) {
-  const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-  const int ty = tid >> 4, tx = tid & 15;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
 #pragma unroll
-    for (int f = 0; f < 2; ++f)
-      nvcuda::wmma::store_matrix_sync(&cs[wm * 16 * LDC + wn * 32 + f * 16],
-                                      cfrag[f], LDC,
-                                      nvcuda::wmma::mem_row_major);
-  } else {
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      bv[j] = kBT ? bs[c * LDB + kk] : bs[kk * LDB + c];
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void zero_acc(FragC<T> (&cfrag)[2],
-                                         float (&acc)[4][4]) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    nvcuda::wmma::fill_fragment(cfrag[0], 0.f);
-    nvcuda::wmma::fill_fragment(cfrag[1], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
 // The gradient operand's kRows x kCols slab at (row0, col0) of an [.][N]
-// array, each element f32 (or dt) times its dropout mask and rounded to the
-// compute dtype, into kE registers a thread. 'bits' mode (kPrng false) reads
-// the mask bytes from drop (or none) and gives thread tid the elements
-// e = tid + i * kThreads (one column a lane); 'prng' mode draws them
-// in-kernel and gives each thread four consecutive columns of a row per
-// Philox call (N a multiple of 4), a quarter of the calls one element each
-// would take. The two are separate instantiations, so the 'bits' kernels
-// carry no Philox code in their main loop.
-template <typename T, typename TA, int kRows, int kCols, bool kPrng>
+// f32 array, each element times its dropout mask, into kE registers a
+// thread. 'bits' mode (kPrng false) reads the mask bytes from drop (or
+// none) and gives thread tid the elements e = tid + i * kThreads (one
+// column a lane); 'prng' mode draws them in-kernel and gives each thread
+// four consecutive columns of a row per Philox call (N a multiple of 4), a
+// quarter of the calls one element each would take. The two are separate
+// instantiations, so the 'bits' kernels carry no Philox code in their main
+// loop.
+template <int kRows, int kCols, bool kPrng>
 __device__ __forceinline__ void load_masked(
-    T (&reg)[kRows * kCols / kThreads], const TA* __restrict__ a,
+    float (&reg)[kRows * kCols / kThreads], const float* __restrict__ a,
     const uint8_t* __restrict__ drop, const DropPrng& prng, int row0,
     int col0, int row_lim, int N, int thresh, float keep_scale, int tid) {
   constexpr int kE = kRows * kCols / kThreads;
@@ -387,11 +326,11 @@ __device__ __forceinline__ void load_masked(
       const int m = row0 + r, n = col0 + c;
       float v = 0.f;
       if (m < row_lim && n < N) {
-        v = to_f<TA>(a[(size_t)m * N + n]);
+        v = a[(size_t)m * N + n];
         if (drop != nullptr)
           v *= drop[(size_t)m * N + n] >= (uint32_t)thresh ? keep_scale : 0.f;
       }
-      reg[i] = from_f<T>(v);
+      reg[i] = v;
     }
   } else {
 #pragma unroll
@@ -405,20 +344,21 @@ __device__ __forceinline__ void load_masked(
       for (int j = 0; j < 4; ++j) {
         float v = 0.f;
         if (m < row_lim && n + j < N) {
-          v = to_f<TA>(a[(size_t)m * N + n + j]);
+          v = a[(size_t)m * N + n + j];
           v *= ((wj[j] >> prng.shift) & 255u) >= (uint32_t)thresh ? keep_scale
                                                                    : 0.f;
         }
-        reg[4 * i + j] = from_f<T>(v);
+        reg[4 * i + j] = v;
       }
     }
   }
 }
 
 // load_masked's registers into shared memory (row stride ld), same mapping
-template <typename T, int kRows, int kCols, bool kPrng>
+template <int kRows, int kCols, bool kPrng>
 __device__ __forceinline__ void store_masked(
-    const T (&reg)[kRows * kCols / kThreads], T* dst, int ld, int tid) {
+    const float (&reg)[kRows * kCols / kThreads], float* dst, int ld,
+    int tid) {
   constexpr int kE = kRows * kCols / kThreads;
   if constexpr (!kPrng) {
 #pragma unroll
@@ -439,45 +379,42 @@ __device__ __forceinline__ void store_masked(
 
 constexpr int kLdaT = TBK + kPadA, kLdbT = BN + kPadB, kLdcT = BN + kPadC;
 constexpr int kElemsA = BM * TBK / kThreads, kElemsB = TBK * BN / kThreads;
-template <typename T>
-struct TrainSmem {  // NT: [BM][kLdaT] + [BN][kLdaT]; TN: 2 x [TBK][kLdbT]
-  static constexpr int kAB = 2 * BM * kLdaT * (int)sizeof(T);
-  static constexpr int kC = BM * kLdcT * (int)sizeof(float);
-  static constexpr int kBytes = kAB > kC ? kAB : kC;
-};
+// NT: [BM][kLdaT] + [BN][kLdaT], then the [BM][kLdcT] output tile; TN:
+// 2 x [TBK][kLdbT]
+constexpr int kTrainSmem = 2 * BM * kLdaT > BM * kLdcT ? 2 * BM * kLdaT * 4
+                                                       : BM * kLdcT * 4;
 
-template <typename T, typename TA, typename TO, bool kPrng>
+template <bool kPrng>
 __global__ void __launch_bounds__(kThreads, 2)
-linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
-                 const uint8_t* __restrict__ drop, DropPrng prng, int thresh,
-                 float keep_scale, const T* __restrict__ gate,
-                 const T* __restrict__ residual, TO* __restrict__ out, int M,
-                 int N, int K) {
+linear_nt_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
+                     const uint8_t* __restrict__ drop, DropPrng prng,
+                     int thresh, float keep_scale,
+                     const float* __restrict__ gate,
+                     const float* __restrict__ residual,
+                     float* __restrict__ out, int M, int N, int K) {
   // a [M][N] (contraction N), w [K][N]; out [M][K]
-  __shared__ __align__(128) unsigned char smem[TrainSmem<T>::kBytes];
-  T* as = reinterpret_cast<T*>(smem);  // [BM][kLdaT]: a rows
-  T* bs = as + BM * kLdaT;             // [BN][kLdaT]: w rows (B^T)
+  __shared__ __align__(128) unsigned char smem[kTrainSmem];
+  float* as = reinterpret_cast<float*>(smem);  // [BM][kLdaT]: a rows
+  float* bs = as + BM * kLdaT;                 // [BN][kLdaT]: w rows (B^T)
   float* cs = reinterpret_cast<float*>(smem);
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, k0 = blockIdx.x * BN;
-  FragC<T> cfrag[2];
-  float acc[4][4];
-  zero_acc<T>(cfrag, acc);
-  T ra[kElemsA], rb[kElemsB];
+  float acc[4][4] = {};
+  float ra[kElemsA], rb[kElemsB];
   auto load_slab = [&](int n0) {
-    load_masked<T, TA, BM, TBK, kPrng>(ra, a, drop, prng, m0, n0, M, N,
-                                       thresh, keep_scale, tid);
+    load_masked<BM, TBK, kPrng>(ra, a, drop, prng, m0, n0, M, N, thresh,
+                                keep_scale, tid);
 #pragma unroll
     for (int i = 0; i < kElemsB; ++i) {
       const int e = tid + i * kThreads, c = e % TBK, r = e / TBK;
       const int k = k0 + r, n = n0 + c;
-      rb[i] = k < K && n < N ? w[(size_t)k * N + n] : from_f<T>(0.f);
+      rb[i] = k < K && n < N ? w[(size_t)k * N + n] : 0.f;
     }
   };
   load_slab(0);
   for (int n0 = 0; n0 < N; n0 += TBK) {
-    store_masked<T, BM, TBK, kPrng>(ra, as, kLdaT, tid);
+    store_masked<BM, TBK, kPrng>(ra, as, kLdaT, tid);
 #pragma unroll
     for (int i = 0; i < kElemsB; ++i) {
       const int e = tid + i * kThreads;
@@ -485,10 +422,14 @@ linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
     }
     __syncthreads();
     if (n0 + TBK < N) load_slab(n0 + TBK);
-    mma_slab<T, false, kLdaT, true, kLdaT>(as, bs, cfrag, acc, tid);
+    mma_slab<false, kLdaT, true, kLdaT>(as, bs, acc, tid);
     __syncthreads();
   }
-  store_tile<T, kLdcT>(cs, cfrag, acc, tid);
+  const int ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cs[(ty + 16 * i) * kLdcT + tx + 16 * j] = acc[i][j];
   __syncthreads();
   for (int idx = tid; idx < BM * BN; idx += kThreads) {
     const int r = idx / BN, c = idx % BN;
@@ -496,9 +437,9 @@ linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
     if (m < M && k < K) {
       const size_t o = (size_t)m * K + k;
       float v = cs[r * kLdcT + c];
-      if (gate != nullptr && !(to_f<T>(gate[o]) > 0.f)) v = 0.f;
-      if (residual != nullptr) v = to_f<T>(residual[o]) + round_dt<T>(v);
-      out[o] = from_f<TO>(v);
+      if (gate != nullptr && !(gate[o] > 0.f)) v = 0.f;
+      if (residual != nullptr) v += residual[o];
+      out[o] = v;
     }
   }
 }
@@ -511,9 +452,9 @@ linear_nt_kernel(const TA* __restrict__ a, const T* __restrict__ w,
 // output tiles of 128 x 128), so M is cut into `splits` slices of
 // rows_per_split rows (a multiple of kTnSlab) to fill the SMs. Every block
 // writes its f32 partial tile to ws[tile][z]; the block that finishes a tile
-// last (a per-tile counter, reset by that block for the next launch) adds
-// the partials z = 0 .. S-1 in that fixed order and writes the result, so
-// re-runs are bit-stable and no second launch follows. The bias gradient db
+// last adds the partials z = 0 .. S-1 in that fixed order and writes the
+// result (split_reduce.cuh), so re-runs are bit-stable and no second launch
+// follows. The bias gradient db
 // is the f32 masked gradient summed before rounding (sum_rows_reference):
 // the blocks of the first K tile add their rows' columns, and the last block
 // of each of those tiles adds the partial rows in order too.
@@ -545,57 +486,6 @@ constexpr int kTnStageBytes = 9 * kTnBox;
 // columns are kTnBox apart (LBO), 8-row groups 1024 bytes apart (SBO)
 constexpr uint32_t kTnLbo = kTnBox, kTnSbo = 1024;
 
-// The last block to finish a tile (of `splits`) gets true, after a fence
-// that makes every other block's partials visible to it; it resets the
-// tile's counter for the next launch. Every thread of the block calls it.
-__device__ __forceinline__ bool tn_last_block(unsigned* counter, int splits,
-                                              int* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned seen = atomicAdd(counter, 1u);
-    *flag = seen == (unsigned)splits - 1;
-    if (*flag) *counter = 0u;
-  }
-  __syncthreads();
-  const bool last = *flag != 0;
-  if (last) __threadfence();
-  return last;
-}
-
-// the last block: out[r0 + r][c0 + c] = sum_z ws[z][r][c] in order z = 0..S-1
-// (tiles of TR x TC f32, the splits' partials S tiles apart); with db, the
-// same for the partial db rows ws_db[z][c]
-template <int TR, int TC>
-__device__ void tn_reduce(const float* __restrict__ ws, int splits,
-                          float* __restrict__ out, int K, int N, int r0,
-                          int c0, const float* __restrict__ ws_db,
-                          float* __restrict__ db) {
-  const float4* w4 = reinterpret_cast<const float4*>(ws);
-  for (int i = threadIdx.x; i < TR * TC / 4; i += blockDim.x) {
-    const int r = i / (TC / 4), c = (i % (TC / 4)) * 4;
-    if (r0 + r >= K || c0 + c >= N) continue;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int z = 0; z < splits; ++z) {
-      const float4 v = w4[(size_t)z * TR * TC / 4 + i];
-      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-    }
-    float* o = out + (size_t)(r0 + r) * N + c0 + c;
-    const float sv[4] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (c0 + c + j < N) o[j] = sv[j];
-  }
-  if (ws_db != nullptr)
-    for (int c = threadIdx.x; c < TC; c += blockDim.x) {
-      if (c0 + c >= N) continue;
-      float s = 0.f;
-      for (int z = 0; z < splits; ++z) s += ws_db[(size_t)z * TC + c];
-      db[c0 + c] = s;
-    }
-}
-
 struct TnArgs {
   const void* y;          // [M][N] f32 or bf16
   const uint8_t* drop;    // [M][N] mask bytes, or null
@@ -611,10 +501,11 @@ struct TnArgs {
 };
 
 // v (8 columns n .. n + 7 of row m) times the dropout mask: 8 mask bytes
-// ('bits'), or the in-kernel draw (one prng_words4 per four columns)
-template <bool kPrng>
-__device__ __forceinline__ void tn_mask8(const TnArgs& a, int m, int n,
-                                         uint2 bytes, float (&v)[8]) {
+// ('bits'), or the in-kernel draw (one prng_words4 per four columns); a is
+// linear_tn's or linear_nt's arguments (the mask's rows M and columns N)
+template <bool kPrng, typename Args>
+__device__ __forceinline__ void mask8(const Args& a, int m, int n,
+                                      uint2 bytes, float (&v)[8]) {
   if constexpr (kPrng) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -730,7 +621,7 @@ linear_tn_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const uint2 bw = bits ? *reinterpret_cast<const uint2*>(
                                     byt + r * kTnTile + chunk * 8)
                               : make_uint2(0u, 0u);
-        tn_mask8<kPrng>(a, m0 + r, n, bw, v);
+        mask8<kPrng>(a, m0 + r, n, bw, v);
         uint4 packed;
         __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
 #pragma unroll
@@ -791,8 +682,8 @@ linear_tn_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int g = 0; g < 8; ++g) s += red[g * kTnTile + tid];
     a.ws_db[((size_t)blockIdx.x * splits + z) * kTnTile + tid] = s;
   }
-  if (tn_last_block(a.counters + tile, splits, flag))
-    tn_reduce<kTnTile, kTnTile>(
+  if (split_last_block(a.counters + tile, splits, flag))
+    split_reduce<kTnTile, kTnTile>(
         a.ws + (size_t)tile * splits * kTnTile * kTnTile, splits, a.out, a.K,
         a.N, k0, n0,
         with_db ? a.ws_db + (size_t)blockIdx.x * splits * kTnTile : nullptr,
@@ -803,7 +694,7 @@ linear_tn_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 template <bool kPrng>
 __global__ void __launch_bounds__(kThreads, 2)
 linear_tn_f32_kernel(const float* __restrict__ x, TnArgs a) {
-  __shared__ __align__(128) unsigned char smem[TrainSmem<float>::kBytes];
+  __shared__ __align__(128) unsigned char smem[kTrainSmem];
   __shared__ int flag;
   float* as = reinterpret_cast<float*>(smem);  // [TBK][kLdbT]: x rows (A^T)
   float* bs = as + TBK * kLdbT;                // [TBK][kLdbT]: y rows
@@ -817,9 +708,7 @@ linear_tn_f32_kernel(const float* __restrict__ x, TnArgs a) {
   const int me = min(M, mb + a.rows_per_split);
   const bool with_db = a.db != nullptr && blockIdx.y == 0;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  FragC<float> cfrag[2];
-  float acc[4][4];
-  zero_acc<float>(cfrag, acc);
+  float acc[4][4] = {};
   float dbacc = 0.f;
   float ra[kElemsA], rb[kElemsB];
   auto load_slab = [&](int m0) {
@@ -829,9 +718,8 @@ linear_tn_f32_kernel(const float* __restrict__ x, TnArgs a) {
       const int m = m0 + c, k = kr0 + r;
       ra[i] = m < me && k < K ? x[(size_t)m * K + k] : 0.f;
     }
-    load_masked<float, float, TBK, BN, kPrng>(rb, y, a.drop, a.prng, m0, n0,
-                                              me, N, a.thresh, a.keep_scale,
-                                              tid);
+    load_masked<TBK, BN, kPrng>(rb, y, a.drop, a.prng, m0, n0, me, N,
+                                a.thresh, a.keep_scale, tid);
   };
   load_slab(mb);
   for (int m0 = mb; m0 < me; m0 += TBK) {
@@ -840,12 +728,12 @@ linear_tn_f32_kernel(const float* __restrict__ x, TnArgs a) {
       const int e = tid + i * kThreads;
       as[(e / BM) * kLdbT + e % BM] = ra[i];
     }
-    store_masked<float, TBK, BN, kPrng>(rb, bs, kLdbT, tid);
+    store_masked<TBK, BN, kPrng>(rb, bs, kLdbT, tid);
     __syncthreads();
     if (with_db && tid < BN)
       for (int r = 0; r < TBK; ++r) dbacc += bs[r * kLdbT + tid];
     if (m0 + TBK < me) load_slab(m0 + TBK);
-    mma_slab<float, true, kLdbT, false, kLdbT>(as, bs, cfrag, acc, tid);
+    mma_slab<true, kLdbT, false, kLdbT>(as, bs, acc, tid);
     __syncthreads();
   }
   float* part = a.ws + ((size_t)tile * splits + z) * BM * BN;
@@ -856,12 +744,251 @@ linear_tn_f32_kernel(const float* __restrict__ x, TnArgs a) {
     for (int j = 0; j < 4; ++j) part[(ty + 16 * i) * BN + tx + 16 * j] = acc[i][j];
   if (with_db && tid < BN)
     a.ws_db[((size_t)blockIdx.x * splits + z) * BN + tid] = dbacc;
-  if (tn_last_block(a.counters + tile, splits, &flag))
-    tn_reduce<BM, BN>(a.ws + (size_t)tile * splits * BM * BN, splits, a.out,
+  if (split_last_block(a.counters + tile, splits, &flag))
+    split_reduce<BM, BN>(a.ws + (size_t)tile * splits * BM * BN, splits, a.out,
                       K, N, kr0, n0,
                       with_db ? a.ws_db + (size_t)blockIdx.x * splits * BN
                               : nullptr,
                       a.db);
+}
+
+// ---------------------------------------------------------------------------
+// linear_nt in bf16: out[M, K] = (a[M, N] * mask) . w[K, N]^T on wgmma
+// ---------------------------------------------------------------------------
+//
+// linear_tn's warp-specialised shape, for the input gradient. A block owns
+// a 128 x 128 output tile (rows m0.., columns k0..) and walks the
+// contraction N (256-768 on the stacks' paths, so no split-K) in 64-column
+// slabs through a ring of kNtStages mbarrier stages. Per slab the TMA warp
+// loads W's rows k0 .. k0 + 127 (128 x 64 bf16, 128-byte swizzle: wgmma's
+// K-major B operand of a . w^T), the raw rows of a (128 x 64, f32 or bf16)
+// and, in 'bits' mode, their mask bytes. Warpgroup 2 converts a in shared
+// memory: times the mask (the bytes, or the in-kernel Philox draw of
+// 'prng' mode, mask8) in f32, rounded to bf16 into the 128-byte-swizzled
+// K-major A layout. Where a is bf16 and has no mask (kDirect), TMA lands it
+// in that layout itself and the converter has nothing to do. Warpgroups 0
+// and 1 run wgmma m64n128k16 on 64 rows each, both operands K-major; the
+// tile stays in 64 registers a thread over all of N, and the epilogue (the
+// gate > 0, the residual added after rounding to bf16, the f32 or bf16
+// store) runs from those registers. Each output element has one owner and
+// one summation order: re-runs are bit-stable.
+//
+// What bounds it: bytes. At K = 256 the product does 2 K operations per
+// element of a it reads (f32: 4 bytes), far below the card's ~295
+// operations a byte; each row slab of a is read once from device memory and
+// K / 128 times from L2 (the column tiles of a row slab are neighbours in
+// the grid). At M = 12,288 the grid is 96 x 2-4 tiles (1.5-3 waves of one
+// block an SM), at M = 49,152 384 x 2-4 (5.8-11.6 waves). A block's
+// epilogue does not overlap the next block's loads (one block an SM), so
+// the calls with the largest outputs (the ReLU-gated one: f32 M x 512 and
+// the gate) sit furthest above their bytes.
+
+constexpr int kNtRows = 128;     // output rows a block: two warpgroups of 64
+constexpr int kNtCols = 128;     // output columns a block (n of the wgmma)
+constexpr int kNtSlab = 64;      // contraction columns a stage
+constexpr int kNtStages = 3;
+constexpr int kNtThreads = 416;  // consumer WGs 0-1, converter WG 2, a TMA warp
+constexpr int kNtBox = kNtRows * 128;  // a 128-row x 64-column bf16 box
+// a stage: the bf16 A slab, W's rows, the raw a rows (128 x 64 f32 at
+// most), their mask bytes (128 x 64)
+constexpr int kNtW = kNtBox, kNtRaw = 2 * kNtBox, kNtBytes = 4 * kNtBox;
+constexpr int kNtStageBytes = 4 * kNtBox + kNtRows * kNtSlab;
+constexpr size_t kNtSmem = kNtStages * kNtStageBytes + 1024 +
+                           3 * kNtStages * sizeof(uint64_t);
+
+struct NtArgs {
+  const uint8_t* drop;    // [M][d_pitch] mask bytes, or null
+  DropPrng prng;
+  int thresh;
+  float keep_scale;
+  const __nv_bfloat16* gate;      // [M][K] or null
+  const __nv_bfloat16* residual;  // [M][K] or null
+  void* out;                      // [M][K] f32 or bf16
+  int out_f32;
+  int M, N, K;                    // N: a's columns (the mask's, prng's)
+};
+
+template <typename TA, bool kPrng, bool kDirect>
+__global__ void __launch_bounds__(kNtThreads, 1)
+linear_nt_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const __grid_constant__ CUtensorMap dmap, NtArgs a,
+                       int slabs) {
+  extern __shared__ unsigned char nt_smem_raw[];
+  unsigned char* smem = nt_smem_raw + ((1024u - (smem_u32(nt_smem_raw) &
+                                                 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kNtStages *
+                                               kNtStageBytes);
+  uint64_t* conv = full + kNtStages;
+  uint64_t* empty = conv + kNtStages;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int k0 = blockIdx.x * kNtCols, m0 = blockIdx.y * kNtRows;
+  const bool bits = !kPrng && !kDirect && a.drop != nullptr;
+
+  if (tid == 0) {
+    for (int s = 0; s < kNtStages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(conv + s), 128);
+      mbar_init(smem_u32(empty + s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 3) {
+    // the TMA warp: slab i into stage i % kNtStages once it is free
+    if (t == 0) {
+      const uint32_t tx = kNtW + kNtRows * kNtSlab * (uint32_t)sizeof(TA) +
+                          (bits ? kNtRows * kNtSlab : 0);
+      for (int i = 0; i < slabs; ++i) {
+        const int s = i % kNtStages;
+        mbar_wait(smem_u32(empty + s), ((i / kNtStages) & 1) ^ 1);
+        unsigned char* st = smem + s * kNtStageBytes;
+        const uint32_t bar = smem_u32(full + s);
+        mbar_arrive_expect_tx(bar, tx);
+        tma_load_2d(smem_u32(st + kNtW), &wmap, bar, i * kNtSlab, k0);
+        tma_load_2d(smem_u32(st + (kDirect ? 0 : kNtRaw)), &amap, bar,
+                    i * kNtSlab, m0);
+        if (bits)
+          tma_load_2d(smem_u32(st + kNtBytes), &dmap, bar, i * kNtSlab, m0);
+      }
+    }
+    return;
+  }
+  if (wg == 2) {
+    if constexpr (!kDirect) {
+      // converters: the raw rows of slab i, masked and rounded into the
+      // swizzled A slab; thread t a 16-byte chunk of 8 columns of 8 rows
+      const int chunk = t & 7, rg = t >> 3;
+      for (int i = 0; i < slabs; ++i) {
+        const int s = i % kNtStages;
+        mbar_wait(smem_u32(full + s), (i / kNtStages) & 1);
+        unsigned char* st = smem + s * kNtStageBytes;
+        const TA* raw = reinterpret_cast<const TA*>(st + kNtRaw);
+        const uint8_t* byt = st + kNtBytes;
+        const int n = i * kNtSlab + chunk * 8;
+#pragma unroll
+        for (int rr = 0; rr < kNtRows / 16; ++rr) {
+          const int r = rg + 16 * rr;
+          float v[8];
+          if constexpr (std::is_same<TA, float>::value) {
+            const float4* p = reinterpret_cast<const float4*>(
+                raw + r * kNtSlab + chunk * 8);
+            const float4 u = p[0], w = p[1];
+            v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+            v[4] = w.x; v[5] = w.y; v[6] = w.z; v[7] = w.w;
+          } else {
+            const uint4 u = *reinterpret_cast<const uint4*>(
+                raw + r * kNtSlab + chunk * 8);
+            const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
+          }
+          const uint2 bw = bits ? *reinterpret_cast<const uint2*>(
+                                      byt + r * kNtSlab + chunk * 8)
+                                : make_uint2(0u, 0u);
+          mask8<kPrng>(a, m0 + r, n, bw, v);
+          uint4 packed;
+          __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            p2[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+          *reinterpret_cast<uint4*>(st + r * 128 +
+                                    ((chunk ^ (r & 7)) << 4)) = packed;
+        }
+        // the generic-proxy stores, visible to the tensor cores' async proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(smem_u32(conv + s));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows m0 + 64 wg .. + 63
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < slabs; ++i) {
+    const int s = i % kNtStages;
+    mbar_wait(smem_u32(full + s), (i / kNtStages) & 1);
+    if constexpr (!kDirect) mbar_wait(smem_u32(conv + s), (i / kNtStages) & 1);
+    const uint32_t st = smem_u32(smem + s * kNtStageBytes);
+    const uint32_t as = st + wg * 64 * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kNtSlab / 16; ++kk)
+      wgmma_m64n128_kk(acc, sw128_desc(as + kk * 32, 16),
+                       sw128_desc(st + kNtW + kk * 32, 16));
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(smem_u32(empty + s));
+  }
+
+  // the epilogue from the accumulator: thread (warp w, lane l) holds rows
+  // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1). With K even (every
+  // stack call) a thread's gate and residual pairs for 16 accumulator pairs
+  // are loaded together before any is used, so their latencies overlap
+  const int warp = t >> 5, lane = t & 31;
+  const int mrow = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int kcol = k0 + (lane & 3) * 2;
+  if (a.K % 2 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __nv_bfloat162 gv[16], rv[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int i = 32 * h + 2 * q;
+        const int m = mrow + 8 * ((i >> 1) & 1), k = kcol + (i >> 2) * 8;
+        const bool ok = m < a.M && k < a.K;
+        const size_t o = (size_t)m * a.K + k;
+        gv[q] = rv[q] = __floats2bfloat162_rn(0.f, 0.f);
+        if (ok && a.gate != nullptr)
+          gv[q] = *reinterpret_cast<const __nv_bfloat162*>(a.gate + o);
+        if (ok && a.residual != nullptr)
+          rv[q] = *reinterpret_cast<const __nv_bfloat162*>(a.residual + o);
+      }
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int i = 32 * h + 2 * q;
+        const int m = mrow + 8 * ((i >> 1) & 1), k = kcol + (i >> 2) * 8;
+        if (m >= a.M || k >= a.K) continue;
+        const size_t o = (size_t)m * a.K + k;
+        float v0 = acc[i], v1 = acc[i + 1];
+        if (a.gate != nullptr) {
+          if (!(__low2float(gv[q]) > 0.f)) v0 = 0.f;
+          if (!(__high2float(gv[q]) > 0.f)) v1 = 0.f;
+        }
+        if (a.residual != nullptr) {
+          v0 = __low2float(rv[q]) + __bfloat162float(__float2bfloat16(v0));
+          v1 = __high2float(rv[q]) + __bfloat162float(__float2bfloat16(v1));
+        }
+        if (a.out_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + o) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.out) + o) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    return;
+  }
+  // odd K: element by element
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int m = mrow + 8 * ((i >> 1) & 1), k = kcol + (i >> 2) * 8 + (i & 1);
+    if (m >= a.M || k >= a.K) continue;
+    const size_t o = (size_t)m * a.K + k;
+    float v = acc[i];
+    if (a.gate != nullptr && !(__bfloat162float(a.gate[o]) > 0.f)) v = 0.f;
+    if (a.residual != nullptr)
+      v = __bfloat162float(a.residual[o]) +
+          __bfloat162float(__float2bfloat16(v));
+    if (a.out_f32)
+      static_cast<float*>(a.out)[o] = v;
+    else
+      static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16(v);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1178,33 +1305,66 @@ int launch_attention_dh(const void* qkv, const void* key_bias,
 }
 
 
-template <typename T, bool kPrng>
-int launch_linear_nt(int a_f32, const void* a, const void* w, const void* drop,
-                     DropPrng prng, int thresh, float keep_scale,
-                     const void* gate,
-                     const void* residual, int out_f32, void* out, int M,
-                     int N, int K, cudaStream_t stream) {
+// f32: the WMMA/FMA tile kernel
+template <bool kPrng>
+int launch_linear_nt_f32(int a_f32, const void* a, const void* w,
+                         const void* drop, DropPrng prng, int thresh,
+                         float keep_scale, const void* gate,
+                         const void* residual, int out_f32, void* out, int M,
+                         int N, int K, cudaStream_t stream) {
+  if (!a_f32 || !out_f32) return (int)cudaErrorInvalidValue;
   const dim3 grid((K + BN - 1) / BN, (M + BM - 1) / BM);
-  const T* wp = static_cast<const T*>(w);
-  const uint8_t* dp = static_cast<const uint8_t*>(drop);
-  const T* gp = static_cast<const T*>(gate);
-  const T* rp = static_cast<const T*>(residual);
-  if (a_f32 && out_f32)
-    linear_nt_kernel<T, float, float, kPrng><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(a), wp, dp, prng, thresh, keep_scale, gp, rp,
-        static_cast<float*>(out), M, N, K);
-  else if (a_f32)
-    linear_nt_kernel<T, float, T, kPrng><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(a), wp, dp, prng, thresh, keep_scale, gp, rp,
-        static_cast<T*>(out), M, N, K);
-  else if (out_f32)
-    linear_nt_kernel<T, T, float, kPrng><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(a), wp, dp, prng, thresh, keep_scale, gp, rp,
-        static_cast<float*>(out), M, N, K);
-  else
-    linear_nt_kernel<T, T, T, kPrng><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(a), wp, dp, prng, thresh, keep_scale, gp, rp,
-        static_cast<T*>(out), M, N, K);
+  linear_nt_f32_kernel<kPrng><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w),
+      static_cast<const uint8_t*>(drop), prng, thresh, keep_scale,
+      static_cast<const float*>(gate), static_cast<const float*>(residual),
+      static_cast<float*>(out), M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// bf16: a (M, pitch) f32 or bf16 and w (K, pitch) bf16, their columns past N
+// zero; the mask bytes (M, d_pitch); pitches and bases 16-byte aligned
+template <typename TA, bool kPrng, bool kDirect>
+int launch_linear_nt_bf16(const void* a, const void* w, int pitch,
+                          int d_pitch, const NtArgs& args,
+                          cudaStream_t stream) {
+  const int ae = (int)sizeof(TA);
+  auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (pitch < args.N || pitch % 8 != 0 || misaligned(a) || misaligned(w) ||
+      (args.drop != nullptr && (d_pitch % 16 != 0 || d_pitch < args.N ||
+                                misaligned(args.drop))))
+    return (int)cudaErrorInvalidValue;
+  TmapEncode encode = tmap_encode();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap amap, wmap, dmap;
+  const CUtensorMapDataType at = ae == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!tmap_2d(&wmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, args.K,
+               pitch, kNtSlab, kNtCols, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap_2d(&amap, encode, at, ae, a, args.M, pitch, kNtSlab, kNtRows,
+               kDirect ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  dmap = wmap;  // unused without mask bytes
+  if (!kPrng && !kDirect && args.drop != nullptr &&
+      !tmap_2d(&dmap, encode, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, args.drop,
+               args.M, d_pitch, kNtSlab, kNtRows, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;  // one instantiation, one attribute
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        linear_nt_wgmma_kernel<TA, kPrng, kDirect>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kNtSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid((args.K + kNtCols - 1) / kNtCols,
+                  (args.M + kNtRows - 1) / kNtRows);
+  linear_nt_wgmma_kernel<TA, kPrng, kDirect>
+      <<<grid, kNtThreads, kNtSmem, stream>>>(amap, wmap, dmap, args,
+                                               (pitch + kNtSlab - 1) / kNtSlab);
   return (int)cudaGetLastError();
 }
 
@@ -1278,23 +1438,47 @@ int sk_linear(int dtype, const void* a, const void* w, const void* bias,
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16: a and w are read with row pitch `pitch` >= N (16-byte rows, zero
+// past N), the mask bytes with d_pitch; f32: both pitches are N
 int sk_linear_nt(int dtype, int a_f32, const void* a, const void* w,
-                 const void* drop, unsigned long long seed, int layer,
-                 int site, int prng_T, int thresh, float keep_scale,
-                 const void* gate, const void* residual, int out_f32,
-                 void* out, int M, int N, int K, void* stream) {
+                 int pitch, const void* drop, int d_pitch,
+                 unsigned long long seed, int layer, int site, int prng_T,
+                 int thresh, float keep_scale, const void* gate,
+                 const void* residual, int out_f32, void* out, int M, int N,
+                 int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DropPrng p = make_prng(seed, layer, site, prng_T);
   if (prng_T > 0 && N % 4 != 0) return (int)cudaErrorInvalidValue;
-#define SK_NT(T, P)                                                        \
-  return launch_linear_nt<T, P>(a_f32, a, w, drop, p, thresh, keep_scale, \
-                                gate, residual, out_f32, out, M, N, K, s)
-  if (dtype == 0 && prng_T > 0) SK_NT(float, true);
-  if (dtype == 0) SK_NT(float, false);
-  if (dtype == 1 && prng_T > 0) SK_NT(__nv_bfloat16, true);
-  if (dtype == 1) SK_NT(__nv_bfloat16, false);
+  if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (prng_T > 0)
+      return launch_linear_nt_f32<true>(a_f32, a, w, drop, p, thresh,
+                                        keep_scale, gate, residual, out_f32,
+                                        out, M, N, K, s);
+    return launch_linear_nt_f32<false>(a_f32, a, w, drop, p, thresh,
+                                       keep_scale, gate, residual, out_f32,
+                                       out, M, N, K, s);
+  }
+  if (dtype != 1 || (residual != nullptr && out_f32))
+    return (int)cudaErrorInvalidValue;
+  NtArgs args;
+  args.drop = static_cast<const uint8_t*>(drop);
+  args.prng = p;
+  args.thresh = thresh;
+  args.keep_scale = keep_scale;
+  args.gate = static_cast<const __nv_bfloat16*>(gate);
+  args.residual = static_cast<const __nv_bfloat16*>(residual);
+  args.out = out;
+  args.out_f32 = out_f32;
+  args.M = M; args.N = N; args.K = K;
+#define SK_NT(TA, P, D) \
+  return launch_linear_nt_bf16<TA, P, D>(a, w, pitch, d_pitch, args, s)
+  if (a_f32 && prng_T > 0) SK_NT(float, true, false);
+  if (a_f32) SK_NT(float, false, false);
+  if (prng_T > 0) SK_NT(__nv_bfloat16, true, false);
+  if (drop != nullptr) SK_NT(__nv_bfloat16, false, false);
+  SK_NT(__nv_bfloat16, false, true);
 #undef SK_NT
-  return (int)cudaErrorInvalidValue;
 }
 
 // dW = x^T . (y * mask) over all M rows into out (K, N) f32 and, with db

@@ -13,12 +13,14 @@
 //           compute dtype for the product (pallas_ce.py:93); dx = dl . W^T;
 //   ce_dw   dW = x^T . dl (f32) and db = the column sums of the unrounded
 //           f32 dl (pallas_ce.py:104), per M slice: each slice writes f32
-//           partials that sum_rows (norm_train.cu) adds in a fixed order.
+//           partials that the last block of each vocab tile adds in a fixed
+//           order in the same launch (split_reduce.cuh).
 //
-// Design. In bf16, dx is a warp-specialised wgmma kernel fed by TMA
-// (ce_dx_wgmma_kernel, see its note). The other kernels, and dx in f32: a
-// block owns a 64-row tile (forward and dx) or a 64-column vocab tile and an
-// M slice (dW). The operand it keeps (the rows, or the W tile)
+// Design. In bf16, dx and dW are warp-specialised wgmma kernels fed by TMA
+// (ce_dx_wgmma_kernel and ce_dw_wgmma_kernel, see their notes). The
+// forward, and dx and dW in f32: a block owns a 64-row tile (forward and
+// dx) or a 64-column vocab tile and an M slice (dW). The operand it keeps
+// (the rows, or the W tile)
 // stays in shared memory while it streams the other; each 64 x 64 logits
 // tile is a WMMA product (bf16 in, f32 accumulate; f32 inputs on the FMA
 // units) into shared memory and is reduced there on the spot: the forward
@@ -35,11 +37,12 @@
 // JAX kernel's NEG_INF bias padding does on the TPU's 128 lanes).
 //
 // What bounds it on the card: the products, 2 M d V operations for the
-// forward and 3 x that for the backward (recompute, dx, dW). At d = 256 a
-// row tile does 2 * 64 * 256 operations per W element it stages, so the
-// tiles are tensor-core bound only with a well-fed pipeline; the forward and
-// dW stage synchronously (no TMA, no wgmma, no double buffering), dx in bf16
-// runs a TMA ring into wgmma.
+// forward and 4 x that for the backward (a recompute and a product in each
+// of dx and dW). At d = 256 a row tile does 2 * 64 * 256 operations per W
+// element it stages, so the tiles are tensor-core bound only with a
+// well-fed pipeline; the forward (and f32) stage synchronously (no TMA, no
+// wgmma, no double buffering), dx and dW in bf16 run a TMA ring into
+// wgmma.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
@@ -51,6 +54,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "split_reduce.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -540,17 +544,29 @@ ce_dx_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 // tile stays in shared memory while the slice's row tiles stream through
 // ---------------------------------------------------------------------------
 
+// where a dW launch writes: dW (K rows = d, N columns = V) and db (N) f32,
+// the splits' partials ws [tiles][splits][dp][64] and ws_db
+// [tiles][splits][64], and one counter a tile (zero between launches)
+struct DwOut {
+  float* dw;
+  float* db;
+  float* ws;
+  float* ws_db;
+  unsigned* counters;
+  int K, N;
+};
+
 template <typename T, int NG>
 __global__ void __launch_bounds__(kThreads)
 ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
              const float* __restrict__ bias, const int* __restrict__ tgt,
              const float* __restrict__ lse, const float* __restrict__ gll,
-             float* __restrict__ dw_part, float* __restrict__ db_part, int M,
-             int dp, int V, int Vp, int rows_per_split) {
+             DwOut o, int M, int dp, int V, int Vp, int rows_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int flag;
   const Parts<T> s(smem, dp);
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN, z = blockIdx.y;
+  const int n0 = blockIdx.x * BN, z = blockIdx.y, splits = gridDim.y;
   const int mb = z * rows_per_split, me = min(M, mb + rows_per_split);
   stage<T>(s.ws, BN + kPad, w + n0, Vp, dp, BN, dp, tid);
   FragC cf[NG][2];
@@ -577,7 +593,8 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
       mma_tile<T, true, false>(s.xs + g * BM, dp + kPad, s.ds, BN + kPad, BM,
                                cf[g], acc[g], tid);
   }
-  float* dst = dw_part + (size_t)z * dp * Vp;
+  const size_t part = (size_t)blockIdx.x * splits + z;
+  float* dst = o.ws + part * dp * BN;
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     __syncthreads();
@@ -585,7 +602,7 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
     __syncthreads();
     for (int e = tid; e < BM * BN; e += kThreads) {
       const int r = e / BN, cc = e - r * BN;
-      dst[(size_t)(g * BM + r) * Vp + n0 + cc] = s.cs[r * kLdc + cc];
+      dst[(g * BM + r) * BN + cc] = s.cs[r * kLdc + cc];
     }
   }
   // db: the four threads of a column, added in a fixed order
@@ -594,8 +611,285 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if (tid < BN) {
     float t = 0.f;
     for (int i = 0; i < kThreads / BN; ++i) t += s.red[i * BN + tid];
-    db_part[(size_t)z * Vp + n0 + tid] = t;
+    o.ws_db[part * BN + tid] = t;
   }
+  if (split_last_block(o.counters + blockIdx.x, splits, &flag))
+    split_reduce<NG * BM, BN>(o.ws + (size_t)blockIdx.x * splits * dp * BN,
+                              splits, o.dw, o.K, o.N, 0, n0,
+                              o.ws_db + (size_t)blockIdx.x * splits * BN,
+                              o.db);
+}
+
+// ---------------------------------------------------------------------------
+// backward, dW and db in bf16: wgmma products fed by a TMA ring
+// ---------------------------------------------------------------------------
+//
+// ce_dx_wgmma_kernel with the roles of x and W swapped. A block owns one
+// 64-column vocab tile of W (dp x 64, one TMA box, 128-byte swizzle, kept in
+// shared memory) and one M slice, whose 64-row x slabs stream through a
+// ring of dw_stages(dp) mbarrier stages that the first thread of a producer
+// warpgroup keeps full (setmaxnreg moves the producer's registers to the
+// consumers). The two consumer warpgroups take alternate slabs and never
+// wait for each other, so one's exponentials run while the other's products
+// do. For each of its slabs a consumer warpgroup
+//   - forms S = x . W_tile by wgmma m64n64k16, both operands in shared
+//     memory (x K-major, the tile MN-major), as ce_dx does;
+//   - turns the f32 accumulator into dl in registers (lse, gll and the
+//     target per row, the bias per column, columns >= V excluded by index),
+//     adds the f32 dl into its columns' db partials before any rounding,
+//     rounds it to bf16 into its own 128-byte-swizzled dl tile and fences
+//     it for the async proxy;
+//   - runs dW_tile += x_slab^T . dl by wgmma m64n64k16 with both operands
+//     MN-major: the same staged x slab read transposed through its
+//     descriptor, no copy. Each warpgroup keeps the whole dp x 64 dW tile
+//     of its own slabs in registers.
+// At the end warpgroup 1 hands its dW tile to warpgroup 0 through shared
+// memory, which adds it to its own (the order fixed: 0, then 1) and writes
+// the split's f32 partial; the last block of the vocab tile adds the
+// splits' partials in the order z = 0..S-1 (split_reduce.cuh), so re-runs
+// are bit-stable and no sum_rows follows. Rows >= M come in as TMA zeros
+// and get a zero gradient.
+//
+// Tile width and splits: 64 columns keep a consumer thread's S tile (32
+// registers) and its dW tile (128 at dp = 256) in registers. 157 tiles alone
+// (V = 10,004) would fill 1.19 waves of 132 SMs (one block an SM: the ring
+// takes 160 KB at dp = 256), so M is cut into the split count of at most 8
+// whose grid fills its last wave best (ops/token_ce.py::dw_plan): 5 at the
+// train shape, 785 blocks in 5.95 waves.
+//
+// What bounds it: the recompute and the product, 4 M d V operations, the
+// same work as ce_dx (the TPU kernel's one recompute serves both
+// products). Each block reads its slice's x slabs from L2 (x is 25 MB at
+// the train shape), 157 times over in all. On the card its time, as
+// ce_dx's, grows far less than its work with dp: a cost per slab that does
+// not depend on dp (the dl phase and the products' latency within one
+// warpgroup) sets it, not the products' rate.
+
+constexpr int kDwRows = 64;            // rows of an x slab: one warpgroup's
+constexpr int kDwThreads = 384;        // consumers 0-1, producer warpgroup 2
+constexpr int kDwBox = kDwRows * 128;  // a 64-row x 64-column bf16 box
+constexpr int kDwStagesMax = 8;
+constexpr int kDwSmemMax = 232448;     // what a block may opt into
+
+// the fixed parts of a dW block's dynamic shared memory (bytes): 1024 to
+// align the swizzle atoms, the W tile, the two warpgroups' dl tiles, the db
+// reduction rows, the barriers and the last-block flag
+__host__ __device__ constexpr int dw_fixed_bytes(int ng) {
+  return 1024 + ng * 64 * 128 + 2 * kDwBox + 8 * 64 * 4 +
+         (2 * kDwStagesMax + 1) * 8 + 16;
+}
+
+// x slabs in flight at dp = 64 ng: as many as fit beside the fixed parts,
+// at most kDwStagesMax
+__host__ __device__ constexpr int dw_stages(int ng) {
+  return (kDwSmemMax - dw_fixed_bytes(ng)) / (ng * kDwBox) < kDwStagesMax
+             ? (kDwSmemMax - dw_fixed_bytes(ng)) / (ng * kDwBox)
+             : kDwStagesMax;
+}
+
+constexpr size_t dw_smem_bytes(int ng) {
+  return (size_t)dw_fixed_bytes(ng) + (size_t)dw_stages(ng) * ng * kDwBox;
+}
+
+template <int NG>
+__global__ void __launch_bounds__(kDwThreads, 1)
+ce_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap,
+                   const float* __restrict__ bias, const int* __restrict__ tgt,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ gll, DwOut o, int M, int V,
+                   int rows_per_split) {
+  constexpr int dp = NG * 64;
+  constexpr int kStages = dw_stages(NG);
+  constexpr int kSlab = NG * kDwBox;   // an x slab: NG boxes of 64 columns
+  static_assert(kStages * kSlab >= dp * 64 * 4, "dW hand-over fits the ring");
+  extern __shared__ unsigned char dw_smem_raw[];
+  unsigned char* smem =
+      dw_smem_raw + ((1024u - (smem_u32(dw_smem_raw) & 1023u)) & 1023u);
+  unsigned char* wt = smem;                     // [dp][128 B]: the W tile
+  unsigned char* ring = wt + NG * 64 * 128;     // kStages x slabs
+  unsigned char* dls = ring + kStages * kSlab;  // 2 x [64 rows][128 B]
+  float* red = reinterpret_cast<float*>(dls + 2 * kDwBox);  // [8 warps][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * 64);
+  uint64_t* empty = full + kStages;
+  uint64_t* wbar = empty + kStages;
+  int* flag = reinterpret_cast<int*>(wbar + 1);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int tile = blockIdx.x, n0 = tile * 64;
+  const int z = blockIdx.y, splits = gridDim.y;
+  const int mb = z * rows_per_split;
+  const int slabs = (min(M, mb + rows_per_split) - mb + kDwRows - 1) / kDwRows;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 128);
+    }
+    mbar_init(smem_u32(wbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: the W tile, then slab i into stage i % kStages once the
+    // warpgroup that took its last slab has released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (t == 0) {
+      mbar_arrive_expect_tx(smem_u32(wbar), NG * 64 * 128);
+      tma_load_2d(smem_u32(wt), &wmap, smem_u32(wbar), n0, 0);
+      for (int i = 0; i < slabs; ++i) {
+        const int s = i % kStages;
+        mbar_wait(smem_u32(empty + s), ((i / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(smem_u32(full + s), kSlab);
+        for (int g = 0; g < NG; ++g)
+          tma_load_2d(smem_u32(ring + s * kSlab + g * kDwBox), &xmap,
+                      smem_u32(full + s), g * 64, mb + i * kDwRows);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg takes slabs wg, wg + 2, ..; this thread's slab
+  // rows rloc and rloc + 8, columns n0 + 8 j + c2 (+ 1) of each 8-column
+  // block j
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int warp = t >> 5, lane = t & 31, c2 = 2 * (lane & 3);
+  const int rloc = warp * 16 + (lane >> 2);
+  float acc[NG][32];
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[g][i] = 0.f;
+  float dbp[16];  // the db partials of this thread's 16 columns
+#pragma unroll
+  for (int q = 0; q < 16; ++q) dbp[q] = 0.f;
+  float bv[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + 8 * j + c2 + e;
+      bv[2 * j + e] = n < V ? bias[n] : 0.f;
+    }
+  const uint32_t wta = smem_u32(wt);
+  unsigned char* dl = dls + wg * kDwBox;
+  const uint32_t dla = smem_u32(dl);
+  mbar_wait(smem_u32(wbar), 0);
+  for (int i = wg; i < slabs; i += 2) {
+    const int s = i % kStages, m0 = mb + i * kDwRows;
+    float rl[2], rg[2];
+    int rt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + rloc + 8 * r;
+      const bool ok = m < M;
+      rl[r] = ok ? lse[m] : INFINITY;  // exp(. - inf) = 0: no gradient
+      rg[r] = ok ? gll[m] : 0.f;
+      rt[r] = ok ? tgt[m] : -1;
+    }
+    mbar_wait(smem_u32(full + s), (i / kStages) & 1);
+    const uint32_t xa = smem_u32(ring + s * kSlab);
+    float sc[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) sc[q] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < dp / 16; ++kk)  // S = x . W_tile over dp
+      wgmma_m64n64_ss(sc,
+                      sw128_desc(xa + (kk >> 2) * kDwBox + (kk & 3) * 32, 16),
+                      sw128_desc(wta + kk * 2048, 16));
+    wgmma_commit();
+    wgmma_wait<0>();
+    // dl = (onehot - exp(l - lse)) * gll, l = S + bias: element q of block
+    // j is row rloc + 8 (q / 2), column n0 + 8 j + c2 + q % 2; the f32 value
+    // into db, the bf16 one into the swizzled dl tile (the warpgroup's
+    // last product from it is complete: wgmma_wait below)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 8 * j + c2 + e;
+          const float p = expf(sc[4 * j + 2 * r + e] + bv[2 * j + e] - rl[r]);
+          v[e] = n < V ? ((n == rt[r] ? 1.f : 0.f) - p) * rg[r] : 0.f;
+          dbp[2 * j + e] += v[e];
+        }
+        const int row = rloc + 8 * r;
+        *reinterpret_cast<__nv_bfloat162*>(
+            dl + row * 128 + ((j ^ (row & 7)) << 4) + c2 * 2) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+    // the generic-proxy stores, visible to the tensor cores' async proxy;
+    // then the warpgroup's four warps have written their rows
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (wg == 0)
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+    else
+      asm volatile("bar.sync 2, 128;" ::: "memory");
+    wgmma_fence();
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int kk = 0; kk < kDwRows / 16; ++kk)  // dW += x^T . dl
+        wgmma_m64n64_tt(acc[g], sw128_desc(xa + g * kDwBox + kk * 2048,
+                                           kDwBox),
+                        sw128_desc(dla + kk * 2048, kDwBox));
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(smem_u32(empty + s));
+  }
+
+  // every slab is consumed: the ring holds warpgroup 1's dW tile for
+  // warpgroup 0 (thread order, so the stores and loads are conflict-free),
+  // and the db rows: each warp's 8 lane rows added by shuffles, then the 8
+  // consumer warps in order
+#pragma unroll
+  for (int q = 0; q < 16; ++q)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      dbp[q] += __shfl_xor_sync(0xffffffffu, dbp[q], off);
+  if (lane < 4)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        red[(wg * 4 + warp) * 64 + 8 * j + c2 + e] = dbp[2 * j + e];
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+  float* hand = reinterpret_cast<float*>(ring);
+  if (wg == 1)
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int q = 0; q < 32; ++q) hand[(g * 32 + q) * 128 + t] = acc[g][q];
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+  const size_t part = (size_t)tile * splits + z;
+  if (wg == 0) {
+    float* dst = o.ws + part * dp * 64;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = 4 * j + 2 * r;
+          *reinterpret_cast<float2*>(
+              dst + (g * 64 + rloc + 8 * r) * 64 + 8 * j + c2) =
+              make_float2(acc[g][q] + hand[(g * 32 + q) * 128 + t],
+                          acc[g][q + 1] + hand[(g * 32 + q + 1) * 128 + t]);
+        }
+    if (t < 64) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) sum += red[w * 64 + t];
+      o.ws_db[part * 64 + t] = sum;
+    }
+  }
+  if (split_last_block<3, 256>(o.counters + tile, splits, flag))
+    split_reduce<dp, 64>(o.ws + (size_t)tile * splits * dp * 64, splits,
+                         o.dw, o.K, o.N, 0, n0,
+                         o.ws_db + (size_t)tile * splits * 64, o.db, 256);
 }
 
 template <typename K>
@@ -620,86 +914,90 @@ int launch_fwd(const void* x, const void* w, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// bf16 dx: x (M, dp) and w (dp, Vp) 16-byte aligned, their tensor maps
-// encoded per call
+// bf16 dx and dW: x (M, dp) and w (dp, Vp) 16-byte aligned, their tensor
+// maps encoded per call (x in 128-row boxes for dx, 64-row for dW; one W
+// map of dp-row tiles for both)
 template <int NG>
-int launch_dx_wgmma(const void* x, const void* w, const float* bias,
-                    const int* tgt, const float* lse, const float* gll,
-                    void* dx, int M, int V, int Vp, cudaStream_t stream) {
+int launch_bwd_wgmma(const void* x, const void* w, const float* bias,
+                     const int* tgt, const float* lse, const float* gll,
+                     void* dx, const DwOut& o, int M, int V, int Vp,
+                     int splits, int rows_per_split, cudaStream_t stream) {
   constexpr int dp = NG * 64;
   if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   TmapEncode encode = tmap_encode();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap xmap, wmap;
+  CUtensorMap xmap, xmap_dw, wmap;
   if (!tmap_2d(&xmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, dp,
                64, kDxRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap_2d(&xmap_dw, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M,
+               dp, 64, kDwRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tmap_2d(&wmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dp, Vp,
                64, dp, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = dx_smem_bytes(dp);
-  const cudaError_t err = set_smem(ce_dx_wgmma_kernel<NG>, smem);
+  cudaError_t err = set_smem(ce_dx_wgmma_kernel<NG>, dx_smem_bytes(dp));
   if (err != cudaSuccess) return (int)err;
-  ce_dx_wgmma_kernel<NG><<<(M + kDxRows - 1) / kDxRows, kDxThreads, smem,
-                           stream>>>(xmap, wmap, bias, tgt, lse, gll,
-                                     static_cast<__nv_bfloat16*>(dx), M, V);
+  ce_dx_wgmma_kernel<NG><<<(M + kDxRows - 1) / kDxRows, kDxThreads,
+                           dx_smem_bytes(dp), stream>>>(
+      xmap, wmap, bias, tgt, lse, gll, static_cast<__nv_bfloat16*>(dx), M, V);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = set_smem(ce_dw_wgmma_kernel<NG>, dw_smem_bytes(NG));
+  if (err != cudaSuccess) return (int)err;
+  ce_dw_wgmma_kernel<NG><<<dim3(Vp / 64, splits), kDwThreads,
+                           dw_smem_bytes(NG), stream>>>(
+      xmap_dw, wmap, bias, tgt, lse, gll, o, M, V, rows_per_split);
   return (int)cudaGetLastError();
 }
 
 // dx (bf16: ce_dx_wgmma_kernel; f32: ce_dx_kernel), then dW and db
+// (bf16: ce_dw_wgmma_kernel; f32: ce_dw_kernel)
 template <typename T, int NG>
 int launch_bwd_ng(const void* x, const void* w, const void* bias,
                   const void* tgt, const void* lse, const void* gll, void* dx,
-                  void* dw_part, void* db_part, int M, int dp, int V, int Vp,
-                  int splits, cudaStream_t stream) {
-  const size_t smem = Smem<T>::bytes(dp);
-  cudaError_t err = set_smem(ce_dw_kernel<T, NG>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
+                  const DwOut& o, int M, int dp, int V, int Vp, int splits,
+                  int rows_per_split, cudaStream_t stream) {
   const float* bp = static_cast<const float*>(bias);
   const int* tp = static_cast<const int*>(tgt);
   const float* lp = static_cast<const float*>(lse);
   const float* gp = static_cast<const float*>(gll);
   if constexpr (kTC<T>) {
-    const int e = launch_dx_wgmma<NG>(x, w, bp, tp, lp, gp, dx, M, V, Vp,
-                                      stream);
-    if (e != 0) return e;
+    return launch_bwd_wgmma<NG>(x, w, bp, tp, lp, gp, dx, o, M, V, Vp,
+                                splits, rows_per_split, stream);
   } else {
-    err = set_smem(ce_dx_kernel<T, NG>, smem);
+    const size_t smem = Smem<T>::bytes(dp);
+    const T* xp = static_cast<const T*>(x);
+    const T* wp = static_cast<const T*>(w);
+    cudaError_t err = set_smem(ce_dx_kernel<T, NG>, smem);
     if (err != cudaSuccess) return (int)err;
     ce_dx_kernel<T, NG><<<(M + BM - 1) / BM, kThreads, smem, stream>>>(
         xp, wp, bp, tp, lp, gp, static_cast<T*>(dx), M, dp, V, Vp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    err = set_smem(ce_dw_kernel<T, NG>, smem);
+    if (err != cudaSuccess) return (int)err;
+    ce_dw_kernel<T, NG><<<dim3(Vp / BN, splits), kThreads, smem, stream>>>(
+        xp, wp, bp, tp, lp, gp, o, M, dp, V, Vp, rows_per_split);
+    return (int)cudaGetLastError();
   }
-  const int rps = ((M + splits - 1) / splits + BM - 1) / BM * BM;
-  ce_dw_kernel<T, NG><<<dim3(Vp / BN, splits), kThreads, smem, stream>>>(
-      xp, wp, bp, tp, lp, gp, static_cast<float*>(dw_part),
-      static_cast<float*>(db_part), M, dp, V, Vp, rps);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* w, const void* bias, const void* tgt,
-               const void* lse, const void* gll, void* dx, void* dw_part,
-               void* db_part, int M, int dp, int V, int Vp, int splits,
+               const void* lse, const void* gll, void* dx, const DwOut& o,
+               int M, int dp, int V, int Vp, int splits, int rows_per_split,
                cudaStream_t stream) {
+#define SK_BWD(NG)                                                          \
+  return launch_bwd_ng<T, NG>(x, w, bias, tgt, lse, gll, dx, o, M, dp, V, \
+                              Vp, splits, rows_per_split, stream)
   switch (dp / BM) {
-    case 1:
-      return launch_bwd_ng<T, 1>(x, w, bias, tgt, lse, gll, dx, dw_part,
-                                 db_part, M, dp, V, Vp, splits, stream);
-    case 2:
-      return launch_bwd_ng<T, 2>(x, w, bias, tgt, lse, gll, dx, dw_part,
-                                 db_part, M, dp, V, Vp, splits, stream);
-    case 3:
-      return launch_bwd_ng<T, 3>(x, w, bias, tgt, lse, gll, dx, dw_part,
-                                 db_part, M, dp, V, Vp, splits, stream);
-    case 4:
-      return launch_bwd_ng<T, 4>(x, w, bias, tgt, lse, gll, dx, dw_part,
-                                 db_part, M, dp, V, Vp, splits, stream);
+    case 1: SK_BWD(1);
+    case 2: SK_BWD(2);
+    case 3: SK_BWD(3);
+    case 4: SK_BWD(4);
   }
+#undef SK_BWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -728,20 +1026,36 @@ int sk_token_ce_fwd(int dtype, const void* x, const void* w, const void* bias,
   return (int)cudaErrorInvalidValue;
 }
 
-// dx (M, dp) in the compute dtype; dw_part (splits, dp, Vp) and db_part
-// (splits, Vp) f32 partial sums over M slices
+// dx (M, dp) in the compute dtype; dw (d, V) and db (V) f32, summed over
+// `splits` M slices of rows_per_split rows (a multiple of 64) whose
+// partials go to ws (tiles, splits, dp, 64) and ws_db
+// (tiles, splits, 64), with one zeroed counter a 64-column vocab tile
 int sk_token_ce_bwd(int dtype, const void* x, const void* w, const void* bias,
                     const void* tgt, const void* lse, const void* gll,
-                    void* dx, void* dw_part, void* db_part, int M, int dp,
-                    int V, int Vp, int splits, void* stream) {
-  if (!shapes_ok(M, dp, V, Vp) || splits < 1) return (int)cudaErrorInvalidValue;
+                    void* dx, void* dw, void* db, void* ws, void* ws_db,
+                    void* counters, int M, int d, int dp, int V, int Vp,
+                    int splits, int rows_per_split, void* stream) {
+  static_assert(kDwRows == BM, "one split unit in both dtypes");
+  if (!shapes_ok(M, dp, V, Vp) || d < 1 || d > dp || splits < 1 ||
+      rows_per_split % BM != 0 ||
+      (long long)splits * rows_per_split < M ||
+      (long long)(splits - 1) * rows_per_split >= M)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DwOut o;
+  o.dw = static_cast<float*>(dw);
+  o.db = static_cast<float*>(db);
+  o.ws = static_cast<float*>(ws);
+  o.ws_db = static_cast<float*>(ws_db);
+  o.counters = static_cast<unsigned*>(counters);
+  o.K = d;
+  o.N = V;
   if (dtype == 0)
-    return launch_bwd<float>(x, w, bias, tgt, lse, gll, dx, dw_part, db_part,
-                             M, dp, V, Vp, splits, s);
+    return launch_bwd<float>(x, w, bias, tgt, lse, gll, dx, o, M, dp, V, Vp,
+                             splits, rows_per_split, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(x, w, bias, tgt, lse, gll, dx, dw_part,
-                                     db_part, M, dp, V, Vp, splits, s);
+    return launch_bwd<__nv_bfloat16>(x, w, bias, tgt, lse, gll, dx, o, M, dp,
+                                     V, Vp, splits, rows_per_split, s);
   return (int)cudaErrorInvalidValue;
 }
 

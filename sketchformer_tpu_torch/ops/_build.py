@@ -40,8 +40,8 @@ SIGNATURES = {
     # a dropout operand is (bytes ptr, seed, layer, site, T): _DROP
     "sk_linear": ([_I, _P, _P, _P, _P, *_DROP, _I, _F, _P, _I, _I, _I, _I,
                    _P], _I),
-    "sk_linear_nt": ([_I, _I, _P, _P, *_DROP, _I, _F, _P, _P, _I, _P, _I, _I,
-                      _I, _P], _I),
+    "sk_linear_nt": ([_I, _I, _P, _P, _I, _P, _I, _U, _I, _I, _I, _I, _F,
+                      _P, _P, _I, _P, _I, _I, _I, _P], _I),
     "sk_linear_tn": ([_I, _I, _P, _P, _I, _P, _I, _U, _I, _I, _I, _I, _F,
                       _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "sk_attention_fwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _P, _P,
@@ -63,7 +63,7 @@ SIGNATURES = {
     "sk_sum_rows": ([_I, _P, _P, _I, _I, _I, _P], _I),
     "sk_emit_dropout_bits": ([_U, _P, _I, _I, _I, _I, _P], _I),
     "sk_token_ce_fwd": ([_I] + [_P] * 7 + [_I] * 4 + [_P], _I),
-    "sk_token_ce_bwd": ([_I] + [_P] * 9 + [_I] * 5 + [_P], _I),
+    "sk_token_ce_bwd": ([_I] + [_P] * 12 + [_I] * 7 + [_P], _I),
     "sk_encoder_attention": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
     "sk_layernorm_rows": ([_I, _P, _P, _P, _P, _I, _I, _P], _I),
@@ -198,3 +198,22 @@ def dtype_code(t: torch.Tensor) -> int:
 
 def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+# device -> (per-tile counters, zero between launches; f32 scratch of the
+# split partials) of the kernels that add their splits' partials in the
+# same launch (csrc/split_reduce.cuh: linear_tn, ce_dw). Launches on one
+# stream run in order, so each call may reuse the scratch of the last.
+_SPLIT_SCRATCH: dict = {}
+
+
+def split_scratch(device, tiles: int, floats: int):
+    """(counters, ws): at least ``tiles`` zeroed int32 counters and
+    ``floats`` f32 of scratch on ``device``, grown as calls need."""
+    c, ws = _SPLIT_SCRATCH.get(device, (None, None))
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    _SPLIT_SCRATCH[device] = (c, ws)
+    return c, ws

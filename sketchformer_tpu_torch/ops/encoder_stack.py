@@ -13,7 +13,8 @@ VMEM; on the card the layer runs as three kernels from
     layernorm_rows     LN1, LN2 and the final LayerNorm
 
 and the two products of the training stacks' backward (``linear_nt``:
-dX = dY . W^T, ``linear_tn``: dW = X^T . dY summed over every row). A
+dX = dY . W^T, ``linear_tn``: dW = X^T . dY summed over every row; in bf16
+both are wgmma kernels fed by TMA). A
 dropout operand is a u8 byte tensor ('bits' mode) or a
 ``dropout_prng.PrngSite``, whose bytes the kernel draws itself ('prng'
 mode; the plain versions materialise them with the plain Philox).
@@ -189,6 +190,35 @@ def linear(a, w, bias, *, relu=False, residual=None, drop=None, thresh=0,
     return out
 
 
+NT_TILE = 128             # bf16 linear_nt: 128 x 128 output tiles
+NT_SLAB = 64              # contraction columns a stage (csrc: kNtSlab)
+# bf16 linear_nt's dynamic shared memory (csrc: kNtSmem): 3 stages of the
+# bf16 A slab, W's rows, the raw rows of a (f32 at most) and their mask
+# bytes, 1024 to align the swizzle atoms, 9 mbarriers
+NT_SMEM = 3 * (4 * NT_TILE * 128 + NT_TILE * NT_SLAB) + 1024 + 9 * 8
+
+
+def nt_plan(M, K):
+    """(column tiles, row tiles, shared-memory bytes a block) of a bf16
+    linear_nt call: one block a 128 x 128 tile of the (M, K) output, the
+    column tiles of a row slab neighbours in the grid; the contraction
+    streams through a fixed ring, whatever N is."""
+    return -(-K // NT_TILE), -(-M // NT_TILE), NT_SMEM
+
+
+def nt_operands(a, w, dbytes):
+    """(a, w, mask bytes, pitch, d_pitch) as bf16 linear_nt's TMA boxes
+    read them: a and w with one row pitch of whole 16-byte bf16 rows, the
+    bytes with rows of a multiple of 16, all from 16-byte aligned bases;
+    other shapes get zero columns, which add nothing to the product."""
+    a, pitch = _tn_rows(a, 8)
+    w, _ = _tn_rows(w, 8)
+    d_pitch = a.shape[1]
+    if dbytes is not None:
+        dbytes, d_pitch = _tn_rows(dbytes, 16)
+    return a, w, dbytes, pitch, d_pitch
+
+
 def linear_nt(a, w, *, drop=None, thresh=0, keep_scale=1.0, gate=None,
               residual=None, out_dtype=torch.float32):
     """(M, N) x (K, N)^T -> (M, K): the input-gradient product of a layer's
@@ -219,13 +249,16 @@ def linear_nt(a, w, *, drop=None, thresh=0, keep_scale=1.0, gate=None,
             raise ValueError("linear_nt: a residual needs out_dtype "
                              f"{w.dtype}")
         _build.require(residual, "residual", dev, w.dtype, (M, K))
+    pitch = d_pitch = N
+    if w.dtype == torch.bfloat16:
+        a, w, dbytes, pitch, d_pitch = nt_operands(a, w, dbytes)
     out = torch.empty((M, K), dtype=out_dtype, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.sk_linear_nt(
             code, int(a.dtype == torch.float32), _build.ptr(a), _build.ptr(w),
-            _build.ptr(dbytes), *prng, int(thresh), float(keep_scale),
-            _build.ptr(gate), _build.ptr(residual),
+            pitch, _build.ptr(dbytes), d_pitch, *prng, int(thresh),
+            float(keep_scale), _build.ptr(gate), _build.ptr(residual),
             int(out_dtype == torch.float32), _build.ptr(out), M, N, K,
             _build.stream(a))
     _build.check(err, "linear_nt")
@@ -237,10 +270,6 @@ def linear_nt(a, w, *, drop=None, thresh=0, keep_scale=1.0, gate=None,
 TN_SLAB = 64                 # linear_tn's split unit (csrc: kTnSlab)
 TN_TILE = {torch.bfloat16: 128, torch.float32: 64}   # square output tiles
 TN_SMEM = 3 * 9 * 64 * 64 * 2 + 1024 + 72 + 16      # bf16 (csrc: kTnSmem)
-# device -> (per-tile counters, zero between calls; f32 scratch of the
-# split partials): launches on one stream run in order, so each call may
-# reuse the scratch of the last
-_TN_SCRATCH: dict = {}
 
 
 def tn_plan(M, K, N, dtype, sms=132):
@@ -253,16 +282,6 @@ def tn_plan(M, K, N, dtype, sms=132):
     splits = max(1, min(slabs, -(-sms // tiles)))
     rps = -(-slabs // splits) * TN_SLAB
     return tiles, cols, -(-max(M, 1) // rps), rps
-
-
-def _tn_scratch(dev, tiles, floats):
-    c, ws = _TN_SCRATCH.get(dev, (None, None))
-    if c is None or c.numel() < tiles:
-        c = torch.zeros(max(tiles, 256), dtype=torch.int32, device=dev)
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(floats, dtype=torch.float32, device=dev)
-    _TN_SCRATCH[dev] = (c, ws)
-    return c, ws
 
 
 def _tn_rows(t, mult):
@@ -309,7 +328,8 @@ def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0, bias_grad=False):
     db = out[Kp * N:] if bias_grad else None
     out = out[:Kp * N].view(Kp, N)
     parts = tiles * splits * tile * tile
-    counters, ws = _tn_scratch(dev, tiles, parts + cols * splits * tile)
+    counters, ws = _build.split_scratch(dev, tiles,
+                                        parts + cols * splits * tile)
     ws_db = ws[parts:] if bias_grad else None
     with torch.cuda.device(dev):
         err = _build.library().sk_linear_tn(

@@ -12,8 +12,10 @@ memory:
   logsumexp ``lse`` (the backward's softmax residual);
 - ``token_ce_bwd``: ``dx`` (the ``ce_dx`` kernel, row tiles; in bf16 a
   wgmma kernel fed by a TMA ring, 128 rows a block), ``dW`` and ``db`` (the
-  ``ce_dw`` kernel, vocab tiles over M slices, whose f32 partials
-  ``sum_rows`` adds in a fixed order).
+  ``ce_dw`` kernel, vocab tiles over M slices, whose f32 partials the last
+  block of each tile adds in a fixed order in the same launch; in bf16 a
+  wgmma kernel fed by a TMA ring of 64-row x slabs, its two consumer
+  warpgroups taking alternate slabs).
 
 Numerics are the TPU kernel's: the logits stay f32 end to end (the product
 of the compute-dtype operands accumulated in f32, the f32 bias added in
@@ -43,8 +45,10 @@ from sketchformer_tpu_torch.ops import _build
 LAUNCHES = {"token_ce_fwd": 0, "token_ce_dx": 0, "token_ce_dw": 0}
 TILE = 64                  # the kernels' row and vocab tile (csrc/token_ce.cu)
 MAX_WIDTH = 4 * TILE       # d_model the backward keeps in registers
-DW_BLOCKS_PER_SM = 4       # ce_dw's M slices aim at about this many blocks
 DX_ROWS, DX_STAGES = 128, 4  # bf16 ce_dx: rows a block, W tiles in flight
+DW_MAX_SPLITS = 8          # ce_dw: M slices (of whole 64-row slabs) at most
+DW_STAGES_MAX = 8          # bf16 ce_dw: x slabs in flight at most
+SMEM_MAX = 232448          # shared memory a block may opt into (H100)
 
 
 def reset_launches() -> None:
@@ -166,45 +170,66 @@ def token_ce_fwd(x, w, b, tgt) -> Tuple[torch.Tensor, ...]:
     return out[0], out[1], out[2]
 
 
-def dw_splits(M: int, V: int, sms: int = 132) -> int:
-    """How many M slices ``ce_dw`` runs: about DW_BLOCKS_PER_SM blocks per
-    SM over the vocab tiles, each slice at least 8 row tiles."""
+def dw_smem(dp: int) -> Tuple[int, int]:
+    """(x slabs in flight, shared-memory bytes) of a bf16 ``ce_dw`` block
+    (csrc/token_ce.cu::dw_smem_bytes): 1024 to align the swizzle atoms, the
+    W tile (dp x 64), the two warpgroups' dl tiles (64 x 64), the db
+    reduction rows (8 x 64 f32), 17 mbarriers and the flag, then as many
+    64-row x slabs as fit, at most DW_STAGES_MAX."""
+    fixed = 1024 + dp * TILE * 2 + 2 * TILE * TILE * 2 + 8 * TILE * 4 + \
+        (2 * DW_STAGES_MAX + 1) * 8 + 16
+    slab = TILE * dp * 2
+    stages = min(DW_STAGES_MAX, (SMEM_MAX - fixed) // slab)
+    return stages, fixed + stages * slab
+
+
+def dw_plan(M: int, V: int, sms: int = 132) -> Tuple[int, int, int]:
+    """(vocab tiles, splits, rows_per_split) of ``ce_dw``: one block a
+    (64-column vocab tile, M slice), one block an SM; of the split counts
+    up to DW_MAX_SPLITS (each slice a whole number of 64-row slabs) the one
+    whose grid fills its last wave of ``sms`` best, the fewest on a tie."""
     tiles = -(-V // TILE)
-    return max(1, min(-(-M // (8 * TILE)), -(-DW_BLOCKS_PER_SM * sms // tiles)))
+    slabs = max(1, -(-M // TILE))
+
+    def fill(s):
+        blocks = tiles * s
+        return blocks / (-(-blocks // sms) * sms)
+
+    best = max(range(1, min(slabs, DW_MAX_SPLITS) + 1),
+               key=lambda s: (fill(s), -s))
+    rps = -(-slabs // best) * TILE
+    return tiles, -(-max(M, 1) // rps), rps
 
 
 def token_ce_bwd(x, w, b, tgt, lse, gll):
     """(dx, dW, db) of :func:`token_ce_bwd_reference`, on the kernels."""
     if x.device.type == "cpu":
         return token_ce_bwd_reference(x, w, b, tgt, lse, gll)
-    from sketchformer_tpu_torch.ops.norm_train import sum_rows
-
     code, xp, wp, bp, tp, M, d, V, dp, Vp = _operands(x, w, b, tgt)
     dev = x.device
     _build.require(lse, "lse", dev, torch.float32, (M,))
     _build.require(gll, "gll", dev, torch.float32, (M,))
-    splits = dw_splits(M, V, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    tiles, splits, rps = dw_plan(M, V, _build.sm_count(dev))
     dx = torch.empty((M, dp), dtype=x.dtype, device=dev)
-    dw = torch.empty((splits, dp, Vp), dtype=torch.float32, device=dev)
-    db = torch.empty((splits, Vp), dtype=torch.float32, device=dev)
+    out = torch.empty((d * V + V,), dtype=torch.float32, device=dev)
+    dw, db = out[:d * V].view(d, V), out[d * V:]
+    parts = tiles * splits * dp * TILE
+    counters, ws = _build.split_scratch(dev, tiles,
+                                        parts + tiles * splits * TILE)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.sk_token_ce_bwd(code, _build.ptr(xp), _build.ptr(wp),
                                   _build.ptr(bp), _build.ptr(tp),
                                   _build.ptr(lse), _build.ptr(gll),
                                   _build.ptr(dx), _build.ptr(dw),
-                                  _build.ptr(db), M, dp, V, Vp, splits,
-                                  _build.stream(x))
+                                  _build.ptr(db), _build.ptr(ws),
+                                  _build.ptr(ws[parts:]),
+                                  _build.ptr(counters), M, d, dp, V, Vp,
+                                  splits, rps, _build.stream(x))
     _build.check(err, "token_ce_bwd")
     LAUNCHES["token_ce_dx"] += 1
     LAUNCHES["token_ce_dw"] += 1
-    if splits > 1:
-        dw = sum_rows(dw.reshape(splits, dp * Vp)).reshape(dp, Vp)
-        db = sum_rows(db)
-    else:
-        dw, db = dw[0], db[0]
-    return dx[:, :d], dw[:d, :V], db[:V]
+    return dx[:, :d], dw, db
 
 
 class _TokenCE(torch.autograd.Function):

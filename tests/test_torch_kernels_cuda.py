@@ -1029,3 +1029,75 @@ def test_bf16_forward_raises_off_its_shapes(cuda):
     _close(at.attention_fwd(q, k, v, None, num_heads=2),
            at.attention_fwd_reference(q, k, v, None, num_heads=2),
            torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core redesigns of K6's dW and of the stacks' linear_nt (bf16)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 127, 129, 49152])
+@pytest.mark.parametrize("dp", [64, 128, 192, 256])
+@pytest.mark.parametrize("V", [2003, 10004])
+def test_token_ce_dw_wgmma(cuda, M, dp, V):
+    """bf16 ``ce_dw`` (wgmma on a TMA ring of 128-row x slabs, the split
+    partials added by the last block of each vocab tile): dW and db within
+    TOL of the plain version at ragged M, every width and vocabularies that
+    are not a multiple of 64; equal across two runs; one launch a call and
+    no ``sum_rows``."""
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    x = _rand(gen, cuda, M, dp, dtype=torch.bfloat16)
+    w = _rand(gen, cuda, dp, V, scale=dp ** -0.5)
+    b = _rand(gen, cuda, V, scale=0.1)
+    tgt = torch.randint(0, V, (M,), generator=gen, device=cuda).int()
+    gll = _rand(gen, cuda, M)
+    lse = tce.token_ce_fwd_reference(x, w, b, tgt)[2]
+    before = (tce.LAUNCHES["token_ce_dw"], nt.LAUNCHES["sum_rows"])
+    got = tce.token_ce_bwd(x, w, b, tgt, lse, gll)
+    again = tce.token_ce_bwd(x, w, b, tgt, lse, gll)
+    assert (tce.LAUNCHES["token_ce_dw"], nt.LAUNCHES["sum_rows"]) == \
+        (before[0] + 2, before[1])
+    want = tce.token_ce_bwd_reference(x, w, b, tgt, lse, gll)
+    for g, r, a in zip(got[1:], want[1:], again[1:]):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        _close(g, r, torch.bfloat16)
+        assert torch.equal(g, a)
+
+
+NT_SHAPES = [(333, 96, 80), (50, 36, 20), (100, 64, 33), (1000, 256, 512),
+             (12288, 512, 256), (4100, 256, 256), (777, 768, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", NT_SHAPES)
+@pytest.mark.parametrize("mode", [None, "bits", "prng"])
+@pytest.mark.parametrize("a_f32", [True, False], ids=["a_f32", "a_bf16"])
+@pytest.mark.parametrize("epi", ["f32", "gate", "residual"])
+def test_linear_nt_wgmma_modes(cuda, M, N, K, mode, a_f32, epi):
+    """bf16 ``linear_nt`` (wgmma, TMA, a converter warpgroup; bf16 a with no
+    mask lands by TMA as it is): every mask mode, a f32 or bf16, the f32
+    output, the ReLU gate and the bf16 residual, at ragged M, N and K and at
+    each (N, K) of the stacks (an odd K takes the element-wise epilogue);
+    within TOL of the plain version and equal across two runs."""
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    dt = torch.bfloat16
+    a = _rand(gen, cuda, M, N, dtype=torch.float32 if a_f32 else dt)
+    w = _rand(gen, cuda, K, N, scale=N ** -0.5, dtype=dt)
+    kw = dict(thresh=26, keep_scale=1.11)
+    if mode == "bits":
+        kw["drop"] = _bytes(gen, cuda, M, N)
+    elif mode == "prng":
+        kw["drop"] = dp.PrngSite(24681357, 1, 2, M)
+    if epi == "gate":
+        kw["gate"] = torch.relu(_rand(gen, cuda, M, K, dtype=dt))
+    elif epi == "residual":
+        kw.update(out_dtype=dt, residual=_rand(gen, cuda, M, K, dtype=dt))
+    before = es.LAUNCHES["linear_nt"]
+    got = es.linear_nt(a, w, **kw)
+    again = es.linear_nt(a, w, **kw)
+    assert es.LAUNCHES["linear_nt"] == before + 2
+    want = es.linear_nt_reference(a, w, **kw)
+    assert got.dtype == want.dtype and got.shape == (M, K)
+    _close(got, want, dt)
+    assert torch.equal(got, again)
