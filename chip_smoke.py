@@ -35,7 +35,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    runs), ``layernorm_bwd``, ``sum_rows``; and
    each whole train stack's forward and backward (L=2, dropout 0.1),
    float32 within a relative L2 error of 1e-3 of the plain version, bf16
-   within 2x the plain bf16 path's error against float32; then the fused
+   within 2x the plain bf16 path's error against float32; the bf16
+   attention backward (K5, both passes on the tensor cores) in every mode
+   (self-attention with and without causal, cross-attention to 4 memory
+   rows, with and without a key bias and qk-norm, T = 1, 96, 192 and 1024,
+   Dh 32, 64 and 128): dq, dk, dv, the row statistics and the qk-norm
+   gradients within TOL and equal across two runs, with no ``sum_rows``
+   launch; then the fused
    vocab-CE head (K6: ``token_ce_fwd``, ``token_ce_dx``, ``token_ce_dw``)
    at the JAX benchmark's ``train`` shape (bf16, M 49,152, d 256, V 10,004)
    and in f32 at M 4,096: ll, lse, dx, dW and db within TOL, corr equal
@@ -66,7 +72,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 4. main paths, each with every launch counter reset just before and read
    just after: the port's ``sbir`` CLI at the full width of the ``sbir``
    preset (seeded random weights) over 16 batches of 64 from the preset's
-   synthetic 345-class loader; then classifier logits on z, and the
+   synthetic 345-class loader, every ``encoder_attention`` call on the
+   tensor-core route; then classifier logits on z, and the
    kernel z against the plain-path z on one batch. Then the port's
    ``decode`` and ``interpolate`` CLI on ``ar_decode`` (B=64, T=192, through
    ``decode_chunk``), ``decode`` on ``cont2cont_mdn`` (greedy, through
@@ -101,11 +108,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``train`` shape, M 49,152, beside its bound), ``attention_fwd`` at
    B=64/T=192/H=8 with qk-norm and at B=512/T=96/H=2/Dh=128, and K8's
    forward and backward at both geometries as the median and spread of 60
-   calls' device time, the host's launches queued ahead; ``ce_dx`` and
+   calls' device time, the host's launches queued ahead; the same for
+   ``encoder_attention`` against SDPA and the FMA kernel it replaced (at
+   ``sbir``, with qk-norm, and at B=512/T=96/H=2), and for the attention
+   backward pair (each pass, the pair, one SDPA backward, the bound, and
+   the pair at the other owned-row choice) at ``cont2cont_mdn`` with and
+   without qk-norm and at B=512/T=96 with H=8/Dh=32 and H=2/Dh=128;
+   ``ce_dx`` and
    ``ce_dw`` from 60 calls' kernel events in a profiler trace, the
    wrapper launching both, also at d 64, 128 and 192; ``linear_nt``'s four
    calls also one by one); ``sum_rows`` launches a
-   ``cont2cont_mdn`` step; the train stacks' forward + backward; K6
+   ``cont2cont_mdn`` step beside the counts before its two in-launch
+   sums; the train stacks' forward + backward; K6
    and the emit kernel; the train step p50 and sketches/s at the
    ``cont2cont_mdn`` shape, the JAX benchmark's ``cont_train`` shape
    (B=512, T=96, H=2; 'prng' and 'bits' dropout), ``cont2cont_mdn``
@@ -137,9 +151,11 @@ CSRC = "sketchformer_tpu_torch/csrc/"
 # source of each Hopper kernel, and the TPU kernel it replaces (the body of
 # fused_encoder_stack, whose attention and qk-norm at H=8 run in
 # pallas_packed.group_attn_fwd; at H=8/Dh=32 the JAX decode runs the
-# lane-packed chunk kernels)
+# lane-packed chunk kernels). encoder_attention's main path (bf16, Dh=32)
+# runs the tensor-core forward of attention_train.cu; its FMA kernel in
+# encoder_stack.cu serves f32 and the bf16 widths that one does not take
 SOURCES = {"linear": "encoder_stack.cu", "encoder_attention":
-           "encoder_stack.cu", "layernorm_rows": "encoder_stack.cu",
+           "attention_train.cu", "layernorm_rows": "encoder_stack.cu",
            "decode_chunk": "decode_chunk.cu",
            "decode_cont_chunk": "decode_chunk.cu",
            "decode_attention": "decode_attention.cu",
@@ -519,8 +535,16 @@ TRAIN_STEPS = 30
 SPREAD_CALLS = 60   # per-call timings of the redesigned kernels' rows
 # sum_rows launches a cont2cont_mdn step while linear_tn's partials and the
 # bias gradients each took a sum_rows launch (this script's train path on
-# an NVIDIA H100 80GB HBM3, 11,760 in 30 steps)
+# an NVIDIA H100 80GB HBM3, 11,760 in 30 steps), and while the attention
+# backward's qk-norm partials took two a call (4,080 in 30 steps)
 SUM_ROWS_PER_STEP_BEFORE = 392
+SUM_ROWS_PER_STEP_BEFORE_K5 = 136
+# the bf16 attention backward's modes: (B, Tq, Tk) self-attention at T = 1,
+# 96, 192 and 1024 and cross-attention to Mq = 4 memory rows, at each head
+# width the tensor-core kernel is built for (H * Dh = 2 heads)
+K5_SHAPES = ((4, 1, 1), (4, 96, 96), (4, 192, 192), (1, 1024, 1024),
+             (4, 192, 4))
+K5_HEAD_DIMS = (32, 64, 128)
 TRAIN_KERNELS = ("linear_nt", "linear_tn", "attention_fwd", "attention_bwd_q",
                  "attention_bwd_kv", "layernorm_bwd", "sum_rows")
 TOK_KERNELS = ("token_ce_fwd", "token_ce_dx", "token_ce_dw",
@@ -714,6 +738,81 @@ def check_train_kernels(randn, dev, errs, compare):
         for decoder in (False, True):
             for H, qk in ((8, True), (2, False)):
                 check_train_stack(randn, dev, decoder, H, qk, dtype)
+    check_attention_bwd_modes(randn, dev)
+
+
+def check_attention_bwd_modes(randn, dev):
+    """The bf16 attention backward (K5, both passes on the tensor cores)
+    against its plain versions in every mode: self-attention with and
+    without causal and cross-attention to 4 memory rows, with and without a
+    key bias (a fully masked batch element) and qk-norm, at T = 1, 96, 192
+    and 1024 and Dh 32, 64 and 128; dq, dk, dv and the qk-norm gradients
+    equal across two runs; and no sum_rows launch."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import attention_train as at
+    from sketchformer_tpu_torch.ops import norm_train as nt
+
+    bf, H = torch.bfloat16, 2
+    tol = TOL["bfloat16"]
+    for B, Tq, Tk in K5_SHAPES:
+        for Dh in K5_HEAD_DIMS:
+            HD = H * Dh
+            q = randn(B, Tq, 3 * HD, dtype=bf)[..., :HD]
+            kv = randn(B, Tk, 2 * HD, dtype=bf)
+            k, v = kv[..., :HD], kv[..., HD:]
+            do = randn(B, Tq, HD, dtype=bf)
+            lengths = torch.tensor([Tk, (Tk + 1) // 2, 0, Tk][:B], device=dev)
+            masked = torch.where(torch.arange(Tk, device=dev)[None] <
+                                 lengths[:, None], 0.0, at.NEG_INF).float()
+            norms = tuple(1.0 + randn(Dh, scale=0.1) if i % 2 == 0 else
+                          randn(Dh, scale=0.1) for i in range(4))
+            worst, n = 0.0, 0
+            for bias in (None, masked):
+                for causal in ((False, True) if Tq == Tk else (False,)):
+                    for qk in (None, norms):
+                        kw = dict(num_heads=H, causal=causal, qk_norm=qk)
+                        rows = nt.LAUNCHES["sum_rows"]
+                        got = at.attention_bwd_q(q, k, v, do, bias, **kw)
+                        again = at.attention_bwd_q(q, k, v, do, bias, **kw)
+                        want = at.attention_bwd_q_reference(q, k, v, do,
+                                                            bias, **kw)
+                        got += at.attention_bwd_kv(q, k, v, do, bias,
+                                                   want[1], **kw)
+                        again += at.attention_bwd_kv(q, k, v, do, bias,
+                                                     want[1], **kw)
+                        want += at.attention_bwd_kv_reference(
+                            q, k, v, do, bias, want[1], **kw)
+                        torch.cuda.synchronize()
+                        if nt.LAUNCHES["sum_rows"] != rows:
+                            fail("the bf16 attention backward launched "
+                                 "sum_rows")
+                        mode = (f"B={B} Tq={Tq} Tk={Tk} Dh={Dh} key_bias="
+                                f"{bias is not None} causal={causal} "
+                                f"qk_norm={qk is not None}")
+                        # dq, stats, dq-norm (2), dk, dv, dk-norm (2); the
+                        # k-norm bias gradient is zero up to rounding (held
+                        # at the k-norm scale gradient's size), and at T = 1
+                        # every gradient but dv is exactly 0 (held at 1)
+                        for i, (g, a, w) in enumerate(zip(got, again, want)):
+                            if w is None:
+                                continue
+                            if not torch.equal(g, a):
+                                fail(f"attention_bwd {mode} out {i}: two "
+                                     f"runs differ")
+                            ref = want[6] if i == 7 else w
+                            size = ref.abs().max().item() or 1.0
+                            rel = (g.float() - w.float()).abs().max().item() \
+                                / size
+                            if not (torch.isfinite(g).all() and rel <= tol):
+                                fail(f"attention_bwd {mode} out {i}: rel err "
+                                     f"{rel:.3e} above {tol:.0e}")
+                            worst = max(worst, rel)
+                            n += 1
+            print(f"check attention_bwd (bf16, mma.sync) B={B} Tq={Tq} "
+                  f"Tk={Tk} H={H} Dh={Dh}: {n} outputs in every mode, worst "
+                  f"rel err {worst:.3e} (tol {tol:.0e}), each equal across "
+                  f"two runs, no sum_rows")
 
 
 def stack_module(dev, decoder, H, qk, dtype, L=2, seed=0):
@@ -1995,8 +2094,9 @@ def train_kernel_work(B, T, d, H, dff):
     return {
         "linear_nt": nt, "linear_tn": tn,
         "attention_fwd": (att, qkv + M * HD * 2 + B * T * 4),
-        "attention_bwd_q": (1.5 * att, qkv + 2 * M * HD * 4 + B * H * T * 12),
-        "attention_bwd_kv": (2 * att, qkv + 3 * M * HD * 4 + B * H * T * 12),
+        # dO in bf16 as the stacks pass it, the gradients in f32
+        "attention_bwd_q": (1.5 * att, qkv + M * HD * (2 + 4) + B * H * T * 12),
+        "attention_bwd_kv": (2 * att, qkv + M * HD * (2 + 8) + B * H * T * 12),
         "layernorm_bwd": (10 * M * d, M * d * (2 + 4 + 2 + 4) + 4 * d * 4),
         "sum_rows": (M * 3 * HD, M * 3 * HD * 4 + 3 * HD * 4),
     }
@@ -2096,6 +2196,123 @@ def attention_fwd_spread(o, B, T, d, H, qk, gpu):
     return sp["kernel"][0], sp["plain"][0], sp["lib"][0]
 
 
+def attention_bwd_spread(o, B, T, d, H, qk, gpu):
+    """The attention backward (bf16, both passes on the tensor cores, key
+    mask, dO in bf16 as the stacks pass it) on ``train_operands`` ``o``:
+    the median and spread of SPREAD_CALLS calls' device time of each pass,
+    of the pair, of their plain versions and of one SDPA backward with the
+    same boolean mask (dq, dk and dv in one call; no qk-norm), beside the
+    pair's bound. Returns {pass: (ms, plain ms, library ms)}; each pass's
+    library time is the whole SDPA backward."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = torch.bfloat16
+    o = dict(o, do=o["do"].to(dt))
+    q4, k4, v4 = (t.reshape(B, T, H, d // H).transpose(1, 2).detach()
+                  .requires_grad_(True) for t in (o["q"], o["k"], o["v"]))
+    mask = (o["bias"] == 0)[:, None, None, :]
+    with torch.enable_grad():
+        sdpa = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    do4 = o["do"].reshape(B, T, H, d // H).transpose(1, 2)
+
+    def lib_bwd():
+        with torch.enable_grad():
+            torch.autograd.grad(sdpa, (q4, k4, v4), do4, retain_graph=True)
+
+    calls = {w: (attn_calls(o, H, qk, w, "kernel"),
+                 attn_calls(o, H, qk, w, "plain"))
+             for w in ("bwd_q", "bwd_kv")}
+
+    def pair(mod):
+        def run():
+            calls["bwd_q"][mod]()
+            calls["bwd_kv"][mod]()
+        return run
+
+    shape = (f"bf16, B={B}, T={T}, H={H}, Dh={d // H}, "
+             f"{'qk-norm, ' if qk else ''}key mask, bf16 dO")
+    out = {}
+    with torch.no_grad():
+        for w, name in (("bwd_q", "attention_bwd_q"),
+                        ("bwd_kv", "attention_bwd_kv")):
+            sp = spread_ms(calls[w][0], calls[w][1], None)
+            out[name] = [sp["kernel"][0], sp["plain"][0]]
+            print(f"time {name} ({shape}, device time, median of "
+                  f"{SPREAD_CALLS}): kernel {fmt_spread(sp['kernel'])}, "
+                  f"plain {fmt_spread(sp['plain'])} [{gpu}]")
+        sp = spread_ms(pair(0), pair(1), lib_bwd)
+    work = train_kernel_work(B, T, d, H, MDN["dff"])
+    b_ms = sum(bound(*work[k])[0] for k in out)
+    print(f"time attention backward pair ({shape}, device time, median of "
+          f"{SPREAD_CALLS}): kernel {fmt_spread(sp['kernel'])}, plain "
+          f"{fmt_spread(sp['plain'])}, library (one SDPA backward, dq dk dv, "
+          f"the same boolean mask, no qk-norm) {fmt_spread(sp['lib'])}; "
+          f"bound of the pair {b_ms:.4f} ms; kernel / library "
+          f"{sp['kernel'][0] / sp['lib'][0]:.2f} [{gpu}]")
+    return {k: (v[0], v[1], sp["lib"][0]) for k, v in out.items()}
+
+
+def encoder_attention_spread(dev, B, T, H, Dh, qk, gpu, randn):
+    """``encoder_attention`` (bf16, key mask with a fully masked row) over a
+    fused (B, T, 3 H Dh) pane: the median and spread of SPREAD_CALLS calls'
+    device time of the kernel (the tensor-core route), the plain version,
+    this module's FMA kernel at the same call (the bf16 route before it
+    moved, still built for the widths the tensor-core kernel does not take)
+    and SDPA with the same boolean mask (no qk-norm). Returns (kernel,
+    plain, library) medians."""
+    import torch
+    import torch.nn.functional as F
+
+    from sketchformer_tpu_torch.ops import _build
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+
+    dt, HD = torch.bfloat16, H * Dh
+    qkv = randn(B, T, 3 * HD, dtype=dt)
+    lengths = torch.randint(1, T + 1, (B,), device=dev)
+    lengths[0] = 0
+    kbias = torch.where(torch.arange(T, device=dev)[None] < lengths[:, None],
+                        0.0, es.NEG_INF).float()
+    norms = tuple(1.0 + randn(Dh, scale=0.1) if i % 2 == 0 else
+                  randn(Dh, scale=0.1) for i in range(4)) if qk else None
+    q4, k4, v4 = (t.reshape(B, T, H, Dh).transpose(1, 2)
+                  for t in qkv.split(HD, dim=-1))
+    amask = (kbias == 0)[:, None, None, :]
+    fma_out = torch.empty((B, T, HD), dtype=dt, device=dev)
+    ptrs = [_build.ptr(p) for p in (norms or (None,) * 4)]
+
+    def fma():
+        err = _build.library().sk_encoder_attention(
+            1, _build.ptr(qkv), _build.ptr(kbias), *ptrs,
+            _build.ptr(fma_out), B, T, H, Dh, 1.0 / Dh ** 0.5,
+            _build.stream(qkv))
+        _build.check(err, "encoder_attention (FMA)")
+
+    kw = dict(num_heads=H, qk_norm=norms)
+    with torch.inference_mode():
+        want = es.attention_reference(qkv, kbias, **kw)
+        fma()
+        torch.cuda.synchronize()
+        rel = (fma_out.float() - want.float()).abs().max().item() / \
+            want.float().abs().max().item()
+        if not rel <= TOL["bfloat16"]:
+            fail(f"encoder_attention FMA kernel rel err {rel:.3e}")
+        sp = spread_ms(lambda: es.encoder_attention(qkv, kbias, **kw),
+                       lambda: es.attention_reference(qkv, kbias, **kw),
+                       lambda: F.scaled_dot_product_attention(
+                           q4, k4, v4, attn_mask=amask))
+        old = spread_ms(fma, None, None)["kernel"]
+    # the two products; q, k, v read once, the output written once
+    b_ms, b_by = bound(4 * B * H * T * T * Dh, 4 * B * T * HD * 2 + B * T * 4)
+    print(f"time encoder_attention (bf16, B={B}, T={T}, H={H}, Dh={Dh}"
+          f"{', qk-norm' if qk else ''}, key mask, device time, median of "
+          f"{SPREAD_CALLS}): kernel (mma.sync) {fmt_spread(sp['kernel'])}, "
+          f"the FMA kernel it replaced {fmt_spread(old)}, plain "
+          f"{fmt_spread(sp['plain'])}, library (SDPA, the same boolean mask) "
+          f"{fmt_spread(sp['lib'])}; bound {b_ms:.4f} ms ({b_by}) [{gpu}]")
+    return sp["kernel"][0], sp["plain"][0], sp["lib"][0]
+
+
 def linear_nt_spread(o, B, T, d, dff, gpu):
     """One encoder layer's four ``linear_nt`` calls (bf16) on
     ``train_operands`` ``o``: the median and spread of SPREAD_CALLS calls'
@@ -2141,7 +2358,6 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     cont_train geometry. Returns {kernel: (ms, plain_ms, lib_ms)} at the
     cont2cont_mdn layer."""
     import torch
-    import torch.nn.functional as F
 
     from sketchformer_tpu_torch.ops import encoder_stack as es
     from sketchformer_tpu_torch.ops import norm_train as nt
@@ -2156,20 +2372,6 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
         for x, y in ((o["f1"], o["g"]), (o["x"], o["gf"]), (o["x"], o["g32"]),
                      (o["x"], o["gqkv"])):
             torch.matmul(x.t(), y.to(dt))
-
-    q4, k4, v4 = (t.reshape(B, T, H, d // H).transpose(1, 2)
-                  for t in (o["q"], o["k"], o["v"]))
-    mask = (o["bias"] == 0)[:, None, None, :]
-    # the SDPA backward at the same shape (no qk-norm): one call computes
-    # dq, dk and dv
-    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
-    with torch.enable_grad():
-        sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
-    do4 = o["do"].reshape(B, T, H, d // H).transpose(1, 2).to(dt)
-
-    def lib_attn_bwd():
-        with torch.enable_grad():
-            torch.autograd.grad(sdpa, (qs, ks, vs), do4, retain_graph=True)
 
     # LayerNorm's backward on the same rows (f32, as the gradient is)
     x32 = o["x"].float()
@@ -2199,12 +2401,11 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
               f"[{gpu}]")
         out["attention_fwd"] = attention_fwd_spread(o, B, T, d, H, True,
                                                     gpu)
+    out.update(attention_bwd_spread(o, B, T, d, H, True, gpu))
+    # the same call without qk-norm: what the norms cost the pair
+    attention_bwd_spread(o, B, T, d, H, False, gpu)
+    with torch.no_grad():
         for name, kern, plain, lib in (
-                ("attention_bwd_q", attn_calls(o, H, True, "bwd_q", "kernel"),
-                 attn_calls(o, H, True, "bwd_q", "plain"), lib_attn_bwd),
-                ("attention_bwd_kv", attn_calls(o, H, True, "bwd_kv",
-                                                "kernel"),
-                 attn_calls(o, H, True, "bwd_kv", "plain"), lib_attn_bwd),
                 ("layernorm_bwd",
                  lambda: nt.layernorm_bwd(o["x"], o["g32"], o["scale"],
                                           resid=o["g"]),
@@ -2221,10 +2422,20 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
                   f"dff={dff}{', the layer: 4 calls' if 'linear' in name else ''}"
                   f"): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} [{gpu}]")
-    del o, sdpa, qs, ks, vs
+    del o
+    # the train_h8 geometry (B=512, T=96, H=8/Dh=32, no qk-norm): the
+    # attention backward and forward
+    h8 = dict(CONT_TRAIN, H=8)
+    o = train_operands(randn, dev, dtype=dt, qk=False,
+                       **{k: h8[k] for k in ("B", "T", "d", "H", "dff")})
+    attention_bwd_spread(o, h8["B"], h8["T"], h8["d"], 8, False, gpu)
+    with torch.no_grad():
+        attention_fwd_spread(o, h8["B"], h8["T"], h8["d"], 8, False, gpu)
+    del o
     # the cont_train / train geometry (H=2/Dh=128, no qk-norm)
     ct = {k: CONT_TRAIN[k] for k in ("B", "T", "d", "H", "dff")}
     o = train_operands(randn, dev, dtype=dt, qk=False, **ct)
+    attention_bwd_spread(o, ct["B"], ct["T"], ct["d"], ct["H"], False, gpu)
     with torch.no_grad():
         attention_fwd_spread(o, ct["B"], ct["T"], ct["d"], ct["H"], False, gpu)
         k_ms, _, l_ms = linear_nt_spread(o, ct["B"], ct["T"], ct["d"],
@@ -2506,6 +2717,13 @@ def main() -> int:
         for name in ("linear", "encoder_attention", "layernorm_rows"):
             if launches[name] <= 0:
                 fail(f"kernel {name} was not launched by the main path")
+        # bf16 at H=8 / Dh=32: every encoder_attention call took the
+        # tensor-core forward, none the FMA kernel
+        routes = dict(es.ROUTES)
+        print(f"encoder_attention routes during the main path: "
+              f"{json.dumps(routes)}")
+        if routes != {"mma": launches["encoder_attention"], "fma": 0}:
+            fail(f"the sbir path's encoder_attention routes {routes}")
         if launches["linear_nt"] or launches["linear_tn"]:
             fail("the sbir path launched a backward kernel")
         if dc.LAUNCHES["decode_chunk"] or da.LAUNCHES["decode_attention"]:
@@ -2667,8 +2885,11 @@ def main() -> int:
     # its own launch: what stays is LayerNorm's and qk-norm's partial sums
     print(f"sum_rows launches a cont2cont_mdn train step: "
           f"{train_launches['sum_rows'] / TRAIN_STEPS:.1f} (before the bias "
-          f"gradients moved into linear_tn: {SUM_ROWS_PER_STEP_BEFORE}); "
-          f"linear_tn {train_launches['linear_tn'] / TRAIN_STEPS:.1f}")
+          f"gradients moved into linear_tn: {SUM_ROWS_PER_STEP_BEFORE}; "
+          f"before the attention backward's qk-norm sums moved into its "
+          f"launches: {SUM_ROWS_PER_STEP_BEFORE_K5}); linear_tn "
+          f"{train_launches['linear_tn'] / TRAIN_STEPS:.1f}, layernorm_bwd "
+          f"{train_launches['layernorm_bwd'] / TRAIN_STEPS:.1f}")
 
     # ---- 4d. main path: token-mode training, then eval -------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2768,26 +2989,14 @@ def main() -> int:
     with torch.inference_mode():
         times["linear"] = paired(layer_linears(es.linear),
                                  layer_linears(es.linear_reference))
-        qkv = randn(B, T, 3 * d, dtype=dt)
-        kbias = torch.where(key_mask(B, T), 0.0, es.NEG_INF).float()
-        times["encoder_attention"] = paired(
-            lambda: es.encoder_attention(qkv, kbias, num_heads=H),
-            lambda: es.attention_reference(qkv, kbias, num_heads=H))
         times["layernorm_rows"] = paired(
             lambda: es.layernorm_rows(x, w["lnfs"][0], w["lnfb"][0]),
             lambda: es.layernorm_rows_reference(x, w["lnfs"][0],
                                                 w["lnfb"][0]))
-        Dh = d // H
-        q4, k4, v4 = (t.reshape(B, T, H, Dh).transpose(1, 2)
-                      for t in qkv.split(d, dim=-1))
-        amask = (kbias == 0)[:, None, None, :]
         lib["linear"] = cuda_ms(lambda: [
             torch.addmm(w[b][0].to(dt), a, w[k][0])
             for a, k, b in ((x, "wqkv", "bqkv"), (x, "wo", "bo"),
                             (x, "w1", "b1"), (hid, "w2", "b2"))])
-        lib["encoder_attention"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                   attn_mask=amask))
         lib["layernorm_rows"] = cuda_ms(
             lambda: F.layer_norm(x, (d,), w["lnfs"][0].to(dt),
                                  w["lnfb"][0].to(dt), 1e-6))
@@ -2796,6 +3005,16 @@ def main() -> int:
             print(f"time {name} (B={B}, T={T}, {str(dt)[6:]}"
                   f"{', one layer: 4 calls' if name == 'linear' else ''})"
                   f": kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
+        # encoder_attention on the tensor cores: the sbir call (no qk-norm),
+        # cont2cont_mdn's encoder (qk-norm, each key normalised once a
+        # block) and the B=512 / T=96 / H=2 training geometry
+        ea = encoder_attention_spread(dev, B, T, H, d // H, False, gpu, randn)
+        times["encoder_attention"], lib["encoder_attention"] = ea[:2], ea[2]
+        encoder_attention_spread(dev, B, T, H, d // H, True, gpu, randn)
+        encoder_attention_spread(dev, CONT_TRAIN["B"], CONT_TRAIN["T"],
+                                 CONT_TRAIN["H"],
+                                 CONT_TRAIN["d"] // CONT_TRAIN["H"], False,
+                                 gpu, randn)
         for Bs in (64, 512):
             xs = randn(Bs, T, d, dtype=dt)
             km = key_mask(Bs, T)

@@ -10,6 +10,7 @@
 // ln_blocks_fwd32 / _bwd32) when head_dim < 128. Here head_dim is an
 // argument (<= 128), so one kernel serves every geometry.
 //
+// In f32 three FMA kernels:
 //   attention_fwd     one block per (32 query rows, head, batch element):
 //                     optional per-head qk-norm, scores in f32 with the
 //                     causal bias (an iota compare, no (T, T) tensor) and
@@ -18,8 +19,7 @@
 //                     compute dtype before P.V (the decoder's forward and
 //                     the encoder's recompute), or the unnormalised e with
 //                     the division after (the encoder's forward, as
-//                     encoder_attention in encoder_stack.cu). f32 only:
-//                     bf16 runs attention_fwd_mma_kernel (see its note).
+//                     encoder_attention in encoder_stack.cu).
 //   attention_bwd_q   one block per (16 query rows, head, batch element):
 //                     recomputes each row's scores and softmax, dp = dO.V^T,
 //                     delta = sum(dp * p), ds = p * (dp - delta) in f32 (the
@@ -33,12 +33,18 @@
 //                     pass had them, and sums dv = p^T.dO and dk = ds^T.Q *
 //                     scale, then the qk-norm backward of dk. Every dk / dv
 //                     row is owned by one warp, so no atomics: re-runs are
-//                     bit-stable.
+//                     bit-stable. The f32 qk-norm parameter gradients are
+//                     per-block partial rows, summed in a fixed order by
+//                     sum_rows (norm_train.cu).
 //
-// qk-norm parameter gradients are per-block partial rows, summed in a fixed
-// order by sum_rows (norm_train.cu).
+// In bf16 every product runs on the tensor cores (mma.sync m16n8k16):
+// the forward of the stacks and of K8 (attention_fwd_mma_kernel), which
+// encoder_stack.py's encoder_attention also runs; K8's backward
+// (flash_bwd_mma_kernel); and the stacks' backward, K5
+// (attention_bwd_mma_kernel, whose qk-norm parameter gradients are summed
+// in the same launch through split_reduce.cuh). See their notes.
 //
-// The same three kernels are K8, the per-op attention of
+// The same kernels are K8, the per-op attention of
 // sketchformer_tpu/ops/pallas_attention.py::flash_attention (_fwd_kernel,
 // _bwd_kernel), through their own entry points sk_flash_attention_fwd /
 // _bwd. There the bias is a
@@ -50,14 +56,11 @@
 // and the gradients are in the compute dtype (io_dt), the gradients
 // rounded at the store as _bwd_kernel rounds them.
 //
-// In bf16 the forward of the stacks and K8 (attention_fwd_mma_kernel) and
-// K8's backward (flash_bwd_mma_kernel) are kernels of their own on the
-// tensor cores (see their notes); in f32 they run the passes above.
-//
-// What bounds the stacks' two backward kernels on the card: at Dh = 32 each
-// score costs 2 * Dh FLOPs against one f32 exponential, so they are bound by
-// instruction issue on the FMA and SFU units, not by memory. Their tensor-
-// core redesign is later work.
+// What bounds the f32 FMA kernels on the card: at Dh = 32 each score costs
+// 2 * Dh FLOPs against one f32 exponential, so they are bound by
+// instruction issue on the FMA and SFU units, not by memory; the bf16
+// kernels move the products onto the tensor cores, and the exponentials
+// and the score tiles' register traffic remain.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
@@ -67,6 +70,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "split_reduce.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -388,6 +392,17 @@ struct GradArgs {
   int dq_rs, dk_rs, dv_rs;
   float *part_s, *part_b;  // (blocks, Dh) qk-norm parameter-gradient partials
   int io_dt;           // dout and dq / dk / dv in the compute dtype, else f32
+};
+
+// K5 in bf16 (attention_bwd_mma_kernel), beside GradArgs (f32 gradients):
+// dO in bf16 or f32, the rows a block owns, and the qk-norm parameter
+// gradients summed in the launch: block partials and per-batch-element
+// sums in ws, per-tile counters (B + 1, zero between launches), the (2, Dh)
+// result in norm_grad
+struct MmaBwdArgs {
+  int do_f32, own_rows;  // own_rows: 64 or 96
+  float *ws, *norm_grad;
+  unsigned* counters;
 };
 
 template <typename T>
@@ -1000,22 +1015,30 @@ int launch_flash_bwd_mma(const AttnArgs& a, const GradArgs& g, int B,
 //      round(exp(s - max)) with the f32 sum of the unrounded exp taken
 //      here against the final max and the division after (!kNormP); O +=
 //      p.V.
-// qk-norm: the Q tile is normalised once in shared memory, each K tile after
-// it lands (f32 statistics, rounded as head_norm rounds). Keys past Tk are
-// excluded by index from the max, the sum and P.V. Each output row has one
-// owner, so re-runs are bit-stable. What bounds it: at Dh = 32 a score costs
-// 2 Dh FLOPs against one or two exponentials, so the SFU and the score
-// tiles' register traffic set the time, not the products (a 64-row wgmma
-// tile would buy nothing) or the bytes.
+// qk-norm: the Q tile is normalised once in shared memory (f32 statistics,
+// rounded as head_norm rounds). Streaming, each K tile is normalised after
+// it lands, so each key is normalised twice a block (once a sweep): at
+// T = 192, 6 times a head. kResident (the host's choice, ops/
+// attention_train.py::fwd_resident: under qk-norm where the head's whole
+// K and V fit 40 KB with the Q tile, Tk <= 224 at Dh = 32, 96 at Dh = 64,
+// 32 at Dh = 128) stages every key and
+// value row of the head at once, normalises each key once, and runs both
+// sweeps from shared memory with no barrier between tiles. Keys past Tk
+// are excluded by index from the max, the sum and P.V. Each output row has
+// one owner, so re-runs are bit-stable. What bounds it: at Dh = 32 a score
+// costs 2 Dh FLOPs against one or two exponentials, so the SFU and the
+// score tiles' register traffic set the time, not the products (a 64-row
+// wgmma tile would buy nothing) or the bytes.
 
 // qk-norm of rows [0, n) of a bf16 tile in shared memory (row stride
-// kDh + 8), in place: kDh / 8 neighbouring threads a row, 16 bytes each, the
-// row's sums reduced across them; head_norm's f32 statistics and rounding
-template <int kDh>
+// kDh + 8), in place, by the block's kThreads threads: kDh / 8 neighbouring
+// threads a row, 16 bytes each, the row's sums reduced across them;
+// head_norm's f32 statistics and rounding
+template <int kDh, int kThreads = kFbThreads>
 __device__ __forceinline__ void norm_rows(__nv_bfloat16* t, int n, int Dh,
                                           const float* __restrict__ ps,
                                           const float* __restrict__ pb) {
-  constexpr int kTpr = kDh / 8, kRows = kFbThreads / kTpr, kLd = kDh + 8;
+  constexpr int kTpr = kDh / 8, kRows = kThreads / kTpr, kLd = kDh + 8;
   const int c = (threadIdx.x % kTpr) * 8, rr = threadIdx.x / kTpr;
   for (int r = rr; r < (n + kRows - 1) / kRows * kRows; r += kRows) {
     const bool ok = r < n;  // every lane shuffles, in or past the tile
@@ -1068,7 +1091,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // blocks an SM: 7 at Dh = 32, 5 at Dh = 64, 4 at Dh = 128 (72, 96 and 128
 // registers a thread); the compiler left alone takes more registers and
 // fewer blocks fit, which cost 10-15% (an A/B on one card)
-template <int kDh, bool kNormP>
+template <int kDh, bool kNormP, bool kResident>
 __global__ void __launch_bounds__(kFbThreads,
                                   kDh == 32 ? 7 : kDh == 64 ? 5 : 4)
 attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
@@ -1077,7 +1100,8 @@ attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
   constexpr int kLd = kDh + 8;
   extern __shared__ __align__(16) unsigned char fa_smem[];
   bf* qs = reinterpret_cast<bf*>(fa_smem);  // [64][kLd] the (normed) queries
-  bf* kvb = qs + kFbOwn * kLd;              // [2][2][32][kLd]: K, V tiles
+  // streaming: [2][2][32][kLd] K, V tiles; resident: [Tk32][kLd] K, then V
+  bf* kvb = qs + kFbOwn * kLd;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, cq = lane & 3;
   const int r0 = blockIdx.x * kFbOwn, h = blockIdx.y, b = blockIdx.z;
@@ -1087,15 +1111,17 @@ attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
   const float* kb = batch_bias(a, b);
 
   // zero everything once: the columns past Dh are never written again
-  for (int i = tid; i < (kFbOwn + 4 * kFbIn) * kLd / 8; i += kFbThreads)
+  const int rows =
+      kFbOwn + 2 * (kResident ? (a.Tk + kFbIn - 1) / kFbIn * kFbIn : 2 * kFbIn);
+  for (int i = tid; i < rows * kLd / 8; i += kFbThreads)
     reinterpret_cast<uint4*>(fa_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
   auto stage = [&](bf* dst, const bf* src, int rs, int row0, int n, int T) {
     stage_rows<kLd, kFbThreads>(dst, src, rs, row0, n, T, a.Dh);
   };
-  // the two sweeps run as one cp.async pipeline of 2 ntiles steps: step it
-  // (key tile it % ntiles, with its V tile in the second sweep) lands in
-  // buffer it % 2 while step it - 1 computes
+  // streaming: the two sweeps run as one cp.async pipeline of 2 ntiles
+  // steps: step it (key tile it % ntiles, with its V tile in the second
+  // sweep) lands in buffer it % 2 while step it - 1 computes
   const int ntiles = (a.Tk + kFbIn - 1) / kFbIn;
   auto load = [&](int it) {
     bf* kt = kvb + (it & 1) * 2 * kFbIn * kLd;
@@ -1105,30 +1131,43 @@ attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
     cp_async_commit();
   };
   stage(qs, q, a.q_rs, r0, kFbOwn, a.Tq);
-  cp_async_commit();
-  load(0);
-  cp_async_wait<1>();
+  if constexpr (kResident) {
+    stage(kvb, k, a.k_rs, 0, ntiles * kFbIn, a.Tk);
+    stage(kvb + ntiles * kFbIn * kLd, v, a.v_rs, 0, ntiles * kFbIn, a.Tk);
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    cp_async_commit();
+    load(0);
+    cp_async_wait<1>();
+  }
   __syncthreads();
   if (a.qn_s != nullptr) {
     norm_rows<kDh>(qs, min(kFbOwn, a.Tq - r0), a.Dh, a.qn_s, a.qn_b);
+    if constexpr (kResident) norm_rows<kDh>(kvb, a.Tk, a.Dh, a.kn_s, a.kn_b);
     __syncthreads();
   }
   // step it's K (normed) and V tiles, after every earlier step's reads
+  // (resident: key tile it % ntiles, its V tile ntiles tiles on)
   auto step_tiles = [&](int it) {
-    if (it + 1 < 2 * ntiles) {
-      load(it + 1);
-      cp_async_wait<1>();
+    if constexpr (kResident) {
+      return kvb + (it % ntiles) * kFbIn * kLd;
     } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    bf* kt = kvb + (it & 1) * 2 * kFbIn * kLd;
-    if (a.kn_s != nullptr) {
-      norm_rows<kDh>(kt, min(kFbIn, a.Tk - (it % ntiles) * kFbIn), a.Dh,
-                     a.kn_s, a.kn_b);
+      if (it + 1 < 2 * ntiles) {
+        load(it + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
       __syncthreads();
+      bf* kt = kvb + (it & 1) * 2 * kFbIn * kLd;
+      if (a.kn_s != nullptr) {
+        norm_rows<kDh>(kt, min(kFbIn, a.Tk - (it % ntiles) * kFbIn), a.Dh,
+                       a.kn_s, a.kn_b);
+        __syncthreads();
+      }
+      return kt;
     }
-    return kt;
   };
 
   // this thread's two rows, gq and gq + 8 of the warp's 16 (a ragged tile's
@@ -1187,7 +1226,7 @@ attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
       }
       mx[r] = mn;
     }
-    __syncthreads();
+    if constexpr (!kResident) __syncthreads();  // the buffer is reloaded
   }
 
   float o[kDh / 8][4];
@@ -1216,8 +1255,8 @@ attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
       }
     uint32_t pa[2][4];
     c_to_a(pa, s);
-    warp_pv<kDh, kLd>(o, pa, kt + kFbIn * kLd);
-    __syncthreads();
+    warp_pv<kDh, kLd>(o, pa, kt + (kResident ? ntiles : 1) * kFbIn * kLd);
+    if constexpr (!kResident) __syncthreads();
   }
 
 #pragma unroll
@@ -1252,12 +1291,20 @@ bool fwd_mma_shapes_ok(const AttnArgs& a, const void* out, long long o_bs,
          reinterpret_cast<uintptr_t>(out) % 4 == 0 && (o_rs | o_bs) % 2 == 0;
 }
 
+// whole: the whole-head variant (kResident), the host's choice; a head
+// whose K and V exceed the card's shared memory fails in set_smem
 template <int kDh>
 int launch_fwd_mma_dh(const AttnArgs& a, void* out, long long o_bs, int o_rs,
-                      int norm_p, int B, cudaStream_t stream) {
-  const size_t smem = (size_t)(kFbOwn + 4 * kFbIn) * (kDh + 8) * 2;
-  auto kernel = norm_p ? attention_fwd_mma_kernel<kDh, true>
-                       : attention_fwd_mma_kernel<kDh, false>;
+                      int norm_p, int whole, int B, cudaStream_t stream) {
+  const size_t row = (kDh + 8) * 2;
+  const size_t smem =
+      whole ? (kFbOwn + 2 * (size_t)((a.Tk + kFbIn - 1) / kFbIn) * kFbIn) * row
+            : (kFbOwn + 4 * kFbIn) * row;
+  auto kernel =
+      whole ? (norm_p ? attention_fwd_mma_kernel<kDh, true, true>
+                      : attention_fwd_mma_kernel<kDh, false, true>)
+            : (norm_p ? attention_fwd_mma_kernel<kDh, true, false>
+                      : attention_fwd_mma_kernel<kDh, false, false>);
   int err = set_smem(kernel, smem);
   if (err) return err;
   kernel<<<dim3((a.Tq + kFbOwn - 1) / kFbOwn, a.H, B), kFbThreads, smem,
@@ -1266,32 +1313,488 @@ int launch_fwd_mma_dh(const AttnArgs& a, void* out, long long o_bs, int o_rs,
 }
 
 int launch_fwd_mma(const AttnArgs& a, void* out, long long o_bs, int o_rs,
-                   int norm_p, int B, cudaStream_t s) {
+                   int norm_p, int whole, int B, cudaStream_t s) {
   if (!fwd_mma_shapes_ok(a, out, o_bs, o_rs))
     return (int)cudaErrorInvalidValue;
-  if (a.Dh <= 32) return launch_fwd_mma_dh<32>(a, out, o_bs, o_rs, norm_p, B, s);
-  if (a.Dh <= 64) return launch_fwd_mma_dh<64>(a, out, o_bs, o_rs, norm_p, B, s);
-  return launch_fwd_mma_dh<128>(a, out, o_bs, o_rs, norm_p, B, s);
+  if (a.Dh <= 32)
+    return launch_fwd_mma_dh<32>(a, out, o_bs, o_rs, norm_p, whole, B, s);
+  if (a.Dh <= 64)
+    return launch_fwd_mma_dh<64>(a, out, o_bs, o_rs, norm_p, whole, B, s);
+  return launch_fwd_mma_dh<128>(a, out, o_bs, o_rs, norm_p, whole, B, s);
 }
 
-// f32 the FMA kernel; bf16 the tensor-core kernel above
+// ---------------------------------------------------------------------------
+// K5 in bf16: the stacks' attention backward on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replaces, in bf16, the FMA passes attention_bwd_q / _kv (f32 keeps them)
+// for the stacks' backward: the port of sketchformer_tpu/ops/
+// pallas_packed.py::group_attn_bwd and ln_blocks_bwd32, which run inside
+// pallas_encoder_train.py::_layer_bwd_kernel and pallas_decoder_train.py::
+// _dec_layer_bwd_kernel. flash_bwd_mma_kernel's design (owned tiles of
+// 16-row warps, 32-row tiles of the other side through a cp.async double
+// buffer, every product mma.sync m16n8k16 with the score tiles in
+// registers) with the stacks' numerics. A block owns 64 or 96 rows (4 or 6
+// warps, kWarps), the host's choice for each pass (ops/attention_train.py::
+// bwd_owner_rows): 96 where that leaves fewer rows past T and Dh <= 64, so
+// T = 96 (the B = 512 training shapes) takes one block a head with no row
+// computed past T where 64-row tiles computed a quarter of theirs past it.
+//   kDkv false  a block owns query rows. Sweep 1 over the keys forms S
+//               and dP = dO.V^T and keeps the online max, sum of exp and
+//               sum of exp * dp; delta = that last over the sum (sum_j dp
+//               p over every key, the TPU kernel's form). Sweep 2 forms p =
+//               e / sum (a division), ds = round(p * (dp - delta)) and dq
+//               += ds.K; it stores dq and each row's (max, sum, delta).
+//   kDkv true   a block owns key rows and sweeps the queries: S^T, dP^T,
+//               p and ds from the saved statistics, dv += round(p)^T.dO and
+//               dk += ds^T.Q.
+// Scores are scaled, rounded, then take the causal -1e9 and the key bias
+// (score()'s order). qk-norm: Q and K arrive pre-norm; the owned tile is
+// normalised once in shared memory, each swept tile once a sweep after it
+// lands (norm_rows: head_norm's f32 statistics, rounded to bf16). The
+// epilogue runs the qk-norm backward on dq / dk from the owned rows'
+// xhat and rstd, recomputed from their pre-norm rows. dO is bf16 (cp.async)
+// or f32 (rounded while it is staged, as the FMA passes round it); dq, dk
+// and dv are stored in f32. The norm parameter gradients: each block's
+// partial rows (its warps' sums added in warp order) go to scratch; the
+// last block of each batch element adds that element's partials in block
+// order and the last of those adds the B sums in order (split_reduce.cuh,
+// two levels, so no block reads more than max(H * tiles, B) rows), so no
+// sum_rows launch follows. Each output row has one owner and the sums run
+// in a fixed order: re-runs are bit-stable. What bounds it: as K8's
+// backward, the exponentials (three a score) and the score tiles' register
+// traffic, not the products or the bytes.
+
+// rows [row0, row0 + n) of an f32 (T, Dh) pane (row stride rs, rows 16-byte
+// aligned) rounded to bf16 into smem rows of kLd elements, by kThreads
+// threads; rows past T zero
+template <int kLd, int kThreads>
+__device__ __forceinline__ void stage_rows_f32(__nv_bfloat16* dst,
+                                               const float* src, int rs,
+                                               int row0, int n, int T,
+                                               int Dh) {
+  const int cpr = Dh / 8;
+  for (int i = threadIdx.x; i < n * cpr; i += kThreads) {
+    const int r = i / cpr, c = (i - r * cpr) * 8;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < T) {
+      const float4* p =
+          reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * rs + c);
+      const float4 x = __ldg(p), y = __ldg(p + 1);
+      u = make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w),
+                     pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+    }
+    *reinterpret_cast<uint4*>(dst + r * kLd + c) = u;
+  }
+}
+
+// the stacks' score of query t and key j (j clamped into the bias row)
+__device__ __forceinline__ float k5_score(float acc, const AttnArgs& a,
+                                          const float* kb, int t, int j) {
+  float s = __fmul_rn(acc, a.scale);
+  if (a.causal == 1) s += j <= t ? 0.f : kNegInf;
+  if (kb != nullptr) s += kb[min(j, a.Tk - 1)];
+  return s;
+}
+
+// this thread's two owned rows (row0 + gq + 8 r) of a gradient in C
+// fragments (column 8 nd + 2 cq + e) times mul; with ns, through the
+// qk-norm backward (head_norm_bwd) from xhat and rstd recomputed from the
+// pre-norm rows x, the rows below T adding their dy * xhat and dy into ps /
+// pb; stored in f32 for the rows below T
+template <int kDh>
+__device__ __forceinline__ void store_owned(
+    const float (&acc)[kDh / 8][4], float mul, const __nv_bfloat16* x,
+    int x_rs, const float* __restrict__ ns, int T, int Dh, int row0,
+    float* out, int o_rs, float (&ps)[kDh / 4], float (&pb)[kDh / 4]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, cq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + gq + 8 * r;
+    const bool live = t < T;
+    float dy[kDh / 4];
+#pragma unroll
+    for (int nd = 0; nd < kDh / 8; ++nd) {
+      dy[2 * nd] = acc[nd][2 * r] * mul;
+      dy[2 * nd + 1] = acc[nd][2 * r + 1] * mul;
+    }
+    if (ns != nullptr) {
+      const __nv_bfloat16* xr = x + (size_t)min(t, T - 1) * x_rs;
+      float xh[kDh / 4], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int nd = 0; nd < kDh / 8; ++nd) {
+        const int c = nd * 8 + 2 * cq;
+        float2 v = make_float2(0.f, 0.f);
+        if (c < Dh)
+          v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xr + c));
+        xh[2 * nd] = v.x;
+        xh[2 * nd + 1] = v.y;
+        s1 += v.x + v.y;
+        s2 += v.x * v.x + v.y * v.y;
+      }
+      const float mu = quad_sum(s1) / Dh;
+      const float rstd =
+          1.f / sqrtf(fmaxf(quad_sum(s2) / Dh - mu * mu, 0.f) + kLnEps);
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kDh / 4; ++i) {
+        const int c = (i >> 1) * 8 + 2 * cq + (i & 1);
+        const bool in = c < Dh;
+        xh[i] = in ? (xh[i] - mu) * rstd : 0.f;
+        if (live && in) {
+          ps[i] += dy[i] * xh[i];
+          pb[i] += dy[i];
+        }
+        dy[i] = in ? dy[i] * ns[c] : 0.f;  // dxhat
+        m1 += dy[i];
+        m2 += dy[i] * xh[i];
+      }
+      m1 = quad_sum(m1) / Dh;
+      m2 = quad_sum(m2) / Dh;
+#pragma unroll
+      for (int i = 0; i < kDh / 4; ++i)
+        dy[i] = rstd * (dy[i] - m1 - xh[i] * m2);
+    }
+    if (!live) continue;
+    float* dst = out + (size_t)t * o_rs;
+#pragma unroll
+    for (int nd = 0; nd < kDh / 8; ++nd) {
+      const int c = nd * 8 + 2 * cq;
+      if (c < Dh)
+        *reinterpret_cast<float2*>(dst + c) =
+            make_float2(dy[2 * nd], dy[2 * nd + 1]);
+    }
+  }
+}
+
+// the qk-norm parameter gradients: the block's partial rows (the kWarps
+// warps' sums added in warp order; columns past Dh zero) into ws, then the
+// two-level fixed-order sum into m.norm_grad (see the note above); red is
+// 2 kWarps kDh floats of shared memory no thread reads any more
+template <int kDh, int kWarps>
+__device__ void norm_grads(const float (&ps)[kDh / 4],
+                           const float (&pb)[kDh / 4], float* red,
+                           const MmaBwdArgs& m, int Dh) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < kDh / 4; ++i) {
+    float u = ps[i], w = pb[i];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      u += __shfl_xor_sync(0xffffffffu, u, o);
+      w += __shfl_xor_sync(0xffffffffu, w, o);
+    }
+    const int c = (i >> 1) * 8 + 2 * cq + (i & 1);
+    if (gq == 0) {
+      red[(warp * 2) * kDh + c] = u;
+      red[(warp * 2 + 1) * kDh + c] = w;
+    }
+  }
+  __syncthreads();
+  const int splits = gridDim.x * gridDim.y, b = blockIdx.z;
+  const size_t z = (size_t)b * splits + blockIdx.y * gridDim.x + blockIdx.x;
+  for (int i = tid; i < 2 * kDh; i += 32 * kWarps) {
+    const int part = i / kDh, c = i % kDh;
+    float v = 0.f;
+    if (c < Dh)
+      for (int w = 0; w < kWarps; ++w) v += red[(w * 2 + part) * kDh + c];
+    m.ws[z * 2 * kDh + i] = v;
+  }
+  __shared__ int flag;
+  float* sums = m.ws + (size_t)gridDim.z * splits * 2 * kDh;  // (B, 2, kDh)
+  if (!split_last_block(m.counters + b, splits, &flag)) return;
+  split_reduce<2, kDh>(m.ws + (size_t)b * splits * 2 * kDh, splits,
+                       sums + (size_t)b * 2 * kDh, 2, kDh, 0, 0, nullptr,
+                       nullptr);
+  if (split_last_block(m.counters + gridDim.z, gridDim.z, &flag))
+    split_reduce<2, kDh>(sums, gridDim.z, m.norm_grad, 2, Dh, 0, 0, nullptr,
+                         nullptr);
+}
+
+// blocks an SM that the register cap allows (at most 102 registers a
+// thread at Dh = 32 with 4 warps, 113 with 6; 128 and 170 at Dh = 64; Dh =
+// 128 runs 4 warps only)
+template <int kDh, int kWarps>
+constexpr int bwd_min_blocks() {
+  return kDh == 32 ? (kWarps == 4 ? 5 : 3) : kDh == 64 ? (kWarps == 4 ? 4 : 2)
+                                                       : 2;
+}
+
+template <int kDh, bool kDkv, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps, bwd_min_blocks<kDh, kWarps>())
+attention_bwd_mma_kernel(AttnArgs a, GradArgs g, MmaBwdArgs m) {
+  using bf = __nv_bfloat16;
+  constexpr int kLd = kDh + 8, kOwn = 16 * kWarps, kThr = 32 * kWarps;
+  extern __shared__ __align__(16) unsigned char k5_smem[];
+  bf* own1 = reinterpret_cast<bf*>(k5_smem);  // [kOwn][kLd]: Q (K for dkv)
+  bf* own2 = own1 + kOwn * kLd;               //             dO (V)
+  bf* inb = own2 + kOwn * kLd;                // [2][2][32][kLd]: K, V (Q, dO)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int r0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int Tow = kDkv ? a.Tk : a.Tq, Tin = kDkv ? a.Tq : a.Tk;
+  const bf* q = static_cast<const bf*>(a.q) + b * a.q_bs + h * a.Dh;
+  const bf* k = static_cast<const bf*>(a.k) + b * a.k_bs + h * a.Dh;
+  const bf* v = static_cast<const bf*>(a.v) + b * a.v_bs + h * a.Dh;
+  const size_t do0 = (size_t)b * g.do_bs + h * a.Dh;
+  const float* kb = batch_bias(a, b);
+  // the owned tile's and the swept tiles' qk-norm parameters
+  const float* own_s = kDkv ? a.kn_s : a.qn_s;
+  const float* own_b = kDkv ? a.kn_b : a.qn_b;
+  const float* in_s = kDkv ? a.qn_s : a.kn_s;
+  const float* in_b = kDkv ? a.qn_b : a.kn_b;
+
+  // zero everything once: the columns past Dh are never written again
+  for (int i = tid; i < (2 * kOwn + 4 * kFbIn) * kLd / 8; i += kThr)
+    reinterpret_cast<uint4*>(k5_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  auto stage = [&](bf* dst, const bf* src, int rs, int row0, int n, int T) {
+    stage_rows<kLd, kThr>(dst, src, rs, row0, n, T, a.Dh);
+  };
+  auto stage_do = [&](bf* dst, int row0, int n) {
+    if (m.do_f32)
+      stage_rows_f32<kLd, kThr>(dst, static_cast<const float*>(g.dout) + do0,
+                                g.do_rs, row0, n, a.Tq, a.Dh);
+    else
+      stage(dst, static_cast<const bf*>(g.dout) + do0, g.do_rs, row0, n,
+            a.Tq);
+  };
+  if constexpr (kDkv) {
+    stage(own1, k, a.k_rs, r0, kOwn, a.Tk);
+    stage(own2, v, a.v_rs, r0, kOwn, a.Tk);
+  } else {
+    stage(own1, q, a.q_rs, r0, kOwn, a.Tq);
+    stage_do(own2, r0, kOwn);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (own_s != nullptr) {
+    norm_rows<kDh, kThr>(own1, min(kOwn, Tow - r0), a.Dh, own_s, own_b);
+    __syncthreads();
+  }
+
+  auto stage_in = [&](bf* dst, int row0) {
+    if constexpr (kDkv) {
+      stage(dst, q, a.q_rs, row0, kFbIn, a.Tq);
+      stage_do(dst + kFbIn * kLd, row0, kFbIn);
+    } else {
+      stage(dst, k, a.k_rs, row0, kFbIn, a.Tk);
+      stage(dst + kFbIn * kLd, v, a.v_rs, row0, kFbIn, a.Tk);
+    }
+    cp_async_commit();
+  };
+  const int ntiles = (Tin + kFbIn - 1) / kFbIn;
+  // one sweep over the other side: body(tile start, its two smem tiles),
+  // the first of them normalised once after it lands
+  auto sweep = [&](auto&& body) {
+    stage_in(inb, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      if (it + 1 < ntiles) {
+        stage_in(inb + ((it + 1) & 1) * 2 * kFbIn * kLd, (it + 1) * kFbIn);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      bf* cb = inb + (it & 1) * 2 * kFbIn * kLd;
+      if (in_s != nullptr) {
+        norm_rows<kDh, kThr>(cb, min(kFbIn, Tin - it * kFbIn), a.Dh, in_s,
+                             in_b);
+        __syncthreads();
+      }
+      body(it * kFbIn, cb, cb + kFbIn * kLd);
+      __syncthreads();
+    }
+  };
+
+  const int row0 = r0 + warp * 16;  // the warp's 16 owned rows
+  const int rowA = row0 + gq;       // this thread's: rowA and rowA + 8
+  float acc1[kDh / 8][4], acc2[kDh / 8][4];
+#pragma unroll
+  for (int i = 0; i < kDh / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc1[i][j] = acc2[i][j] = 0.f;
+  float ps[kDh / 4], pb[kDh / 4];
+#pragma unroll
+  for (int i = 0; i < kDh / 4; ++i) ps[i] = pb[i] = 0.f;
+
+  if constexpr (!kDkv) {
+    float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f},
+          sd[2] = {0.f, 0.f};
+    sweep([&](int j0, const bf* kt, const bf* vt) {
+      float s[4][4], dp[4][4];
+      warp_qk<kDh, kLd>(s, own1, kt);
+      warp_qk<kDh, kLd>(dp, own2, vt);
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = rowA + 8 * (i >> 1), j = j0 + nt * 8 + 2 * cq + (i & 1);
+          s[nt][i] = j < a.Tk ? k5_score(s[nt][i], a, kb, t, j) : -INFINITY;
+          tmax[i >> 1] = fmaxf(tmax[i >> 1], s[nt][i]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(mx[r], quad_max(tmax[r]));
+        float es = 0.f, ed = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 2 * r; i < 2 * r + 2; ++i) {
+            const float e = expf(s[nt][i] - mn);
+            es += e;
+            ed += e * dp[nt][i];
+          }
+        const float f = expf(mx[r] - mn);  // 0 on the first tile
+        sm[r] = sm[r] * f + quad_sum(es);
+        sd[r] = sd[r] * f + quad_sum(ed);
+        mx[r] = mn;
+      }
+    });
+    const float delta[2] = {sd[0] / sm[0], sd[1] / sm[1]};
+    sweep([&](int j0, const bf* kt, const bf* vt) {
+      float s[4][4], dp[4][4];
+      warp_qk<kDh, kLd>(s, own1, kt);
+      warp_qk<kDh, kLd>(dp, own2, vt);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const int t = rowA + 8 * r, j = j0 + nt * 8 + 2 * cq + (i & 1);
+          const float sv = j < a.Tk ? k5_score(s[nt][i], a, kb, t, j)
+                                    : -INFINITY;
+          const float p = __fdiv_rn(expf(sv - mx[r]), sm[r]);
+          dp[nt][i] = p * (dp[nt][i] - delta[r]);
+        }
+      uint32_t pa[2][4];
+      c_to_a(pa, dp);  // ds rounded to bf16
+      warp_pv<kDh, kLd>(acc1, pa, kt);
+    });
+    store_owned<kDh>(acc1, a.scale, q, a.q_rs, a.qn_s, a.Tq, a.Dh, row0,
+                     static_cast<float*>(g.dq) + b * g.dq_bs + h * a.Dh,
+                     g.dq_rs, ps, pb);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = rowA + 8 * r;
+      if (t < a.Tq && cq == 0) {
+        float* st = g.stats + (((size_t)b * a.H + h) * a.Tq + t) * 3;
+        st[0] = mx[r];
+        st[1] = sm[r];
+        st[2] = delta[r];
+      }
+    }
+  } else {
+    const float* stats = g.stats + ((size_t)b * a.H + h) * a.Tq * 3;
+    sweep([&](int t0, const bf* qt, const bf* dot) {
+      float s[4][4], dp[4][4];
+      warp_qk<kDh, kLd>(s, own1, qt);
+      warp_qk<kDh, kLd>(dp, own2, dot);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = rowA + 8 * (i >> 1), t = t0 + nt * 8 + 2 * cq + (i & 1);
+          float p = 0.f, ds = 0.f;
+          if (t < a.Tq) {
+            const float* st = stats + (size_t)t * 3;
+            p = __fdiv_rn(expf(k5_score(s[nt][i], a, kb, t, j) - st[0]),
+                          st[1]);
+            ds = p * (dp[nt][i] - st[2]);
+          }
+          s[nt][i] = p;
+          dp[nt][i] = ds;
+        }
+      uint32_t pa[2][4];
+      c_to_a(pa, s);                      // p rounded to bf16
+      warp_pv<kDh, kLd>(acc2, pa, dot);   // dv += p^T . dO
+      c_to_a(pa, dp);                     // ds rounded to bf16
+      warp_pv<kDh, kLd>(acc1, pa, qt);    // dk += ds^T . Q
+    });
+    float none[kDh / 4], none_b[kDh / 4];
+    store_owned<kDh>(acc2, 1.f, v, a.v_rs, nullptr, a.Tk, a.Dh, row0,
+                     static_cast<float*>(g.dv) + b * g.dv_bs + h * a.Dh,
+                     g.dv_rs, none, none_b);
+    store_owned<kDh>(acc1, a.scale, k, a.k_rs, a.kn_s, a.Tk, a.Dh, row0,
+                     static_cast<float*>(g.dk) + b * g.dk_bs + h * a.Dh,
+                     g.dk_rs, ps, pb);
+  }
+  if (own_s != nullptr)
+    norm_grads<kDh, kWarps>(ps, pb, reinterpret_cast<float*>(inb), m, a.Dh);
+}
+
+// the bf16 backward's shapes: Dh a multiple of 16 up to 128, q / k / v and
+// dO rows 16-byte aligned, the f32 gradients' rows 8-byte aligned
+bool bwd_mma_shapes_ok(const AttnArgs& a, const GradArgs& g,
+                       const MmaBwdArgs& m) {
+  auto al = [](const void* p, int n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  const int do_al = m.do_f32 ? 4 : 8;  // elements in 16 bytes
+  return a.Dh % 16 == 0 && a.Dh <= 128 && al(a.q, 16) && al(a.k, 16) &&
+         al(a.v, 16) && al(g.dout, 16) &&
+         (a.q_rs | a.k_rs | a.v_rs | a.q_bs | a.k_bs | a.v_bs) % 8 == 0 &&
+         (g.do_rs % do_al | g.do_bs % do_al) == 0 && al(g.dq, 8) &&
+         al(g.dk, 8) && al(g.dv, 8) &&
+         (g.dq_rs | g.dk_rs | g.dv_rs | g.dq_bs | g.dk_bs | g.dv_bs) % 2 == 0 &&
+         (a.qn_s == nullptr || (m.ws != nullptr && m.counters != nullptr &&
+                                m.norm_grad != nullptr));
+}
+
+template <int kDh, int kWarps>
+int launch_bwd_mma_dh(int pass, const AttnArgs& a, const GradArgs& g,
+                      const MmaBwdArgs& m, int B, cudaStream_t stream) {
+  constexpr int kOwn = 16 * kWarps;
+  const size_t smem = (size_t)(2 * kOwn + 4 * kFbIn) * (kDh + 8) * 2;
+  auto kernel = pass == 1 ? attention_bwd_mma_kernel<kDh, false, kWarps>
+                          : attention_bwd_mma_kernel<kDh, true, kWarps>;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  const int T = pass == 1 ? a.Tq : a.Tk;
+  kernel<<<dim3((T + kOwn - 1) / kOwn, a.H, B), 32 * kWarps, smem,
+           stream>>>(a, g, m);
+  return (int)cudaGetLastError();
+}
+
+// m.own_rows: 64 or 96 rows a block (4 or 6 warps), the host's choice;
+// 96 only at Dh <= 64, the pairs ops/attention_train.py::bwd_owner_rows
+// selects
+template <int kDh>
+int launch_bwd_mma_own(int pass, const AttnArgs& a, const GradArgs& g,
+                       const MmaBwdArgs& m, int B, cudaStream_t s) {
+  if (m.own_rows == 64) return launch_bwd_mma_dh<kDh, 4>(pass, a, g, m, B, s);
+  if constexpr (kDh <= 64) {
+    if (m.own_rows == 96) return launch_bwd_mma_dh<kDh, 6>(pass, a, g, m, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_bwd_mma(int pass, const AttnArgs& a, const GradArgs& g,
+                   const MmaBwdArgs& m, int B, cudaStream_t s) {
+  if (!bwd_mma_shapes_ok(a, g, m)) return (int)cudaErrorInvalidValue;
+  if (a.Dh <= 32) return launch_bwd_mma_own<32>(pass, a, g, m, B, s);
+  if (a.Dh <= 64) return launch_bwd_mma_own<64>(pass, a, g, m, B, s);
+  return launch_bwd_mma_own<128>(pass, a, g, m, B, s);
+}
+
+// the f32 FMA forward (bf16 runs launch_fwd_mma)
 template <typename T, int NI>
 int launch_fwd(const AttnArgs& a, void* out, long long o_bs, int o_rs,
                int norm_p, int B, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_fwd_mma(a, out, o_bs, o_rs, norm_p, B, stream);
-  } else {
-    const size_t smem = sizeof(float) * ((size_t)kFwdQT * a.Dh +
-                                         (size_t)kFwdQT * a.Tk +
-                                         (size_t)kKC * (a.Dh + 1));
-    const dim3 grid((a.Tq + kFwdQT - 1) / kFwdQT, a.H, B);
-    auto kernel = norm_p ? attention_fwd_kernel<T, NI, true>
-                         : attention_fwd_kernel<T, NI, false>;
-    int err = set_smem(kernel, smem);
-    if (err) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(a, static_cast<T*>(out), o_bs, o_rs);
-    return (int)cudaGetLastError();
-  }
+  const size_t smem = sizeof(float) * ((size_t)kFwdQT * a.Dh +
+                                       (size_t)kFwdQT * a.Tk +
+                                       (size_t)kKC * (a.Dh + 1));
+  const dim3 grid((a.Tq + kFwdQT - 1) / kFwdQT, a.H, B);
+  auto kernel = norm_p ? attention_fwd_kernel<T, NI, true>
+                       : attention_fwd_kernel<T, NI, false>;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(a, static_cast<T*>(out), o_bs, o_rs);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int NI>
@@ -1322,7 +1825,7 @@ int launch_bwd_kv(const AttnArgs& a, const GradArgs& g, int B,
   return (int)cudaGetLastError();
 }
 
-// Dh <= 32 * NI; which pass: 0 fwd, 1 bwd_q, 2 bwd_kv
+// f32: Dh <= 32 * NI; which pass: 0 fwd, 1 bwd_q, 2 bwd_kv
 template <typename T>
 int dispatch(int pass, const AttnArgs& a, const GradArgs& g, void* out,
              long long o_bs, int o_rs, int norm_p, int B,
@@ -1339,15 +1842,21 @@ int dispatch(int pass, const AttnArgs& a, const GradArgs& g, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
+bool args_ok(const AttnArgs& a) {
+  return a.Tq >= 1 && a.Tk >= 1 && a.Dh >= 1 &&
+         (a.causal != 1 || a.Tq == a.Tk);
+}
+
+// f32 any pass on the FMA kernels; bf16 the tensor-core forward (the bf16
+// backward passes are launched by sk_attention_bwd)
 int dispatch_dtype(int dtype, int pass, const AttnArgs& a, const GradArgs& g,
                    void* out, long long o_bs, int o_rs, int norm_p, int B,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.Tq < 1 || a.Tk < 1 || a.Dh < 1 || (a.causal == 1 && a.Tq != a.Tk))
-    return (int)cudaErrorInvalidValue;
+  if (!args_ok(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return dispatch<float>(pass, a, g, out, o_bs, o_rs, norm_p, B, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(pass, a, g, out, o_bs, o_rs, norm_p, B, s);
+  if (dtype == 1 && pass == 0)
+    return launch_fwd_mma(a, out, o_bs, o_rs, norm_p, 0, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1399,31 +1908,43 @@ GradArgs make_grads(const void* dout, long long do_bs, int do_rs,
 extern "C" {
 
 // the training stacks' attention: a (B, Tk) key bias, causal added before
-// it, f32 dO and gradients
+// it, f32 gradients; dO in f32 or (do_dt) the compute dtype. resident (bf16
+// only) runs the forward's whole-head variant
 int sk_attention_fwd(int dtype, const void* q, long long q_bs, int q_rs,
                      const void* k, long long k_bs, int k_rs, const void* v,
                      long long v_bs, int v_rs, const void* key_bias,
                      const void* qn_s, const void* qn_b, const void* kn_s,
                      const void* kn_b, void* out, long long o_bs, int o_rs,
                      int B, int Tq, int Tk, int H, int Dh, int causal,
-                     int norm_p, float scale, void* stream) {
+                     int norm_p, int resident, float scale, void* stream) {
   const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
                                key_bias, Tk, 0, qn_s, qn_b, kn_s, kn_b, Tq,
                                Tk, H, Dh, causal ? 1 : 0, 0, scale);
+  if (resident) {
+    if (dtype != 1 || !args_ok(a)) return (int)cudaErrorInvalidValue;
+    return launch_fwd_mma(a, out, o_bs, o_rs, norm_p, 1, B,
+                          static_cast<cudaStream_t>(stream));
+  }
   GradArgs g = {};
   return dispatch_dtype(dtype, 0, a, g, out, o_bs, o_rs, norm_p, B, stream);
 }
 
+// the qk-norm parameter gradients: f32 writes per-block partial rows to
+// part_s / part_b (summed by sum_rows); bf16 sums them in the launch into
+// norm_grad (2, Dh) through ws and counters, with own_rows (64 or 96) owned
+// rows a block (see attention_bwd_mma_kernel)
 int sk_attention_bwd(int dtype, int pass, const void* q, long long q_bs,
                      int q_rs, const void* k, long long k_bs, int k_rs,
                      const void* v, long long v_bs, int v_rs,
                      const void* key_bias, const void* qn_s, const void* qn_b,
                      const void* kn_s, const void* kn_b, const void* dout,
-                     long long do_bs, int do_rs, void* stats, void* dq,
-                     long long dq_bs, int dq_rs, void* dk, long long dk_bs,
-                     int dk_rs, void* dv, long long dv_bs, int dv_rs,
-                     void* part_s, void* part_b, int B, int Tq, int Tk, int H,
-                     int Dh, int causal, float scale, void* stream) {
+                     long long do_bs, int do_rs, int do_dt, void* stats,
+                     void* dq, long long dq_bs, int dq_rs, void* dk,
+                     long long dk_bs, int dk_rs, void* dv, long long dv_bs,
+                     int dv_rs, void* part_s, void* part_b, void* norm_grad,
+                     void* ws, void* counters, int own_rows, int B, int Tq,
+                     int Tk, int H, int Dh, int causal, float scale,
+                     void* stream) {
   if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
   const AttnArgs a = make_args(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs,
                                key_bias, Tk, 0, qn_s, qn_b, kn_s, kn_b, Tq,
@@ -1431,7 +1952,16 @@ int sk_attention_bwd(int dtype, int pass, const void* q, long long q_bs,
   const GradArgs g = make_grads(dout, do_bs, do_rs, stats, dq, dq_bs, dq_rs,
                                 dk, dk_bs, dk_rs, dv, dv_bs, dv_rs, part_s,
                                 part_b, 0);
-  return dispatch_dtype(dtype, pass, a, g, nullptr, 0, 0, 0, B, stream);
+  if (dtype != 1)
+    return dispatch_dtype(dtype, pass, a, g, nullptr, 0, 0, 0, B, stream);
+  if (!args_ok(a)) return (int)cudaErrorInvalidValue;
+  MmaBwdArgs m;
+  m.do_f32 = !do_dt;
+  m.own_rows = own_rows;
+  m.ws = static_cast<float*>(ws);
+  m.norm_grad = static_cast<float*>(norm_grad);
+  m.counters = static_cast<unsigned*>(counters);
+  return launch_bwd_mma(pass, a, g, m, B, static_cast<cudaStream_t>(stream));
 }
 
 // K8: a bias of row stride bias_rs and batch stride bias_bs (or null),

@@ -25,9 +25,15 @@
 //                      epilogue cast -> bias -> optional ReLU -> optional
 //                      residual add. Serves QKV, the out-projection (+x),
 //                      FFN-in (+ReLU) and FFN-out (+x).
-//   encoder_attention  one block per (query tile, head, batch element); the
-//                      full f32 score row of each query stays in shared
-//                      memory (T <= 1024), so no online softmax is needed.
+//   encoder_attention  (f32, and bf16 head widths that are not a multiple
+//                      of 16) one block per (query tile, head, batch
+//                      element); the full f32 score row of each query stays
+//                      in shared memory (T <= 1024), so no online softmax is
+//                      needed. bf16 at other widths runs the training
+//                      stacks' tensor-core forward instead
+//                      (attention_train.cu::attention_fwd_mma_kernel, the
+//                      unnormalised exponentials rounded: the same
+//                      numerics), chosen by ops/encoder_stack.py.
 //   layernorm_rows     LN1 and LN2 ahead of QKV and FFN-in, and the final
 //                      LayerNorm; one warp per row, f32 statistics.
 //
@@ -38,7 +44,8 @@
 // in 64x64 output tiles that load 16-byte vectors and prefetch the next
 // K-slab into registers while the current one is multiplied; linear_tn and
 // (in bf16) linear_nt run on wgmma with TMA and a ring of mbarrier stages
-// (see their notes); the attention runs on the FMA units. LayerNorm is its own pass and
+// (see their notes); the bf16 attention runs on the tensor cores through
+// mma.sync (attention_train.cu), the f32 one on the FMA units. LayerNorm is its own pass and
 // not a prologue of the product: as a prologue, each of the N/64 column
 // blocks of a row block recomputed the same row statistics and
 // normalisation, which took as long again as the QKV product itself.
@@ -993,6 +1000,7 @@ linear_nt_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
 
 // ---------------------------------------------------------------------------
 // encoder_attention: out[b, t, h*Dh:(h+1)*Dh] over a (B, T, 3*H*Dh) qkv pane
+// (f32, and the bf16 head widths the tensor-core forward does not take)
 // ---------------------------------------------------------------------------
 
 constexpr int kRowsPerWarp = 4;

@@ -45,12 +45,12 @@ SIGNATURES = {
     "sk_linear_tn": ([_I, _I, _P, _P, _I, _P, _I, _U, _I, _I, _I, _I, _F,
                       _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "sk_attention_fwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _P, _P,
-                          _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                          _P], _I),
+                          _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _P], _I),
     "sk_attention_bwd": ([_I, _I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _P,
-                          _P, _P, _P, _P, _L, _I, _P, _P, _L, _I, _P, _L, _I,
-                          _P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-                         _I),
+                          _P, _P, _P, _P, _L, _I, _I, _P, _P, _L, _I, _P, _L,
+                          _I, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _P], _I),
     "sk_flash_attention_fwd": ([_I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P,
                                 _L, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _P], _I),
@@ -202,8 +202,9 @@ def ptr(t: Optional[torch.Tensor]):
 
 # device -> (per-tile counters, zero between launches; f32 scratch of the
 # split partials) of the kernels that add their splits' partials in the
-# same launch (csrc/split_reduce.cuh: linear_tn, ce_dw). Launches on one
-# stream run in order, so each call may reuse the scratch of the last.
+# same launch (csrc/split_reduce.cuh: linear_tn, ce_dw, the bf16 attention
+# backward's qk-norm gradients). Launches on one stream run in order, so
+# each call may reuse the scratch of the last.
 _SPLIT_SCRATCH: dict = {}
 
 

@@ -23,6 +23,13 @@ by the heads). ``key_bias`` is (B, Tk) f32, 0 to attend and -1e9 to mask;
   the second pass, and the q-norm parameter gradients.
 - :func:`attention_bwd_kv`: dk, dv (B, Tk, H*Dh) f32 and the k-norm
   parameter gradients.
+
+``dout`` is (B, Tq, H*Dh) in f32 or the compute dtype (the kernels round it
+to the compute dtype first, so both give the same gradients). In bf16 the
+two backward passes run on the tensor cores too (mma.sync, 64 or 96 owned
+rows a block, :func:`bwd_mma_plan`) and add their qk-norm parameter
+gradients in the same launch; in f32 the FMA passes write per-block partial rows that
+``norm_train.sum_rows`` adds.
 """
 
 from __future__ import annotations
@@ -37,12 +44,13 @@ from sketchformer_tpu_torch.ops.norm_train import ln_backward, ln_stats
 
 NEG_INF = -1e9
 MAX_HEAD_DIM = 128
-MAX_KEYS = 1024             # the score rows of a block stay in shared memory
+MAX_KEYS = 1024             # the f32 kernels keep a block's score rows in
+                            # shared memory
 
 LAUNCHES = {"attention_fwd": 0, "attention_bwd_q": 0, "attention_bwd_kv": 0}
 
-# rows or key columns per block (csrc/attention_train.cu); the bf16 forward:
-# query rows a block and keys a tile
+# rows or key columns per block of the f32 kernels (csrc/attention_train.cu);
+# the bf16 (tensor-core) kernels: owned rows a block and rows a swept tile
 FWD_ROWS, BWD_Q_ROWS, BWD_KV_COLS = 32, 16, 32
 MMA_ROWS, MMA_KEYS = 64, 32
 
@@ -174,13 +182,62 @@ def mma_head_dim(Dh: int) -> int:
     return 32 if Dh <= 32 else 64 if Dh <= 64 else 128
 
 
-def fwd_mma_plan(B: int, Tq: int, Tk: int, H: int, Dh: int):
+def fwd_mma_plan(B: int, Tq: int, Tk: int, H: int, Dh: int,
+                 qk_norm: bool = False):
     """(grid, key tiles, shared-memory bytes a block) of the bf16 forward
     (csrc/attention_train.cu::launch_fwd_mma_dh): a 64-row query tile and a
-    double buffer of 32-row K and V tiles, rows padded by 8 elements."""
+    double buffer of 32-row K and V tiles, rows padded by 8 elements; or,
+    where :func:`fwd_resident` takes it, the head's whole K and V."""
     dhp = mma_head_dim(Dh)
-    smem = (MMA_ROWS + 4 * MMA_KEYS) * (dhp + 8) * 2
+    smem = fwd_resident(Tk, Dh, qk_norm) or \
+        (MMA_ROWS + 4 * MMA_KEYS) * (dhp + 8) * 2
     return (-(-Tq // MMA_ROWS), H, B), -(-Tk // MMA_KEYS), smem
+
+
+# shared memory of the bf16 forward's whole-head variant, at most (the
+# kernel takes the choice from launch_fwd)
+RESIDENT_SMEM = 40 * 1024
+
+
+def fwd_resident(Tk: int, Dh: int, qk_norm: bool) -> Optional[int]:
+    """Shared-memory bytes a block of the bf16 forward's whole-head variant
+    takes (every key and value row of the head staged and normalised once,
+    both sweeps from shared memory), or None where the forward streams its
+    K / V tiles instead: without qk-norm, or when the head's K and V and the
+    query tile exceed RESIDENT_SMEM."""
+    smem = (MMA_ROWS + 2 * -(-Tk // MMA_KEYS) * MMA_KEYS) * \
+        (mma_head_dim(Dh) + 8) * 2
+    return smem if qk_norm and smem <= RESIDENT_SMEM else None
+
+
+def bwd_owner_rows(T: int, Dh: int) -> int:
+    """Rows a block of the bf16 backward owns along a side of length T: 96
+    (6 warps of 16 rows) where that leaves fewer rows past T than 64 (4
+    warps) and Dh <= 64, else 64 (the kernel is built for no other pair).
+    Measured on an H100 (PERF.md): at T = 96, Dh = 32 96 rows took 9-16%
+    less time; on a tie (T = 192) and at Dh = 128, whose registers fit one
+    6-warp block an SM, 64 took less."""
+    return 96 if -T % 96 < -T % 64 and mma_head_dim(Dh) <= 64 else 64
+
+
+def bwd_mma_plan(B: int, Tq: int, Tk: int, H: int, Dh: int):
+    """The bf16 backward's two launches (csrc/attention_train.cu::
+    attention_bwd_mma_kernel): ((owned rows, grid) of the dq pass, (owned
+    rows, grid) of the dk / dv pass, shared-memory bytes a block of each,
+    f32 scratch of the qk-norm sums). A block owns 64 or 96 query (key)
+    rows of one head (:func:`bwd_owner_rows`) and sweeps the keys
+    (queries) in 32-row tiles through a double buffer; its qk-norm partial
+    rows (2, padded Dh) and, per batch element, their sums take the
+    scratch."""
+    dhp = mma_head_dim(Dh)
+    passes, smem, blocks = [], [], 0
+    for T in (Tq, Tk):
+        rows = bwd_owner_rows(T, Dh)
+        grid = (-(-T // rows), H, B)
+        passes.append((rows, grid))
+        smem.append((2 * rows + 4 * MMA_KEYS) * (dhp + 8) * 2)
+        blocks = max(blocks, grid[0] * H * B)
+    return passes[0], passes[1], tuple(smem), (blocks + B) * 2 * dhp
 
 
 def check_mma_rows(*tensors) -> None:
@@ -236,6 +293,26 @@ def _operands(q, k, v, key_bias, norms):
             _build.ptr(key_bias), *(_build.ptr(p) for p in norms))
 
 
+def launch_fwd(q, k, v, key_bias, *, num_heads, causal, qk_norm, norm_p):
+    """One launch of the forward kernel on CUDA operands (no count): the
+    wrappers of the stacks' attention_fwd and of encoder_stack's
+    encoder_attention share it."""
+    code = _build.dtype_code(q)
+    B, Tq, Tk, H, Dh, norms = _geometry(q, k, v, key_bias, num_heads,
+                                        qk_norm, causal)
+    resident = q.dtype == torch.bfloat16 and \
+        fwd_resident(Tk, Dh, qk_norm is not None) is not None
+    out = torch.empty((B, Tq, H * Dh), dtype=q.dtype, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.sk_attention_fwd(
+            code, *_operands(q, k, v, key_bias, norms), _build.ptr(out),
+            out.stride(0), out.stride(1), B, Tq, Tk, H, Dh, int(causal),
+            int(norm_p), int(resident), 1.0 / Dh ** 0.5, _build.stream(q))
+    _build.check(err, "attention_fwd")
+    return out
+
+
 def attention_fwd(q, k, v, key_bias: Optional[torch.Tensor], *,
                   num_heads: int, causal: bool = False,
                   qk_norm: Optional[Sequence[torch.Tensor]] = None,
@@ -246,17 +323,8 @@ def attention_fwd(q, k, v, key_bias: Optional[torch.Tensor], *,
                                        norm_p=norm_p)
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
-    code = _build.dtype_code(q)
-    B, Tq, Tk, H, Dh, norms = _geometry(q, k, v, key_bias, num_heads,
-                                        qk_norm, causal)
-    out = torch.empty((B, Tq, H * Dh), dtype=q.dtype, device=q.device)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.sk_attention_fwd(
-            code, *_operands(q, k, v, key_bias, norms), _build.ptr(out),
-            out.stride(0), out.stride(1), B, Tq, Tk, H, Dh, int(causal),
-            int(norm_p), 1.0 / Dh ** 0.5, _build.stream(q))
-    _build.check(err, "attention_fwd")
+    out = launch_fwd(q, k, v, key_bias, num_heads=num_heads, causal=causal,
+                     qk_norm=qk_norm, norm_p=norm_p)
     LAUNCHES["attention_fwd"] += 1
     return out
 
@@ -268,7 +336,14 @@ def _bwd(pass_, q, k, v, dout, key_bias, stats, num_heads, causal, qk_norm):
     B, Tq, Tk, H, Dh, norms = _geometry(q, k, v, key_bias, num_heads,
                                         qk_norm, causal)
     dev = q.device
-    _build.require(dout, "dout", dev, torch.float32, (B, Tq, H * Dh))
+    mma = q.dtype == torch.bfloat16
+    _build.require(dout, "dout", dev, dout.dtype, (B, Tq, H * Dh))
+    if dout.dtype not in (torch.float32, q.dtype):
+        raise TypeError(f"dout has dtype {dout.dtype}, expected float32 or "
+                        f"{q.dtype}")
+    if mma and dout.data_ptr() % 16:
+        raise ValueError("bf16 attention backward: dout must be 16-byte "
+                         "aligned")
     if pass_ == 1:
         stats = torch.empty((B, H, Tq, 3), dtype=torch.float32, device=dev)
         dq = torch.empty((B, Tq, H * Dh), dtype=torch.float32, device=dev)
@@ -280,27 +355,39 @@ def _bwd(pass_, q, k, v, dout, key_bias, stats, num_heads, causal, qk_norm):
         dv = torch.empty_like(dk)
         dq = dk
         blocks = B * H * -(-Tk // BWD_KV_COLS)
-    parts = None
-    if qk_norm is not None:
+    parts = grads = ws = counters = None
+    rows = 0
+    if mma:
+        plan = bwd_mma_plan(B, Tq, Tk, H, Dh)
+        rows = plan[pass_ - 1][0]
+    if qk_norm is not None and mma:
+        # summed in the launch (split_reduce.cuh): B + 1 counters and the
+        # plan's scratch
+        grads = torch.empty((2, Dh), dtype=torch.float32, device=dev)
+        counters, ws = _build.split_scratch(dev, B + 1, plan[3])
+    elif qk_norm is not None:
         parts = torch.empty((2, blocks, Dh), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.sk_attention_bwd(
             code, pass_, *_operands(q, k, v, key_bias, norms),
             _build.ptr(dout), dout.stride(0), dout.stride(1),
-            _build.ptr(stats), _build.ptr(dq), dq.stride(0), dq.stride(1),
-            _build.ptr(dk), dk.stride(0), dk.stride(1), _build.ptr(dv),
-            dv.stride(0), dv.stride(1),
+            int(dout.dtype == q.dtype), _build.ptr(stats), _build.ptr(dq),
+            dq.stride(0), dq.stride(1), _build.ptr(dk), dk.stride(0),
+            dk.stride(1), _build.ptr(dv), dv.stride(0), dv.stride(1),
             None if parts is None else _build.ptr(parts[0]),
             None if parts is None else _build.ptr(parts[1]),
+            _build.ptr(grads), _build.ptr(ws), _build.ptr(counters), rows,
             B, Tq, Tk, H, Dh, int(causal), 1.0 / Dh ** 0.5, _build.stream(q))
     name = "attention_bwd_q" if pass_ == 1 else "attention_bwd_kv"
     _build.check(err, name)
     LAUNCHES[name] += 1
     ds = db = None
     if parts is not None:
-        sums = sum_rows(parts.transpose(0, 1).reshape(blocks, 2 * Dh))
-        ds, db = sums[:Dh], sums[Dh:]
+        grads = sum_rows(parts.transpose(0, 1).reshape(blocks, 2 * Dh))
+        grads = grads.reshape(2, Dh)
+    if grads is not None:
+        ds, db = grads[0], grads[1]
     if pass_ == 1:
         return dq, stats, ds, db
     return dk, dv, ds, db
@@ -308,7 +395,8 @@ def _bwd(pass_, q, k, v, dout, key_bias, stats, num_heads, causal, qk_norm):
 
 def attention_bwd_q(q, k, v, dout, key_bias, *, num_heads, causal=False,
                     qk_norm=None):
-    """dq, row statistics and q-norm gradients; ``dout`` (B, Tq, H*Dh) f32."""
+    """dq, row statistics and q-norm gradients; ``dout`` (B, Tq, H*Dh) in
+    f32 or the compute dtype."""
     if q.device.type == "cpu":
         return attention_bwd_q_reference(q, k, v, dout, key_bias,
                                          num_heads=num_heads, causal=causal,

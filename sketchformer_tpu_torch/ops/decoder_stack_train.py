@@ -146,7 +146,8 @@ def decoder_layer_bwd(x, mem, g, sbias, cbias, drop, wl, *, num_heads,
     # cross-attention: x2 = x1 + drop(co cWo + cbo)
     dw["c_wo"], dw["c_bo"] = ops.linear_tn(p["co"], dx2, drop=masks[1],
                                            bias_grad=True, **dargs)
-    dco = ops.linear_nt(dx2, wl["c_wo"], drop=masks[1],
+    # dO in the compute dtype: the attention backward rounds it so first
+    dco = ops.linear_nt(dx2, wl["c_wo"], drop=masks[1], out_dtype=x.dtype,
                         **dargs).reshape(B, T, HD)
     cn = _norms(wl, qk_norm, "c")
     dcq, stats, dw["c_qns"], dw["c_qnb"] = ops.attention_bwd_q(
@@ -167,7 +168,7 @@ def decoder_layer_bwd(x, mem, g, sbias, cbias, drop, wl, *, num_heads,
     # self-attention: x1 = x + drop(so sWo + sbo)
     dw["s_wo"], dw["s_bo"] = ops.linear_tn(p["so"], dx1, drop=masks[0],
                                            bias_grad=True, **dargs)
-    dso = ops.linear_nt(dx1, wl["s_wo"], drop=masks[0],
+    dso = ops.linear_nt(dx1, wl["s_wo"], drop=masks[0], out_dtype=x.dtype,
                         **dargs).reshape(B, T, HD)
     sn = _norms(wl, qk_norm, "s")
     dq, stats, dw["s_qns"], dw["s_qnb"] = ops.attention_bwd_q(

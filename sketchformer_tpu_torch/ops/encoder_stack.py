@@ -9,7 +9,10 @@ VMEM; on the card the layer runs as three kernels from
     linear             QKV, out-proj + x, FFN-in -> ReLU, FFN-out + x,
                        with an optional dropout epilogue (the training
                        stacks' forward)
-    encoder_attention  optional qk-norm, key-masked softmax, P.V
+    encoder_attention  optional qk-norm, key-masked softmax, P.V (in
+                       bf16 on the tensor cores: the training stacks'
+                       forward kernel of ``attention_train``, for head
+                       widths that are a multiple of 16)
     layernorm_rows     LN1, LN2 and the final LayerNorm
 
 and the two products of the training stacks' backward (``linear_nt``:
@@ -27,7 +30,8 @@ stack on the plain versions; it is the oracle the CPU tests hold to the JAX
 kernel and that ``chip_smoke.py`` holds the kernels to on the card.
 
 ``LAUNCHES`` counts kernel launches per wrapper (only where a kernel is
-actually launched), so a run can show that its path went through them.
+actually launched), so a run can show that its path went through them;
+``ROUTES`` counts which kernel ``encoder_attention`` launched.
 """
 
 from __future__ import annotations
@@ -38,19 +42,26 @@ import torch
 
 from sketchformer_tpu_torch.models.layers import layer_norm
 from sketchformer_tpu_torch.ops import _build
+from sketchformer_tpu_torch.ops import attention_train as at
 from sketchformer_tpu_torch.ops import dropout_prng as dp
 
 NEG_INF = -1e9
 MAX_FUSED_LEN = 1024    # the JAX engine's limit (pallas_encoder.py)
-MAX_HEAD_DIM = 128      # encoder_attention keeps head rows in registers
+MAX_HEAD_DIM = 128      # encoder_attention's kernels keep head rows in
+                        # registers
 
 LAUNCHES = {"linear": 0, "encoder_attention": 0, "layernorm_rows": 0,
             "linear_nt": 0, "linear_tn": 0}
+# encoder_attention's launches by kernel: the tensor cores' forward (bf16,
+# head_dim a multiple of 16) or its own FMA kernel (f32, other bf16 widths)
+ROUTES = {"mma": 0, "fma": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in ROUTES:
+        ROUTES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +357,14 @@ def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0, bias_grad=False):
 
 
 def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):
-    """Key-masked multi-head self-attention over a (B, T, 3*H*Dh) pane."""
+    """Key-masked multi-head self-attention over a (B, T, 3*H*Dh) pane.
+
+    A dispatch on dtype and shape: in bf16 with a head_dim that is a
+    multiple of 16, the q, k and v column slices of the pane go to the
+    training stacks' tensor-core forward with the unnormalised exponentials
+    rounded (``attention_train.launch_fwd``, ``norm_p`` false: the same
+    numerics as :func:`attention_reference`); f32, and bf16 head widths
+    that kernel does not take, run this module's FMA kernel."""
     if qkv.device.type == "cpu":
         return attention_reference(qkv, key_bias, num_heads=num_heads,
                                    qk_norm=qk_norm)
@@ -372,14 +390,21 @@ def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):
         for p in qk_norm:
             _build.require(p, "qk-norm param", dev, torch.float32, (Dh,))
         norms = list(qk_norm)
-    out = torch.empty((B, T, HD), dtype=qkv.dtype, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.sk_encoder_attention(
-            code, _build.ptr(qkv), _build.ptr(key_bias),
-            *(_build.ptr(p) for p in norms), _build.ptr(out), B, T, H, Dh,
-            1.0 / Dh ** 0.5, _build.stream(qkv))
-    _build.check(err, "encoder_attention")
+    if qkv.dtype == torch.bfloat16 and Dh % 16 == 0:
+        out = at.launch_fwd(qkv[..., :HD], qkv[..., HD:2 * HD],
+                            qkv[..., 2 * HD:], key_bias, num_heads=H,
+                            causal=False, qk_norm=qk_norm, norm_p=False)
+        ROUTES["mma"] += 1
+    else:
+        out = torch.empty((B, T, HD), dtype=qkv.dtype, device=dev)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.sk_encoder_attention(
+                code, _build.ptr(qkv), _build.ptr(key_bias),
+                *(_build.ptr(p) for p in norms), _build.ptr(out), B, T, H,
+                Dh, 1.0 / Dh ** 0.5, _build.stream(qkv))
+        _build.check(err, "encoder_attention")
+        ROUTES["fma"] += 1
     LAUNCHES["encoder_attention"] += 1
     return out
 

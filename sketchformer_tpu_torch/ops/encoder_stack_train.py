@@ -222,7 +222,9 @@ def encoder_layer_bwd(x, g, key_bias, drop, wl, *, num_heads, qk_norm,
     # attention: x1 = x + drop(attn Wo + bo)
     dw["wo"], dw["bo"] = ops.linear_tn(o, dx1, drop=m_attn, bias_grad=True,
                                        **dargs)
-    do = ops.linear_nt(dx1, wl["wo"], drop=m_attn, **dargs).reshape(B, T, HD)
+    # dO in the compute dtype: the attention backward rounds it so first
+    do = ops.linear_nt(dx1, wl["wo"], drop=m_attn, out_dtype=x.dtype,
+                       **dargs).reshape(B, T, HD)
     dq, stats, dw["qns"], dw["qnb"] = ops.attention_bwd_q(
         q, k, v, do, key_bias, num_heads=H, qk_norm=norms)
     dk, dv, dw["kns"], dw["knb"] = ops.attention_bwd_kv(

@@ -1101,3 +1101,96 @@ def test_linear_nt_wgmma_modes(cuda, M, N, K, mode, a_f32, epi):
     assert got.dtype == want.dtype and got.shape == (M, K)
     _close(got, want, dt)
     assert torch.equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core redesigns of the stacks' attention backward (K5) and of the
+# serving encoder_attention (bf16)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk", [(2, 1, 1), (3, 96, 96), (3, 192, 192),
+                                     (3, 40, 4), (3, 65, 33),
+                                     (1, 1024, 1024)])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_attention_bwd_mma_modes(cuda, B, Tq, Tk, Dh):
+    """The stacks' bf16 backward (mma.sync, both passes): self-attention
+    with and without causal, cross-attention (Tq != Tk), with and without
+    the key bias (a fully masked batch element) and qk-norm, dO in f32 and
+    bf16, at ragged T up to 1024; dq, dk, dv, the row statistics and the
+    qk-norm gradients within TOL of the plain version and equal across two
+    runs; two launches a pass a call, and no sum_rows."""
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    H, bf = 2, torch.bfloat16
+    for masked in (False, True):
+        q, k, v, bias, norms = _stack_attn_case(gen, cuda, B, Tq, Tk, H, Dh,
+                                                masked)
+        do32 = _rand(gen, cuda, B, Tq, H * Dh)
+        for causal in ((False, True) if Tq == Tk else (False,)):
+            for qk in (None, norms):
+                for do in (do32, do32.to(bf)):
+                    kw = dict(num_heads=H, causal=causal, qk_norm=qk)
+                    before = (at.LAUNCHES["attention_bwd_q"],
+                              at.LAUNCHES["attention_bwd_kv"],
+                              nt.LAUNCHES["sum_rows"])
+                    got = at.attention_bwd_q(q, k, v, do, bias, **kw)
+                    again = at.attention_bwd_q(q, k, v, do, bias, **kw)
+                    want = at.attention_bwd_q_reference(q, k, v, do, bias,
+                                                        **kw)
+                    got_kv = at.attention_bwd_kv(q, k, v, do, bias, want[1],
+                                                 **kw)
+                    again_kv = at.attention_bwd_kv(q, k, v, do, bias,
+                                                   want[1], **kw)
+                    want_kv = at.attention_bwd_kv_reference(
+                        q, k, v, do, bias, want[1], **kw)
+                    assert (at.LAUNCHES["attention_bwd_q"],
+                            at.LAUNCHES["attention_bwd_kv"],
+                            nt.LAUNCHES["sum_rows"]) == \
+                        (before[0] + 2, before[1] + 2, before[2])
+                    # at T = 1 every p is 1 and dq, dk and the norm
+                    # gradients are exactly 0: held at a scale of 1
+                    size = lambda w: w.abs().max().item() or 1.0
+                    for g, w in zip(got[:3] + got_kv[:3],
+                                    want[:3] + want_kv[:3]):
+                        if w is not None:
+                            assert g.dtype == torch.float32
+                            _close(g, w, bf, scale=size(w))
+                    if qk is not None:
+                        _close(got[3], want[3], bf, scale=size(want[3]))
+                        # the k-norm bias gradient is zero up to rounding
+                        _close(got_kv[3], want_kv[3], bf,
+                               scale=size(want_kv[2]))
+                    for g, a in zip(got + got_kv, again + again_kv):
+                        assert (g is None) == (a is None)
+                        if g is not None:
+                            assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,route", [(32, "mma"), (48, "mma"), (64, "mma"),
+                                      (128, "mma"), (8, "fma"), (24, "fma"),
+                                      (40, "fma"), (100, "fma")])
+def test_encoder_attention_bf16_route(cuda, Dh, route):
+    """bf16 encoder_attention: a head_dim that is a multiple of 16 runs the
+    stacks' tensor-core forward on the pane's q, k and v slices, any other
+    width its own FMA kernel (a dispatch on shape); both within TOL of the
+    plain version, with and without qk-norm, an all-PAD row 0 finite, and
+    equal across two runs."""
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    B, T, H, bf = 3, 50, 2, torch.bfloat16
+    qkv = _rand(gen, cuda, B, T, 3 * H * Dh, dtype=bf)
+    lengths = torch.tensor([0, T, T - 7], device=cuda)
+    bias = torch.where(torch.arange(T, device=cuda)[None, :] <
+                       lengths[:, None], 0.0, es.NEG_INF).float()
+    norms = tuple(1 + _rand(gen, cuda, Dh, scale=0.1) if i % 2 == 0
+                  else _rand(gen, cuda, Dh, scale=0.1) for i in range(4))
+    for qk in (None, norms):
+        before = dict(es.ROUTES)
+        got = es.encoder_attention(qkv, bias, num_heads=H, qk_norm=qk)
+        again = es.encoder_attention(qkv, bias, num_heads=H, qk_norm=qk)
+        assert es.ROUTES == {**before, route: before[route] + 2}
+        _close(got, es.attention_reference(qkv, bias, num_heads=H,
+                                           qk_norm=qk), bf)
+        assert torch.isfinite(got[0]).all()
+        assert torch.equal(got, again)

@@ -1,8 +1,9 @@
 """The host side of the bf16 tensor-core kernels of K6's ``ce_dx`` and
-``ce_dw``, of the stacks' input-gradient product ``linear_nt`` and of the
-attention forward (the stacks' ``attention_fwd`` and K8's forward): their
-launch plans, the shapes they take, the vocab and row padding, and the
-order in which ``ce_dw`` adds its split partials, on the CPU (no
+``ce_dw``, of the stacks' input-gradient product ``linear_nt``, of the
+attention forward (the stacks' ``attention_fwd``, K8's forward and the
+serving ``encoder_attention``) and of the stacks' attention backward (K5):
+their launch plans, the shapes they take, the vocab and row padding, and
+the order in which ``ce_dw`` and K5 add their partials, on the CPU (no
 launch)."""
 
 import numpy as np
@@ -257,3 +258,156 @@ def test_cpu_tensors_take_the_plain_version_at_any_head_dim():
     assert at.LAUNCHES["attention_fwd"] == before
     assert torch.equal(got, at.attention_fwd_reference(q, k, v, None,
                                                        num_heads=2))
+
+
+@pytest.mark.parametrize("Dh,limit", [(16, 224), (32, 224), (48, 96),
+                                      (64, 96), (96, 32), (128, 32)])
+def test_attention_fwd_resident_keys_fit_their_budget(Dh, limit):
+    """Under qk-norm the forward stages the head's whole K and V (each key
+    normalised once a block) up to a key count set by RESIDENT_SMEM, and
+    streams 32-key tiles above it and without qk-norm."""
+    assert at.fwd_resident(limit, Dh, True) <= at.RESIDENT_SMEM
+    assert at.fwd_resident(limit + 1, Dh, True) is None
+    assert at.fwd_resident(limit, Dh, False) is None
+    assert at.fwd_mma_plan(64, 192, limit, 8, Dh, qk_norm=True)[2] == \
+        at.fwd_resident(limit, Dh, True)
+    assert at.fwd_mma_plan(64, 192, limit + 1, 8, Dh, qk_norm=True)[2] == \
+        at.fwd_mma_plan(64, 192, limit + 1, 8, Dh)[2]
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_attention_bwd_mma_block_fits_shared_memory(Dh):
+    """The two owned tiles (64 or 96 rows) and the double-buffered 32-row
+    tiles of the swept side do not grow with T: 69,632 bytes at Dh = 128
+    (64 rows), 46,080 at Dh = 64 with 96 rows."""
+    (rows, _), _, smem, _ = at.bwd_mma_plan(1, 96, 1024, 1, Dh)
+    assert rows == (96 if at.mma_head_dim(Dh) <= 64 else 64)
+    assert smem[0] <= SMEM_LIMIT
+    assert smem[0] == (2 * rows + 4 * 32) * (at.mma_head_dim(Dh) + 8) * 2
+
+
+@pytest.mark.parametrize("T,rows", [(1, 64), (4, 64), (40, 64), (64, 64),
+                                    (65, 96), (96, 96), (150, 64),
+                                    (192, 64), (1000, 64), (1024, 64)])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_attention_bwd_owner_rows_leave_the_fewest_rows_past_t(T, rows, Dh):
+    """96 owned rows a block where that computes fewer rows past T than 64
+    and Dh <= 64, else 64 (ties included): at T = 96 one block a head with
+    none past it, where 64-row blocks computed a quarter of their rows past
+    T."""
+    want = rows if Dh <= 64 else 64
+    assert at.bwd_owner_rows(T, Dh) == want
+    past = {r: -(-T // r) * r - T for r in (64, 96)}
+    assert past[want] == min(past.values()) or Dh > 64
+
+
+@pytest.mark.parametrize("Tq,Tk", [(1, 1), (1, 4), (40, 33), (63, 64),
+                                   (64, 65), (96, 96), (192, 4), (192, 192),
+                                   (1024, 1024)])
+def test_attention_bwd_mma_grids_cover_every_row_once(Tq, Tk):
+    """The dq pass owns every query row once, the dk / dv pass every key
+    row once, each block 64 or 96 rows of one head of one batch
+    element."""
+    B, H = 5, 8
+    plan_q, plan_kv, _, ws = at.bwd_mma_plan(B, Tq, Tk, H, 32)
+    for (rows, grid), T in ((plan_q, Tq), (plan_kv, Tk)):
+        assert grid[1:] == (H, B) and rows in (64, 96)
+        seen = np.zeros(T, dtype=np.int64)
+        for x in range(grid[0]):
+            seen[x * rows:(x + 1) * rows] += 1
+        assert (seen == 1).all()
+    # a partial row pair a block and one a batch element
+    blocks = max(plan_q[1][0], plan_kv[1][0]) * H * B
+    assert ws == (blocks + B) * 2 * 32
+
+
+def _pre_norm_grads(q, k, v, dout, bias, H, causal, qk_norm):
+    """The plain backward's dq and dk ahead of the qk-norm backward, with
+    the xhat of the rows they belong to, as (B, H, T, Dh)."""
+    dt, scale, vh, (qn, qxh, _), (kn, kxh, _), s = at._recompute(
+        q, k, v, bias, H, causal, qk_norm)
+    p = torch.softmax(s, dim=-1)
+    dp = at._heads(dout, H).to(dt).float() @ vh.float().transpose(-1, -2)
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(dt).float()
+    return ((ds @ kn.float() * scale, qxh),
+            (ds.transpose(-1, -2) @ qn.float() * scale, kxh))
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", [(150, 150, True), (96, 96, False),
+                                          (70, 4, False)])
+def test_attention_bwd_mma_norm_partials_sum_to_the_plain_gradients(
+        Tq, Tk, causal):
+    """The bf16 backward's qk-norm parameter gradients split as its plan
+    splits them: each block's partial rows (dy * xhat and dy over its 64
+    or 96 owned rows), the blocks of a batch element, then the B sums, add
+    up (to 1e-4) to the plain version's gradients of both passes. This
+    holds the plan's blocks to covering every row once; it does not pin
+    the kernel's float order, whose re-runs the card tests hold
+    bit-equal."""
+    rng = np.random.default_rng(Tq + Tk)
+    B, H, Dh = 3, 2, 32
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    q = f32(B, Tq, H * Dh).to(torch.bfloat16)
+    k, v = (f32(B, Tk, H * Dh).to(torch.bfloat16) for _ in range(2))
+    dout = f32(B, Tq, H * Dh)
+    bias = torch.where(torch.arange(Tk)[None] < torch.tensor(
+        [[Tk], [Tk // 2], [1]]), 0.0, at.NEG_INF)
+    norms = (1 + 0.1 * f32(Dh), 0.1 * f32(Dh), 1 + 0.1 * f32(Dh),
+             0.1 * f32(Dh))
+    kw = dict(num_heads=H, causal=causal, qk_norm=norms)
+    want_q = at.attention_bwd_q_reference(q, k, v, dout, bias, **kw)
+    want_kv = at.attention_bwd_kv_reference(q, k, v, dout, bias, want_q[1],
+                                            **kw)
+    plan_q, plan_kv, _, _ = at.bwd_mma_plan(B, Tq, Tk, H, Dh)
+    for (dy, xhat), (own, grid), want in zip(
+            _pre_norm_grads(q, k, v, dout, bias, H, causal, norms),
+            (plan_q, plan_kv), (want_q[2:], want_kv[2:])):
+        sums = []
+        for b in range(B):
+            level1 = torch.zeros(2, Dh)
+            for h in range(H):              # z = h * grid[0] + x
+                for x in range(grid[0]):
+                    rows = slice(x * own, (x + 1) * own)
+                    level1 += torch.stack([
+                        (dy[b, h, rows] * xhat[b, h, rows]).sum(dim=0),
+                        dy[b, h, rows].sum(dim=0)])
+            sums.append(level1)
+        got = torch.zeros(2, Dh)
+        for level1 in sums:
+            got += level1
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("qk", [False, True], ids=["plain", "qk_norm"])
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_attention_is_the_stacks_forward_on_the_qkv_slices(
+        qk, masked, dtype):
+    """The two plain versions the bf16 route joins: ``encoder_attention``'s
+    over a fused (B, T, 3 H Dh) pane equals the stacks' forward with the
+    unnormalised exponentials rounded (norm_p false) on its q, k and v
+    column slices, bit for bit."""
+    rng = np.random.default_rng(int(qk) + 2 * int(masked))
+    B, T, H, Dh = 3, 37, 4, 16
+    HD = H * Dh
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * HD)).astype(
+        np.float32)).to(dtype)
+    bias = None
+    if masked:
+        lengths = torch.tensor([[0], [T], [T - 9]])   # row 0: every key PAD
+        bias = torch.where(torch.arange(T)[None] < lengths, 0.0, es.NEG_INF)
+    norms = tuple(torch.from_numpy((rng.standard_normal(Dh) * 0.1 + (
+        1.0 if i % 2 == 0 else 0.0)).astype(np.float32)) for i in range(4)) \
+        if qk else None
+    got = es.attention_reference(qkv, bias, num_heads=H, qk_norm=norms)
+    want = at.attention_fwd_reference(
+        qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:], bias,
+        num_heads=H, qk_norm=norms, norm_p=False)
+    assert torch.equal(got, want)
+    before = dict(es.ROUTES)
+    assert torch.equal(es.encoder_attention(qkv, bias, num_heads=H,
+                                            qk_norm=norms), got)
+    assert es.ROUTES == before       # a CPU tensor launches nothing
