@@ -32,7 +32,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``linear``'s dropout epilogue, ``attention_fwd`` / ``attention_bwd_q``
    / ``attention_bwd_kv`` (self-attention under a key mask, and
    cross-attention to 4 memory rows; the bf16 forward equal across two
-   runs), ``layernorm_bwd``, ``sum_rows``; and
+   runs), ``layernorm_bwd`` (dx, dscale, dbias in every residual and
+   output dtype at D 256, 128 and a ragged 96, equal across two runs, no
+   ``sum_rows`` launch), ``sum_rows`` (f32 and compute-dtype rows at the
+   (12,288, 768) pane, the f32 attention backward's qk-norm partial rows
+   and a ragged shape, equal across two runs); and
    each whole train stack's forward and backward (L=2, dropout 0.1),
    float32 within a relative L2 error of 1e-3 of the plain version, bf16
    within 2x the plain bf16 path's error against float32; the bf16
@@ -85,9 +89,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    emitted pick that is not a near tie is the argmax of the model given
    the decoded prefix. Then the port's ``train`` CLI on ``cont2cont_mdn``
    (B=64, buckets 96 and 192, bf16, dropout 0.1) for 30 steps: every
-   kernel of the train stacks launches, neither stack declines its
-   kernels, the loss is finite and falls; and ``eval`` on its checkpoint,
-   whose loss the composed model matches; then the same for token-mode
+   kernel of the train stacks launches and ``sum_rows`` none, neither
+   stack declines its kernels, the loss is finite and falls; and ``eval``
+   on its checkpoint, whose loss the composed model matches; then
+   ``train`` in float32 (2 layers, 3 steps), whose attention backward
+   leaves its qk-norm partial rows to ``sum_rows``; then the same for
+   token-mode
    training: ``train`` on ``pretrain_full`` with a synthetic 345-class
    token loader (its shards are not in the repo) and warmup 500, through
    the K6 kernels, the stacks drawing their dropout in-kernel (no dropout
@@ -117,17 +124,20 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``ce_dx`` and
    ``ce_dw`` from 60 calls' kernel events in a profiler trace, the
    wrapper launching both, also at d 64, 128 and 192; ``linear_nt``'s four
-   calls also one by one); ``sum_rows`` launches a
-   ``cont2cont_mdn`` step beside the counts before its two in-launch
-   sums; the train stacks' forward + backward; K6
+   calls also one by one); ``layernorm_bwd`` (M 12,288 and 49,152)
+   and ``sum_rows`` ((12,288, 768) and the partial rows) as device time
+   against ``native_layer_norm_backward`` and ``sum``; ``sum_rows``
+   launches a ``cont2cont_mdn`` and a token step beside the counts before
+   its three in-launch sums; the train stacks' forward + backward; K6
    and the emit kernel; the train step p50 and sketches/s at the
    ``cont2cont_mdn`` shape, the JAX benchmark's ``cont_train`` shape
    (B=512, T=96, H=2; 'prng' and 'bits' dropout), ``cont2cont_mdn``
    post-LN, and its token cells
    ``train`` (H=2) and ``train_h8`` (H=8), with a ``torch.profiler``
-   breakdown of each; each with the card's name and power limit. Every kernel's bound (the least time for its bytes and
-   operations at the card's published peaks) is computed from the timed
-   calls' shapes.
+   breakdown of each and the LayerNorm backward's share; each with the
+   card's name and power limit. Every kernel's bound (the least time for
+   its bytes and operations at the card's published peaks) is computed
+   from the timed calls' shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -539,14 +549,27 @@ SPREAD_CALLS = 60   # per-call timings of the redesigned kernels' rows
 # backward's qk-norm partials took two a call (4,080 in 30 steps)
 SUM_ROWS_PER_STEP_BEFORE = 392
 SUM_ROWS_PER_STEP_BEFORE_K5 = 136
+# ... and while LayerNorm's parameter gradients took one a call (1,200 in
+# 30 steps; the token steps 80 a step)
+SUM_ROWS_PER_STEP_BEFORE_LN = 40
+SUM_ROWS_PER_TOK_STEP_BEFORE_LN = 80
+# the float32 train main path (cont2cont_mdn, 2 of its 8 layers): its
+# attention backward's qk-norm partial rows are the one main-path caller of
+# sum_rows
+F32_TRAIN_STEPS = 3
+F32_TRAIN_LAYERS = 2
+# the f32 attention backward's qk-norm partial rows at cont2cont_mdn: B * H
+# * T / 16 rows of (dscale, dbias) (the first pass, 16 query rows a block)
+K5_F32_PARTIALS = (64 * 8 * 192 // 16, 2 * 32)
 # the bf16 attention backward's modes: (B, Tq, Tk) self-attention at T = 1,
 # 96, 192 and 1024 and cross-attention to Mq = 4 memory rows, at each head
 # width the tensor-core kernel is built for (H * Dh = 2 heads)
 K5_SHAPES = ((4, 1, 1), (4, 96, 96), (4, 192, 192), (1, 1024, 1024),
              (4, 192, 4))
 K5_HEAD_DIMS = (32, 64, 128)
+# the bf16 stacks' kernels (sum_rows runs on the f32 path only)
 TRAIN_KERNELS = ("linear_nt", "linear_tn", "attention_fwd", "attention_bwd_q",
-                 "attention_bwd_kv", "layernorm_bwd", "sum_rows")
+                 "attention_bwd_kv", "layernorm_bwd")
 TOK_KERNELS = ("token_ce_fwd", "token_ce_dx", "token_ce_dw",
                "emit_dropout_bits")
 STACK_KERNELS = ("linear", "layernorm_rows", "encoder_attention") + \
@@ -636,7 +659,6 @@ def check_train_kernels(randn, dev, errs, compare):
 
     from sketchformer_tpu_torch.ops import dropout_prng as dp
     from sketchformer_tpu_torch.ops import encoder_stack as es
-    from sketchformer_tpu_torch.ops import norm_train as nt
 
     B, T, d, dff = (MDN[k] for k in ("B", "T", "d", "dff"))
     for dtype in (torch.float32, torch.bfloat16):
@@ -677,16 +699,6 @@ def check_train_kernels(randn, dev, errs, compare):
                                   **ks),
                         es.linear_reference(o["h"], o["w2"], o["bvec"],
                                             residual=o["x"], **ks), dtype)
-                for i, (g, w) in enumerate(zip(
-                        nt.layernorm_bwd(o["x"], o["g32"], o["scale"],
-                                         resid=o["g"]),
-                        nt.layernorm_bwd_reference(o["x"], o["g32"],
-                                                   o["scale"], resid=o["g"]))):
-                    compare(f"layernorm_bwd {shape} out {i}", g, w,
-                            torch.float32, "layernorm_bwd" if main else None)
-                compare(f"sum_rows {shape}", nt.sum_rows(o["gqkv"]),
-                        nt.sum_rows_reference(o["gqkv"]), torch.float32,
-                        "sum_rows" if main else None)
             for which, name in (("fwd", "attention_fwd"),
                                 ("bwd_q", "attention_bwd_q"),
                                 ("bwd_kv", "attention_bwd_kv")):
@@ -735,10 +747,77 @@ def check_train_kernels(randn, dev, errs, compare):
                 compare(f"attention_bwd_kv cross Mq=4 {shape} out {i}",
                         gkv[i], wkv[i], dtype)
             del o
+        check_norm_kernels(dev, dtype, compare)
         for decoder in (False, True):
             for H, qk in ((8, True), (2, False)):
                 check_train_stack(randn, dev, decoder, H, qk, dtype)
     check_attention_bwd_modes(randn, dev)
+
+
+def check_norm_kernels(dev, dtype, compare):
+    """``layernorm_bwd`` (dx, dscale, dbias) in every residual (none, f32,
+    the compute dtype) and output dtype, at the cont2cont_mdn rows (M
+    12,288, D 256), at D 128 and at a ragged D 96 (the column loop), and
+    ``sum_rows`` on f32 and compute-dtype rows at the (12,288, 768) pane,
+    the f32 attention backward's qk-norm partial rows and a ragged (1,000,
+    70): each within TOL of its plain version and torch.equal across two
+    runs; ``layernorm_bwd`` launches no ``sum_rows``. Records the bf16
+    ``layernorm_bwd`` error at D 256 and the ``sum_rows`` error on the f32
+    partial rows (its main path). Its operands come from a generator of
+    its own, so the checks after it keep their inputs."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import norm_train as nt
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    f32 = torch.float32
+    tag = str(dtype).replace("torch.", "")
+    M, d = MDN["B"] * MDN["T"], MDN["d"]
+    dtypes = (f32,) if dtype == f32 else (f32, dtype)
+    for rows, D in ((M, d), (1000, 128), (300, 96)):
+        x, dy = randn(rows, D, dtype=dtype), randn(rows, D)
+        s = 1.0 + randn(D, scale=0.1)
+        resids = {"none": None}
+        for rt in dtypes:
+            resids[str(rt)[6:]] = randn(rows, D, dtype=rt)
+        n = 0
+        for rname, r in resids.items():
+            for out in dtypes:
+                kw = dict(resid=r, out_dtype=out)
+                before = nt.LAUNCHES["sum_rows"]
+                got = nt.layernorm_bwd(x, dy, s, **kw)
+                again = nt.layernorm_bwd(x, dy, s, **kw)
+                if nt.LAUNCHES["sum_rows"] != before:
+                    fail("layernorm_bwd launched sum_rows")
+                want = nt.layernorm_bwd_reference(x, dy, s, **kw)
+                name = (f"layernorm_bwd {tag} M={rows} D={D} resid {rname} "
+                        f"out {str(out)[6:]}")
+                rec = "layernorm_bwd" if dtype != f32 and D == d else None
+                for part, g, w, a in zip(("dx", "dscale", "dbias"), got,
+                                         want, again):
+                    compare(f"{name} {part}", g, w,
+                            out if part == "dx" else f32, rec)
+                    if not torch.equal(g, a):
+                        fail(f"{name} {part}: two runs differ")
+                n += 1
+        print(f"check layernorm_bwd {tag} M={rows} D={D}: {n} residual / "
+              f"output combinations equal across two runs, no sum_rows")
+    for rt in dtypes:
+        for R, N in ((M, 3 * d), K5_F32_PARTIALS, (1000, 70)):
+            x = randn(R, N, dtype=rt)
+            got, again = nt.sum_rows(x), nt.sum_rows(x)
+            name = f"sum_rows {str(rt)[6:]} rows ({R}, {N})"
+            compare(name, got, nt.sum_rows_reference(x), f32,
+                    "sum_rows" if rt == f32 and (R, N) == K5_F32_PARTIALS
+                    else None)
+            if not torch.equal(got, again):
+                fail(f"{name}: two runs differ")
+            print(f"check {name}: equal across two runs")
 
 
 def check_attention_bwd_modes(randn, dev):
@@ -1018,6 +1097,10 @@ def train_main_path(cli, counters, engines, tmp, post_ln=False):
                 fail(f"kernel {k} was not launched by cli train")
         if composed:
             fail(f"a stack declined its kernels: {composed}")
+    # LayerNorm's and the bf16 attention backward's parameter gradients are
+    # summed in their own launches
+    if launches["sum_rows"]:
+        fail(f"cli train launched sum_rows {launches['sum_rows']} times")
     with open(os.path.join(run, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r["loss"] for r in recs if "loss" in r and "val_loss" not in r]
@@ -1074,6 +1157,46 @@ def train_main_path(cli, counters, engines, tmp, post_ln=False):
     return launches, TRAIN_STEPS
 
 
+def train_f32_main_path(cli, counters, tmp):
+    """The port's train CLI on cont2cont_mdn in float32, cut to
+    F32_TRAIN_LAYERS of its 8 layers and F32_TRAIN_STEPS steps, with every
+    launch counter reset just before and read just after: the stacks run
+    their f32 kernels, and the attention backward's FMA passes leave their
+    qk-norm parameter gradients as partial rows that ``sum_rows`` adds (its
+    one caller on a main path). Returns the launches."""
+    import torch
+
+    run = os.path.join(tmp, "run_f32")
+    argv = ["train", "--preset", "cont2cont_mdn", "--run-dir", run,
+            "--device", "cuda", "--notifier", "none", "--hparams",
+            f"dtype=float32,num_layers={F32_TRAIN_LAYERS}",
+            "--loop-arg", f"total_steps={F32_TRAIN_STEPS}",
+            "--loop-arg", "log_every=1", "--loop-arg", "eval_every=1000",
+            "--loop-arg", f"save_every={F32_TRAIN_STEPS}"]
+    for m in counters:
+        m.reset_launches()
+    print("main path: python -m sketchformer_tpu_torch.cli " + " ".join(argv))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: v for m in counters for k, v in m.LAUNCHES.items()}
+    if rc != 0:
+        fail(f"cli train (float32) returned {rc}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f)
+                  if "loss" in r and "val_loss" not in r]
+    print(f"  launches: {json.dumps(launches)}")
+    print(f"  losses {' '.join(f'{v:.3f}' for v in losses)}")
+    if len(losses) != F32_TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"float32 train losses {losses}")
+    for k in ("sum_rows", "layernorm_bwd", "attention_bwd_q",
+              "attention_bwd_kv"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by cli train (float32)")
+    return launches
+
+
 def profile_steps(label, step, batch, gpu, step_ms, n=2, top=12):
     """torch.profiler over ``n`` train steps: the device's busy time per
     step, its idle share against the untraced step time ``step_ms`` (the
@@ -1109,6 +1232,13 @@ def profile_steps(label, step, batch, gpu, step_ms, n=2, top=12):
           f"device busy {busy / n:.2f} ms/step, idle share "
           f"{1 - busy / n / step_ms:.3f} of the untraced p50 {step_ms:.2f} "
           f"ms (traced wall {wall / n:.2f} ms/step) [{gpu}]")
+    # the LayerNorm backward's own kernels (a copy kernel of PyTorch's that
+    # fed sum_rows before it summed in-launch has no name of its own)
+    ln = [r for r in rows if "layernorm_bwd" in r[2] or "sum_rows" in r[2]]
+    ln_ms = sum(r[0] for r in ln) / n
+    print(f"  layernorm_bwd + sum_rows kernels: {ln_ms:.3f} ms/step, "
+          f"{sum(r[1] for r in ln) // n} launches/step, "
+          f"{ln_ms / (busy / n):.4f} of the busy time")
     for dev_ms, count, key in rows[:top]:
         print(f"  {dev_ms / n:8.3f} ms/step {count // n:6d} calls/step  "
               f"{key[:90]}")
@@ -1471,6 +1601,9 @@ def train_tok_main_path(cli, counters, engines, tmp):
     for k in STACK_KERNELS + TOK_KERNELS + ("prng_draw",):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by cli train (token)")
+    if launches["sum_rows"]:
+        fail(f"cli train (token) launched sum_rows {launches['sum_rows']} "
+             f"times")
     if draws:
         fail(f"the token train path drew {draws} dropout byte tensors")
     composed = sorted(s for s in engines._seen
@@ -2058,7 +2191,9 @@ HBM = 3.35e12           # bytes/s
 
 
 def bound(flops, nbytes, dtype_bytes=2):
-    """(ms, 'operations' | 'bytes'): the larger of the two times."""
+    """(ms, 'operations' | 'bytes'): the larger of the two times; the
+    operations at the bf16 tensor-core peak (``dtype_bytes`` 2) or the f32
+    peak outside the tensor cores (4)."""
     peak = PEAK_BF16 if dtype_bytes == 2 else PEAK_F32
     t_op, t_by = flops / peak, nbytes / HBM
     return (max(t_op, t_by) * 1e3,
@@ -2097,8 +2232,7 @@ def train_kernel_work(B, T, d, H, dff):
         # dO in bf16 as the stacks pass it, the gradients in f32
         "attention_bwd_q": (1.5 * att, qkv + M * HD * (2 + 4) + B * H * T * 12),
         "attention_bwd_kv": (2 * att, qkv + M * HD * (2 + 8) + B * H * T * 12),
-        "layernorm_bwd": (10 * M * d, M * d * (2 + 4 + 2 + 4) + 4 * d * 4),
-        "sum_rows": (M * 3 * HD, M * 3 * HD * 4 + 3 * HD * 4),
+        **norm_work(M, d, *K5_F32_PARTIALS),
     }
 
 
@@ -2351,7 +2485,7 @@ def linear_nt_spread(o, B, T, d, dff, gpu):
     return sp["kernel"][0], sp["plain"][0], sp["lib"][0]
 
 
-def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
+def train_kernel_times(randn, dev, gpu, paired):
     """Each training kernel (the layer's call set) against its plain version
     and, where one PyTorch call computes the same function, that call; bf16
     at the cont2cont_mdn layer, and ``attention_fwd`` also at the
@@ -2360,7 +2494,6 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     import torch
 
     from sketchformer_tpu_torch.ops import encoder_stack as es
-    from sketchformer_tpu_torch.ops import norm_train as nt
 
     B, T, d, H, dff = (MDN[k] for k in ("B", "T", "d", "H", "dff"))
     dt = torch.bfloat16
@@ -2372,16 +2505,6 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
         for x, y in ((o["f1"], o["g"]), (o["x"], o["gf"]), (o["x"], o["g32"]),
                      (o["x"], o["gqkv"])):
             torch.matmul(x.t(), y.to(dt))
-
-    # LayerNorm's backward on the same rows (f32, as the gradient is)
-    x32 = o["x"].float()
-    _, ln_mean, ln_rstd = torch.ops.aten.native_layer_norm(
-        x32, [d], o["scale"], o["bvec"], 1e-6)
-
-    def lib_ln_bwd():
-        torch.ops.aten.native_layer_norm_backward(
-            o["g32"], x32, [d], ln_mean, ln_rstd, o["scale"], o["bvec"],
-            [True, True, True])
 
     with torch.no_grad():
         out["linear_nt"] = linear_nt_spread(o, B, T, d, dff, gpu)
@@ -2404,24 +2527,6 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
     out.update(attention_bwd_spread(o, B, T, d, H, True, gpu))
     # the same call without qk-norm: what the norms cost the pair
     attention_bwd_spread(o, B, T, d, H, False, gpu)
-    with torch.no_grad():
-        for name, kern, plain, lib in (
-                ("layernorm_bwd",
-                 lambda: nt.layernorm_bwd(o["x"], o["g32"], o["scale"],
-                                          resid=o["g"]),
-                 lambda: nt.layernorm_bwd_reference(o["x"], o["g32"],
-                                                    o["scale"], resid=o["g"]),
-                 lib_ln_bwd),
-                ("sum_rows", lambda: nt.sum_rows(o["gqkv"]),
-                 lambda: nt.sum_rows_reference(o["gqkv"]),
-                 lambda: torch.sum(o["gqkv"], dim=0))):
-            k_ms, p_ms = paired(kern, plain, iters=10, warm=2)
-            lib_ms = cuda_ms(lib, 10, 2) if lib is not None else None
-            out[name] = (k_ms, p_ms, lib_ms)
-            print(f"time {name} (bf16, B={B}, T={T}, d={d}, H={H}, "
-                  f"dff={dff}{', the layer: 4 calls' if 'linear' in name else ''}"
-                  f"): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} [{gpu}]")
     del o
     # the train_h8 geometry (B=512, T=96, H=8/Dh=32, no qk-norm): the
     # attention backward and forward
@@ -2446,6 +2551,84 @@ def train_kernel_times(randn, dev, gpu, cuda_ms, paired):
               f"{k_ms / b_ms:.2f}, kernel / library {k_ms / l_ms:.2f} "
               f"[{gpu}]")
     del o
+    torch.cuda.empty_cache()
+    return out
+
+
+def norm_work(M, D, R, N):
+    """(flops, bytes, 4) of the timed layernorm_bwd call (x and the
+    residual bf16, dy and dx f32, M x D; scale read, dscale and dbias
+    written, f32) and sum_rows call (R x N f32 rows to N f32 sums); their
+    arithmetic is f32 outside the tensor cores."""
+    return {"layernorm_bwd": (10 * M * D, M * D * (2 + 4 + 2 + 4) + 3 * D * 4,
+                              4),
+            "sum_rows": (R * N, R * N * 4 + N * 4, 4)}
+
+
+def norm_times(randn, gpu):
+    """``layernorm_bwd`` and ``sum_rows`` as the median and spread of
+    SPREAD_CALLS calls' device time (``call_ms``: each call between its own
+    events, queued behind a spin), beside their plain versions and one
+    PyTorch call read the same way, and their bounds: ``layernorm_bwd`` at
+    the stacks' dtypes (x and the residual bf16, dy and dx f32, D 256) at M
+    12,288 (cont2cont_mdn) and 49,152 (B=512, T=96), against
+    ``native_layer_norm_backward`` on the f32 rows; ``sum_rows`` on f32
+    rows at (12,288, 768) and at the f32 attention backward's qk-norm
+    partial rows, against ``torch.sum``. Each is first held to its plain
+    version. Returns {name: (ms, plain_ms, lib_ms)} at M 12,288 and at the
+    partial rows (the main paths' shapes)."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import norm_train as nt
+
+    d = MDN["d"]
+    out = {}
+    for M in (MDN["B"] * MDN["T"], CONT_TRAIN["B"] * CONT_TRAIN["T"]):
+        x, g = randn(M, d, dtype=torch.bfloat16), randn(M, d)
+        res = randn(M, d, dtype=torch.bfloat16)
+        s, b = 1.0 + randn(d, scale=0.1), randn(d, scale=0.1)
+        x32 = x.float()
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x32, [d], s, b, 1e-6)
+        kern = lambda: nt.layernorm_bwd(x, g, s, resid=res)
+        plain = lambda: nt.layernorm_bwd_reference(x, g, s, resid=res)
+        for part, k, p in zip(("dx", "dscale", "dbias"), kern(), plain()):
+            rel = (k - p).abs().max().item() / p.abs().max().item()
+            if not rel <= TOL["float32"]:
+                fail(f"layernorm_bwd M={M} {part}: rel err {rel:.3e}")
+        with torch.no_grad():
+            sp = spread_ms(kern, plain, lambda: torch.ops.aten.
+                           native_layer_norm_backward(
+                               g, x32, [d], mean, rstd, s, b,
+                               [True, True, True]))
+        b_ms, b_by = bound(*norm_work(M, d, 1, 1)["layernorm_bwd"])
+        print(f"time layernorm_bwd (x and residual bf16, dy and dx f32, M={M}"
+              f", D={d}; device time, median of {SPREAD_CALLS}): kernel "
+              f"{fmt_spread(sp['kernel'])}, plain {fmt_spread(sp['plain'])}, "
+              f"library (native_layer_norm_backward, f32) "
+              f"{fmt_spread(sp['lib'])}; bound {b_ms:.4f} ms ({b_by}); "
+              f"kernel / bound {sp['kernel'][0] / b_ms:.2f}, kernel / "
+              f"library {sp['kernel'][0] / sp['lib'][0]:.2f} [{gpu}]")
+        out.setdefault("layernorm_bwd", (sp["kernel"][0], sp["plain"][0],
+                                         sp["lib"][0]))
+        del x, g, res, x32
+    for R, N in ((MDN["B"] * MDN["T"], 3 * d), K5_F32_PARTIALS):
+        x = randn(R, N)
+        rel = (nt.sum_rows(x) - nt.sum_rows_reference(x)).abs().max().item() \
+            / nt.sum_rows_reference(x).abs().max().item()
+        if not rel <= TOL["float32"]:
+            fail(f"sum_rows ({R}, {N}): rel err {rel:.3e}")
+        sp = spread_ms(lambda: nt.sum_rows(x),
+                       lambda: nt.sum_rows_reference(x),
+                       lambda: torch.sum(x, dim=0))
+        b_ms, b_by = bound(*norm_work(1, 1, R, N)["sum_rows"])
+        print(f"time sum_rows (f32 rows ({R}, {N}); device time, median of "
+              f"{SPREAD_CALLS}): kernel {fmt_spread(sp['kernel'])}, plain "
+              f"{fmt_spread(sp['plain'])}, library (sum) "
+              f"{fmt_spread(sp['lib'])}; bound {b_ms:.4f} ms ({b_by}); "
+              f"kernel / bound {sp['kernel'][0] / b_ms:.2f}, kernel / "
+              f"library {sp['kernel'][0] / sp['lib'][0]:.2f} [{gpu}]")
+        out["sum_rows"] = (sp["kernel"][0], sp["plain"][0], sp["lib"][0])
+        del x
     torch.cuda.empty_cache()
     return out
 
@@ -2881,21 +3064,35 @@ def main() -> int:
         train_launches, _ = train_main_path(cli, counters, engines, tmp)
     for k in TRAIN_KERNELS:
         launches[k] = train_launches[k]
-    # linear_tn adds its split partials and computes the bias gradient in
-    # its own launch: what stays is LayerNorm's and qk-norm's partial sums
+    # linear_tn, the bf16 attention backward and layernorm_bwd each add
+    # their partial sums in their own launches
     print(f"sum_rows launches a cont2cont_mdn train step: "
           f"{train_launches['sum_rows'] / TRAIN_STEPS:.1f} (before the bias "
           f"gradients moved into linear_tn: {SUM_ROWS_PER_STEP_BEFORE}; "
           f"before the attention backward's qk-norm sums moved into its "
-          f"launches: {SUM_ROWS_PER_STEP_BEFORE_K5}); linear_tn "
+          f"launches: {SUM_ROWS_PER_STEP_BEFORE_K5}; before LayerNorm's "
+          f"parameter gradients moved into layernorm_bwd: "
+          f"{SUM_ROWS_PER_STEP_BEFORE_LN}); linear_tn "
           f"{train_launches['linear_tn'] / TRAIN_STEPS:.1f}, layernorm_bwd "
           f"{train_launches['layernorm_bwd'] / TRAIN_STEPS:.1f}")
+
+    # ---- 4c'. main path: float32 training, the one caller of sum_rows ----
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["sum_rows"] = train_f32_main_path(cli, counters,
+                                                   tmp)["sum_rows"]
+    print(f"  sum_rows: {launches['sum_rows']} launches in "
+          f"{F32_TRAIN_STEPS} float32 steps of {F32_TRAIN_LAYERS} layers and "
+          f"the final eval")
 
     # ---- 4d. main path: token-mode training, then eval -------------------
     with tempfile.TemporaryDirectory() as tmp:
         tok_launches = train_tok_main_path(cli, counters, engines, tmp)
     for k in TOK_KERNELS:
         launches[k] = tok_launches[k]
+    print(f"sum_rows launches a token train step: "
+          f"{tok_launches['sum_rows'] / TRAIN_STEPS:.1f} (before LayerNorm's "
+          f"parameter gradients moved into layernorm_bwd: "
+          f"{SUM_ROWS_PER_TOK_STEP_BEFORE_LN})")
 
     # ---- 4e. main paths of the post-LN model: sbir, decode, train, eval ---
     # (norm_first=False: the fused stacks and engines decline, the composed
@@ -3162,8 +3359,9 @@ def main() -> int:
               f"({float(np.median(big)):.1f} ms) [{gpu}]")
 
     # the training kernels, the stacks and whole train steps
-    for name, (k_ms, p_ms, l_ms) in train_kernel_times(
-            randn, dev, gpu, cuda_ms, paired).items():
+    for name, (k_ms, p_ms, l_ms) in {
+            **train_kernel_times(randn, dev, gpu, paired),
+            **norm_times(randn, gpu)}.items():
         times[name] = (k_ms, p_ms)
         lib[name] = l_ms
     stack_times(dev, gpu, cuda_ms)

@@ -34,8 +34,9 @@
 //                     scale, then the qk-norm backward of dk. Every dk / dv
 //                     row is owned by one warp, so no atomics: re-runs are
 //                     bit-stable. The f32 qk-norm parameter gradients are
-//                     per-block partial rows, summed in a fixed order by
-//                     sum_rows (norm_train.cu).
+//                     per-block partial rows that one sum_rows launch adds
+//                     (norm_train.cu: a cluster of row slices a column
+//                     tile, its first block summing them in a fixed order).
 //
 // In bf16 every product runs on the tensor cores (mma.sync m16n8k16):
 // the forward of the stacks and of K8 (attention_fwd_mma_kernel), which

@@ -58,9 +58,8 @@ SIGNATURES = {
                                 _P, _L, _I, _P, _L, _I, _P, _P, _L, _I, _P,
                                 _L, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _P], _I),
-    "sk_layernorm_bwd": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-                         _I),
-    "sk_sum_rows": ([_I, _P, _P, _I, _I, _I, _P], _I),
+    "sk_layernorm_bwd": ([_I, _I, _I] + [_P] * 8 + [_I] * 5 + [_P], _I),
+    "sk_sum_rows": ([_I, _P, _P] + [_I] * 7 + [_P], _I),
     "sk_emit_dropout_bits": ([_U, _P, _I, _I, _I, _I, _P], _I),
     "sk_token_ce_fwd": ([_I] + [_P] * 7 + [_I] * 4 + [_P], _I),
     "sk_token_ce_bwd": ([_I] + [_P] * 12 + [_I] * 7 + [_P], _I),
@@ -203,8 +202,9 @@ def ptr(t: Optional[torch.Tensor]):
 # device -> (per-tile counters, zero between launches; f32 scratch of the
 # split partials) of the kernels that add their splits' partials in the
 # same launch (csrc/split_reduce.cuh: linear_tn, ce_dw, the bf16 attention
-# backward's qk-norm gradients). Launches on one stream run in order, so
-# each call may reuse the scratch of the last.
+# backward's qk-norm gradients, layernorm_bwd's parameter gradients).
+# Launches on one stream run in order, so each call may reuse the scratch
+# of the last.
 _SPLIT_SCRATCH: dict = {}
 
 

@@ -427,28 +427,48 @@ def test_linear_tn(cuda, dtype, M, K, N, y_f32, mode, bias):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("R,N", [(50, 70), (9000, 256)])
+@pytest.mark.parametrize("R,N", [(50, 70), (9000, 256), (6144, 64),
+                                 (12288, 768), (49152, 128)])
 def test_sum_rows(cuda, dtype, R, N):
+    """One launch, within f32 rounding of the plain sum, and equal across
+    two runs (the slices' partial rows are added in a fixed order)."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     x = _rand(gen, cuda, R, N, dtype=dtype)
-    _close(nt.sum_rows(x), nt.sum_rows_reference(x), torch.float32)
+    before = nt.LAUNCHES["sum_rows"]
+    got = nt.sum_rows(x)
+    assert nt.LAUNCHES["sum_rows"] == before + 1
+    _close(got, nt.sum_rows_reference(x), torch.float32)
+    assert torch.equal(got, nt.sum_rows(x))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M,D,resid_dt,out_dt", [(300, 96, True, False),
-                                                 (1000, 256, False, True)])
+                                                 (1000, 256, False, True),
+                                                 (1000, 128, True, True),
+                                                 (777, 128, None, False),
+                                                 (49152, 256, True, False)])
 def test_layernorm_bwd(cuda, dtype, M, D, resid_dt, out_dt):
+    """dx, dscale and dbias from one launch (no sum_rows), within TOL of
+    the plain version and equal across two runs; ``resid_dt`` None: no
+    residual."""
     gen = torch.Generator(device=cuda).manual_seed(10)
     x = _rand(gen, cuda, M, D, dtype=dtype)
     dy = _rand(gen, cuda, M, D)
     s = 1 + _rand(gen, cuda, D, scale=0.1)
-    kw = dict(resid=_rand(gen, cuda, M, D,
-                          dtype=dtype if resid_dt else torch.float32),
+    kw = dict(resid=None if resid_dt is None else
+              _rand(gen, cuda, M, D,
+                    dtype=dtype if resid_dt else torch.float32),
               out_dtype=dtype if out_dt else torch.float32)
-    for g, w in zip(nt.layernorm_bwd(x, dy, s, **kw),
-                    nt.layernorm_bwd_reference(x, dy, s, **kw)):
-        _close(g, w, dtype if out_dt else torch.float32)
+    launches = dict(nt.LAUNCHES)
+    got = nt.layernorm_bwd(x, dy, s, **kw)
+    assert nt.LAUNCHES == dict(launches,
+                               layernorm_bwd=launches["layernorm_bwd"] + 1)
+    again = nt.layernorm_bwd(x, dy, s, **kw)
+    for i, (g, w, a) in enumerate(zip(
+            got, nt.layernorm_bwd_reference(x, dy, s, **kw), again)):
+        _close(g, w, dtype if out_dt and i == 0 else torch.float32)
+        assert torch.equal(g, a)
 
 
 def _attn_case(gen, dev, dtype, B, Tq, Tk, H, Dh, qk, masked):
