@@ -38,8 +38,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (12,288, 768) pane, the f32 attention backward's qk-norm partial rows
    and a ragged shape, equal across two runs); and
    each whole train stack's forward and backward (L=2, dropout 0.1),
-   float32 within a relative L2 error of 1e-3 of the plain version, bf16
-   within 2x the plain bf16 path's error against float32; the bf16
+   float32 within a relative L2 error of 1e-3 of the plain version on
+   three input draws, the plain path taking the ReLU gates the kernels
+   set (the gates that differed are counted, and limited), bf16 within
+   2x the plain bf16 path's error against float32; the bf16
    attention backward (K5, both passes on the tensor cores) in every mode
    (self-attention with and without causal, cross-attention to 4 memory
    rows, with and without a key bias and qk-norm, T = 1, 96, 192 and 1024,
@@ -50,13 +52,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at the JAX benchmark's ``train`` shape (bf16, M 49,152, d 256, V 10,004)
    and in f32 at M 4,096: ll, lse, dx, dW and db within TOL, corr equal
    away from near ties, the bf16 kernels against the f32 computation, and
-   the bf16 dx, dW and db equal across two runs; the two bf16 kernels
+   the bf16 dx, dW and db equal across two runs; the bf16 kernels
    redesigned on wgmma + TMA in every mode, each equal across two runs:
    ``ce_dw`` (dW, db) at M 1 / 127 / 129 / 49,152, dp 64-256 and V 2,003
    and 10,004, with no ``sum_rows`` launch, and ``linear_nt`` with a in
    f32 and bf16, no mask / 'bits' / 'prng', the f32 output, the ReLU gate
    and the bf16 residual, at ragged shapes and at each (N, K) of the
-   stacks at a ragged M;
+   stacks at a ragged M; ``linear`` at M 1 / 127 / 12,293, each (K, N) of
+   the stacks, widths not a multiple of 128 and an unaligned K and N, with
+   the ReLU, the residual, 'bits' and 'prng' alone and together ('prng'
+   equal to 'bits' fed the same bytes); ``token_ce_fwd`` at M 1 / 127 /
+   300, dp 64-256, V 65 and 10,004, with three columns planted to tie
+   exactly (corr: the first index);
    and the in-kernel dropout draw (K7): ``emit_dropout_bits`` bit-equal to
    the plain Philox at (16, 512, 96, 256) with the kept share within 1e-3,
    and each 'prng' train stack equal to the 'bits' stack fed the emitted
@@ -115,7 +122,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``train`` shape, M 49,152, beside its bound), ``attention_fwd`` at
    B=64/T=192/H=8 with qk-norm and at B=512/T=96/H=2/Dh=128, and K8's
    forward and backward at both geometries as the median and spread of 60
-   calls' device time, the host's launches queued ahead; the same for
+   calls' device time, the host's launches queued ahead (``linear``, a
+   layer's four calls, and K6's forward too, at M 12,288 and 49,152,
+   beside four ``addmm`` and the ``addmm`` of the logits); the same for
    ``encoder_attention`` against SDPA and the FMA kernel it replaced (at
    ``sbir``, with qk-norm, and at B=512/T=96/H=2), and for the attention
    backward pair (each pass, the pair, one SDPA backward, the bound, and
@@ -134,8 +143,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (B=512, T=96, H=2; 'prng' and 'bits' dropout), ``cont2cont_mdn``
    post-LN, and its token cells
    ``train`` (H=2) and ``train_h8`` (H=8), with a ``torch.profiler``
-   breakdown of each and the LayerNorm backward's share; each with the
-   card's name and power limit. Every kernel's bound (the least time for
+   breakdown of each and the LayerNorm backward's and ``linear``'s share;
+   each with the card's name and power limit. Every kernel's bound (the least time for
    its bytes and operations at the card's published peaks) is computed
    from the timed calls' shapes.
 
@@ -149,6 +158,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -219,6 +229,17 @@ MDN_MIXTURES = 20                 # cont2cont_mdn
 # bf16 decode chunks: a pick is compared where the plain version's top two
 # values are at least this many bf16 ulps of the top value apart
 BF16_TIE_ULPS = 4
+
+
+def randn_from(gen, dev):
+    """randn(*shape, scale, dtype): standard normal draws from ``gen`` on
+    ``dev``, scaled, in ``dtype``."""
+    import torch
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+    return randn
 
 
 def fail(msg: str) -> None:
@@ -651,10 +672,11 @@ def attn_calls(o, H, qk, which, mod):
         q, k, v, o["do"], bias, stats, **kw)
 
 
-def check_train_kernels(randn, dev, errs, compare):
+def check_train_kernels(randn, gen, dev, errs, compare):
     """Each training kernel against its plain version at the cont2cont_mdn
     width (H=8/Dh=32, qk-norm) and at H=2/Dh=128 without qk-norm, f32 and
-    bf16; then each whole stack's forward and backward."""
+    bf16; then each whole stack's forward and backward, in f32 on each of
+    the input draws of ``stack_draws``."""
     import torch
 
     from sketchformer_tpu_torch.ops import dropout_prng as dp
@@ -747,11 +769,58 @@ def check_train_kernels(randn, dev, errs, compare):
                 compare(f"attention_bwd_kv cross Mq=4 {shape} out {i}",
                         gkv[i], wkv[i], dtype)
             del o
+        draws = stack_draws(randn, gen, dev, dtype)
         check_norm_kernels(dev, dtype, compare)
         for decoder in (False, True):
             for H, qk in ((8, True), (2, False)):
-                check_train_stack(randn, dev, decoder, H, qk, dtype)
+                check_train_stack(draws, dev, decoder, H, qk, dtype)
     check_attention_bwd_modes(randn, dev)
+
+
+def stack_draws(randn, gen, dev, dtype):
+    """[(label, randn)]: the input draws the whole-stack checks run on. In
+    bf16 the shared stream. In f32 also two more, each drawn in the same
+    order by the four stack checks: the shared stream as it stood before
+    ``check_norm_kernels`` took its own generator (advanced by that check's
+    operands), and a fresh seed."""
+    import torch
+
+    if dtype != torch.float32:
+        return [("shared", randn)]
+    ahead = torch.Generator(device=dev)
+    ahead.set_state(gen.get_state())
+    randn_ahead = randn_from(ahead, dev)
+    draw_norm_operands(randn_ahead, dtype)
+    return [("shared", randn),
+            ("shared after the norm operands", randn_ahead),
+            ("seed 11", randn_from(torch.Generator(device=dev).manual_seed(
+                11), dev))]
+
+
+NORM_SHAPES = ((MDN["B"] * MDN["T"], MDN["d"]), (1000, 128), (300, 96))
+SUM_ROWS_SHAPES = ((MDN["B"] * MDN["T"], 3 * MDN["d"]), K5_F32_PARTIALS,
+                   (1000, 70))
+
+
+def draw_norm_operands(randn, dtype):
+    """The operands of ``check_norm_kernels`` in draw order: per
+    NORM_SHAPES (rows, D) x, dy, the scale and a residual of each dtype;
+    then the ``sum_rows`` rows of each dtype at SUM_ROWS_SHAPES."""
+    import torch
+
+    f32 = torch.float32
+    dtypes = (f32,) if dtype == f32 else (f32, dtype)
+    ln = []
+    for rows, D in NORM_SHAPES:
+        x, dy = randn(rows, D, dtype=dtype), randn(rows, D)
+        s = 1.0 + randn(D, scale=0.1)
+        resids = {"none": None}
+        for rt in dtypes:
+            resids[str(rt)[6:]] = randn(rows, D, dtype=rt)
+        ln.append((x, dy, s, resids))
+    rows = [(rt, randn(R, N, dtype=rt)) for rt in dtypes
+            for R, N in SUM_ROWS_SHAPES]
+    return dtypes, ln, rows
 
 
 def check_norm_kernels(dev, dtype, compare):
@@ -769,22 +838,12 @@ def check_norm_kernels(dev, dtype, compare):
 
     from sketchformer_tpu_torch.ops import norm_train as nt
 
-    gen = torch.Generator(device=dev).manual_seed(10)
-
-    def randn(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(shape, generator=gen, device=dev)
-                * scale).to(dtype)
-
     f32 = torch.float32
     tag = str(dtype).replace("torch.", "")
-    M, d = MDN["B"] * MDN["T"], MDN["d"]
-    dtypes = (f32,) if dtype == f32 else (f32, dtype)
-    for rows, D in ((M, d), (1000, 128), (300, 96)):
-        x, dy = randn(rows, D, dtype=dtype), randn(rows, D)
-        s = 1.0 + randn(D, scale=0.1)
-        resids = {"none": None}
-        for rt in dtypes:
-            resids[str(rt)[6:]] = randn(rows, D, dtype=rt)
+    d = MDN["d"]
+    dtypes, ln, sums = draw_norm_operands(
+        randn_from(torch.Generator(device=dev).manual_seed(10), dev), dtype)
+    for (rows, D), (x, dy, s, resids) in zip(NORM_SHAPES, ln):
         n = 0
         for rname, r in resids.items():
             for out in dtypes:
@@ -807,17 +866,16 @@ def check_norm_kernels(dev, dtype, compare):
                 n += 1
         print(f"check layernorm_bwd {tag} M={rows} D={D}: {n} residual / "
               f"output combinations equal across two runs, no sum_rows")
-    for rt in dtypes:
-        for R, N in ((M, 3 * d), K5_F32_PARTIALS, (1000, 70)):
-            x = randn(R, N, dtype=rt)
-            got, again = nt.sum_rows(x), nt.sum_rows(x)
-            name = f"sum_rows {str(rt)[6:]} rows ({R}, {N})"
-            compare(name, got, nt.sum_rows_reference(x), f32,
-                    "sum_rows" if rt == f32 and (R, N) == K5_F32_PARTIALS
-                    else None)
-            if not torch.equal(got, again):
-                fail(f"{name}: two runs differ")
-            print(f"check {name}: equal across two runs")
+    for rt, x in sums:
+        R, N = x.shape
+        got, again = nt.sum_rows(x), nt.sum_rows(x)
+        name = f"sum_rows {str(rt)[6:]} rows ({R}, {N})"
+        compare(name, got, nt.sum_rows_reference(x), f32,
+                "sum_rows" if rt == f32 and (R, N) == K5_F32_PARTIALS
+                else None)
+        if not torch.equal(got, again):
+            fail(f"{name}: two runs differ")
+        print(f"check {name}: equal across two runs")
 
 
 def check_attention_bwd_modes(randn, dev):
@@ -951,25 +1009,84 @@ def stack_grads(mod, x, mem, km, gy, drop, decoder, H, qk, ops, dtype):
 
 
 # f32 whole stacks: the bound on each output's relative L2 error against
-# the plain version (see check_train_stack)
+# the plain version, and on the gates the plain path may take from the
+# kernels, per kind (see check_train_stack)
 STACK_F32_L2 = 1e-3
+STACK_F32_GATE_FLIPS = {"relu": 64, "nt": 8}
 
 
-def check_train_stack(randn, dev, decoder, H, qk, dtype):
+def gate_recording_ops(ops, gates):
+    """``ops`` with the gates of its ReLU products (``linear`` with relu:
+    output > 0) and of its gated input-gradient products (``linear_nt``'s
+    gate > 0) appended to ``gates["relu"]`` / ``gates["nt"]`` in call
+    order."""
+    def linear(a, w, bias, *, relu=False, **kw):
+        y = ops.linear(a, w, bias, relu=relu, **kw)
+        if relu:
+            gates["relu"].append(y > 0)
+        return y
+
+    def linear_nt(a, w, *, gate=None, **kw):
+        if gate is not None:
+            gates["nt"].append(gate > 0)
+        return ops.linear_nt(a, w, gate=gate, **kw)
+
+    return ops._replace(linear=linear, linear_nt=linear_nt)
+
+
+def gate_imposing_ops(ops, gates, flips):
+    """``ops`` whose ReLU products and gated input-gradient products take
+    the recorded ``gates`` in call order: a ReLU product returns
+    torch.where(gate, its own pre-activation, 0), ``linear_nt`` gates by
+    the recorded gate. ``flips`` counts, per kind, the gates that its own
+    values would have set otherwise."""
+    import torch
+
+    order = {k: iter(v) for k, v in gates.items()}
+
+    def linear(a, w, bias, *, relu=False, **kw):
+        if not relu:
+            return ops.linear(a, w, bias, **kw)
+        if kw.get("residual") is not None or kw.get("drop") is not None:
+            fail("a ReLU product with a residual or dropout")
+        pre = ops.linear(a, w, bias, **kw)
+        gate = next(order["relu"])
+        flips["relu"] += int(((pre > 0) != gate).sum())
+        return torch.where(gate, pre, torch.zeros_like(pre))
+
+    def linear_nt(a, w, *, gate=None, **kw):
+        if gate is not None:
+            want = next(order["nt"])
+            flips["nt"] += int(((gate > 0) != want).sum())
+            gate = want.to(gate.dtype)
+        return ops.linear_nt(a, w, gate=gate, **kw)
+
+    return ops._replace(linear=linear, linear_nt=linear_nt)
+
+
+def check_train_stack(draws, dev, decoder, H, qk, dtype):
     """A whole train stack (L=2, cont2cont_mdn width, dropout on), kernels
-    against the plain versions, the output and every gradient.
+    against the plain versions, the output and every gradient, on the
+    inputs of each of ``draws`` ([(label, randn)]).
 
     f32: a relative L2 error within STACK_F32_L2, not 1e-4 of the largest
-    element: a ReLU pre-activation within rounding of zero is gated
-    differently by two summation orders; at these sizes (12.6M
-    pre-activations a stack) about one a run is, and it moves its row of
-    the input gradient by up to 2.5e-3 of the largest element and the
-    gradient's L2 by up to 2.2e-4 (on an H100 80GB HBM3). Every kernel alone
-    is held to 1e-4 of the largest element above. bf16: held to the f32 computation of the same inputs, at most
-    STACK_BF16_FACTOR x the plain bf16 path's relative L2 error. A key bias
-    (projection or k-norm) shifts a row's keys alike, so its gradient is
-    zero up to rounding: it is held to 1e-4 (f32) of the largest
-    gradient."""
+    element, with the plain path gated as the kernels gated it. A ReLU
+    pre-activation within rounding of zero is gated differently by two
+    summation orders (about one a run at these sizes, 12.6M
+    pre-activations a stack); a flipped gate moves its row of the input
+    gradient by up to 2.5e-3 of the largest element, more than summation
+    order alone. So the kernel path runs first and records each ReLU
+    product's gate and each gate ``linear_nt`` applies; the plain path then
+    takes those gates (``gate_imposing_ops``) and computes everything else
+    itself, which leaves only the two summation orders; the run prints how
+    many gates differed before they were imposed and fails past
+    STACK_F32_GATE_FLIPS, so a kernel that gates wrongly is not copied
+    into the plain path. Every kernel alone is
+    held to 1e-4 of the largest element above. bf16: held to the f32
+    computation of the same inputs, at most STACK_BF16_FACTOR x the plain
+    bf16 path's relative L2 error. A key bias (projection or k-norm) shifts
+    a row's keys alike, so its gradient is zero up to rounding: it is held
+    to 1e-4 (f32) of the largest gradient."""
     import torch
 
     from sketchformer_tpu_torch.ops import encoder_stack_train as est
@@ -981,40 +1098,64 @@ def check_train_stack(randn, dev, decoder, H, qk, dtype):
             f"{tag} L={L} B={B} T={T} d={d} H={H} qk_norm={qk} dropout 0.1")
     mod = stack_module(dev, decoder, H, qk, dtype)
     gen = torch.Generator(device=dev).manual_seed(3)
-    x = randn(B, T, d)
-    mem = randn(B, 4, d)
-    gy = randn(B, T, d)
     km = torch.arange(T, device=dev)[None] < torch.randint(
         T // 4, T + 1, (B,), generator=gen, device=dev)[:, None]
     drop = torch.randint(0, 256, ((3 if decoder else 2) * L, B, T, d),
                          dtype=torch.uint8, generator=gen, device=dev)
-    args = (mod, x, mem, km, gy, drop, decoder, H, qk)
-    got = stack_grads(*args, est.KERNELS, dtype)
-    want = stack_grads(*args, est.PLAIN, dtype)
-    torch.cuda.synchronize()
     zero = ("key.bias", "k_norm.bias")
     l2 = lambda a, b: (a.float() - b.float()).norm().item() / max(
         b.float().norm().item(), 1e-30)
+
+    def stack_args(randn):   # x, memory and the output gradient, drawn
+        x, mem, gy = randn(B, T, d), randn(B, 4, d), randn(B, T, d)
+        return (mod, x, mem, km, gy, drop, decoder, H, qk)
+
     if dtype == torch.float32:
-        top = max(w.abs().max().item() for _, w in want[1:])
-        worst_l2 = worst_max = 0.0
-        for (n, g), (_, r) in zip(got, want):
-            if not torch.isfinite(g).all():
-                fail(f"{name}: {n} not finite")
-            diff = (g - r).abs()
-            if n.endswith(zero):
-                if not diff.max().item() <= TOL["float32"] * top:
-                    fail(f"{name}: {n} differs by {diff.max().item():.3e}")
-                continue
-            worst_max = max(worst_max, diff.max().item()
-                            / max(r.abs().max().item(), 1e-30))
-            worst_l2 = max(worst_l2, l2(g, r))
-            if not l2(g, r) <= STACK_F32_L2:
-                fail(f"{name}: {n} rel L2 err {l2(g, r):.3e}")
-        print(f"check {name}: output and {len(got) - 1} gradients, worst "
-              f"rel L2 err {worst_l2:.3e} (<= {STACK_F32_L2:.0e}), worst "
-              f"max-element rel err {worst_max:.3e}")
+        for label, randn in draws:
+            args = stack_args(randn)
+            gates = {"relu": [], "nt": []}
+            flips = {"relu": 0, "nt": 0}
+            got = stack_grads(*args, gate_recording_ops(est.KERNELS, gates),
+                              dtype)
+            want = stack_grads(*args,
+                               gate_imposing_ops(est.PLAIN, gates, flips),
+                               dtype)
+            torch.cuda.synchronize()
+            for kind, limit in STACK_F32_GATE_FLIPS.items():
+                if not flips[kind] <= limit:
+                    fail(f"{name} ({label}): {flips[kind]} {kind} gates of "
+                         f"the kernel path differ from the plain path's "
+                         f"(at most {limit})")
+            top = max(w.abs().max().item() for _, w in want[1:])
+            worst_l2 = worst_max = 0.0
+            for (n, g), (_, r) in zip(got, want):
+                if not torch.isfinite(g).all():
+                    fail(f"{name} ({label}): {n} not finite")
+                diff = (g - r).abs()
+                if n.endswith(zero):
+                    if not diff.max().item() <= TOL["float32"] * top:
+                        fail(f"{name} ({label}): {n} differs by "
+                             f"{diff.max().item():.3e}")
+                    continue
+                worst_max = max(worst_max, diff.max().item()
+                                / max(r.abs().max().item(), 1e-30))
+                worst_l2 = max(worst_l2, l2(g, r))
+                if not l2(g, r) <= STACK_F32_L2:
+                    fail(f"{name} ({label}): {n} rel L2 err {l2(g, r):.3e}")
+            n_relu = sum(int(g.numel()) for g in gates["relu"])
+            print(f"check {name} (draw: {label}): output and {len(got) - 1} "
+                  f"gradients, worst rel L2 err {worst_l2:.3e} (<= "
+                  f"{STACK_F32_L2:.0e}), worst max-element rel err "
+                  f"{worst_max:.3e}; the plain path took the kernels' gates: "
+                  f"{flips['relu']} of {n_relu} ReLU gates and {flips['nt']} "
+                  f"linear_nt gates differed before (at most "
+                  f"{STACK_F32_GATE_FLIPS['relu']} and "
+                  f"{STACK_F32_GATE_FLIPS['nt']})")
         return
+    (_, randn), = draws
+    args = stack_args(randn)
+    got = stack_grads(*args, est.KERNELS, dtype)
+    want = stack_grads(*args, est.PLAIN, dtype)
     ref = stack_grads(*args, est.PLAIN, torch.float32)
     top = max(w.norm().item() for _, w in ref[1:])
     worst = 0.0
@@ -1239,6 +1380,14 @@ def profile_steps(label, step, batch, gpu, step_ms, n=2, top=12):
     print(f"  layernorm_bwd + sum_rows kernels: {ln_ms:.3f} ms/step, "
           f"{sum(r[1] for r in ln) // n} launches/step, "
           f"{ln_ms / (busy / n):.4f} of the busy time")
+    # the forward product linear (its bf16 and f32 kernels, not linear_nt /
+    # linear_tn)
+    lin = [r for r in rows
+           if re.search(r"\blinear_(?:wgmma_|f32_)?kernel", r[2])]
+    lin_ms = sum(r[0] for r in lin) / n
+    print(f"  linear kernels: {lin_ms:.3f} ms/step, "
+          f"{sum(r[1] for r in lin) // n} launches/step, "
+          f"{lin_ms / (busy / n):.4f} of the busy time")
     for dev_ms, count, key in rows[:top]:
         print(f"  {dev_ms / n:8.3f} ms/step {count // n:6d} calls/step  "
               f"{key[:90]}")
@@ -1489,6 +1638,122 @@ def check_redesigned_modes(randn, gen, dev, compare):
                     n += 1
     print(f"check linear_nt: {n} modes and shapes, each equal across two "
           f"runs")
+    check_linear_modes(randn, gen, dev, compare)
+    check_ce_fwd_modes(randn, gen, dev, compare)
+
+
+# bf16 linear's modes: ragged M; (K, N) of every stack call, widths that are
+# not a multiple of 128 and an unaligned K and N (zero columns added by the
+# wrapper); the epilogues alone and together
+LINEAR_M = (1, 127, 12288 + 5)
+LINEAR_KN = ((256, 768), (256, 256), (256, 512), (512, 256), (512, 512),
+             (256, 64), (256, 192), (100, 70))
+LINEAR_EPILOGUES = ((), ("relu",), ("residual",), ("bits",), ("prng",),
+                    ("relu", "residual", "bits"), ("relu", "residual", "prng"))
+
+
+def check_linear_modes(randn, gen, dev, compare):
+    """bf16 ``linear`` against its plain version within TOL at every
+    LINEAR_M x LINEAR_KN x LINEAR_EPILOGUES case ('prng' where N is a
+    multiple of 4), each torch.equal across two runs, and each 'prng' case
+    torch.equal to the same call fed the plain Philox's bytes ('bits')."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+
+    dt = torch.bfloat16
+    n = 0
+    for M in LINEAR_M:
+        for K, N in LINEAR_KN:
+            a = randn(M, K, dtype=dt)
+            w = randn(K, N, scale=K ** -0.5, dtype=dt)
+            b = randn(N, scale=0.1)
+            res = randn(M, N, dtype=dt)
+            site = dp.PrngSite(PRNG_SEED, 1, 1, M)
+            byt = torch.randint(0, 256, (M, N), dtype=torch.uint8,
+                                generator=gen, device=dev)
+            for epi in LINEAR_EPILOGUES:
+                if "prng" in epi and N % 4:
+                    continue
+                kw = dict(relu="relu" in epi, thresh=26,
+                          keep_scale=1.0 / (1.0 - 26 / 256.0))
+                if "residual" in epi:
+                    kw["residual"] = res
+                if "bits" in epi:
+                    kw["drop"] = byt
+                if "prng" in epi:
+                    kw["drop"] = site
+                name = (f"linear bf16 M={M} K={K} N={N} "
+                        f"{'+'.join(epi) or 'plain epilogue'}")
+                got = es.linear(a, w, b, **kw)
+                again = es.linear(a, w, b, **kw)
+                compare(name, got, es.linear_reference(a, w, b, **kw), dt)
+                if not torch.equal(got, again):
+                    fail(f"{name}: two runs differ")
+                if "prng" in epi:
+                    kw["drop"] = dp.site_bytes_reference(site, M, N, dev)
+                    if not torch.equal(got, es.linear(a, w, b, **kw)):
+                        fail(f"{name}: 'prng' differs from 'bits' fed the "
+                             f"same bytes")
+                n += 1
+    print(f"check linear: {n} modes and shapes, each equal across two runs, "
+          f"'prng' equal to 'bits'")
+
+
+# bf16 ce_fwd's modes, and three columns of a row planted to tie exactly
+# (one across lanes, one across vocab tiles) for the first-index argmax
+CE_FWD_MODES = dict(M=(1, 127, 300), dp=(64, 128, 192, 256), V=(65, 10004))
+
+
+def check_ce_fwd_modes(randn, gen, dev, compare):
+    """bf16 ``token_ce_fwd`` against its plain version at every CE_FWD_MODES
+    case: ll and lse within TOL, each torch.equal across two runs; corr
+    equal wherever the plain version's top two logits are CE_TIE apart and
+    on the rows whose top logit is a planted exact tie of columns 3, 60 and
+    64 (targets on each of the three: only the first counts as correct)."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import token_ce as tce
+
+    dt = torch.bfloat16
+    n = ties = hits = 0
+    for M in CE_FWD_MODES["M"]:
+        for d in CE_FWD_MODES["dp"]:
+            for V in CE_FWD_MODES["V"]:
+                x, w, b, tgt, _ = ce_operands(randn, gen, dev, M, d, V, dt)
+                # equal columns and biases: equal logits in every row, the
+                # row's top where x . W's column is large enough
+                tie = [3, 60, 64]
+                w[:, tie] = w[:, tie[:1]]
+                b[tie] = 3.0
+                rows = torch.arange(M, device=dev)
+                tgt = torch.where(rows % 2 == 0, torch.tensor(
+                    tie, device=dev, dtype=tgt.dtype)[rows % 3], tgt)
+                got = tce.token_ce_fwd(x, w, b, tgt)
+                again = tce.token_ce_fwd(x, w, b, tgt)
+                want = tce.token_ce_fwd_reference(x, w, b, tgt)
+                shape = f"bf16 M={M} dp={d} V={V}"
+                compare(f"token_ce_fwd ll {shape}", got[0], want[0], dt)
+                compare(f"token_ce_fwd lse {shape}", got[2], want[2], dt)
+                for part, g, a in zip(("ll", "corr", "lse"), got, again):
+                    if not torch.equal(g, a):
+                        fail(f"token_ce_fwd {part} {shape}: two runs differ")
+                top2 = tce.logits_reference(x, w, b).topk(2, dim=-1).values
+                planted = top2[:, 0] == top2[:, 1]
+                clear = ((top2[:, 0] - top2[:, 1]) > CE_TIE) | planted
+                if not torch.equal(got[1][clear], want[1][clear]):
+                    fail(f"token_ce_fwd {shape}: corr differs away from a "
+                         f"near tie")
+                n += 1
+                ties += int(planted.sum())
+                hits += int((got[1][planted] > 0).sum())
+    if ties == 0:
+        fail("token_ce_fwd: no row topped by the planted tie")
+    print(f"check token_ce_fwd: {n} shapes, equal across two runs; corr "
+          f"equal on {ties} rows topped by the planted exact tie ({hits} of "
+          f"them with the first tied column as target) and away from near "
+          f"ties")
 
 
 def check_dropout_prng(dev, errs):
@@ -1740,10 +2005,126 @@ def kernel_spread(fn, names, n=SPREAD_CALLS):
     return {k: (float(np.median(v)), min(v), max(v)) for k, v in got.items()}
 
 
-def token_ce_times(randn, gen, dev, gpu, cuda_ms, paired):
+def linear_layer_calls(fn, x, hid, w, drops=({}, {})):
+    """One encoder layer's four ``linear`` calls: QKV, the out-projection
+    + x, FFN-in + ReLU, FFN-out + x; ``drops`` the dropout keyword
+    arguments of the two residual calls (the training forward's sites)."""
+    def run():
+        fn(x, w["wqkv"], w["bqkv"])
+        fn(x, w["wo"], w["bo"], residual=x, **drops[0])
+        fn(x, w["w1"], w["b1"], relu=True)
+        fn(hid, w["w2"], w["b2"], residual=x, **drops[1])
+    return run
+
+
+def linear_spreads(randn, gpu):
+    """bf16 ``linear`` as one encoder layer's four calls (d 256, dff 512) at
+    the sbir shape (B=64, T=192, M 12,288) and the train shape (B=512,
+    T=96, M 49,152; also with the training forward's 'prng' dropout on the
+    two residual calls): the median and spread of SPREAD_CALLS calls'
+    device time of the kernel, the plain version and four ``addmm`` (no
+    dropout), beside the bound; then each call alone beside its ``addmm``
+    (the residual as its added term). Returns (ms, plain_ms, library_ms)
+    at the sbir shape."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+
+    dt = torch.bfloat16
+    d, dff = SBIR["d"], SBIR["dff"]
+    w = {"wqkv": randn(d, 3 * d, scale=d ** -0.5, dtype=dt),
+         "wo": randn(d, d, scale=d ** -0.5, dtype=dt),
+         "w1": randn(d, dff, scale=d ** -0.5, dtype=dt),
+         "w2": randn(dff, d, scale=dff ** -0.5, dtype=dt),
+         "bqkv": randn(3 * d, scale=0.1), "bo": randn(d, scale=0.1),
+         "b1": randn(dff, scale=0.1), "b2": randn(d, scale=0.1)}
+    out = None
+    for B, T in ((64, SBIR["T"]), (CONT_TRAIN["B"], CONT_TRAIN["T"])):
+        M = B * T
+        x = randn(M, d, dtype=dt)
+        hid = torch.relu(randn(M, dff, dtype=dt))
+
+        def lib():
+            for a, k, b in ((x, "wqkv", "bqkv"), (x, "wo", "bo"),
+                            (x, "w1", "b1"), (hid, "w2", "b2")):
+                torch.addmm(w[b].to(dt), a, w[k])
+
+        b_ms, b_by = bound(*linear_layer_work(M, d, dff))
+        modes = [("no dropout", ({}, {}))]
+        if B != 64:
+            ks = dict(thresh=26, keep_scale=1.0 / (1.0 - 26 / 256.0))
+            modes.append(("'prng' dropout on the residual calls",
+                          tuple(dict(drop=dp.PrngSite(PRNG_SEED, 0, k, T),
+                                     **ks) for k in (0, 1))))
+        with torch.no_grad():
+            for label, drops in modes:
+                sp = spread_ms(linear_layer_calls(es.linear, x, hid, w, drops),
+                               linear_layer_calls(es.linear_reference, x, hid,
+                                                  w, drops), lib)
+                print(f"time linear (bf16, B={B}, T={T}, M={M}, d={d}, "
+                      f"dff={dff}, the layer: 4 calls, {label}, device time, "
+                      f"median of {SPREAD_CALLS}): kernel "
+                      f"{fmt_spread(sp['kernel'])}, plain "
+                      f"{fmt_spread(sp['plain'])}, library (4 addmm) "
+                      f"{fmt_spread(sp['lib'])}; bound {b_ms:.4f} ms ({b_by}),"
+                      f" kernel / bound {sp['kernel'][0] / b_ms:.2f}, kernel "
+                      f"/ library {sp['kernel'][0] / sp['lib'][0]:.2f} "
+                      f"[{gpu}]")
+                if out is None:
+                    out = (sp["kernel"][0], sp["plain"][0], sp["lib"][0])
+            # each call alone: which of the four the layer's time goes to
+            for label, a, k, b, res in (
+                    ("QKV, N 768", x, "wqkv", "bqkv", None),
+                    ("out-proj + x, N 256", x, "wo", "bo", x),
+                    ("FFN-in, N 512", x, "w1", "b1", None),
+                    ("FFN-out + x, K 512, N 256", hid, "w2", "b2", x)):
+                one = spread_ms(
+                    lambda: es.linear(a, w[k], w[b], residual=res), None,
+                    lambda: torch.addmm(w[b].to(dt) if res is None else res,
+                                        a, w[k]))
+                print(f"time linear call {label} (M={M}, device time, "
+                      f"median of {SPREAD_CALLS}): kernel "
+                      f"{fmt_spread(one['kernel'])}, library (addmm) "
+                      f"{fmt_spread(one['lib'])} [{gpu}]")
+        del x, hid
+    return out
+
+
+def ce_fwd_spread(randn, gen, dev, gpu):
+    """bf16 ``token_ce_fwd`` at the train shape (M 49,152, d 256, V
+    10,004): the median and spread of SPREAD_CALLS calls' device time of
+    the kernel, the plain version and the ``addmm`` of the logits, beside
+    the bound. Returns (ms, plain_ms, library_ms)."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import token_ce as tce
+
+    M, d, V = TRAIN["B"] * TRAIN["T"], TRAIN["d"], TRAIN["V"]
+    dt = torch.bfloat16
+    x, w, b, tgt, _ = ce_operands(randn, gen, dev, M, d, V, dt)
+    wd = w.to(dt)
+    with torch.no_grad():
+        sp = spread_ms(lambda: tce.token_ce_fwd(x, w, b, tgt),
+                       lambda: tce.token_ce_fwd_reference(x, w, b, tgt),
+                       lambda: torch.addmm(b.to(dt), x, wd))
+    b_ms, b_by = bound(*token_kernel_work(M, d, V, 1)["token_ce_fwd"])
+    print(f"time token_ce_fwd (bf16, M={M}, d={d}, V={V}, device time, "
+          f"median of {SPREAD_CALLS}): kernel {fmt_spread(sp['kernel'])}, "
+          f"plain {fmt_spread(sp['plain'])}, library (addmm of the logits) "
+          f"{fmt_spread(sp['lib'])}; bound {b_ms:.4f} ms ({b_by}), kernel / "
+          f"bound {sp['kernel'][0] / b_ms:.2f}, kernel / library "
+          f"{sp['kernel'][0] / sp['lib'][0]:.2f} [{gpu}]")
+    del x, w
+    torch.cuda.empty_cache()
+    return sp["kernel"][0], sp["plain"][0], sp["lib"][0]
+
+
+def token_ce_times(randn, gen, dev, gpu, paired):
     """K6 at the train shape (bf16, M 49,152, d 256, V 10,004): each kernel
-    against its plain version and one PyTorch call of its product. The
-    backward wrapper launches both backward kernels; each one's time is its
+    against its plain version and one PyTorch call of its product (the
+    forward from ``ce_fwd_spread``). The backward wrapper launches both
+    backward kernels; each one's time is its
     device time in a profiler trace of the wrapper, and both rows carry the
     plain backward's time (it computes dx, dW and db together): the median
     of SPREAD_CALLS calls' kernel events, beside the library call's median
@@ -1760,12 +2141,8 @@ def token_ce_times(randn, gen, dev, gpu, cuda_ms, paired):
     lse = tce.token_ce_fwd(x, w, b, tgt)[2]
     dl = randn(M, V, scale=1e-3, dtype=dt)
     out = {}
+    out["token_ce_fwd"] = ce_fwd_spread(randn, gen, dev, gpu)
     with torch.no_grad():
-        k_ms, p_ms = paired(lambda: tce.token_ce_fwd(x, w, b, tgt),
-                            lambda: tce.token_ce_fwd_reference(x, w, b, tgt),
-                            iters=5, warm=1)
-        out["token_ce_fwd"] = (k_ms, p_ms, cuda_ms(
-            lambda: torch.addmm(b.to(dt), x, wd), 5, 1))
         k_ms, p_ms = paired(
             lambda: tce.token_ce_bwd(x, w, b, tgt, lse, gll),
             lambda: tce.token_ce_bwd_reference(x, w, b, tgt, lse, gll),
@@ -2236,6 +2613,14 @@ def train_kernel_work(B, T, d, H, dff):
     }
 
 
+def linear_layer_work(M, d, dff):
+    """(flops, bytes) of one encoder layer's four ``linear`` calls (bf16):
+    QKV, the out-projection and FFN-out with their residuals, FFN-in."""
+    return gemm_work([(M, d, 3 * d, 2, 2, 2, 0), (M, d, d, 2, 2, 2, M * d * 2),
+                      (M, d, dff, 2, 2, 2, 0),
+                      (M, dff, d, 2, 2, 2, M * d * 2)])
+
+
 def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn):
     """{kernel: (flops, bytes)} of the timed calls of the serving kernels
     (bf16): linear = one encoder layer's 4 products; encoder_attention and
@@ -2243,8 +2628,7 @@ def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn):
     of a T=192 decode (cache positions t0 + 16, t0 = 88 on average);
     decode_attention one call (B*H, cache_len T/2)."""
     M, Dh = B * T, d // H
-    lin = gemm_work([(M, d, 3 * d, 2, 2, 2, 0), (M, d, d, 2, 2, 2, M * d * 2),
-                     (M, d, dff, 2, 2, 2, 0), (M, dff, d, 2, 2, 2, M * d * 2)])
+    lin = linear_layer_work(M, d, dff)
     trunk_w = L * (d * 3 * d + 3 * d * d + 2 * d * dff) * 2
     t_mean = 88 + K
     per_row = L * 2 * (d * 3 * d + 3 * d * d + 2 * d * dff) + L * 4 * t_mean * d
@@ -2735,10 +3119,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions ---------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(shape, generator=gen, device=dev)
-                * scale).to(dtype)
+    randn = randn_from(gen, dev)
 
     def ln_params(n):
         return (1.0 + randn(n, scale=0.1), randn(n, scale=0.1))
@@ -2867,7 +3248,7 @@ def main() -> int:
                      f"{STACK_BF16_FACTOR} x the plain path's {err_p:.3e}")
 
     check_decode_kernels(randn, gen, dev, errs)
-    check_train_kernels(randn, dev, errs, compare)
+    check_train_kernels(randn, gen, dev, errs, compare)
     check_token_ce(randn, gen, dev, errs, compare)
     check_redesigned_modes(randn, gen, dev, compare)
     check_dropout_prng(dev, errs)
@@ -3173,35 +3554,21 @@ def main() -> int:
     M = B * T
     w = weights
     x = randn(M, d, dtype=dt)
-    hid = torch.relu(randn(M, dff, dtype=dt))
-
-    def layer_linears(fn):
-        def run():
-            fn(x, w["wqkv"][0], w["bqkv"][0])
-            fn(x, w["wo"][0], w["bo"][0], residual=x)
-            fn(x, w["w1"][0], w["b1"][0], relu=True)
-            fn(hid, w["w2"][0], w["b2"][0], residual=x)
-        return run
-
+    k_ms, p_ms, lib["linear"] = linear_spreads(randn, gpu)
+    times["linear"] = (k_ms, p_ms)
     with torch.inference_mode():
-        times["linear"] = paired(layer_linears(es.linear),
-                                 layer_linears(es.linear_reference))
         times["layernorm_rows"] = paired(
             lambda: es.layernorm_rows(x, w["lnfs"][0], w["lnfb"][0]),
             lambda: es.layernorm_rows_reference(x, w["lnfs"][0],
                                                 w["lnfb"][0]))
-        lib["linear"] = cuda_ms(lambda: [
-            torch.addmm(w[b][0].to(dt), a, w[k][0])
-            for a, k, b in ((x, "wqkv", "bqkv"), (x, "wo", "bo"),
-                            (x, "w1", "b1"), (hid, "w2", "b2"))])
         lib["layernorm_rows"] = cuda_ms(
             lambda: F.layer_norm(x, (d,), w["lnfs"][0].to(dt),
                                  w["lnfb"][0].to(dt), 1e-6))
-        for name, (k_ms, p_ms) in times.items():
-            print(f"library {name}: {lib[name]:.4f} ms [{gpu}]")
-            print(f"time {name} (B={B}, T={T}, {str(dt)[6:]}"
-                  f"{', one layer: 4 calls' if name == 'linear' else ''})"
-                  f": kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
+        k_ms, p_ms = times["layernorm_rows"]
+        print(f"library layernorm_rows: {lib['layernorm_rows']:.4f} ms "
+              f"[{gpu}]")
+        print(f"time layernorm_rows (B={B}, T={T}, {str(dt)[6:]}): kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
         # encoder_attention on the tensor cores: the sbir call (no qk-norm),
         # cont2cont_mdn's encoder (qk-norm, each key normalised once a
         # block) and the B=512 / T=96 / H=2 training geometry
@@ -3366,7 +3733,7 @@ def main() -> int:
         lib[name] = l_ms
     stack_times(dev, gpu, cuda_ms)
     for name, (k_ms, p_ms, l_ms) in token_ce_times(
-            randn, gen, dev, gpu, cuda_ms, paired).items():
+            randn, gen, dev, gpu, paired).items():
         times[name] = (k_ms, p_ms)
         lib[name] = l_ms
     times["emit_dropout_bits"] = emit_times(dev, gpu, cuda_ms, paired)

@@ -23,8 +23,8 @@
 //
 //   linear             a tiled product with f32 accumulation and an
 //                      epilogue cast -> bias -> optional ReLU -> optional
-//                      residual add. Serves QKV, the out-projection (+x),
-//                      FFN-in (+ReLU) and FFN-out (+x).
+//                      dropout -> optional residual add. Serves QKV, the
+//                      out-projection (+x), FFN-in (+ReLU) and FFN-out (+x).
 //   encoder_attention  (f32, and bf16 head widths that are not a multiple
 //                      of 16) one block per (query tile, head, batch
 //                      element); the full f32 score row of each query stays
@@ -40,13 +40,11 @@
 // What bounds it on the card: at d_model=256 every product is small in K
 // (256 or 512), so each layer moves its activations through device memory
 // about seven times, and a product tile does little work per byte it loads.
-// linear runs on the tensor cores through WMMA (bf16 in, f32 accumulate)
-// in 64x64 output tiles that load 16-byte vectors and prefetch the next
-// K-slab into registers while the current one is multiplied; linear_tn and
-// (in bf16) linear_nt run on wgmma with TMA and a ring of mbarrier stages
-// (see their notes); the bf16 attention runs on the tensor cores through
-// mma.sync (attention_train.cu), the f32 one on the FMA units. LayerNorm is its own pass and
-// not a prologue of the product: as a prologue, each of the N/64 column
+// In bf16 linear, linear_tn and linear_nt run on wgmma with TMA and a ring
+// of mbarrier stages (see their notes), f32 on the FMA units; the bf16
+// attention runs on the tensor cores through mma.sync (attention_train.cu),
+// the f32 one on the FMA units. LayerNorm is its own pass and not a
+// prologue of the product: as a prologue, each of the N/64 column
 // blocks of a row block recomputed the same row statistics and
 // normalisation, which took as long again as the QKV product itself.
 //
@@ -60,7 +58,6 @@
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
 #include <cuda.h>
-#include <mma.h>
 
 #include <stdint.h>
 #include <type_traits>
@@ -80,20 +77,8 @@ constexpr int kWarps = kThreads / 32;
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64, BN = 64;
-constexpr int kPadA = 8, kPadB = 8, kPadC = 4;  // keep WMMA rows 32B-aligned
-
-// K-slab depth: bf16 takes 64 (4-8 slabs at K = 256/512), f32 32 (its
-// slabs are twice the bytes and its FMA tiles are the slow path anyway)
-template <typename T>
-struct Slab;
-template <>
-struct Slab<__nv_bfloat16> {
-  static constexpr int BK = 64;
-};
-template <>
-struct Slab<float> {
-  static constexpr int BK = 32;
-};
+constexpr int kPadA = 8, kPadB = 8, kPadC = 4;  // padded shared-memory rows
+constexpr int kLinBK = 32;  // K-slab depth of the f32 linear
 
 // 16-byte vector of T; with kVec false it is filled element by element, so
 // ragged K / N (not a multiple of the vector width) and unaligned operands
@@ -117,63 +102,47 @@ __device__ __forceinline__ uint4 load_vec(const T* __restrict__ base,
   return v;
 }
 
-template <typename T, bool kVec>
+// f32: 64 x 64 output tiles on the FMA units (16 x 16 threads, each a 4 x 4
+// register tile strided by 16), 32-deep K slabs whose loads are in flight
+// while the current slab is multiplied out of shared memory
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)  // two blocks per SM
-linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
-              const float* __restrict__ bias, const T* __restrict__ residual,
-              const uint8_t* __restrict__ drop, DropPrng prng, int thresh,
-              float keep_scale, T* __restrict__ out, int M, int N, int K,
-              int relu) {
-  constexpr int BK = Slab<T>::BK;
-  constexpr int VW = 16 / sizeof(T);  // elements per 16-byte vector
+linear_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ residual,
+                  const uint8_t* __restrict__ drop, DropPrng prng, int thresh,
+                  float keep_scale, float* __restrict__ out, int M, int N,
+                  int K, int relu) {
+  constexpr int BK = kLinBK, VW = 4;  // f32 elements per 16-byte vector
   constexpr int LDA = BK + kPadA, LDB = BN + kPadB, LDC = BN + kPadC;
   constexpr int kVecA = BM * BK / VW / kThreads;  // vectors per thread
   constexpr int kVecB = BK * BN / VW / kThreads;
-  constexpr int kBytesAB = (BM * LDA + BK * LDB) * (int)sizeof(T);
-  constexpr int kBytesC = BM * LDC * (int)sizeof(float);
-  // the operand slabs and, after the main loop, the f32 output tile
+  constexpr int kBytesAB = (BM * LDA + BK * LDB) * 4;
+  constexpr int kBytesC = BM * LDC * 4;
+  // the operand slabs and, after the main loop, the output tile
   __shared__ __align__(128)
       unsigned char smem[kBytesAB > kBytesC ? kBytesAB : kBytesC];
-  T* as = reinterpret_cast<T*>(smem);  // [BM][LDA]
-  T* bs = as + BM * LDA;               // [BK][LDB]
+  float* as = reinterpret_cast<float*>(smem);  // [BM][LDA]
+  float* bs = as + BM * LDA;                   // [BK][LDB]
   float* cs = reinterpret_cast<float*>(smem);  // [BM][LDC]
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  // bf16: 8 warps as 4 (rows) x 2 (cols), each a 16x32 WMMA strip.
-  // f32:  16x16 threads, each a 4x4 register tile strided by 16.
-  const int wm = warp >> 1, wn = warp & 1;
   const int ty = tid >> 4, tx = tid & 15;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      cfrag[2];
-  float acc[4][4];
-  if constexpr (kTensorCores) {
-    nvcuda::wmma::fill_fragment(cfrag[0], 0.f);
-    nvcuda::wmma::fill_fragment(cfrag[1], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  // next slab in registers: its loads are in flight while the current
-  // slab is multiplied out of shared memory
+  float acc[4][4] = {};
   uint4 ra[kVecA], rb[kVecB];
   auto load_slab = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < kVecA; ++i) {
       const int v = tid + i * kThreads;
       const int r = v / (BK / VW), c = (v % (BK / VW)) * VW;
-      ra[i] = load_vec<T, kVec>(a, K, m0 + r, k0 + c, M, K);
+      ra[i] = load_vec<float, kVec>(a, K, m0 + r, k0 + c, M, K);
     }
 #pragma unroll
     for (int i = 0; i < kVecB; ++i) {
       const int v = tid + i * kThreads;
       const int r = v / (BN / VW), c = (v % (BN / VW)) * VW;
-      rb[i] = load_vec<T, kVec>(w + n0, N, k0 + r, c, K, N - n0);
+      rb[i] = load_vec<float, kVec>(w + n0, N, k0 + r, c, K, N - n0);
     }
   };
   auto store_slab = [&]() {
@@ -196,69 +165,366 @@ linear_kernel(const T* __restrict__ a, const T* __restrict__ w,
     store_slab();
     __syncthreads();
     if (k0 + BK < K) load_slab(k0 + BK);
-    if constexpr (kTensorCores) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
-                               __nv_bfloat16, nvcuda::wmma::row_major>
-            fa;
-        nvcuda::wmma::load_matrix_sync(fa, &as[wm * 16 * LDA + kk], LDA);
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16,
-                                 __nv_bfloat16, nvcuda::wmma::row_major>
-              fb;
-          nvcuda::wmma::load_matrix_sync(fb, &bs[kk * LDB + wn * 32 + f * 16],
-                                         LDB);
-          nvcuda::wmma::mma_sync(cfrag[f], fa, fb, cfrag[f]);
-        }
-      }
-    } else {
 #pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[4], bv[4];
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[4], bv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = to_f<T>(as[(ty + 16 * i) * LDA + kk]);
+      for (int i = 0; i < 4; ++i) av[i] = as[(ty + 16 * i) * LDA + kk];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = to_f<T>(bs[kk * LDB + tx + 16 * j]);
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk * LDB + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
 
   // the slabs are dead: the output tile reuses their shared memory
-  if constexpr (kTensorCores) {
 #pragma unroll
-    for (int f = 0; f < 2; ++f)
-      nvcuda::wmma::store_matrix_sync(&cs[wm * 16 * LDC + wn * 32 + f * 16],
-                                      cfrag[f], LDC,
-                                      nvcuda::wmma::mem_row_major);
-  } else {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  }
+    for (int j = 0; j < 4; ++j) cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
   __syncthreads();
 
   for (int idx = tid; idx < BM * BN; idx += kThreads) {
     const int r = idx / BN, c = idx % BN;
     const int m = m0 + r, n = n0 + c;
     if (m < M && n < N) {
-      float v = round_dt<T>(cs[r * LDC + c]);
-      v = round_dt<T>(v + round_dt<T>(bias[n]));
+      float v = cs[r * LDC + c] + bias[n];
       if (relu) v = fmaxf(v, 0.f);
       if (has_drop(drop, prng))  // u8-threshold dropout of the output
         v = drop_byte(drop, prng, m, n, N) >= (uint32_t)thresh
-                ? round_dt<T>(v * keep_scale)
+                ? v * keep_scale
                 : 0.f;
-      if (residual != nullptr) v = to_f<T>(residual[(size_t)m * N + n]) + v;
-      out[(size_t)m * N + n] = from_f<T>(v);
+      if (residual != nullptr) v = residual[(size_t)m * N + n] + v;
+      out[(size_t)m * N + n] = v;
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// linear in bf16: out[M, N] = epilogue(a[M, K] . w[K, N]) on wgmma
+// ---------------------------------------------------------------------------
+//
+// The serving stack's four products a layer and the training stacks'
+// forward and recompute products (K = 256 or 512, N = 256-768; M = 12,288
+// at sbir, 49,152 at the B = 512 training steps; the decoder's cross
+// key-value product at M = B * Mq). The output is cut into 128 x 128 tiles,
+// numbered row slab by row slab; the grid is persistent, two blocks an SM
+// (or one a tile), block b taking tiles b, b + gridDim.x, ... Per tile, K
+// streams in 64-deep slabs through a ring of `stages` mbarrier stages
+// (the tiling, the stages and the grid are ops/encoder_stack.py::
+// linear_plan's):
+// thread 0 loads a's 128 rows (a 128 x 64 box, 128-byte swizzle: wgmma's
+// K-major A operand) and w's 64 rows of the tile's 128 columns (two 64 x 64
+// boxes: the MN-major B operand, the transpose in the descriptor) by TMA
+// into each stage as soon as it is free, so no thread stages an operand,
+// and the next tile's first slabs load while this one's epilogue runs.
+// Warpgroups 0 and 1 run wgmma m64n128k16 on 64 rows each with the tile in
+// 64 registers a thread, one slab's products in flight while the next
+// slab's are issued. There is no producer warp: with two blocks of 8 warps
+// an SM, each of its four schedulers holds 4 warps, so a thread may use 128
+// registers (a ninth warp would cut that to 96 and spill the epilogue).
+// Ahead of the products each warpgroup puts the tile's rounded bias in
+// shared memory and its dropout bytes in registers (in 'prng' mode the four
+// lanes of a quad, one row and 8 columns a block of the fragment, each run
+// one Philox call for four columns and pass its bytes on by shuffle: one
+// call for four elements, as mask8 draws). The epilogue runs from the
+// accumulator: round to bf16, add the bias, round, ReLU, dropout (kept
+// values times keep_scale, rounded), packed to bf16 pairs; then the four
+// lanes of each quad trade pairs (a 4 x 4 transpose by shuffle) so that
+// each lane holds 8 consecutive columns of a row, every residual load of
+// the tile is issued at once, and each row's chunk is added and stored as
+// one 16-byte vector. Each output element has one owner and one summation
+// order: re-runs are bit-stable.
+//
+// What bounds it: bytes. At K = 256 the product does 2 K = 512 operations
+// per output element it writes (2 bytes) and reads a once from device
+// memory (N / 128 times from L2: the column tiles of a row slab run side by
+// side), below the card's ~295 operations a byte. Three stages of 32 KB
+// leave room for two blocks an SM (__launch_bounds__), so one block's
+// epilogue also overlaps the other's products. At N = 256 a call runs at
+// the rate of one PyTorch addmm; the wider calls (N = 512, 768) reach about
+// two thirds of its rate (PERF.md), their output tiles written from
+// registers.
+
+constexpr int kLnRows = 128;     // output rows a block: two warpgroups of 64
+constexpr int kLnCols = 128;     // output columns a block (n of the wgmma)
+constexpr int kLnSlab = 64;      // contraction depth a stage
+constexpr int kLnThreads = 256;  // two warpgroups; thread 0 issues the TMA
+constexpr int kLnABox = kLnRows * 128;  // a's 128-row x 64-column bf16 box
+constexpr int kLnWBox = kLnSlab * 128;  // one 64 x 64 box of w
+constexpr int kLnStageBytes = kLnABox + 2 * kLnWBox;
+// dynamic shared memory of a block with `stages` stages: the stages, 1024
+// to align the swizzle atoms, the barriers and each consumer warpgroup's
+// copy of two tiles' bias (f32)
+constexpr size_t linear_smem_bytes(int stages) {
+  return (size_t)stages * kLnStageBytes + 1024 +
+         2 * stages * sizeof(uint64_t) + 4 * kLnCols * sizeof(float);
+}
+
+struct LinPlan {
+  int col_tiles, row_tiles, slabs, stages, blocks, smem;
+};
+
+struct LinArgs {
+  const float* bias;              // [N]
+  const __nv_bfloat16* residual;  // [M][N] or null
+  const uint8_t* drop;            // [M][N] mask bytes, or null
+  DropPrng prng;
+  int thresh;
+  float keep_scale;
+  __nv_bfloat16* out;             // [M][N]
+  int M, N, relu;
+  int vec16;  // N a multiple of 8, residual and out 16-byte aligned
+};
+
+// v[i] for a lane-dependent i, by selects (no local-memory indexing)
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+template <bool kPrng>
+__global__ void __launch_bounds__(kLnThreads, 2)
+linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap wmap, LinArgs a,
+                    int slabs, int w_cols, int col_tiles, int tiles,
+                    int stages) {
+  extern __shared__ unsigned char ln_smem_raw[];
+  // 1024-byte alignment: the swizzle atoms and the TMA boxes assume it
+  unsigned char* smem = ln_smem_raw + ((1024u - (smem_u32(ln_smem_raw) &
+                                                 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages *
+                                               kLnStageBytes);
+  uint64_t* empty = full + stages;
+  // [tile parity][warpgroup][column]: each warpgroup's copy of a tile's
+  // bias, two tiles deep
+  float* sbias = reinterpret_cast<float*>(empty + stages);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), kLnThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 loads: the block's slabs g = 0, 1, .. in turn (counted over
+  // its tiles b, b + gridDim.x, ..), slab g into stage g % stages once both
+  // warpgroups have released it; a tile whose second 64 columns lie past
+  // w's last has one w box
+  RingPos at_load;
+  auto load = [&](int g) {
+    const int k = g / slabs, i = g - k * slabs;
+    const int tile = blockIdx.x + k * gridDim.x;
+    if (tile >= tiles) return;
+    const int s = at_load.s;
+    mbar_wait(smem_u32(empty + s), at_load.phase ^ 1u);
+    at_load.next(stages);
+    const int m0 = tile / col_tiles * kLnRows;
+    const int n0 = tile % col_tiles * kLnCols;
+    const bool two = n0 + 64 < w_cols;
+    unsigned char* st = smem + s * kLnStageBytes;
+    const uint32_t bar = smem_u32(full + s);
+    mbar_arrive_expect_tx(bar, kLnABox + (two ? 2 : 1) * kLnWBox);
+    tma_load_2d(smem_u32(st), &amap, bar, i * kLnSlab, m0);
+    tma_load_2d(smem_u32(st + kLnABox), &wmap, bar, n0, i * kLnSlab);
+    if (two)
+      tma_load_2d(smem_u32(st + kLnABox + kLnWBox), &wmap, bar, n0 + 64,
+                  i * kLnSlab);
+  };
+  if (tid == 0)
+    for (int g = 0; g < stages; ++g) load(g);
+
+  // warpgroup wg owns rows m0 + 64 wg .. + 63 of each tile
+  const int warp = t >> 5, lane = t & 31, q = lane & 3;
+  const bool bits = !kPrng && a.drop != nullptr;
+  int g = 0, last = 0;  // slabs taken so far; the stage of the last
+  RingPos at_take;
+  for (int tile = blockIdx.x, par = 0; tile < tiles;
+       tile += gridDim.x, par ^= 1) {
+    const int m0 = tile / col_tiles * kLnRows;
+    const int n0 = tile % col_tiles * kLnCols;
+    // thread (warp w, lane l) holds rows 16 w + l / 4 (+ 8) and columns
+    // 8 j + 2 (l % 4) (+ 1) of the tile: acc[4 j + 2 r + e] is row + 8 r,
+    // column + 8 j + e
+    const int row = m0 + wg * 64 + warp * 16 + (lane >> 2);
+    const int col = n0 + 2 * q;
+    // ahead of the products, while the first slabs load: the tile's bias
+    // rounded to bf16 into shared memory, and the dropout bytes of this
+    // thread's columns e = 0, 1 of (j, r) into bits 16 r + 8 e of byt[j]
+    float* sb = sbias + (2 * par + wg) * kLnCols;
+    sb[t] = n0 + t < a.N ? round_dt<__nv_bfloat16>(a.bias[n0 + t]) : 0.f;
+    uint32_t byt[16];
+    if constexpr (kPrng) {
+      // column blocks in pairs p (j = 2 p, 2 p + 1): a quad's four lanes
+      // each draw one of the pair's four Philox calls (4 columns each), and
+      // lane q's columns 8 j + 2 q (+ 1) are bytes 2 (q & 1) (+ 1) of the
+      // call of lane 2 (j - 2 p) + q / 2
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        byt[2 * p] = byt[2 * p + 1] = 0u;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint4 w4 = prng_words4(
+              a.prng, row + 8 * r, n0 + 8 * (2 * p + (q >> 1)) + 4 * (q & 1),
+              a.N);
+          const uint32_t sh = a.prng.shift;
+          const uint32_t mine = ((w4.x >> sh) & 255u) |
+                                (((w4.y >> sh) & 255u) << 8) |
+                                (((w4.z >> sh) & 255u) << 16) |
+                                (((w4.w >> sh) & 255u) << 24);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+            byt[2 * p + jj] |=
+                ((__shfl_sync(0xffffffffu, mine,
+                              (lane & ~3) | (2 * jj + (q >> 1))) >>
+                  (16 * (q & 1))) & 0xffffu) << (16 * r);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        byt[j] = 0u;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = row + 8 * r, n = col + 8 * j;
+          if (bits && m < a.M && n < a.N) {
+            const uint8_t* d = a.drop + (size_t)m * a.N + n;
+            byt[j] |= (uint32_t)d[0] << (16 * r);
+            if (n + 1 < a.N) byt[j] |= (uint32_t)d[1] << (16 * r + 8);
+          }
+        }
+      }
+    }
+    // slab i's products are issued before slab i - 1's are waited for,
+    // which then frees its stage for the slab `stages` on (the next
+    // tile's first ones during this tile's last)
+    float acc[64];
+#pragma unroll
+    for (int k = 0; k < 64; ++k) acc[k] = 0.f;
+    for (int i = 0; i < slabs; ++i, ++g) {
+      const int s = at_take.s;
+      mbar_wait(smem_u32(full + s), at_take.phase);
+      at_take.next(stages);
+      const uint32_t st = smem_u32(smem + s * kLnStageBytes);
+      const uint32_t as = st + wg * 64 * 128, ws = st + kLnABox;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kLnSlab / 16; ++kk)
+        wgmma_m64n128_ss(acc, sw128_desc(as + kk * 32, 16),
+                         sw128_desc(ws + kk * 2048, kLnWBox));
+      wgmma_commit();
+      if (i > 0) {
+        wgmma_wait<1>();
+        mbar_arrive(smem_u32(empty + last));
+        if (tid == 0) load(g - 1 + stages);
+      }
+      last = s;
+    }
+    wgmma_wait<0>();
+    mbar_arrive(smem_u32(empty + last));
+    if (tid == 0) load(g - 1 + stages);
+    // the warpgroup's bias is in place (named barrier 1 + wg, 128 threads)
+    if (wg == 0)
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+    else
+      asm volatile("bar.sync 2, 128;" ::: "memory");
+
+    // the epilogue from the accumulator, while the next tile's first slabs
+    // load: the value up to the dropout is formed and packed to bf16
+    // (exact: each step rounds to bf16), which frees the accumulator
+    uint32_t val[32];  // [2 j + r]: the bf16 pair of (j, r)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(sb + 8 * j + 2 * q);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v[2] = {acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]};
+        const float bv[2] = {bb.x, bb.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = round_dt<__nv_bfloat16>(round_dt<__nv_bfloat16>(v[e]) +
+                                         bv[e]);
+          if (a.relu) v[e] = fmaxf(v[e], 0.f);
+          if (kPrng || bits)
+            v[e] = ((byt[j] >> (16 * r + 8 * e)) & 255u) >= (uint32_t)a.thresh
+                       ? v[e] * a.keep_scale
+                       : 0.f;
+        }
+        val[2 * j + r] = pack_bf16(v[0], v[1]);
+      }
+    }
+    // each quad transposes its 4 x 4 words (bf16 pairs) of column blocks
+    // 4 G .. 4 G + 3, so that lane q holds block 4 G + q's 8 columns of each
+    // of its rows (pk[2 G + r]): one 16-byte residual load and store each,
+    // every residual load of the tile issued before any is used
+    uint4 pk[8];
+#pragma unroll
+    for (int G = 0; G < 4; ++G)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t v[4] = {val[8 * G + r], val[8 * G + 2 + r],
+                               val[8 * G + 4 + r], val[8 * G + 6 + r]};
+        uint32_t o[4];  // o[k]: lane q ^ k's pair of block 4 G + q
+        o[0] = pick4(v, q);
+#pragma unroll
+        for (int k = 1; k < 4; ++k)
+          o[k] = __shfl_xor_sync(0xffffffffu, pick4(v, q ^ k), k);
+        pk[2 * G + r] = make_uint4(pick4(o, q), pick4(o, q ^ 1),
+                                   pick4(o, q ^ 2), pick4(o, q ^ 3));
+      }
+    if (a.residual != nullptr) {
+      uint4 rs[8];
+#pragma unroll
+      for (int G = 0; G < 4; ++G)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = row + 8 * r, n = n0 + 8 * (4 * G + q);
+          uint4 u = make_uint4(0u, 0u, 0u, 0u);
+          if (m < a.M && n < a.N) {
+            const __nv_bfloat16* src = a.residual + (size_t)m * a.N + n;
+            if (a.vec16) {
+              u = *reinterpret_cast<const uint4*>(src);
+            } else {
+              __nv_bfloat16* ue = reinterpret_cast<__nv_bfloat16*>(&u);
+              for (int e = 0; e < min(8, a.N - n); ++e) ue[e] = src[e];
+            }
+          }
+          rs[2 * G + r] = u;
+        }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint32_t* c = reinterpret_cast<uint32_t*>(&pk[i]);
+        const uint32_t* y = reinterpret_cast<const uint32_t*>(&rs[i]);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 xf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&c[w]));
+          const float2 yf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&y[w]));
+          c[w] = pack_bf16(yf.x + xf.x, yf.y + xf.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int G = 0; G < 4; ++G)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = row + 8 * r, n = n0 + 8 * (4 * G + q);
+        if (m >= a.M || n >= a.N) continue;
+        __nv_bfloat16* dst = a.out + (size_t)m * a.N + n;
+        if (a.vec16) {
+          *reinterpret_cast<uint4*>(dst) = pk[2 * G + r];
+        } else {
+          const __nv_bfloat16* ce =
+              reinterpret_cast<const __nv_bfloat16*>(&pk[2 * G + r]);
+          for (int e = 0; e < min(8, a.N - n); ++e) dst[e] = ce[e];
+        }
+      }
   }
 }
 
@@ -1246,19 +1512,71 @@ bool vector_ok(const void* p, int cols) {
          reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T>
-int launch_linear(const void* a, const void* w, const void* bias,
-                  const void* residual, const void* drop, DropPrng prng,
-                  int thresh, float keep_scale, void* out, int M, int N, int K,
-                  int relu, cudaStream_t stream) {
+// f32: the FMA tile kernel
+int launch_linear_f32(const void* a, const void* w, const void* bias,
+                      const void* residual, const void* drop, DropPrng prng,
+                      int thresh, float keep_scale, void* out, int M, int N,
+                      int K, int relu, cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const bool vec = vector_ok<T>(a, K) && vector_ok<T>(w, N);
-  auto kernel = vec ? linear_kernel<T, true> : linear_kernel<T, false>;
+  const bool vec = vector_ok<float>(a, K) && vector_ok<float>(w, N);
+  auto kernel = vec ? linear_f32_kernel<true> : linear_f32_kernel<false>;
   kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const T*>(residual),
+      static_cast<const float*>(a), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(residual),
       static_cast<const uint8_t*>(drop), prng, thresh, keep_scale,
-      static_cast<T*>(out), M, N, K, relu);
+      static_cast<float*>(out), M, N, K, relu);
+  return (int)cudaGetLastError();
+}
+
+// bf16: a (M, a_pitch) and w (K, w_pitch), their columns past K and N
+// zero, pitches whole 16-byte rows and bases 16-byte aligned; the plan of
+// ops/encoder_stack.py::linear_plan: col_tiles x row_tiles 128 x 128 tiles,
+// K in `slabs` 64-deep slabs through `stages` stages, at most `blocks`
+// persistent blocks (two an SM) of `smem` bytes, each walking its share of
+// the tiles
+template <bool kPrng>
+int launch_linear_bf16(const void* a, const void* w, int a_pitch,
+                       int w_pitch, int K, const LinPlan& plan,
+                       const LinArgs& args, cudaStream_t stream) {
+  auto misaligned = [](const void* p, int n) {
+    return reinterpret_cast<uintptr_t>(p) % n != 0;
+  };
+  if (a_pitch < K || a_pitch % 8 != 0 || w_pitch < args.N ||
+      w_pitch % 8 != 0 || misaligned(a, 16) || misaligned(w, 16) ||
+      (long long)plan.col_tiles * kLnCols < args.N ||
+      (long long)plan.row_tiles * kLnRows < args.M ||
+      (long long)plan.slabs * kLnSlab < K || plan.stages < 2 ||
+      plan.blocks < 1 || plan.smem > 232448 ||
+      (size_t)plan.smem < linear_smem_bytes(plan.stages))
+    return (int)cudaErrorInvalidValue;
+  TmapEncode encode = tmap_encode();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap amap, wmap;
+  if (!tmap_2d(&amap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, args.M,
+               a_pitch, kLnSlab, kLnRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap_2d(&wmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, K,
+               w_pitch, 64, kLnSlab, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  static int attr_smem = 0;  // the largest size opted into so far
+  if (plan.smem > attr_smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        linear_wgmma_kernel<kPrng>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (err == cudaSuccess)  // the largest carveout: two blocks an SM
+      err = cudaFuncSetAttribute(linear_wgmma_kernel<kPrng>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    attr_smem = plan.smem;
+  }
+  LinArgs la = args;
+  la.vec16 = args.N % 8 == 0 && !misaligned(args.out, 16) &&
+             (args.residual == nullptr || !misaligned(args.residual, 16));
+  const int tiles = plan.col_tiles * plan.row_tiles;
+  linear_wgmma_kernel<kPrng><<<tiles < plan.blocks ? tiles : plan.blocks,
+                               kLnThreads, plan.smem, stream>>>(
+      amap, wmap, la, plan.slabs, w_pitch, plan.col_tiles, tiles,
+      plan.stages);
   return (int)cudaGetLastError();
 }
 
@@ -1430,20 +1748,42 @@ extern "C" {
 
 // the dropout operand of sk_linear, sk_linear_nt and sk_linear_tn: the u8
 // bytes in drop, or (drop null, prng_T > 0) site `site` of layer `layer`
-// drawn in-kernel from seed, rows m = b * prng_T + t (dropout_prng.cuh)
+// drawn in-kernel from seed, rows m = b * prng_T + t (dropout_prng.cuh; N a
+// multiple of 4). bf16: a and w are read with row pitches a_pitch >= K and
+// w_pitch >= N (16-byte rows, zero past K and N), on the plan of
+// ops/encoder_stack.py::linear_plan (column tiles, row tiles, K slabs,
+// stages, blocks, shared-memory bytes); f32: the pitches are K and N and
+// the plan is unused
 int sk_linear(int dtype, const void* a, const void* w, const void* bias,
               const void* residual, const void* drop, unsigned long long seed,
               int layer, int site, int prng_T, int thresh, float keep_scale,
-              void* out, int M, int N, int K, int relu, void* stream) {
+              void* out, int M, int N, int K, int a_pitch, int w_pitch,
+              int col_tiles, int row_tiles, int slabs, int stages,
+              int blocks, int smem, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DropPrng p = make_prng(seed, layer, site, prng_T);
+  if (M < 1 || N < 1 || K < 1 || (prng_T > 0 && N % 4 != 0))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_linear<float>(a, w, bias, residual, drop, p, thresh,
-                                keep_scale, out, M, N, K, relu, s);
-  if (dtype == 1)
-    return launch_linear<__nv_bfloat16>(a, w, bias, residual, drop, p, thresh,
-                                        keep_scale, out, M, N, K, relu, s);
-  return (int)cudaErrorInvalidValue;
+    return launch_linear_f32(a, w, bias, residual, drop, p, thresh,
+                             keep_scale, out, M, N, K, relu, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  LinArgs args;
+  args.bias = static_cast<const float*>(bias);
+  args.residual = static_cast<const __nv_bfloat16*>(residual);
+  args.drop = static_cast<const uint8_t*>(drop);
+  args.prng = p;
+  args.thresh = thresh;
+  args.keep_scale = keep_scale;
+  args.out = static_cast<__nv_bfloat16*>(out);
+  args.M = M; args.N = N; args.relu = relu;
+  args.vec16 = 0;
+  const LinPlan plan = {col_tiles, row_tiles, slabs, stages, blocks, smem};
+  if (prng_T > 0)
+    return launch_linear_bf16<true>(a, w, a_pitch, w_pitch, K, plan, args,
+                                    s);
+  return launch_linear_bf16<false>(a, w, a_pitch, w_pitch, K, plan, args,
+                                   s);
 }
 
 // bf16: a and w are read with row pitch `pitch` >= N (16-byte rows, zero

@@ -16,21 +16,19 @@
 //           partials that the last block of each vocab tile adds in a fixed
 //           order in the same launch (split_reduce.cuh).
 //
-// Design. In bf16, dx and dW are warp-specialised wgmma kernels fed by TMA
-// (ce_dx_wgmma_kernel and ce_dw_wgmma_kernel, see their notes). The
-// forward, and dx and dW in f32: a block owns a 64-row tile (forward and
-// dx) or a 64-column vocab tile and an M slice (dW). The operand it keeps
-// (the rows, or the W tile)
-// stays in shared memory while it streams the other; each 64 x 64 logits
-// tile is a WMMA product (bf16 in, f32 accumulate; f32 inputs on the FMA
-// units) into shared memory and is reduced there on the spot: the forward
-// keeps a running max, sum of exponentials, target logit and first argmax
-// per row (four threads a row, combined at the end); the backward turns the
-// tile into dl and multiplies it out. No atomics: every sum has a fixed
-// order, so re-runs are bit-stable. Each backward kernel recomputes the
-// logits from (x, W, b) instead of reading them; the TPU kernel recomputes
-// once and does both products, so the dW kernel's recompute is work the
-// TPU design does not do.
+// Design. In bf16 all three are warp-specialised wgmma kernels fed by TMA
+// (ce_fwd_wgmma_kernel, ce_dx_wgmma_kernel and ce_dw_wgmma_kernel, see
+// their notes). In f32: a block owns a 64-row tile (forward and dx) or a
+// 64-column vocab tile and an M slice (dW). The operand it keeps (the rows,
+// or the W tile) stays in shared memory while it streams the other; each
+// 64 x 64 logits tile is an FMA product into shared memory and is reduced
+// there on the spot: the forward keeps a running max, sum of exponentials,
+// target logit and first argmax per row (four threads a row, combined at
+// the end); the backward turns the tile into dl and multiplies it out. No
+// atomics: every sum has a fixed order, so re-runs are bit-stable. Each
+// backward kernel recomputes the logits from (x, W, b) instead of reading
+// them; the TPU kernel recomputes once and does both products, so the dW
+// kernel's recompute is work the TPU design does not do.
 //
 // The wrapper (ops/token_ce.py) pads d and V to multiples of 64 (zero
 // rows and columns of W; columns >= V are excluded here by index, as the
@@ -40,18 +38,16 @@
 // forward and 4 x that for the backward (a recompute and a product in each
 // of dx and dW). At d = 256 a row tile does 2 * 64 * 256 operations per W
 // element it stages, so the tiles are tensor-core bound only with a
-// well-fed pipeline; the forward (and f32) stage synchronously (no TMA, no
-// wgmma, no double buffering), dx and dW in bf16 run a TMA ring into
-// wgmma.
+// well-fed pipeline: in bf16 each kernel runs a TMA ring into wgmma (f32
+// stages synchronously onto the FMA units). The forward also takes an
+// exponential and a few compares a logit on the FMA and special-function
+// units, which the second consumer warpgroup's products overlap.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
-
-#include <mma.h>
 
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
-#include <type_traits>
 
 #include "common.cuh"
 #include "split_reduce.cuh"
@@ -59,108 +55,59 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps: 4 (rows) x 2 (columns) of 16 x 32
+constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 register tile
 constexpr int BM = 64;         // rows of a tile
 constexpr int BN = 64;         // vocab columns of a tile
 constexpr int kPad = 8;        // shared-memory row pad (elements)
 constexpr int kLdc = BN + 4;   // f32 logits tile row stride
 
-using FragC =
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-template <typename T>
-constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value;
-
-template <typename T>
-__device__ __forceinline__ void zero_tile(FragC (&cf)[2], float (&acc)[4][4]) {
-  if constexpr (kTC<T>) {
-    nvcuda::wmma::fill_fragment(cf[0], 0.f);
-    nvcuda::wmma::fill_fragment(cf[1], 0.f);
-  } else {
+// one 64 x 64 f32 tile += A (64 x K) . B (K x 64) on the FMA units, both in
+// shared memory: A(i, k) = as[i * lda + k] (kAT: as[k * lda + i]), B(k, j) =
+// bs[k * ldb + j] (kBT: bs[j * ldb + k]); each thread a 4 x 4 register tile
+// strided by 16
+template <bool kAT, bool kBT>
+__device__ __forceinline__ void mma_tile(const float* as, int lda,
+                                         const float* bs,
+                                         int ldb, int K, float (&acc)[4][4],
+                                         int tid) {
+  const int ty = tid >> 4, tx = tid & 15;
+#pragma unroll 4
+  for (int kk = 0; kk < K; ++kk) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      av[i] = kAT ? as[kk * lda + r] : as[r * lda + kk];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      bv[j] = kBT ? bs[c * ldb + kk] : bs[kk * ldb + c];
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-}
-
-// one 64 x 64 f32 tile += A (64 x K) . B (K x 64), both in shared memory:
-// A(i, k) = as[i * lda + k] (kAT: as[k * lda + i]), B(k, j) = bs[k * ldb + j]
-// (kBT: bs[j * ldb + k]). bf16: each warp a 16 x 32 strip of WMMA
-// fragments; f32: each thread a 4 x 4 register tile strided by 16.
-template <typename T, bool kAT, bool kBT>
-__device__ __forceinline__ void mma_tile(const T* as, int lda, const T* bs,
-                                         int ldb, int K, FragC (&cf)[2],
-                                         float (&acc)[4][4], int tid) {
-  using namespace nvcuda;
-  const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-  const int ty = tid >> 4, tx = tid & 15;
-  if constexpr (kTC<T>) {
-    using LA = std::conditional_t<kAT, wmma::col_major, wmma::row_major>;
-    using LB = std::conditional_t<kBT, wmma::col_major, wmma::row_major>;
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
-      wmma::load_matrix_sync(
-          fa, kAT ? &as[kk * lda + wm * 16] : &as[wm * 16 * lda + kk], lda);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        const int c = wn * 32 + f * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb;
-        wmma::load_matrix_sync(fb, kBT ? &bs[c * ldb + kk] : &bs[kk * ldb + c],
-                               ldb);
-        wmma::mma_sync(cf[f], fa, fb, cf[f]);
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int kk = 0; kk < K; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        av[i] = to_f<T>(kAT ? as[kk * lda + r] : as[r * lda + kk]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        bv[j] = to_f<T>(kBT ? bs[c * ldb + kk] : bs[kk * ldb + c]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
 // the 64 x 64 tile into shared memory, row stride kLdc
-template <typename T>
-__device__ __forceinline__ void store_tile(float* cs, FragC (&cf)[2],
-                                           float (&acc)[4][4], int tid) {
-  const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
+__device__ __forceinline__ void store_tile(float* cs, const float (&acc)[4][4],
+                                           int tid) {
   const int ty = tid >> 4, tx = tid & 15;
-  if constexpr (kTC<T>) {
 #pragma unroll
-    for (int f = 0; f < 2; ++f)
-      nvcuda::wmma::store_matrix_sync(&cs[wm * 16 * kLdc + wn * 32 + f * 16],
-                                      cf[f], kLdc,
-                                      nvcuda::wmma::mem_row_major);
-  } else {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        cs[(ty + 16 * i) * kLdc + tx + 16 * j] = acc[i][j];
-  }
+    for (int j = 0; j < 4; ++j) cs[(ty + 16 * i) * kLdc + tx + 16 * j] = acc[i][j];
 }
 
-// rows x cols of T (cols a multiple of the 16-byte vector, src rows 16-byte
-// aligned) from device memory into shared memory; rows >= valid are zeros
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, int ldd, const T* src,
+// rows x cols of f32 (cols a multiple of the 16-byte vector, src rows
+// 16-byte aligned) from device memory into shared memory; rows >= valid are
+// zeros
+__device__ __forceinline__ void stage(float* dst, int ldd, const float* src,
                                       size_t lds, int rows, int cols,
                                       int valid, int tid) {
-  constexpr int VW = 16 / sizeof(T);
+  constexpr int VW = 4;
   const int per_row = cols / VW;
   for (int v = tid; v < rows * per_row; v += kThreads) {
     const int r = v / per_row, c = (v - r * per_row) * VW;
@@ -170,26 +117,22 @@ __device__ __forceinline__ void stage(T* dst, int ldd, const T* src,
   }
 }
 
-// shared-memory layout of all three kernels (every part a multiple of 128
-// bytes): xs [BM][dp + kPad] rows, ws [dp][BN + kPad] a W tile, cs [BM][kLdc]
-// f32 logits, ds [BM][BN + kPad] dl in the compute dtype, then per-row
-// (lse, gll, tgt) and the db reduction rows
-template <typename T>
-struct Smem {
-  static size_t bytes(int dp) {
-    return sizeof(T) * ((size_t)BM * (dp + kPad) + (size_t)dp * (BN + kPad) +
-                        (size_t)BM * (BN + kPad)) +
-           sizeof(float) * ((size_t)BM * kLdc + 3 * BM + 4 * BN);
-  }
-};
+// shared-memory layout of the three f32 kernels (every part a multiple of
+// 128 bytes): xs [BM][dp + kPad] rows, ws [dp][BN + kPad] a W tile, cs
+// [BM][kLdc] logits, ds [BM][BN + kPad] dl, then per-row (lse, gll, tgt)
+// and the db reduction rows
+size_t smem_bytes(int dp) {
+  return sizeof(float) * ((size_t)BM * (dp + kPad) + (size_t)dp * (BN + kPad) +
+                          (size_t)BM * (BN + kPad) + (size_t)BM * kLdc +
+                          3 * BM + 4 * BN);
+}
 
-template <typename T>
 struct Parts {
-  T *xs, *ws, *ds;
+  float *xs, *ws, *ds;
   float *cs, *rl, *rg, *red;
   int* rt;
   __device__ Parts(unsigned char* base, int dp) {
-    xs = reinterpret_cast<T*>(base);
+    xs = reinterpret_cast<float*>(base);
     ws = xs + BM * (dp + kPad);
     ds = ws + dp * (BN + kPad);
     cs = reinterpret_cast<float*>(ds + BM * (BN + kPad));
@@ -201,22 +144,16 @@ struct Parts {
 };
 
 // logits tile (rows m0.., vocab n0..) = xs . ws into cs (synchronised)
-template <typename T>
-__device__ __forceinline__ void logits_tile(const Parts<T>& s, int dp,
-                                            int tid) {
-  FragC cf[2];
-  float acc[4][4];
-  zero_tile<T>(cf, acc);
-  mma_tile<T, false, false>(s.xs, dp + kPad, s.ws, BN + kPad, dp, cf, acc,
-                            tid);
-  store_tile<T>(s.cs, cf, acc, tid);
+__device__ __forceinline__ void logits_tile(const Parts& s, int dp, int tid) {
+  float acc[4][4] = {};
+  mma_tile<false, false>(s.xs, dp + kPad, s.ws, BN + kPad, dp, acc, tid);
+  store_tile(s.cs, acc, tid);
   __syncthreads();
 }
 
 // the row statistics of the backward for rows m0 .. m0+63 (rows >= M get a
 // zero gradient)
-template <typename T>
-__device__ __forceinline__ void load_rows(const Parts<T>& s,
+__device__ __forceinline__ void load_rows(const Parts& s,
                                           const int* __restrict__ tgt,
                                           const float* __restrict__ lse,
                                           const float* __restrict__ gll,
@@ -231,8 +168,7 @@ __device__ __forceinline__ void load_rows(const Parts<T>& s,
 }
 
 // dl of element (r, c) of the logits tile at vocab n0 (0 outside the vocab)
-template <typename T>
-__device__ __forceinline__ float dlogit(const Parts<T>& s,
+__device__ __forceinline__ float dlogit(const Parts& s,
                                         const float* __restrict__ bias, int r,
                                         int c, int n0, int V) {
   const int n = n0 + c;
@@ -245,17 +181,16 @@ __device__ __forceinline__ float dlogit(const Parts<T>& s,
 // forward: one block per 64-row tile, all vocab tiles
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ bias, const int* __restrict__ tgt,
               float* __restrict__ ll, float* __restrict__ corr,
               float* __restrict__ lse, int M, int dp, int V, int Vp) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Parts<T> s(smem, dp);
+  const Parts s(smem, dp);
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
-  stage<T>(s.xs, dp + kPad, x + (size_t)m0 * dp, dp, BM, dp, M - m0, tid);
+  stage(s.xs, dp + kPad, x + (size_t)m0 * dp, dp, BM, dp, M - m0, tid);
   // four threads a row, each a quarter of every tile's columns
   const int r = tid >> 2, q = tid & 3, m = m0 + r;
   const int tg = m < M ? tgt[m] : -1;
@@ -263,9 +198,9 @@ ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   int bidx = INT_MAX;
   for (int n0 = 0; n0 < V; n0 += BN) {
     __syncthreads();  // the previous tile's reads of ws and cs are done
-    stage<T>(s.ws, BN + kPad, w + n0, Vp, dp, BN, dp, tid);
+    stage(s.ws, BN + kPad, w + n0, Vp, dp, BN, dp, tid);
     __syncthreads();
-    logits_tile<T>(s, dp, tid);
+    logits_tile(s, dp, tid);
     float v[16];
     float lm = -INFINITY;
 #pragma unroll
@@ -317,47 +252,44 @@ ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // tiles in registers (NG groups of 64 columns of dp)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
-ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
+ce_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ bias, const int* __restrict__ tgt,
              const float* __restrict__ lse, const float* __restrict__ gll,
-             T* __restrict__ dx, int M, int dp, int V, int Vp) {
+             float* __restrict__ dx, int M, int dp, int V, int Vp) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Parts<T> s(smem, dp);
+  const Parts s(smem, dp);
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
-  stage<T>(s.xs, dp + kPad, x + (size_t)m0 * dp, dp, BM, dp, M - m0, tid);
-  load_rows<T>(s, tgt, lse, gll, m0, M, tid);
-  FragC cf[NG][2];
-  float acc[NG][4][4];
-#pragma unroll
-  for (int g = 0; g < NG; ++g) zero_tile<T>(cf[g], acc[g]);
+  stage(s.xs, dp + kPad, x + (size_t)m0 * dp, dp, BM, dp, M - m0, tid);
+  load_rows(s, tgt, lse, gll, m0, M, tid);
+  float acc[NG][4][4] = {};
   for (int n0 = 0; n0 < V; n0 += BN) {
     __syncthreads();
-    stage<T>(s.ws, BN + kPad, w + n0, Vp, dp, BN, dp, tid);
+    stage(s.ws, BN + kPad, w + n0, Vp, dp, BN, dp, tid);
     __syncthreads();
-    logits_tile<T>(s, dp, tid);
+    logits_tile(s, dp, tid);
     for (int e = tid; e < BM * BN; e += kThreads) {
       const int r = e / BN, c = e - r * BN;
-      s.ds[r * (BN + kPad) + c] = from_f<T>(dlogit<T>(s, bias, r, c, n0, V));
+      s.ds[r * (BN + kPad) + c] = dlogit(s, bias, r, c, n0, V);
     }
     __syncthreads();
     // dx[:, g*64 ..] += dl (64 x 64) . W[g*64 .., n0 ..]^T
 #pragma unroll
     for (int g = 0; g < NG; ++g)
-      mma_tile<T, false, true>(s.ds, BN + kPad, s.ws + g * BM * (BN + kPad),
-                               BN + kPad, BN, cf[g], acc[g], tid);
+      mma_tile<false, true>(s.ds, BN + kPad, s.ws + g * BM * (BN + kPad),
+                            BN + kPad, BN, acc[g], tid);
   }
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     __syncthreads();
-    store_tile<T>(s.cs, cf[g], acc[g], tid);
+    store_tile(s.cs, acc[g], tid);
     __syncthreads();
     for (int e = tid; e < BM * BM; e += kThreads) {
       const int r = e / BM, c = e - r * BM;
       if (m0 + r < M)
-        dx[(size_t)(m0 + r) * dp + g * BM + c] = from_f<T>(s.cs[r * kLdc + c]);
+        dx[(size_t)(m0 + r) * dp + g * BM + c] = s.cs[r * kLdc + c];
     }
   }
 }
@@ -540,6 +472,262 @@ ce_dx_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
+// forward in bf16: wgmma products fed by a TMA ring
+// ---------------------------------------------------------------------------
+//
+// ce_dx_wgmma_kernel's shape with the row statistics in the place of the dx
+// product. A block owns 128 rows: two consumer warpgroups of 64 and a
+// producer warpgroup whose first thread issues every TMA load. The x slab
+// (128 x dp, 128-byte swizzle) comes in once; W's 64-column vocab tiles (dp
+// x 64) stream through a ring of `stages` mbarrier stages, as many as the
+// block's shared memory holds (ops/token_ce.py::fwd_plan: 5 at dp = 256).
+// Each consumer holds its 64 x rows in registers as wgmma A fragments, read
+// once from the slab: per tile only the W tile (MN-major) is read from
+// shared memory, whose bandwidth the two operands' reads would use up at
+// the tensor cores' rate.
+// For each tile it forms S = x . W_tile by wgmma m64n64k16 and folds l = S +
+// b (f32, never rounded; columns >= V excluded by index) into its two rows'
+// running max, sum of exponentials (rescaled when the max grows), target
+// logit and first argmax, all in registers, while the products of its next
+// tile run (two accumulator sets). The four lanes of a row, each 16 of a
+// tile's 64 columns, are combined at the end with ce_fwd_kernel's tie rule
+// (the larger value, on equal values the smaller index). Rows >= M come in
+// as TMA zeros and write nothing. setmaxnreg moves registers from the
+// producer to the consumers. W is read from L2 once per 128 rows.
+//
+// What bounds it: operations, 2 M d V on the tensor cores and an exponential
+// a logit on the special-function units.
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22; 0 for
+// -inf)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr int kSmemMax = 232448;  // shared memory a block may opt into
+
+// dynamic shared memory of a forward block (bytes) with `stages` W tiles in
+// flight: 1024 to align the swizzle atoms, the x slab, the ring and its
+// barriers
+constexpr size_t fwd_smem_bytes(int dp, int stages) {
+  return 1024 + (size_t)dp / 64 * kDxBox + (size_t)stages * dp * 128 +
+         (2 * stages + 1) * sizeof(uint64_t);
+}
+
+template <int NG>
+__global__ void __launch_bounds__(kDxThreads, 1)
+ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const float* __restrict__ bias,
+                    const int* __restrict__ tgt, float* __restrict__ ll,
+                    float* __restrict__ corr, float* __restrict__ lse, int M,
+                    int V, int stages) {
+  constexpr int dp = NG * 64;
+  constexpr int kStage = dp * 128;  // a W tile: dp rows of 64 columns
+  extern __shared__ unsigned char fw_smem_raw[];
+  unsigned char* smem =
+      fw_smem_raw + ((1024u - (smem_u32(fw_smem_raw) & 1023u)) & 1023u);
+  unsigned char* xs = smem;                 // NG boxes of [128 rows][128 B]
+  unsigned char* ring = xs + NG * kDxBox;   // stages tiles of [dp][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * kStage);
+  uint64_t* empty = full + stages;
+  uint64_t* xbar = empty + stages;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int m0 = blockIdx.x * kDxRows;
+  const int ntiles = (V + 63) / 64;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 256);
+    }
+    mbar_init(smem_u32(xbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: the x slab, then vocab tile i into stage i % stages
+    // once both consumers have released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (t == 0) {
+      mbar_arrive_expect_tx(smem_u32(xbar), NG * kDxBox);
+      for (int g = 0; g < NG; ++g)
+        tma_load_2d(smem_u32(xs + g * kDxBox), &xmap, smem_u32(xbar), g * 64,
+                    m0);
+      RingPos p;
+      for (int i = 0; i < ntiles; ++i, p.next(stages)) {
+        mbar_wait(smem_u32(empty + p.s), p.phase ^ 1u);
+        mbar_arrive_expect_tx(smem_u32(full + p.s), kStage);
+        tma_load_2d(smem_u32(ring + p.s * kStage), &wmap,
+                    smem_u32(full + p.s), i * 64, 0);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg owns rows m0 + 64 wg .. + 63; this thread rows
+  // rbase and rbase + 8, columns 8 j + c2 (+ 1) of each 8-column block j
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int warp = t >> 5, lane = t & 31, c2 = 2 * (lane & 3);
+  const int rbase = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  int rt[2], bidx[2];
+  float rmax[2], rsum[2], tl[2], bval[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = rbase + 8 * r;
+    rt[r] = m < M ? tgt[m] : -1;
+    rmax[r] = bval[r] = -INFINITY;
+    rsum[r] = tl[r] = 0.f;
+    bidx[r] = INT_MAX;
+  }
+  // the warpgroup's 64 x rows as wgmma A fragments in registers, read once
+  // from the swizzled slab: k-step kk (16 columns) is box kk / 4, 16-byte
+  // chunks 2 (kk % 4) (+ 1); ldmatrix lane l gives the address of row
+  // l % 8 + 8 (l / 8 % 2) of the warp's 16, chunk + l / 16
+  uint32_t xf[dp / 16][4];
+  mbar_wait(smem_u32(xbar), 0);
+  {
+    const int R = wg * 64 + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int kk = 0; kk < dp / 16; ++kk) {
+      const int chunk = 2 * (kk & 3) + (lane >> 4);
+      ldsm_x4(xf[kk], smem_u32(xs + (kk >> 2) * kDxBox + R * 128 +
+                               ((chunk ^ (R & 7)) << 4)));
+    }
+  }
+  // tile i's bias (columns >= V: 0) and products S = x . W_tile over dp
+  auto bias_of = [&](float (&bv)[16], int i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = i * 64 + 8 * j + c2 + e;
+        bv[2 * j + e] = n < V ? bias[n] : 0.f;
+      }
+  };
+  // the ring positions of the next tile to issue and the next to take
+  RingPos at_issue, at_take;
+  auto issue = [&](float (&sc)[32]) {
+    mbar_wait(smem_u32(full + at_issue.s), at_issue.phase);
+    const uint32_t ws = smem_u32(ring + at_issue.s * kStage);
+    at_issue.next(stages);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < dp / 16; ++kk)  // the first product overwrites sc
+      wgmma_m64n64_rs_mn(sc, xf[kk], sw128_desc(ws + kk * 2048, 16), kk > 0);
+    wgmma_commit();
+  };
+  // tile i's products done (the next tile's, if issued, still running):
+  // its stage is released and its registers read only after the wait
+  auto take = [&](float (&sc)[32], bool next_issued) {
+    if (next_issued)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < 32; ++q) asm volatile("" : "+f"(sc[q])::"memory");
+    mbar_arrive(smem_u32(empty + at_take.s));
+    at_take.next(stages);
+  };
+  // element 4 j + 2 r + e of sc: row rbase + 8 r, column n0 + 8 j + c2 + e,
+  // the thread's columns in increasing order. A logit costs an add, a max,
+  // an FFMA and an exp2: the target is looked for only in the tile that
+  // holds it, the first argmax only in a tile whose max beats the running
+  // one (the earlier tile keeps a tie), the vocab's end only in the last
+  // tile
+  auto fold = [&](const float (&sc)[32], const float (&bv)[16], int i) {
+    const int n0 = i * 64;
+    const bool edge = n0 + 64 > V;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lm = -INFINITY, l[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = sc[4 * j + 2 * r + e] + bv[2 * j + e];
+          if (edge && n0 + 8 * j + c2 + e >= V) v = -INFINITY;
+          l[2 * j + e] = v;
+          lm = fmaxf(lm, v);
+        }
+      if ((unsigned)(rt[r] - n0) < 64u) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n0 + 8 * j + c2 + e == rt[r]) tl[r] = l[2 * j + e];
+      }
+      if (lm > bval[r]) {
+        bval[r] = lm;
+#pragma unroll
+        for (int k = 15; k >= 0; --k)
+          if (l[k] == lm) bidx[r] = n0 + 8 * (k >> 1) + c2 + (k & 1);
+      }
+      if (lm == -INFINITY) continue;  // no column of this tile in the vocab
+      if (lm > rmax[r]) {
+        rsum[r] *= exp2_approx((rmax[r] - lm) * kLog2e);
+        rmax[r] = lm;
+      }
+      const float mo = rmax[r] * kLog2e;
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        rsum[r] += exp2_approx(fmaf(l[k], kLog2e, -mo));
+    }
+  };
+  // two tiles in flight: tile i + 1's products run while tile i is folded
+  float sa[32] = {}, sb[32] = {}, ba[16], bb[16];
+  bias_of(ba, 0);
+  issue(sa);
+  for (int i = 0; i < ntiles; i += 2) {
+    const bool odd = i + 1 < ntiles, even = i + 2 < ntiles;
+    if (odd) {
+      bias_of(bb, i + 1);
+      issue(sb);
+    }
+    take(sa, odd);
+    fold(sa, ba, i);
+    if (!odd) break;
+    if (even) {
+      bias_of(ba, i + 2);
+      issue(sa);
+    }
+    take(sb, even);
+    fold(sb, bb, i + 1);
+  }
+  // combine each row's four lanes (neighbours in the quad)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, rmax[r], off);
+      const float os = __shfl_xor_sync(0xffffffffu, rsum[r], off);
+      const float nm = fmaxf(rmax[r], om);
+      rsum[r] = (rmax[r] == -INFINITY ? 0.f : rsum[r] * expf(rmax[r] - nm)) +
+                (om == -INFINITY ? 0.f : os * expf(om - nm));
+      rmax[r] = nm;
+      const float ov = __shfl_xor_sync(0xffffffffu, bval[r], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bidx[r], off);
+      if (ov > bval[r] || (ov == bval[r] && oi < bidx[r])) {
+        bval[r] = ov;
+        bidx[r] = oi;
+      }
+      tl[r] += __shfl_xor_sync(0xffffffffu, tl[r], off);
+    }
+    const int m = rbase + 8 * r;
+    if (c2 == 0 && m < M) {
+      const float l = rmax[r] + logf(rsum[r]);
+      lse[m] = l;
+      ll[m] = tl[r] - l;
+      corr[m] = bidx[r] == rt[r] ? 1.f : 0.f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // backward, dW and db: one block per (64-column vocab tile, M slice); the W
 // tile stays in shared memory while the slice's row tiles stream through
 // ---------------------------------------------------------------------------
@@ -556,49 +744,46 @@ struct DwOut {
   int K, N;
 };
 
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
-ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
+ce_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ bias, const int* __restrict__ tgt,
              const float* __restrict__ lse, const float* __restrict__ gll,
              DwOut o, int M, int dp, int V, int Vp, int rows_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int flag;
-  const Parts<T> s(smem, dp);
+  const Parts s(smem, dp);
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN, z = blockIdx.y, splits = gridDim.y;
   const int mb = z * rows_per_split, me = min(M, mb + rows_per_split);
-  stage<T>(s.ws, BN + kPad, w + n0, Vp, dp, BN, dp, tid);
-  FragC cf[NG][2];
-  float acc[NG][4][4];
-#pragma unroll
-  for (int g = 0; g < NG; ++g) zero_tile<T>(cf[g], acc[g]);
+  stage(s.ws, BN + kPad, w + n0, Vp, dp, BN, dp, tid);
+  float acc[NG][4][4] = {};
   const int c = tid % BN, r_first = tid / BN;  // this thread's dl column
   float db = 0.f;
   for (int m0 = mb; m0 < me; m0 += BM) {
     __syncthreads();
-    stage<T>(s.xs, dp + kPad, x + (size_t)m0 * dp, dp, BM, dp, me - m0, tid);
-    load_rows<T>(s, tgt, lse, gll, m0, me, tid);
+    stage(s.xs, dp + kPad, x + (size_t)m0 * dp, dp, BM, dp, me - m0, tid);
+    load_rows(s, tgt, lse, gll, m0, me, tid);
     __syncthreads();
-    logits_tile<T>(s, dp, tid);
+    logits_tile(s, dp, tid);
     for (int r = r_first; r < BM; r += kThreads / BN) {
-      const float dl = dlogit<T>(s, bias, r, c, n0, V);
+      const float dl = dlogit(s, bias, r, c, n0, V);
       db += dl;
-      s.ds[r * (BN + kPad) + c] = from_f<T>(dl);
+      s.ds[r * (BN + kPad) + c] = dl;
     }
     __syncthreads();
     // dW[g*64 .., n0 ..] += x[m0 .., g*64 ..]^T . dl
 #pragma unroll
     for (int g = 0; g < NG; ++g)
-      mma_tile<T, true, false>(s.xs + g * BM, dp + kPad, s.ds, BN + kPad, BM,
-                               cf[g], acc[g], tid);
+      mma_tile<true, false>(s.xs + g * BM, dp + kPad, s.ds, BN + kPad, BM,
+                            acc[g], tid);
   }
   const size_t part = (size_t)blockIdx.x * splits + z;
   float* dst = o.ws + part * dp * BN;
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     __syncthreads();
-    store_tile<T>(s.cs, cf[g], acc[g], tid);
+    store_tile(s.cs, acc[g], tid);
     __syncthreads();
     for (int e = tid; e < BM * BN; e += kThreads) {
       const int r = e / BN, cc = e - r * BN;
@@ -899,15 +1084,44 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
-int launch_fwd(const void* x, const void* w, const void* bias,
-               const void* tgt, void* ll, void* corr, void* lse, int M, int dp,
-               int V, int Vp, cudaStream_t stream) {
-  const size_t smem = Smem<T>::bytes(dp);
-  cudaError_t err = set_smem(ce_fwd_kernel<T>, smem);
+// bf16: x (M, dp) and w (dp, Vp) 16-byte aligned, their tensor maps
+// encoded per call; `blocks` blocks of 128 rows and `smem` bytes, each with
+// a ring of `stages` W tiles (ops/token_ce.py::fwd_plan)
+template <int NG>
+int launch_fwd_wgmma(const void* x, const void* w, const float* bias,
+                     const int* tgt, float* ll, float* corr, float* lse,
+                     int M, int V, int Vp, int blocks, int stages, int smem,
+                     cudaStream_t stream) {
+  constexpr int dp = NG * 64;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      (long long)blocks * kDxRows < M || stages < 2 || smem > kSmemMax ||
+      (size_t)smem < fwd_smem_bytes(dp, stages))
+    return (int)cudaErrorInvalidValue;
+  TmapEncode encode = tmap_encode();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap xmap, wmap;
+  if (!tmap_2d(&xmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, dp,
+               64, kDxRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tmap_2d(&wmap, encode, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dp, Vp,
+               64, dp, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = set_smem(ce_fwd_wgmma_kernel<NG>, smem);
   if (err != cudaSuccess) return (int)err;
-  ce_fwd_kernel<T><<<(M + BM - 1) / BM, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
+  ce_fwd_wgmma_kernel<NG><<<blocks, kDxThreads, smem, stream>>>(
+      xmap, wmap, bias, tgt, ll, corr, lse, M, V, stages);
+  return (int)cudaGetLastError();
+}
+
+// f32: ce_fwd_kernel
+int launch_fwd_f32(const void* x, const void* w, const void* bias,
+                   const void* tgt, void* ll, void* corr, void* lse, int M,
+                   int dp, int V, int Vp, cudaStream_t stream) {
+  const size_t smem = smem_bytes(dp);
+  cudaError_t err = set_smem(ce_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  ce_fwd_kernel<<<(M + BM - 1) / BM, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(tgt),
       static_cast<float*>(ll), static_cast<float*>(corr),
       static_cast<float*>(lse), M, dp, V, Vp);
@@ -951,54 +1165,30 @@ int launch_bwd_wgmma(const void* x, const void* w, const float* bias,
   return (int)cudaGetLastError();
 }
 
-// dx (bf16: ce_dx_wgmma_kernel; f32: ce_dx_kernel), then dW and db
-// (bf16: ce_dw_wgmma_kernel; f32: ce_dw_kernel)
-template <typename T, int NG>
-int launch_bwd_ng(const void* x, const void* w, const void* bias,
-                  const void* tgt, const void* lse, const void* gll, void* dx,
-                  const DwOut& o, int M, int dp, int V, int Vp, int splits,
-                  int rows_per_split, cudaStream_t stream) {
+// f32: dx (ce_dx_kernel), then dW and db (ce_dw_kernel)
+template <int NG>
+int launch_bwd_f32(const void* x, const void* w, const void* bias,
+                   const void* tgt, const void* lse, const void* gll, void* dx,
+                   const DwOut& o, int M, int dp, int V, int Vp, int splits,
+                   int rows_per_split, cudaStream_t stream) {
   const float* bp = static_cast<const float*>(bias);
   const int* tp = static_cast<const int*>(tgt);
   const float* lp = static_cast<const float*>(lse);
   const float* gp = static_cast<const float*>(gll);
-  if constexpr (kTC<T>) {
-    return launch_bwd_wgmma<NG>(x, w, bp, tp, lp, gp, dx, o, M, V, Vp,
-                                splits, rows_per_split, stream);
-  } else {
-    const size_t smem = Smem<T>::bytes(dp);
-    const T* xp = static_cast<const T*>(x);
-    const T* wp = static_cast<const T*>(w);
-    cudaError_t err = set_smem(ce_dx_kernel<T, NG>, smem);
-    if (err != cudaSuccess) return (int)err;
-    ce_dx_kernel<T, NG><<<(M + BM - 1) / BM, kThreads, smem, stream>>>(
-        xp, wp, bp, tp, lp, gp, static_cast<T*>(dx), M, dp, V, Vp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = set_smem(ce_dw_kernel<T, NG>, smem);
-    if (err != cudaSuccess) return (int)err;
-    ce_dw_kernel<T, NG><<<dim3(Vp / BN, splits), kThreads, smem, stream>>>(
-        xp, wp, bp, tp, lp, gp, o, M, dp, V, Vp, rows_per_split);
-    return (int)cudaGetLastError();
-  }
-}
-
-template <typename T>
-int launch_bwd(const void* x, const void* w, const void* bias, const void* tgt,
-               const void* lse, const void* gll, void* dx, const DwOut& o,
-               int M, int dp, int V, int Vp, int splits, int rows_per_split,
-               cudaStream_t stream) {
-#define SK_BWD(NG)                                                          \
-  return launch_bwd_ng<T, NG>(x, w, bias, tgt, lse, gll, dx, o, M, dp, V, \
-                              Vp, splits, rows_per_split, stream)
-  switch (dp / BM) {
-    case 1: SK_BWD(1);
-    case 2: SK_BWD(2);
-    case 3: SK_BWD(3);
-    case 4: SK_BWD(4);
-  }
-#undef SK_BWD
-  return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(w);
+  const size_t smem = smem_bytes(dp);
+  cudaError_t err = set_smem(ce_dx_kernel<NG>, smem);
+  if (err != cudaSuccess) return (int)err;
+  ce_dx_kernel<NG><<<(M + BM - 1) / BM, kThreads, smem, stream>>>(
+      xp, wp, bp, tp, lp, gp, static_cast<float*>(dx), M, dp, V, Vp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = set_smem(ce_dw_kernel<NG>, smem);
+  if (err != cudaSuccess) return (int)err;
+  ce_dw_kernel<NG><<<dim3(Vp / BN, splits), kThreads, smem, stream>>>(
+      xp, wp, bp, tp, lp, gp, o, M, dp, V, Vp, rows_per_split);
+  return (int)cudaGetLastError();
 }
 
 bool shapes_ok(int M, int dp, int V, int Vp) {
@@ -1015,14 +1205,26 @@ extern "C" {
 
 int sk_token_ce_fwd(int dtype, const void* x, const void* w, const void* bias,
                     const void* tgt, void* ll, void* corr, void* lse, int M,
-                    int dp, int V, int Vp, void* stream) {
+                    int dp, int V, int Vp, int blocks, int stages, int smem,
+                    void* stream) {
   if (!shapes_ok(M, dp, V, Vp)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fwd<float>(x, w, bias, tgt, ll, corr, lse, M, dp, V, Vp, s);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(x, w, bias, tgt, ll, corr, lse, M, dp, V,
-                                     Vp, s);
+    return launch_fwd_f32(x, w, bias, tgt, ll, corr, lse, M, dp, V, Vp, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+#define SK_FWD(NG)                                                          \
+  case NG:                                                                  \
+    return launch_fwd_wgmma<NG>(                                            \
+        x, w, static_cast<const float*>(bias), static_cast<const int*>(tgt), \
+        static_cast<float*>(ll), static_cast<float*>(corr),                 \
+        static_cast<float*>(lse), M, V, Vp, blocks, stages, smem, s)
+  switch (dp / BM) {
+    SK_FWD(1);
+    SK_FWD(2);
+    SK_FWD(3);
+    SK_FWD(4);
+  }
+#undef SK_FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1050,12 +1252,25 @@ int sk_token_ce_bwd(int dtype, const void* x, const void* w, const void* bias,
   o.counters = static_cast<unsigned*>(counters);
   o.K = d;
   o.N = V;
-  if (dtype == 0)
-    return launch_bwd<float>(x, w, bias, tgt, lse, gll, dx, o, M, dp, V, Vp,
-                             splits, rows_per_split, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(x, w, bias, tgt, lse, gll, dx, o, M, dp,
-                                     V, Vp, splits, rows_per_split, s);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+#define SK_BWD(NG)                                                          \
+  case NG:                                                                  \
+    return dtype == 0                                                       \
+               ? launch_bwd_f32<NG>(x, w, bias, tgt, lse, gll, dx, o, M, dp, \
+                                    V, Vp, splits, rows_per_split, s)       \
+               : launch_bwd_wgmma<NG>(                                      \
+                     x, w, static_cast<const float*>(bias),                 \
+                     static_cast<const int*>(tgt),                          \
+                     static_cast<const float*>(lse),                        \
+                     static_cast<const float*>(gll), dx, o, M, V, Vp,       \
+                     splits, rows_per_split, s)
+  switch (dp / BM) {
+    SK_BWD(1);
+    SK_BWD(2);
+    SK_BWD(3);
+    SK_BWD(4);
+  }
+#undef SK_BWD
   return (int)cudaErrorInvalidValue;
 }
 

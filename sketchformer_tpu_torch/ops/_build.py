@@ -39,7 +39,7 @@ _DROP = [_P, _U, _I, _I, _I]
 SIGNATURES = {
     # a dropout operand is (bytes ptr, seed, layer, site, T): _DROP
     "sk_linear": ([_I, _P, _P, _P, _P, *_DROP, _I, _F, _P, _I, _I, _I, _I,
-                   _P], _I),
+                   _I, *[_I] * 6, _I, _P], _I),
     "sk_linear_nt": ([_I, _I, _P, _P, _I, _P, _I, _U, _I, _I, _I, _I, _F,
                       _P, _P, _I, _P, _I, _I, _I, _P], _I),
     "sk_linear_tn": ([_I, _I, _P, _P, _I, _P, _I, _U, _I, _I, _I, _I, _F,
@@ -61,7 +61,7 @@ SIGNATURES = {
     "sk_layernorm_bwd": ([_I, _I, _I] + [_P] * 8 + [_I] * 5 + [_P], _I),
     "sk_sum_rows": ([_I, _P, _P] + [_I] * 7 + [_P], _I),
     "sk_emit_dropout_bits": ([_U, _P, _I, _I, _I, _I, _P], _I),
-    "sk_token_ce_fwd": ([_I] + [_P] * 7 + [_I] * 4 + [_P], _I),
+    "sk_token_ce_fwd": ([_I] + [_P] * 7 + [_I] * 7 + [_P], _I),
     "sk_token_ce_bwd": ([_I] + [_P] * 12 + [_I] * 7 + [_P], _I),
     "sk_encoder_attention": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),

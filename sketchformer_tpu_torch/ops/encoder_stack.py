@@ -16,8 +16,9 @@ VMEM; on the card the layer runs as three kernels from
     layernorm_rows     LN1, LN2 and the final LayerNorm
 
 and the two products of the training stacks' backward (``linear_nt``:
-dX = dY . W^T, ``linear_tn``: dW = X^T . dY summed over every row; in bf16
-both are wgmma kernels fed by TMA). A
+dX = dY . W^T, ``linear_tn``: dW = X^T . dY summed over every row). In
+bf16 the three products are wgmma kernels fed by TMA, their tiles from
+:func:`linear_plan`, :func:`nt_plan` and :func:`tn_plan`. A
 dropout operand is a u8 byte tensor ('bits' mode) or a
 ``dropout_prng.PrngSite``, whose bytes the kernel draws itself ('prng'
 mode; the plain versions materialise them with the plain Philox).
@@ -167,10 +168,38 @@ def layernorm_rows_reference(x, scale, bias):
 # ---------------------------------------------------------------------------
 
 
+LINEAR_TILE = 128         # bf16 linear: 128 x 128 output tiles
+LINEAR_SLAB = 64          # contraction depth a stage (csrc: kLnSlab)
+LINEAR_STAGES = 3
+LINEAR_BLOCKS_PER_SM = 2  # the kernel's __launch_bounds__
+
+
+def linear_plan(M, N, K, sms=132):
+    """(column tiles, row tiles, K slabs, stages, blocks, shared-memory
+    bytes a block) of a bf16 linear call, which launches with them: 128 x
+    128 tiles of the (M, N) output, numbered row slab by row slab (the
+    column tiles of a row slab neighbours); K streams through a ring of
+    three 64-deep stages, each a's 128 x 64 box and w's two 64 x 64 boxes,
+    small enough for two blocks an SM. The blocks are persistent, two an SM
+    (or one a tile), block b taking tiles b, b + blocks, ..., so a block's
+    next tile starts loading while it runs this one's epilogue. A block's
+    shared memory: the stages, 1024 bytes to align the swizzle atoms, two
+    barriers a stage and each consumer warpgroup's copy of two tiles' bias
+    (f32); the launcher refuses a size below
+    csrc/encoder_stack.cu::linear_smem_bytes."""
+    cols, rows = -(-N // LINEAR_TILE), -(-M // LINEAR_TILE)
+    smem = LINEAR_STAGES * ((LINEAR_TILE + 2 * LINEAR_SLAB) * 128 + 2 * 8) \
+        + 1024 + 4 * LINEAR_TILE * 4
+    return (cols, rows, -(-K // LINEAR_SLAB), LINEAR_STAGES,
+            min(cols * rows, LINEAR_BLOCKS_PER_SM * sms), smem)
+
+
 def linear(a, w, bias, *, relu=False, residual=None, drop=None, thresh=0,
            keep_scale=1.0):
     """(M, K) x (K, N) with the fused bias / ReLU / dropout / residual
-    epilogue."""
+    epilogue. In bf16, a and w whose rows are not whole 16-byte vectors (or
+    whose base is not 16-byte aligned) get zero columns first, which add
+    nothing to the product."""
     if a.device.type == "cpu":
         return linear_reference(a, w, bias, relu=relu, residual=residual,
                                 drop=drop, thresh=thresh,
@@ -187,6 +216,11 @@ def linear(a, w, bias, *, relu=False, residual=None, drop=None, thresh=0,
     if residual is not None:
         _build.require(residual, "residual", dev, a.dtype, (M, N))
     dbytes, *prng = dp.kernel_args(drop, M, N, dev)
+    a_pitch, w_pitch, plan = K, N, (0,) * 6
+    if a.dtype == torch.bfloat16:
+        a, a_pitch = _tma_rows(a, 8)
+        w, w_pitch = _tma_rows(w, 8)
+        plan = linear_plan(M, N, K, _build.sm_count(dev))
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -194,7 +228,8 @@ def linear(a, w, bias, *, relu=False, residual=None, drop=None, thresh=0,
                             _build.ptr(bias), _build.ptr(residual),
                             _build.ptr(dbytes), *prng, int(thresh),
                             float(keep_scale), _build.ptr(out), M, N, K,
-                            int(relu), _build.stream(a))
+                            a_pitch, w_pitch, *plan, int(relu),
+                            _build.stream(a))
     _build.check(err, "linear")
     LAUNCHES["linear"] += 1
     dp.note_launch(drop)
@@ -222,11 +257,11 @@ def nt_operands(a, w, dbytes):
     read them: a and w with one row pitch of whole 16-byte bf16 rows, the
     bytes with rows of a multiple of 16, all from 16-byte aligned bases;
     other shapes get zero columns, which add nothing to the product."""
-    a, pitch = _tn_rows(a, 8)
-    w, _ = _tn_rows(w, 8)
+    a, pitch = _tma_rows(a, 8)
+    w, _ = _tma_rows(w, 8)
     d_pitch = a.shape[1]
     if dbytes is not None:
-        dbytes, d_pitch = _tn_rows(dbytes, 16)
+        dbytes, d_pitch = _tma_rows(dbytes, 16)
     return a, w, dbytes, pitch, d_pitch
 
 
@@ -295,7 +330,7 @@ def tn_plan(M, K, N, dtype, sms=132):
     return tiles, cols, -(-max(M, 1) // rps), rps
 
 
-def _tn_rows(t, mult):
+def _tma_rows(t, mult):
     """(t, its row pitch): the TMA boxes read rows of a multiple of 16
     bytes from a 16-byte aligned base; other shapes get zero columns."""
     n = t.shape[1]
@@ -327,10 +362,10 @@ def linear_tn(x, y, *, drop=None, thresh=0, keep_scale=1.0, bias_grad=False):
     dbytes, *prng = dp.kernel_args(drop, M, N, dev)
     Kp, y_pitch, d_pitch = K, N, N
     if x.dtype == torch.bfloat16:
-        x, Kp = _tn_rows(x, 8)
-        y, y_pitch = _tn_rows(y, 16 // y.element_size())
+        x, Kp = _tma_rows(x, 8)
+        y, y_pitch = _tma_rows(y, 16 // y.element_size())
         if dbytes is not None:
-            dbytes, d_pitch = _tn_rows(dbytes, 16)
+            dbytes, d_pitch = _tma_rows(dbytes, 16)
     tiles, cols, splits, rps = tn_plan(M, Kp, N, x.dtype,
                                        _build.sm_count(dev))
     tile = TN_TILE[x.dtype]

@@ -3,13 +3,15 @@
 Port of ``sketchformer_tpu/ops/pallas_ce.py::token_ce_rows`` (K6). The
 vocab head is the token train step's largest tensor: the (B*T, V) f32
 logits are about 2 GB at the JAX benchmark's ``train`` shape (B=512, T=96,
-V=10,004). The kernels of ``csrc/token_ce.cu`` compute each 64 x 64 logits
-tile in shared memory and reduce it there, so the logits never reach device
+V=10,004). The kernels of ``csrc/token_ce.cu`` compute each 64-column
+logits tile on chip and reduce it there, so the logits never reach device
 memory:
 
 - ``token_ce_fwd``: per row the target log-likelihood ``ll``, the
   argmax-correct indicator ``corr`` (first index on ties) and the
-  logsumexp ``lse`` (the backward's softmax residual);
+  logsumexp ``lse`` (the backward's softmax residual); in bf16 a wgmma
+  kernel fed by a TMA ring of W's vocab tiles, 128 rows a block
+  (:func:`fwd_plan`), the row statistics kept in registers;
 - ``token_ce_bwd``: ``dx`` (the ``ce_dx`` kernel, row tiles; in bf16 a
   wgmma kernel fed by a TMA ring, 128 rows a block), ``dW`` and ``db`` (the
   ``ce_dw`` kernel, vocab tiles over M slices, whose f32 partials the last
@@ -132,6 +134,22 @@ def dx_plan(M: int, dp: int) -> Tuple[int, int]:
     return -(-M // DX_ROWS), smem
 
 
+FWD_STAGES_MAX = 8         # bf16 ce_fwd: W tiles in flight at most
+
+
+def fwd_plan(M: int, dp: int) -> Tuple[int, int, int]:
+    """(blocks, W tiles in flight, shared-memory bytes a block) of the bf16
+    ``ce_fwd`` kernel, which launches with them: 128-row blocks
+    (``ce_dx``'s), each with 1024 bytes to align the swizzle atoms, its x
+    slab and as many dp x 64 W tiles as fit beside it, at most
+    FWD_STAGES_MAX, with two barriers a tile and one for the slab (the
+    launcher refuses a size below csrc/token_ce.cu::fwd_smem_bytes)."""
+    fixed = 1024 + DX_ROWS * dp * 2 + 8
+    tile = dp * TILE * 2 + 2 * 8
+    stages = min(FWD_STAGES_MAX, (SMEM_MAX - fixed) // tile)
+    return -(-M // DX_ROWS), stages, fixed + stages * tile
+
+
 def _operands(x, w, b, tgt):
     """The kernels' operands (:func:`padded_operands`), b f32 and tgt
     int32, checked."""
@@ -158,13 +176,14 @@ def token_ce_fwd(x, w, b, tgt) -> Tuple[torch.Tensor, ...]:
         return token_ce_fwd_reference(x, w, b, tgt)
     code, xp, wp, bp, tp, M, _, V, dp, Vp = _operands(x, w, b, tgt)
     out = torch.empty((3, M), dtype=torch.float32, device=x.device)
+    blocks, stages, smem = fwd_plan(M, dp)   # bf16 only
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.sk_token_ce_fwd(code, _build.ptr(xp), _build.ptr(wp),
                                   _build.ptr(bp), _build.ptr(tp),
                                   _build.ptr(out[0]), _build.ptr(out[1]),
-                                  _build.ptr(out[2]), M, dp, V, Vp,
-                                  _build.stream(x))
+                                  _build.ptr(out[2]), M, dp, V, Vp, blocks,
+                                  stages, smem, _build.stream(x))
     _build.check(err, "token_ce_fwd")
     LAUNCHES["token_ce_fwd"] += 1
     return out[0], out[1], out[2]

@@ -85,6 +85,45 @@ def test_linear(cuda, dtype, M, K, N, relu, res):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 127, 12288 + 5])
+@pytest.mark.parametrize("K,N", [(256, 64), (256, 192), (256, 256),
+                                 (512, 512), (256, 768), (100, 70)])
+@pytest.mark.parametrize("epi", [(), ("relu",), ("residual",), ("bits",),
+                                 ("prng",), ("relu", "residual", "bits"),
+                                 ("relu", "residual", "prng")],
+                         ids=lambda e: "+".join(e) or "none")
+def test_linear_bf16_modes(cuda, M, K, N, epi):
+    """The bf16 wgmma kernel against the plain version at ragged M, widths
+    that are and are not a multiple of 128, an unaligned K and N (zero
+    columns added by the wrapper), every epilogue alone and together; a
+    second run is bit-equal, and 'prng' equals 'bits' fed the plain
+    Philox's bytes of the same site."""
+    if "prng" in epi and N % 4:
+        pytest.skip("in-kernel dropout needs N a multiple of 4")
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    r = lambda *s, **kw: _rand(gen, cuda, *s, **kw)
+    dt = torch.bfloat16
+    a, w = r(M, K, dtype=dt), r(K, N, scale=K ** -0.5, dtype=dt)
+    b = r(N, scale=0.1)
+    kw = dict(relu="relu" in epi, thresh=26, keep_scale=1.0 / (1 - 26 / 256))
+    if "residual" in epi:
+        kw["residual"] = r(M, N, dtype=dt)
+    site = dp.PrngSite(0x5EED, 1, 1, M)
+    if "bits" in epi:
+        kw["drop"] = _bytes(gen, cuda, M, N)
+    if "prng" in epi:
+        kw["drop"] = site
+    before = es.LAUNCHES["linear"]
+    got = es.linear(a, w, b, **kw)
+    assert es.LAUNCHES["linear"] == before + 1
+    assert torch.equal(got, es.linear(a, w, b, **kw))
+    _close(got, es.linear_reference(a, w, b, **kw), dt)
+    if "prng" in epi:
+        kw["drop"] = dp.site_bytes_reference(site, M, N, cuda)
+        assert torch.equal(got, es.linear(a, w, b, **kw))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,T,H,Dh,qk", [
     (4, 48, 4, 32, False), (4, 48, 4, 32, True), (2, 40, 2, 128, True),
@@ -627,6 +666,44 @@ def test_token_ce_fwd_bwd(cuda, dtype, M, d, V):
         _close(g, r, dtype)
     assert tce.LAUNCHES == {"token_ce_fwd": 1, "token_ce_dx": 1,
                             "token_ce_dw": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 300])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("V", [65, 10004])
+def test_token_ce_fwd_bf16_modes(cuda, M, d, V):
+    """The bf16 wgmma forward against the plain version: ll and lse within
+    TOL, a second run bit-equal; three columns planted to give equal logits
+    in every row (one across lanes, one across vocab tiles), so the rows
+    they top tie exactly: there corr is 1 only for the first of them, and
+    elsewhere corr is equal wherever the top two logits are 1e-3 apart."""
+    gen = torch.Generator(device=cuda).manual_seed(M + d + V)
+    dt = torch.bfloat16
+    x = _rand(gen, cuda, M, d, dtype=dt)
+    w = _rand(gen, cuda, d, V, scale=d ** -0.5)
+    b = _rand(gen, cuda, V, scale=0.1)
+    tie = [3, 60, 64]
+    w[:, tie] = w[:, tie[:1]]
+    b[tie] = 3.0
+    rows = torch.arange(M, device=cuda)
+    tgt = torch.where(rows % 2 == 0, torch.tensor(tie, device=cuda)[rows % 3],
+                      torch.randint(0, V, (M,), generator=gen, device=cuda))
+    tce.reset_launches()
+    got = tce.token_ce_fwd(x, w, b, tgt)
+    assert tce.LAUNCHES["token_ce_fwd"] == 1
+    for g, a in zip(got, tce.token_ce_fwd(x, w, b, tgt)):
+        assert torch.equal(g, a)
+    want = tce.token_ce_fwd_reference(x, w, b, tgt)
+    _close(got[0], want[0], dt)
+    _close(got[2], want[2], dt)
+    top2 = tce.logits_reference(x, w, b).topk(2, dim=-1).values
+    planted = top2[:, 0] == top2[:, 1]
+    clear = ((top2[:, 0] - top2[:, 1]) > 1e-3) | planted
+    assert torch.equal(got[1][clear], want[1][clear])
+    first = planted & (tgt == tie[0])
+    assert (got[1][first] == 1).all()
+    assert (got[1][planted & (tgt != tie[0])] == 0).all()
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The host side of the bf16 tensor-core kernels of K6's ``ce_dx`` and
-``ce_dw``, of the stacks' input-gradient product ``linear_nt``, of the
+"""The host side of the bf16 tensor-core kernels of K6's ``ce_fwd``,
+``ce_dx`` and ``ce_dw``, of the stacks' products ``linear`` and
+``linear_nt``, of the
 attention forward (the stacks' ``attention_fwd``, K8's forward and the
 serving ``encoder_attention``) and of the stacks' attention backward (K5):
 their launch plans, the shapes they take, the vocab and row padding, and
@@ -9,6 +10,7 @@ launch)."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sketchformer_tpu_torch.ops import attention_train as at
 from sketchformer_tpu_torch.ops import encoder_stack as es
@@ -153,6 +155,100 @@ def test_ce_dw_split_partials_sum_to_the_plain_dw_and_db(M, d, V):
     assert not dw[:, V:].any() and not db[V:].any() and not dw[d:].any()
     torch.testing.assert_close(dw[:d, :V], want[1], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(db[:V], want[2], rtol=1e-5, atol=1e-5)
+
+
+SM_SMEM = 233472       # shared memory of an SM (H100), 1 KB of it a block's
+
+
+@pytest.mark.parametrize("dp,stages", [(64, 8), (128, 8), (192, 7),
+                                       (256, 5)])
+def test_ce_fwd_block_fits_shared_memory(dp, stages):
+    """The x slab and as many W tiles (and their two barriers) as fit beside
+    it: 5 at the train width (dp = 256), 230,488 bytes."""
+    blocks, got, smem = tce.fwd_plan(49152, dp)
+    assert (got, blocks) == (stages, 384)
+    assert smem <= SMEM_LIMIT and stages >= 2
+    assert smem == 1024 + 128 * dp * 2 + stages * dp * 128 + \
+        (2 * stages + 1) * 8
+    assert smem + dp * tce.TILE * 2 + 16 > SMEM_LIMIT or \
+        stages == tce.FWD_STAGES_MAX
+
+
+@pytest.mark.parametrize("M", [1, 9, 127, 128, 129, 1000, 49152, 98305])
+def test_ce_fwd_blocks_cover_every_row_once(M):
+    blocks = tce.fwd_plan(M, 256)[0]
+    assert blocks * tce.DX_ROWS >= M > (blocks - 1) * tce.DX_ROWS
+
+
+@pytest.mark.parametrize("N", [64, 192, 256, 512, 768])
+@pytest.mark.parametrize("K", [256, 512])
+def test_linear_block_fits_two_to_an_sm(N, K):
+    """Three stages of a's 128 x 64 box and w's two 64 x 64 boxes and two
+    tiles' bias: 101,424 bytes a block, whatever N and K are, so two blocks
+    share an SM."""
+    _, _, _, stages, _, smem = es.linear_plan(12288, N, K)
+    assert (stages, smem) == (3, 101424) and smem <= SMEM_LIMIT
+    assert es.LINEAR_BLOCKS_PER_SM * (smem + 1024) <= SM_SMEM
+
+
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 12288, 12293, 49152])
+@pytest.mark.parametrize("N", [33, 64, 192, 256, 768])
+def test_linear_blocks_cover_every_output_element_once(M, N):
+    """The persistent blocks' tiles (block b: b, b + blocks, ...) cover the
+    output once; two blocks an SM, or one a tile."""
+    cols, rows, _, _, blocks, _ = es.linear_plan(M, N, 256)
+    tiles = cols * rows
+    assert blocks == min(tiles, 2 * 132)
+    assert cols * es.LINEAR_TILE >= N > (cols - 1) * es.LINEAR_TILE
+    assert rows * es.LINEAR_TILE >= M > (rows - 1) * es.LINEAR_TILE
+    taken = np.zeros(tiles, dtype=np.int64)
+    for b in range(blocks):
+        taken[b::blocks] += 1
+    assert (taken == 1).all()
+    if M * N < 2 ** 22:
+        seen = np.zeros((M, N), dtype=np.int8)
+        for tile in range(tiles):
+            r, c = divmod(tile, cols)
+            seen[r * es.LINEAR_TILE:(r + 1) * es.LINEAR_TILE,
+                 c * es.LINEAR_TILE:(c + 1) * es.LINEAR_TILE] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("M,N,K,tiles,slabs", [
+    (12288, 768, 256, 576, 4), (12288, 256, 256, 192, 4),
+    (12288, 512, 256, 384, 4), (12288, 256, 512, 192, 8),
+    (49152, 256, 256, 768, 4), (49152, 768, 256, 2304, 4)])
+def test_linear_tiles_at_the_main_path_shapes(M, N, K, tiles, slabs):
+    """The stacks' four products at the sbir (M 12,288) and train (M
+    49,152) shapes: 128 x 128 tiles, K in 64-deep slabs, 264 persistent
+    blocks on 132 SMs (at N = 256 and M = 12,288 one a tile)."""
+    cols, rows, got_slabs, _, blocks, _ = es.linear_plan(M, N, K)
+    assert (cols * rows, got_slabs) == (tiles, slabs)
+    assert blocks == min(tiles, 264)
+
+
+@pytest.mark.parametrize("K,N", [(100, 70), (256, 33), (36, 256)])
+def test_linear_operands_pad_to_whole_16_byte_rows(K, N):
+    """bf16 a and w whose rows are not whole 16-byte vectors get zero
+    columns (the wrapper's TMA pitch), which leave the product as it was:
+    a's extra columns meet w's rows past K, which the TMA reads as zeros."""
+    rng = np.random.default_rng(K + N)
+    M = 40
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16)
+    a, w, b = f(M, K), f(K, N), torch.from_numpy(
+        rng.standard_normal(N).astype(np.float32))
+    ap, a_pitch = es._tma_rows(a, 8)
+    wp, w_pitch = es._tma_rows(w, 8)
+    assert a_pitch % 8 == 0 and a_pitch - 8 < K <= a_pitch
+    assert w_pitch % 8 == 0 and w_pitch - 8 < N <= w_pitch
+    assert torch.equal(ap[:, :K], a) and not ap[:, K:].any()
+    assert torch.equal(wp[:, :N], w) and not wp[:, N:].any()
+    w_tma = torch.zeros(a_pitch, w_pitch, dtype=torch.bfloat16)
+    w_tma[:K] = wp
+    got = es.linear_reference(ap, w_tma, F.pad(b, (0, w_pitch - N)),
+                              relu=True)[:, :N]
+    assert torch.equal(got, es.linear_reference(a, w, b, relu=True))
 
 
 @pytest.mark.parametrize("N", [256, 512, 768])
