@@ -18,8 +18,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    with cache_len 1, 17 and 192 (and at Dh=64 and 128), ``decode_chunk``
    at the ``ar_decode`` width (B=64, L=8, d=256, H=8, dff=512, V=10,004,
    K=16) from chunk starts 0, 16 and 176 with some rows already finished,
-   qk-norm off and on, and at H=2/Dh=128, ``decode_cont_chunk`` at the
-   ``cont2cont_mdn`` width (20 mixtures). Both sides of a chunk start from
+   qk-norm off and on, and at H=2/Dh=128 and H=4/Dh=64, ``decode_cont_chunk``
+   at the ``cont2cont_mdn`` width (20 mixtures), both also at B=512 and at
+   the SM count + 5 (a part-empty last row group), the head padded once
+   (``pad_head``); every bf16 launch on the cluster kernel, every float32
+   launch on the per-row one (``ROUTES``), and two bf16 geometries the
+   cluster kernel declines (a head left at its width, position rows 8
+   bytes off a 16-byte boundary) on the per-row one too; the cache rows
+   below the chunk's start untouched. Both sides of a chunk start from
    the same cache; picks must be equal up to each row's first near tie of
    the plain version (top-two gap below 1e-3 in f32, below one bf16 ulp
    of the row's top value in bf16), and new k/v rows and xy close over
@@ -112,9 +118,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``eval`` against the composed model; and the K13 step loop on
    ``ar_decode`` (192 launches; every CLI path launches it 0 times);
 5. times: kernel vs plain (CUDA events after warm-up), the end-to-end
-   embed rate, per-chunk and per-call decode kernel times, and the
-   whole-decode p50 at B=64/T=192 and sketches/s at B=512 for the chunk
-   engine, the K13 step loop and the composed decoder; K8 forward and
+   embed rate, per-chunk and per-call decode kernel times (each chunk at
+   B=64 beside its bound, the self-attention cache rows counted once a
+   step and the cross K/V once a chunk, and its serial floor: the cluster
+   kernel's barriers a step x K x one barrier's measured cost; the kernel
+   alone at B=512), and the whole-decode p50 at B=64/T=192 and sketches/s at B=512
+   for the chunk engine (with a ``torch.profiler`` trace of one whole
+   decode at each batch: device busy time, idle share, launches), the K13
+   step loop and the composed decoder; K8 forward and
    backward against SDPA with the same mask (and its backward) at both
    geometries; K13 per step beside ``decode_chunk``'s; each training kernel (one layer's
    calls) against its plain version and one PyTorch call where one
@@ -435,27 +446,56 @@ def check_decode_kernels(randn, gen, dev, errs):
                 if main_rec and Dh == 32:
                     errs["decode_attention"] = max(errs["decode_attention"],
                                                    err)
-        # B=64 runs one row per block; a batch above the SM count two
-        # (the last block half empty)
+        # f32 (the per-row kernel): B=64 runs one row per block, a batch
+        # above the SM count two (the last block half empty). bf16 (the
+        # cluster kernel): B=64 is four 16-row groups, B=512 the largest
+        # groups, the SM count + 5 leaves the last group part-empty. The
+        # head is padded once (pad_head), as the decode engine does; the
+        # last two cases are bf16 geometries the cluster kernel declines
+        # (a head left at its width, position rows 8 bytes off a 16-byte
+        # boundary), on the per-row kernel, drawn from their own stream
         big = torch.cuda.get_device_properties(dev).multi_processor_count + 5
-        cases = [(False, 8, qk, t0, 64) for qk in (False, True)
+        cases = [(False, 8, qk, t0, 64, None) for qk in (False, True)
                  for t0 in (0, 16, T - K)]
-        cases += [(False, 2, True, 16, 64), (False, 8, False, 16, big),
-                  (True, 8, True, 0, 64), (True, 8, True, 176, 64),
-                  (True, 2, False, 16, 64), (True, 8, True, 16, big)]
-        for cont, H, qk, t0, B in cases:
+        cases += [(False, 2, True, 16, 64, None),
+                  (False, 8, False, 16, big, None),
+                  (True, 8, True, 0, 64, None), (True, 8, True, 176, 64, None),
+                  (True, 2, False, 16, 64, None),
+                  (True, 8, True, 16, big, None),
+                  (False, 4, False, 0, 64, None), (True, 4, True, 16, 64, None),
+                  (False, 8, False, 96, 512, None),
+                  (True, 8, True, 96, 512, None),
+                  (False, 8, False, 16, 64, "unpadded"),
+                  (True, 8, True, 16, 64, "pos8")]
+        own = torch.Generator(device=dev).manual_seed(12)
+        for cont, H, qk, t0, B, variant in cases:
             N = 6 * MDN_MIXTURES + 3 if cont else V
-            ops = chunk_operands(randn, gen, dev, B=B, L=L, d=d, H=H,
+            r, g = (randn, gen) if variant is None else (
+                randn_from(own, dev), own)
+            ops = chunk_operands(r, g, dev, B=B, L=L, d=d, H=H,
                                  dff=dff, N=N, Tmax=T, Mq=Mq, K=K, t0=t0,
                                  dtype=dtype, cont=cont)
+            if variant != "unpadded":
+                ops["head_w"], ops["head_b"] = dc.pad_head(
+                    ops["head_w"], ops["head_b"], cont=cont)
+            if variant == "pos8":
+                off = 8 // ops["pos_chunk"].element_size()
+                pos = torch.empty(K * d + off, dtype=dtype, device=dev)[off:]
+                ops["pos_chunk"] = pos.view(K, d).copy_(ops["pos_chunk"])
             kv_ref = (ops["k_cache"].clone(), ops["v_cache"].clone())
             kname = "decode_cont_chunk" if cont else "decode_chunk"
             kw = dict(num_heads=H, qk_norm=qk)
             if cont:
                 kw["num_mixtures"] = MDN_MIXTURES
+            routes = dict(dc.ROUTES)
             got = getattr(dc, kname)(
                 *chunk_args(ops, ops["k_cache"], ops["v_cache"], cont), **kw)
             torch.cuda.synchronize()
+            route = ("cluster" if dtype == torch.bfloat16 and variant is None
+                     else "rows")
+            if dc.ROUTES != {**routes, route: routes[route] + 1}:
+                fail(f"{kname} {tag} B={B} H={H}: launched on "
+                     f"{dc.ROUTES} (before {routes}), not the {route} kernel")
             if dtype == torch.float32:
                 *want, margins = getattr(dc, f"{kname}_reference")(
                     *chunk_args(ops, *kv_ref, cont), **kw,
@@ -472,14 +512,16 @@ def check_decode_kernels(randn, gen, dev, errs):
                 kv_rows = torch.ones_like(checked)
                 rule = "plain fed the kernel's picks, away from near ties"
             name = (f"{kname} {tag} B={B} L={L} d={d} H={H} dff={dff} "
-                    f"N={N} K={K} t0={t0} qk_norm={qk} ({rule})")
+                    f"N={ops['head_b'].shape[0]} K={K} t0={t0} qk_norm={qk}"
+                    f"{'' if variant is None else ' ' + variant} on the "
+                    f"{route} kernel ({rule})")
             err = held_to_plain(name, got[:-1], want[:-1], margins, checked,
                                 (ops["k_cache"], ops["v_cache"]), kv_ref,
                                 kv_rows, t0, dtype)
             if not torch.equal(ops["k_cache"][:, :, :t0],
                                kv_ref[0][:, :, :t0]):
                 fail(f"{name}: cache rows below t0 changed")
-            main_shape = H == 8 and qk == cont and B == 64
+            main_shape = H == 8 and qk == cont and B == 64 and variant is None
             if main_rec and main_shape:
                 errs[kname] = max(errs[kname], err)
 
@@ -2558,6 +2600,61 @@ def decode_step_times(randn, gen, dev, gpu, cuda_ms, paired, chunk_ms):
     return k_ms, p_ms
 
 
+def cluster_barrier_us(dev, C, clusters, iters=20000):
+    """Device microseconds of one cluster barrier of the bf16 chunk kernel
+    (C blocks of 256 threads, ``clusters`` clusters at once): CUDA events
+    around ``iters`` back-to-back barriers, less an empty launch."""
+    import torch
+
+    from sketchformer_tpu_torch.ops import decode_chunk as dc
+
+    dc.cluster_barrier_probe(dev, C, clusters, 10)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    dc.cluster_barrier_probe(dev, C, clusters, 0)
+    ev[1].record()
+    ev[2].record()
+    dc.cluster_barrier_probe(dev, C, clusters, iters)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return (ev[2].elapsed_time(ev[3]) - ev[0].elapsed_time(ev[1])) \
+        / iters * 1e3
+
+
+def profile_decode(label, run, gpu, wall_ms):
+    """torch.profiler over one whole decode: the device's busy time, its
+    idle share of the untraced p50 ``wall_ms`` and the kernel launches (a
+    launch per device event), with the kernels that took the most time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):   # the tracer's set-up
+        run()
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    print(f"profile decode {label}: device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f} of the untraced p50 {wall_ms:.2f} ms, "
+          f"{sum(r[1] for r in rows)} kernel launches [{gpu}]")
+    for dev_ms, count, key in rows[:5]:
+        print(f"  {dev_ms:8.3f} ms {count:5d} calls  {key[:80]}")
+    return busy
+
+
 # ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a call's work
 # ---------------------------------------------------------------------------
@@ -2621,22 +2718,32 @@ def linear_layer_work(M, d, dff):
                       (M, dff, d, 2, 2, 2, M * d * 2)])
 
 
-def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn):
+def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn, Mq=4):
     """{kernel: (flops, bytes)} of the timed calls of the serving kernels
     (bf16): linear = one encoder layer's 4 products; encoder_attention and
     layernorm_rows one call at (B, T); decode chunks the mean 16-step chunk
-    of a T=192 decode (cache positions t0 + 16, t0 = 88 on average);
-    decode_attention one call (B*H, cache_len T/2)."""
+    of a T=192 decode; decode_attention one call (B*H, cache_len T/2).
+
+    A chunk's K steps each re-read every filled k/v cache row of every
+    layer (position t reads rows 0..t: (T + 1) / 2 on average over the
+    decode), so those bytes count once a step: the cache grows by a row
+    each step and at B=64 holds ~55 MB, which no design keeps on chip. The
+    weights and the Mq cross K/V rows (constant over the chunk, ~2 MB at
+    B=64) count once a chunk, as do the embedding rows the steps read, the
+    new cache rows and the picks."""
     M, Dh = B * T, d // H
     lin = linear_layer_work(M, d, dff)
     trunk_w = L * (d * 3 * d + 3 * d * d + 2 * d * dff) * 2
-    t_mean = 88 + K
-    per_row = L * 2 * (d * 3 * d + 3 * d * d + 2 * d * dff) + L * 4 * t_mean * d
+    t_mean = (T + 1) / 2
+    per_row = (L * 2 * (d * 3 * d + 3 * d * d + 2 * d * dff)
+               + L * 4 * (t_mean + Mq) * d)
 
-    def chunk(N, emb):
+    def chunk(N, emb_rows):
         fl = K * B * (per_row + 2 * d * N)
-        by = (trunk_w + d * N * 2 + emb + 2 * L * B * H * t_mean * Dh * 2
-              + 2 * L * B * H * 4 * Dh * 2 + K * B * 8)
+        by = (trunk_w + d * N * 2 + emb_rows
+              + K * 2 * L * B * H * t_mean * Dh * 2
+              + 2 * L * B * H * Mq * Dh * 2
+              + K * 2 * L * B * H * Dh * 2 + K * B * 8)
         return fl, by
     n = T // 2
     return {
@@ -2644,7 +2751,7 @@ def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn):
         "encoder_attention": (4 * B * H * T * T * Dh,
                               3 * M * d * 2 + M * d * 2 + B * T * 4),
         "layernorm_rows": (8 * M * d, 2 * M * d * 2 + 2 * d * 4),
-        "decode_chunk": chunk(V, V * d * 2),
+        "decode_chunk": chunk(V, K * B * d * 2),
         "decode_cont_chunk": chunk(N_mdn, 5 * d * 2),
         "decode_attention": (4 * B * H * n * Dh,
                              (2 * B * H * Dh + 2 * B * H * n * Dh) * 2),
@@ -3615,8 +3722,9 @@ def main() -> int:
         _, memory, _ = model.encode(enc, mask)
         ck, cv = dc.precompute_cross_kv(memory, ops["w"], num_heads=H,
                                         qk_norm=cfg.qk_norm)
-        kc = torch.zeros((cfg.num_layers, B * H, T, cfg.d_model // H),
-                         dtype=cfg.compute_dtype, device=dev)
+        kc = torch.zeros((cfg.num_layers, enc.shape[0] * H, T,
+                          cfg.d_model // H), dtype=cfg.compute_dtype,
+                         device=dev)
         pos = model.dec_embed.table[:T].to(cfg.compute_dtype)
         return cfg, ops, ck, cv, kc, torch.zeros_like(kc), pos
 
@@ -3629,12 +3737,16 @@ def main() -> int:
                                   ).to(dev)
         if enc512.shape[0] != 8 * B:
             fail(f"only {enc512.shape[0]} validation sketches for B=512")
-        cfg, ops, ck, cv, kc, vc, pos = chunk_state(model, enc64)
+        cfg, *_ = state64 = chunk_state(model, enc64)
 
-        def token_chunks(fn):
+        def token_chunks(fn, state):
+            _, ops, ck, cv, kc, vc, pos = state
+            Bs = ck.shape[1] // H
+
             def run():
-                prev = torch.full((B,), SOS_ID, dtype=torch.int32, device=dev)
-                fin = torch.zeros((B,), dtype=torch.int32, device=dev)
+                prev = torch.full((Bs,), SOS_ID, dtype=torch.int32,
+                                  device=dev)
+                fin = torch.zeros((Bs,), dtype=torch.int32, device=dev)
                 for t in range(0, T, K):
                     ids, fin = fn(prev, fin, kc, vc, ck, cv, ops["emb"],
                                   pos[t:t + K], ops["head_w"], ops["head_b"],
@@ -3644,22 +3756,32 @@ def main() -> int:
                     prev = ids[:, -1].contiguous()
             return run
 
-        k_ms, p_ms = paired(token_chunks(dc.decode_chunk),
-                            token_chunks(dc.decode_chunk_reference),
+        k_ms, p_ms = paired(token_chunks(dc.decode_chunk, state64),
+                            token_chunks(dc.decode_chunk_reference, state64),
                             iters=2, warm=1)
         times["decode_chunk"] = (k_ms / nchunks, p_ms / nchunks)
+        # the kernel alone at B=512 (the plain version's time there is not
+        # read)
+        big_ms = {"decode_chunk": cuda_ms(token_chunks(
+            dc.decode_chunk, chunk_state(model, enc512)), 2, 1) / nchunks}
 
         mdn, mloader = preset_model("cont2cont_mdn")
-        mb = mloader.get_validation_set(max_batches=1)[0]
-        mcfg, mops, mck, mcv, mkc, mvc, mpos = chunk_state(
-            mdn, torch.from_numpy(mb["enc"]).to(dev),
-            torch.from_numpy(mb["enc_mask"]).to(dev))
+        mvb = mloader.get_validation_set(max_batches=8)
+        mcfg, *_ = mstate64 = chunk_state(
+            mdn, torch.from_numpy(mvb[0]["enc"]).to(dev),
+            torch.from_numpy(mvb[0]["enc_mask"]).to(dev))
+        if mvb[0]["enc"].shape[0] != B:
+            fail(f"{mvb[0]['enc'].shape[0]} MDN validation sketches a "
+                 f"batch, not {B}")
 
-        def mdn_chunks(fn):
+        def mdn_chunks(fn, state):
+            _, mops, mck, mcv, mkc, mvc, mpos = state
+            Bs = mck.shape[1] // H
+
             def run():
-                row = torch.zeros((B, 5), device=dev)
+                row = torch.zeros((Bs, 5), device=dev)
                 row[:, 3] = 1.0
-                fin = torch.zeros((B,), dtype=torch.int32, device=dev)
+                fin = torch.zeros((Bs,), dtype=torch.int32, device=dev)
                 for t in range(0, T, K):
                     xy, pen, _, fin = fn(
                         row, fin, mkc, mvc, mck, mcv, mops["in_w"],
@@ -3671,10 +3793,18 @@ def main() -> int:
                         pen[:, -1].long(), 3).float()], -1)
             return run
 
-        k_ms, p_ms = paired(mdn_chunks(dc.decode_cont_chunk),
-                            mdn_chunks(dc.decode_cont_chunk_reference),
-                            iters=2, warm=1)
+        k_ms, p_ms = paired(mdn_chunks(dc.decode_cont_chunk, mstate64),
+                            mdn_chunks(dc.decode_cont_chunk_reference,
+                                       mstate64), iters=2, warm=1)
         times["decode_cont_chunk"] = (k_ms / nchunks, p_ms / nchunks)
+        menc512, mmask512 = (torch.from_numpy(np.concatenate(
+            [b[key] for b in mvb])).to(dev) for key in ("enc", "enc_mask"))
+        if menc512.shape[0] != 8 * B:
+            fail(f"only {menc512.shape[0]} MDN validation sketches for "
+                 f"B=512")
+        big_ms["decode_cont_chunk"] = cuda_ms(mdn_chunks(
+            dc.decode_cont_chunk, chunk_state(mdn, menc512, mmask512)),
+            2, 1) / nchunks
         del mdn
 
         Dh = cfg.d_model // H
@@ -3687,12 +3817,32 @@ def main() -> int:
         lib["decode_attention"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(
                 q, kq[:, :T // 2], vq[:, :T // 2]), iters=50)
+    # beside each chunk: its bound (the self-attention cache rows read once
+    # a step) and
+    # the bf16 cluster kernel's serial floor, its chain of cluster barriers
+    # (8 a layer and one for the pick, each step) at one barrier's measured
+    # cost in clusters of the plan's size
+    chunk_work = serving_kernel_work(
+        B=B, T=T, d=AR["d"], H=H, dff=AR["dff"], L=AR["L"], V=AR["V"], K=K,
+        N_mdn=6 * MDN_MIXTURES + 3, Mq=AR["Mq"])
+    barriers = 8 * AR["L"] + 1
     for name in ("decode_chunk", "decode_cont_chunk"):
         k_ms, p_ms = times[name]
+        cont = name == "decode_cont_chunk"
+        plan = dc.cluster_plan(
+            B, d=AR["d"], H=H, dff=AR["dff"],
+            N=6 * MDN_MIXTURES + 3 if cont else AR["V"], Tmax=T, Mq=AR["Mq"],
+            cont=cont, max_clusters=dc.cluster_fit(torch.cuda.current_device(), cont))
+        bar_us = cluster_barrier_us(dev, plan["C"], -(-B // plan["G"]))
+        b_ms, b_by = bound(*chunk_work[name])
         print(f"time {name} (B={B}, L={cfg.num_layers}, d={cfg.d_model}, "
               f"H={H}, K={K}, {str(dt)[6:]}, per chunk, mean of the "
               f"{nchunks} chunks of T={T}): kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms [{gpu}]")
+              f"{p_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}); serial floor "
+              f"{barriers} cluster barriers a step x {K} steps x "
+              f"{bar_us:.3f} us = {barriers * K * bar_us / 1e3:.4f} ms "
+              f"(clusters of {plan['C']}, {plan['G']} rows each); B=512: "
+              f"kernel {big_ms[name]:.3f} ms per chunk [{gpu}]")
     k_ms, p_ms = times["decode_attention"]
     print(f"time decode_attention (B*H={B * H}, Dh={Dh}, Tmax={T}, "
           f"cache_len={T // 2}, {str(dt)[6:]}, per call): kernel "
@@ -3724,6 +3874,9 @@ def main() -> int:
               f"max {max(ts):.2f}, {reps} runs); B=512 "
               f"{512 / float(np.median(big)) * 1e3:.1f} sketches/s "
               f"({float(np.median(big)):.1f} ms) [{gpu}]")
+        if label.startswith("chunk engine"):
+            chunk_engine = (decoder, float(np.median(ts)),
+                            float(np.median(big)))
 
     # the training kernels, the stacks and whole train steps
     for name, (k_ms, p_ms, l_ms) in {
@@ -3746,6 +3899,14 @@ def main() -> int:
         randn, gen, dev, gpu, cuda_ms, paired, times["decode_chunk"][0])
     steps_ms = train_step_times(gpu, dev, cli)
     print(f"train steps: {json.dumps(steps_ms)} [{gpu}]")
+    # the decode path's device busy time and idle share (after the kernel
+    # spreads, whose profiler sessions count every event): whether the
+    # chunk kernel or the host (the encode, the cross K/V, each chunk's
+    # finished-rows read) sets the p50
+    decoder, p50_64, p50_512 = chunk_engine
+    for Bp, encp, wall in ((64, enc64, p50_64), (512, enc512, p50_512)):
+        profile_decode(f"ar_decode chunk engine B={Bp}",
+                       lambda: decoder(encp), gpu, wall)
 
     work = serving_kernel_work(B=64, T=SBIR["T"], d=SBIR["d"], H=SBIR["H"],
                                dff=SBIR["dff"], L=SBIR["L"], V=AR["V"],

@@ -40,6 +40,7 @@ from sketchformer_tpu_torch.models.sketchformer import Sketchformer
 from sketchformer_tpu_torch.ops.decode_chunk import (
     decode_chunk,
     decode_cont_chunk,
+    pad_head,
     precompute_cross_kv,
 )
 from sketchformer_tpu_torch.ops.decode_step import greedy_steps
@@ -79,12 +80,14 @@ def _structural_support(cfg):
 def decoder_operands(model: Sketchformer) -> dict:
     """The model's decode-kernel operands, built once per decoder: the
     stacked trunk, the input embedding and the head in the kernel's
-    dtypes."""
+    dtypes, the head padded to whole 16-column tiles (:func:`pad_head`)."""
     cfg = model.config
     dt = cfg.compute_dtype
-    ops = {"w": model.decoder.stacked_weights(),
-           "head_w": model.out_head.proj.kernel.detach().to(dt),
-           "head_b": model.out_head.proj.bias.detach().float()}
+    head_w, head_b = pad_head(model.out_head.proj.kernel.detach().to(dt),
+                              model.out_head.proj.bias.detach().float(),
+                              cont=cfg.use_continuous)
+    ops = {"w": model.decoder.stacked_weights(), "head_w": head_w,
+           "head_b": head_b}
     if cfg.use_continuous:
         ops["in_w"] = model.dec_embed.proj.kernel.detach().to(dt)
         ops["in_b"] = model.dec_embed.proj.bias.detach().float()

@@ -68,7 +68,9 @@ SIGNATURES = {
     "sk_layernorm_rows": ([_I, _P, _P, _P, _P, _I, _I, _P], _I),
     "sk_decode_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
                             _I),
-    "sk_decode_chunk": ([_I, _I] + [_P] * 21, _I),
+    "sk_decode_chunk": ([_I, _I] + [_P] * 22, _I),
+    "sk_decode_cluster_fit": ([_I, _I, _I, _P], _I),
+    "sk_cluster_barrier_probe": ([_I, _I, _I, _P], _I),
     "sk_decode_step": ([_I] + [_P] * 12, _I),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -15,13 +15,20 @@ compute dtype; the K new rows of each layer, at positions ``[t0, t0 + K)``,
 are written into them in place (the TPU kernel returns them for the
 caller to scatter). ``prev``/``finished`` are ``(B,)`` int32. A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches
-the kernel or raises. ``LAUNCHES`` counts kernel launches.
+the kernel or raises. ``LAUNCHES`` counts kernel launches and ``ROUTES``
+which kernel took them: in bfloat16 the cluster kernel on the plan of
+:func:`cluster_plan` (the batch as the products' rows, a thread block
+cluster a row group, the products on the tensor cores), and the per-row
+FMA kernel for float32 and for what :func:`cluster_decline` names (among
+it a head not padded once to whole 16-column tiles by :func:`pad_head`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping
+import functools
+import math
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,11 +49,14 @@ TRUNK_KEYS = ("ln1s", "ln1b", "s_wqkv", "s_bqkv", "s_qns", "s_qnb",
 _PRODUCT_KEYS = ("s_wqkv", "s_wo", "c_wq", "c_wo", "w1", "w2")
 
 LAUNCHES = {"decode_chunk": 0, "decode_cont_chunk": 0}
+ROUTES = {"cluster": 0, "rows": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in ROUTES:
+        ROUTES[k] = 0
 
 
 def precompute_cross_kv(memory: torch.Tensor, w: Mapping[str, torch.Tensor],
@@ -265,6 +275,246 @@ def decode_cont_chunk_reference(prev_row, finished, k_cache, v_cache,
 
 
 # ---------------------------------------------------------------------------
+# the bf16 cluster kernel's plan (csrc/decode_chunk.cu, decode_cluster_kernel)
+# ---------------------------------------------------------------------------
+
+# bytes of dynamic shared memory a block may use: 232,448 less the static
+# ring mbarriers
+SMEM_LIMIT = 232_448 - 128
+CLUSTER_SIZES = (16, 8)  # blocks a cluster, in order of preference
+MAX_CLUSTER = 16
+MAX_GROUP = 64           # rows a cluster (its buffers fit a block at d=256)
+WARPS = 8
+TILE = 16                # columns and rows of one mma tile
+MAX_TILES = 16           # 16-column tiles of one slice (a 256-column box)
+# the kernel's CPlan struct: these ints in order, then ``ldw`` (the six
+# products' slice widths), ``cols`` (column boundaries of the C blocks'
+# slices, MAX_CLUSTER + 1 a kind: the six products, then the head) and
+# ``split`` (inner-dimension ways by tiles of a slice, MAX_TILES + 1 a
+# depth: d, then dff)
+PLAN_KEYS = ("C", "G", "NS", "slot", "pofs", "bmax", "hcols", "Np",
+             "ld_hs", "ld_act", "slots", "o_xs", "o_hs", "o_act", "o_own",
+             "o_state", "o_sc", "o_ring", "o_lbuf", "o_cand", "o_mdn",
+             "total")
+PLAN_INTS = len(PLAN_KEYS) + 6 + 7 * (MAX_CLUSTER + 1) + 2 * (MAX_TILES + 1)
+
+
+def product_shapes(d: int, dff: int):
+    """(inner dimension, columns) of a layer's six products in the
+    kernel's order: QKV, out-projection, cross q, cross out-projection,
+    FFN in, FFN out."""
+    return ((d, 3 * d), (d, d), (d, d), (d, d), (d, dff), (dff, d))
+
+
+def split_columns(N: int, C: int):
+    """Block c's columns of an N-wide product (N a multiple of 16):
+    ``(start, count)`` for c < C, whole 16-column tiles, as even as the
+    tiles allow (a block may get none)."""
+    units = N // TILE
+    return [(TILE * (c * units // C),
+             TILE * ((c + 1) * units // C - c * units // C))
+            for c in range(C)]
+
+
+def plan_slices(plan: Mapping, kind: int):
+    """The blocks' ``(start, count)`` columns of product ``kind`` (6: the
+    head) as the kernel reads them from the plan."""
+    cols = plan["cols"][kind]
+    return [(cols[c], cols[c + 1] - cols[c]) for c in range(plan["C"])]
+
+
+def split_ways(G: int, nc: int, Kd: int) -> int:
+    """How many ways the kernel splits the inner dimension Kd of a G x nc
+    slice: doubling while the 16 x 16 tiles times the ways stay within the
+    warps and the ways divide Kd's 16-row steps."""
+    items, ks, S = (G // TILE) * (nc // TILE), Kd // TILE, 1
+    while items and 2 * S * items <= WARPS and ks % (2 * S) == 0:
+        S *= 2
+    return S
+
+
+def pair_owner(r: int, h: int, H: int, C: int):
+    """(block, slot) of the group's (row r, head h) pair: the block that
+    gets the pair's q, k and v values in f32, applies qk-norm, writes its
+    k/v cache row and attends, one warp a slot."""
+    p = r * H + h
+    return p % C, p // C
+
+
+def _align(n: int, to: int = 128) -> int:
+    return -(-n // to) * to
+
+
+def _layout(C, G, NS, *, d, H, dff, Np, Tmax, Mq, cont):
+    """The plan's strides, ring, slices and shared-memory offsets (bytes)
+    for clusters of C blocks holding G rows with an NS-slot weight ring."""
+    Dh = d // H
+    shapes = product_shapes(d, dff)
+    slices = [split_columns(N, C) for _, N in shapes] + [
+        split_columns(Np, C)]
+    ldw = [max(nc for _, nc in s) for s in slices[:6]]
+
+    # a ring slot holds the largest (K, ldw) bf16 slice of the six
+    # products as its TMA boxes land, then from pofs its f32 parameters:
+    # the bias slice (bmax floats), the LayerNorm before the product (2 d)
+    # and the qk-norm's (4 Dh); slots 128-byte aligned
+    trunk = max(K * w for (K, _), w in zip(shapes, ldw))
+    hcols = min(max(nc for _, nc in slices[6]), 256,
+                max(TILE, TILE * (trunk // d // TILE)))
+    pofs = _align(max(trunk, d * hcols), 64)
+    bmax = max(*ldw, hcols)
+    # the partial tiles of a split product: S ways of a slice's tiles
+    split = [[split_ways(G, TILE * n, K) for n in range(MAX_TILES + 1)]
+             for K in (d, dff)]
+    partials = max((S * (G // TILE) * n * TILE * TILE * 4
+                    for row in split for n, S in enumerate(row)
+                    if S > 1 and TILE * n <= bmax), default=0)
+    plan = dict(C=C, G=G, NS=NS,
+                slot=_align(pofs + 2 * (bmax + 2 * d + 4 * Dh), 64),
+                pofs=pofs, bmax=bmax, hcols=hcols, Np=Np, ld_hs=d + 8,
+                ld_act=max(d, dff) + 8, slots=-(-G * H // C), ldw=ldw,
+                cols=[[c0 for c0, _ in s] + [s[-1][0] + s[-1][1]]
+                      * (MAX_CLUSTER + 1 - C) for s in slices],
+                split=split)
+    lbuf = 0 if cont else G * hcols * 4           # a head chunk's logits
+    cand = 0 if cont else C * G * 8               # the blocks' argmaxes
+    mdn = G * Np * 2 if cont else 0               # the MDN head rows
+    # the head's buffers share act, which no block writes in the head phase
+    act = max(G * plan["ld_act"] * 2, _align(lbuf) + cand, mdn)
+    sizes = (("o_xs", G * d * 2), ("o_hs", G * plan["ld_hs"] * 2),
+             # own: the pairs' f32 q, k, v; in the broadcast products'
+             # phases the block's staged output tile (G x bmax bf16)
+             ("o_act", act),
+             ("o_own", max(plan["slots"] * 3 * Dh * 4, G * bmax * 2)),
+             # prev, fin, the stroke row (5), the head's best (value, index)
+             ("o_state", G * 9 * 4),
+             # the attention's score and output rows, or a split product's
+             # partial tiles
+             ("o_sc", max(WARPS * (max(Tmax, Mq) + Dh) * 4, partials)),
+             ("o_ring", NS * plan["slot"] * 2))
+    off = 0
+    for key, size in sizes:
+        plan[key] = off
+        off += _align(size)
+    plan["o_lbuf"] = plan["o_mdn"] = plan["o_act"]
+    plan["o_cand"] = plan["o_act"] + _align(lbuf)
+    plan["total"] = off
+    return plan
+
+
+def plan_ints(plan: Mapping) -> list:
+    """The plan as the kernel's CPlan ints."""
+    out = [plan[k] for k in PLAN_KEYS] + list(plan["ldw"])
+    for row in (*plan["cols"], *plan["split"]):
+        out += row
+    assert len(out) == PLAN_INTS
+    return out
+
+
+def cluster_plan(B: int, *, d: int, H: int, dff: int, N: int, Tmax: int,
+                 Mq: int, cont: bool, max_clusters: Mapping[int, int]
+                 ) -> Optional[dict]:
+    """The cluster kernel's plan for a batch of B rows, or None if no
+    plan fits a block's shared memory.
+
+    ``max_clusters[C]`` is how many clusters of C blocks the card runs at
+    once (``cluster_fit``). The rows go in groups of G (a multiple of 16,
+    at most MAX_GROUP), one cluster a group: the first cluster size in
+    CLUSTER_SIZES whose smallest G that runs the whole batch in one wave
+    fits the shared memory, with a three-slot ring where it fits, else
+    two; failing that, the largest G that fits, in several waves. Np is
+    the head's width N in whole 16-column tiles (the kernel takes the head
+    so padded: :func:`pad_head`)."""
+    Np = _align(N, TILE)
+    geo = dict(d=d, H=H, dff=dff, Np=Np, Tmax=Tmax, Mq=Mq, cont=cont)
+
+    def fitting(C, G):
+        for NS in (3, 2):
+            plan = _layout(C, G, NS, **geo)
+            if plan["total"] <= SMEM_LIMIT:
+                return plan
+        return None
+
+    def usable(C):    # clusters the card runs, slices a TMA box holds
+        return (max_clusters.get(C, 0) > 0
+                and max(nc for _, nc in split_columns(3 * d, C)) <= 256)
+
+    for C in filter(usable, CLUSTER_SIZES):
+        G = TILE * -(-B // (TILE * max_clusters[C]))
+        plan = fitting(C, G) if G <= MAX_GROUP else None
+        if plan is not None:
+            return plan
+    for C in filter(usable, CLUSTER_SIZES):
+        for G in range(min(MAX_GROUP, TILE * -(-B // TILE)), 0, -TILE):
+            plan = fitting(C, G)
+            if plan is not None:
+                return plan
+    return None
+
+
+def cluster_decline(dtype, *, d: int, H: int, dff: int, N: int,
+                    aligned: bool) -> Optional[str]:
+    """Why a chunk stays on the per-row kernel, or None when the cluster
+    kernel takes it (a head_dim above MAX_HEAD_DIM raises for both)."""
+    if dtype != torch.bfloat16:
+        return "float32 keeps the per-row FMA kernel"
+    if N % TILE:
+        return ("the head's width must be a multiple of 16 (pad it once "
+                "with pad_head)")
+    if d % TILE or dff % TILE:
+        return "d and dff must be multiples of 16 (the mma tiles)"
+    if any(k > 512 or (k > 256 and k % 256) for k in (d, dff)):
+        return "d and dff must be at most 256, or 512 (two TMA boxes)"
+    Dh = d // H
+    if Dh % 8 or (Dh // 8) & (Dh // 8 - 1):
+        return "head_dim must be 8 times a power of two (16-byte k/v rows)"
+    if not aligned:
+        return "an operand is not 16-byte aligned"
+    return None
+
+
+def pad_head(head_w: torch.Tensor, head_b: torch.Tensor, *, cont: bool):
+    """The (d, N) head and its (N,) bias padded to whole 16-column tiles,
+    once, as the cluster kernel takes them: zero weight columns, and bias
+    lanes that no pick reads (-inf on the token head, whose argmax then
+    never takes them; 0 on the MDN head, whose picks read only its first
+    6M+3 columns)."""
+    pad = _align(head_b.shape[0], TILE) - head_b.shape[0]
+    return (F.pad(head_w, (0, pad)),
+            F.pad(head_b, (0, pad), value=0.0 if cont else -math.inf))
+
+
+@functools.cache
+def cluster_fit(device_index: int, cont: bool) -> dict:
+    """{C: clusters of C blocks at the most shared memory that the card
+    runs at once} for the cluster kernel, by cudaOccupancyMaxActiveClusters.
+    A card may refuse the non-portable size 16 (then 0); an error at a
+    portable size raises."""
+    lib = _build.library()
+    out = {}
+    with torch.cuda.device(device_index):
+        for C in CLUSTER_SIZES:
+            n = ctypes.c_int(0)
+            err = lib.sk_decode_cluster_fit(int(cont), C, SMEM_LIMIT,
+                                            ctypes.byref(n))
+            if C <= 8:
+                _build.check(err, "decode_cluster_fit")
+            out[C] = n.value if err == 0 else 0
+    return out
+
+
+def cluster_barrier_probe(device, C: int, clusters: int, iters: int) -> None:
+    """Launch ``iters`` back-to-back cluster barriers in each of
+    ``clusters`` clusters of C blocks on ``device`` (no counter: a probe
+    that times one barrier of the cluster kernel's chain)."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = lib.sk_cluster_barrier_probe(
+            C, clusters, iters, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "cluster_barrier_probe")
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -273,7 +523,7 @@ def check_trunk(w, k_cache, v_cache, cross_k, cross_v, *, B, d, t0, K,
                 num_heads, dtype, device):
     """Check the trunk's operands (stacked weights, caches, cross K/V)
     against the kernels' contract for K steps from ``t0``; returns the
-    kernels' 16 int dims with the head's filled by the caller, the weight
+    kernels' first 10 int dims (the caller appends the rest), the weight
     pointer array and the f32 attention scale."""
     dev, dt = device, dtype
     L, BH, Tmax, Dh = k_cache.shape
@@ -328,7 +578,22 @@ def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
     if in_b is not None:
         _build.require(in_b, "in_b", dev, torch.float32, (d,))
     _build.require(finished, "finished", dev, torch.int32, (B,))
-    dims = (ctypes.c_int * 16)(*dims, head_b.shape[0], int(qk_norm), *ints)
+    N = head_b.shape[0]
+    plan = None
+    # 16-byte loads: the product weights, the embedding table or input
+    # kernel, the position rows, the k/v rows and the head
+    aligned = all(t.data_ptr() % 16 == 0 for t in
+                  (*(w[k] for k in _PRODUCT_KEYS), in_w, pos_chunk, k_cache,
+                   v_cache, cross_k, cross_v, head_w, head_b))
+    if cluster_decline(dt, d=d, H=num_heads, dff=dims[5], N=N,
+                       aligned=aligned) is None:
+        plan = cluster_plan(B, d=d, H=num_heads, dff=dims[5], N=N,
+                            Tmax=dims[6], Mq=dims[7], cont=cont,
+                            max_clusters=cluster_fit(dev.index, cont))
+    plan_arr = None
+    if plan is not None:
+        plan_arr = (ctypes.c_int * PLAN_INTS)(*plan_ints(plan))
+    dims = (ctypes.c_int * 17)(*dims, N, int(qk_norm), *ints)
     fdims = (ctypes.c_float * 2)(
         scale, float(torch.tensor(d ** 0.5, dtype=dt)))
     prev_tok = None if cont else prev
@@ -342,19 +607,24 @@ def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
             _build.ptr(in_w), _build.ptr(in_b), _build.ptr(prev_tok),
             _build.ptr(prev_row), _build.ptr(finished),
             *(_build.ptr(o) for o in outs), ctypes.addressof(dims),
-            ctypes.addressof(fdims), _build.stream(prev))
+            ctypes.addressof(fdims),
+            None if plan_arr is None else ctypes.addressof(plan_arr),
+            _build.stream(prev))
     _build.check(err, kernel)
     LAUNCHES[kernel] += 1
+    ROUTES["rows" if plan is None else "cluster"] += 1
 
 
 def decode_chunk(prev, finished, k_cache, v_cache, cross_k, cross_v, emb,
                  pos_chunk, head_w, head_b, w, t0, *, num_heads,
                  qk_norm=False, pad_id=0, sos_id=1, eos_id=2):
     """K greedy token steps from position ``t0`` (the port of
-    ``fused_decode_chunk``). ``emb`` (V, d) and ``head_w`` (d, V) in the
-    compute dtype, ``head_b`` (V,) f32, ``w`` from
-    ``convert.stacked_decoder_weights``. Returns ``(ids (B, K) int32,
-    finished (B,) int32)``; the caches get rows ``[t0, t0 + K)``."""
+    ``fused_decode_chunk``). ``emb`` (V, d) and ``head_w`` (d, N) in the
+    compute dtype, ``head_b`` (N,) f32, N = V or V padded by
+    :func:`pad_head` (the bf16 cluster kernel takes only a head of whole
+    16-column tiles), ``w`` from ``convert.stacked_decoder_weights``.
+    Returns ``(ids (B, K) int32, finished (B,) int32)``; the caches get
+    rows ``[t0, t0 + K)``."""
     if prev.device.type == "cpu":
         return decode_chunk_reference(
             prev, finished, k_cache, v_cache, cross_k, cross_v, emb,
@@ -372,7 +642,8 @@ def decode_chunk(prev, finished, k_cache, v_cache, cross_k, cross_v, emb,
             cross_v=cross_v, in_w=emb, in_b=None, pos_chunk=pos_chunk,
             head_w=head_w, head_b=_masked_head_bias(head_b, pad_id, sos_id),
             w=w, t0=t0, num_heads=num_heads, qk_norm=qk_norm,
-            outs=(ids, None, None, None, fin), ints=(pad_id, eos_id, 0, 0))
+            outs=(ids, None, None, None, fin),
+            ints=(pad_id, eos_id, 0, 0, emb.shape[0]))
     return ids, fin
 
 
@@ -380,8 +651,10 @@ def decode_cont_chunk(prev_row, finished, k_cache, v_cache, cross_k, cross_v,
                       in_w, in_b, pos_chunk, head_w, head_b, w, t0, *,
                       num_heads, num_mixtures, qk_norm=False, pen_end=2):
     """K greedy MDN steps from position ``t0`` (the port of
-    ``fused_decode_cont_chunk``). ``in_w`` (5, d) and ``head_w`` (d, 6M+3)
-    in the compute dtype, ``in_b``/``head_b`` f32. Returns ``(xy (B, K, 2)
+    ``fused_decode_cont_chunk``). ``in_w`` (5, d) and ``head_w`` (d, N) in
+    the compute dtype, ``in_b``/``head_b`` f32, N = 6M+3 or padded by
+    :func:`pad_head` (the picks read only the first 6M+3 columns). Returns
+    ``(xy (B, K, 2)
     f32, pen (B, K) int32, valid (B, K) int32, finished (B,) int32)``; the
     caches get rows ``[t0, t0 + K)``."""
     if prev_row.device.type == "cpu":
@@ -397,9 +670,9 @@ def decode_cont_chunk(prev_row, finished, k_cache, v_cache, cross_k, cross_v,
     K = pos_chunk.shape[0]
     P = 6 * num_mixtures + 3
     _build.require(prev_row, "prev_row", dev, torch.float32, (B, 5))
-    if head_b.shape != (P,):
+    if head_b.dim() != 1 or head_b.shape[0] < P:
         raise ValueError(f"head_b has shape {tuple(head_b.shape)}, expected "
-                         f"({P},) for {num_mixtures} mixtures")
+                         f"at least ({P},) for {num_mixtures} mixtures")
     xy = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
     pen = torch.empty((B, K), dtype=torch.int32, device=dev)
     valid = torch.empty((B, K), dtype=torch.int32, device=dev)
@@ -409,5 +682,5 @@ def decode_cont_chunk(prev_row, finished, k_cache, v_cache, cross_k, cross_v,
             cross_v=cross_v, in_w=in_w, in_b=in_b, pos_chunk=pos_chunk,
             head_w=head_w, head_b=head_b, w=w, t0=t0, num_heads=num_heads,
             qk_norm=qk_norm, outs=(None, xy, pen, valid, fin),
-            ints=(0, 0, num_mixtures, pen_end))
+            ints=(0, 0, num_mixtures, pen_end, 0))
     return xy, pen, valid, fin

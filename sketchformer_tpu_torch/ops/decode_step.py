@@ -77,7 +77,7 @@ def fused_decode_step(x: torch.Tensor, k_cache: torch.Tensor,
     h = torch.empty((B, d), dtype=dt, device=dev)
     k_new = torch.empty((L, BH, Dh), dtype=dt, device=dev)
     v_new = torch.empty_like(k_new)
-    cdims = (ctypes.c_int * 16)(*dims, 0, int(qk_norm), 0, 0, 0, 0)
+    cdims = (ctypes.c_int * 17)(*dims, 0, int(qk_norm), 0, 0, 0, 0, 0)
     fdims = (ctypes.c_float * 2)(scale, 0.0)
     lib = _build.library()
     with torch.cuda.device(dev):

@@ -277,22 +277,39 @@ def _check_chunk(got, want, n, got_kv, want_kv, t0, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("H,qk,t0,rows", [
     (4, False, 0, 1), (4, True, 8, 1), (1, True, 24, 1), (2, False, 8, 1),
-    (4, True, 8, 2)])
+    (4, True, 8, 2), (4, False, 16, 512), (2, True, 8, 512),
+    (4, True, 8, "unpadded"), (2, False, 16, "pos8")])
 @pytest.mark.parametrize("cont", [False, True], ids=["token", "mdn"])
 def test_decode_chunk(cuda, dtype, H, qk, t0, rows, cont):
-    """``rows`` 2: a batch above the SM count, which the kernel runs two
-    rows per block (the last block half empty)."""
+    """``rows`` 1: B=7, one part-empty row group of the bf16 cluster kernel;
+    2: a batch above the SM count, which the f32 kernel runs two rows per
+    block (the last block half empty) and the cluster kernel in groups of
+    32 (the last part-empty); 512: B=512, the cluster kernel's largest
+    groups. The head is padded by ``pad_head``, and bf16 launches the
+    cluster kernel, f32 the per-row one; bf16 geometries that
+    ``cluster_decline`` names take the per-row kernel: "unpadded" (B=7, the
+    head left at its width) and "pos8" (B=7, position rows 8 bytes off a
+    16-byte boundary)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
-    B = 7 if rows == 1 else torch.cuda.get_device_properties(
-        cuda).multi_processor_count + 3
+    B = {1: 7, 512: 512, "unpadded": 7, "pos8": 7}.get(
+        rows, torch.cuda.get_device_properties(cuda).multi_processor_count
+        + 3)
     L, d, dff, K, Tmax = 2, 128, 256, 8, 32
     N = 6 * 5 + 3 if cont else 517
     ops = _chunk_operands(gen, cuda, B=B, L=L, d=d, H=H, dff=dff, N=N,
                           Tmax=Tmax, Mq=3, K=K, t0=t0, dtype=dtype,
                           cont=cont)
+    if rows != "unpadded":
+        ops["head_w"], ops["head_b"] = dc.pad_head(
+            ops["head_w"], ops["head_b"], cont=cont)
+    if rows == "pos8":
+        off = 8 // ops["pos_chunk"].element_size()
+        pos = torch.empty(K * d + off, dtype=dtype, device=cuda)[off:]
+        ops["pos_chunk"] = pos.view(K, d).copy_(ops["pos_chunk"])
     kv_ref = (ops["k_cache"].clone(), ops["v_cache"].clone())
     name = "decode_cont_chunk" if cont else "decode_chunk"
     before = dc.LAUNCHES[name]
+    routes = dict(dc.ROUTES)
     if cont:
         kw = dict(num_heads=H, num_mixtures=5, qk_norm=qk)
         args = lambda kc, vc: (
@@ -314,6 +331,10 @@ def test_decode_chunk(cuda, dtype, H, qk, t0, rows, cont):
         *want, margins = dc.decode_chunk_reference(
             *args(*kv_ref), **kw, return_margins=True)
     assert dc.LAUNCHES[name] == before + 1
+    declined = rows in ("unpadded", "pos8")
+    route = ("cluster" if dtype == torch.bfloat16 and not declined
+             else "rows")
+    assert dc.ROUTES == {**routes, route: routes[route] + 1}
     n = _agreeing_steps(margins)
     assert int(n.sum()) >= B * K // 2      # most steps are compared
     _check_chunk(got[:-1], want[:-1], n, (ops["k_cache"], ops["v_cache"]),
