@@ -13,9 +13,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``sbir`` preset's geometry (T=192, d=256, H=8, dff=512, L=8; B=64 and
    512), at head_dim 128, with and without qk-norm, under a key mask with
    padded and fully masked rows (the bf16 stack is held to the float32
-   computation of its inputs, as accurate as the plain bf16 path); then
-   the decode kernels: ``decode_attention`` at B=64, H=8/Dh=32, Tmax=192
-   with cache_len 1, 17 and 192 (and at Dh=64 and 128), ``decode_chunk``
+   computation of its inputs, as accurate as the plain bf16 path);
+   ``layernorm_rows`` at the main paths' rows (12,288 and 49,152 x 256),
+   D=128 at an odd M and the geometries its register plan declines (bf16
+   D=100, f32 D=512, a misaligned view), each on the route it must take
+   (``ROUTES``); then the decode kernels: ``decode_attention`` at Tmax=192
+   and B*H 512 / 256 / 128 (H=8/4/2 at B=64, Dh 32/64/128) and 511 on
+   the bulk kernel, Dh=24 and a misaligned cache on the per-row kernel,
+   each with cache_len 1, 17, 31, 96, 191 and 192, ``decode_chunk``
    at the ``ar_decode`` width (B=64, L=8, d=256, H=8, dff=512, V=10,004,
    K=16) from chunk starts 0, 16 and 176 with some rows already finished,
    qk-norm off and on, and at H=2/Dh=128 and H=4/Dh=64, ``decode_cont_chunk``
@@ -116,8 +121,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``decode`` on K8 (engines and stacks declined), ``train`` for 30 steps
    with K8 forward and backward 16 times a step and no stack kernel, and
    ``eval`` against the composed model; and the K13 step loop on
-   ``ar_decode`` (192 launches; every CLI path launches it 0 times);
-5. times: kernel vs plain (CUDA events after warm-up), the end-to-end
+   ``ar_decode`` (192 launches; every CLI path launches it 0 times). Each
+   CLI run prints the routes of its ``layernorm_rows`` and
+   ``decode_attention`` launches and fails if one was declined;
+5. times: ``layernorm_rows`` (bf16, M 12,288 and 49,152), K12 (B*H=512,
+   Dh=32, cache_len 96 and 191) and K7's emit (one ``pretrain_full`` site,
+   and a whole 'bits' stack's tensor) as the median and spread of 60
+   calls' device time beside their plain versions, ``F.layer_norm`` and
+   SDPA on the filled slice, and their bounds; kernel vs plain (CUDA
+   events after warm-up), the end-to-end
    embed rate, per-chunk and per-call decode kernel times (each chunk at
    B=64 beside its bound, the self-attention cache rows counted once a
    step and the cross K/V once a chunk, and its serial floor: the cluster
@@ -148,13 +160,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and ``sum_rows`` ((12,288, 768) and the partial rows) as device time
    against ``native_layer_norm_backward`` and ``sum``; ``sum_rows``
    launches a ``cont2cont_mdn`` and a token step beside the counts before
-   its three in-launch sums; the train stacks' forward + backward; K6
-   and the emit kernel; the train step p50 and sketches/s at the
+   its three in-launch sums; the train stacks' forward + backward; K6;
+   the train step p50 and sketches/s at the
    ``cont2cont_mdn`` shape, the JAX benchmark's ``cont_train`` shape
    (B=512, T=96, H=2; 'prng' and 'bits' dropout), ``cont2cont_mdn``
    post-LN, and its token cells
    ``train`` (H=2) and ``train_h8`` (H=8), with a ``torch.profiler``
-   breakdown of each and the LayerNorm backward's and ``linear``'s share;
+   breakdown of each and the LayerNorm backward's, ``layernorm_rows``' and
+   ``linear``'s share;
    each with the card's name and power limit. Every kernel's bound (the least time for
    its bytes and operations at the card's published peaks) is computed
    from the timed calls' shapes.
@@ -230,6 +243,18 @@ REPLACES = {
 }
 # max |kernel - plain| / max |plain| allowed, by dtype
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# layernorm_rows' checks: (M, D, x's offset in elements from a 16-byte
+# boundary, route in f32, in bf16): the main paths' rows (sbir and
+# cont2cont_mdn's 64 x 192, train's 512 x 96), D=128 (bf16: half a warp a
+# row) at an M that is not a multiple of a warp's rows, and the geometries
+# the register plan declines (D=100: no whole 16-byte vectors in bf16; f32
+# D=512: past the registers; a misaligned view)
+LN_ROWS_CHECKS = ((64 * 192, 256, 0, "ln_rows", "ln_rows"),
+                  (512 * 96, 256, 0, "ln_rows", "ln_rows"),
+                  (1001, 128, 0, "ln_rows", "ln_rows"),
+                  (1000, 100, 0, "ln_rows", "ln_declined"),
+                  (16, 512, 0, "ln_declined", "ln_rows"),
+                  (300, 256, 1, "ln_declined", "ln_declined"))
 # the whole bf16 stack: max |kernel - f32| <= this x max |plain bf16 - f32|
 STACK_BF16_FACTOR = 2.0
 SBIR = dict(T=192, d=256, H=8, dff=512, L=8)
@@ -237,6 +262,14 @@ SKETCHES_PER_EPOCH = 345 * 32   # 1380 validation sketches -> >= 16 batches
 MAIN_BATCHES = 16
 AR = dict(d=256, H=8, dff=512, L=8, V=10004, T=192, K=16, Mq=4)
 MDN_MIXTURES = 20                 # cont2cont_mdn
+# K12's checks at Tmax 192: (B*H, Dh, the caches' offset in elements from a
+# 16-byte boundary, route): the decode's H=8 / 4 / 2 at B=64 on the bulk
+# kernel, a B*H that is not a multiple of its rows a block, and the
+# geometries it declines to the per-row kernel (Dh=24: three 16-byte
+# vectors in bf16, six in f32; caches 2 or 4 bytes off their boundary)
+K12_CHECKS = ((512, 32, 0, "bulk"), (256, 64, 0, "bulk"),
+              (128, 128, 0, "bulk"), (511, 32, 0, "bulk"),
+              (40, 24, 0, "declined"), (64, 32, 1, "declined"))
 # bf16 decode chunks: a pick is compared where the plain version's top two
 # values are at least this many bf16 ulps of the top value apart
 BF16_TIE_ULPS = 4
@@ -273,6 +306,20 @@ def nvcc_version(nvcc: str) -> str:
 # ---------------------------------------------------------------------------
 # decode kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+def main_path_routes(label):
+    """Print the routes of the ``layernorm_rows`` and ``decode_attention``
+    launches since the counters' last reset; fail if one took a declined
+    route (no main path has a geometry the redesigned kernels decline)."""
+    from sketchformer_tpu_torch.ops import decode_attention as da
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+
+    ln = {k: es.ROUTES[k] for k in ("ln_rows", "ln_declined")}
+    print(f"  routes ({label}): layernorm_rows {json.dumps(ln)}, "
+          f"decode_attention {json.dumps(da.ROUTES)}")
+    if ln["ln_declined"] or da.ROUTES["declined"]:
+        fail(f"{label}: a launch took a declined route")
 
 
 def chunk_operands(randn, gen, dev, *, B, L, d, H, dff, N, Tmax, Mq, K, t0,
@@ -428,22 +475,28 @@ def check_decode_kernels(randn, gen, dev, errs):
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         main_rec = dtype == torch.bfloat16
-        for BH, Dh in ((64 * 8, 32), (64 * 4, 64), (64 * 2, 128)):
+        for BH, Dh, off, route in K12_CHECKS:
             q = randn(BH, 1, Dh, dtype=dtype)
-            k, v = randn(BH, T, Dh, dtype=dtype), randn(BH, T, Dh, dtype=dtype)
-            for n in (1, 17, T):
+            k, v = (randn(BH * T * Dh + off, dtype=dtype)[off:].view(
+                BH, T, Dh) for _ in range(2))
+            for n in (1, 17, 31, 96, 191, T):
+                before = dict(da.ROUTES)
                 got = da.decode_attention(q, k, v, n)
                 torch.cuda.synchronize()
+                if da.ROUTES != {**before, route: before[route] + 1}:
+                    fail(f"decode_attention B*H={BH} Dh={Dh} offset {off}: "
+                         f"routes {da.ROUTES} (before {before}), not {route}")
                 want = da.decode_attention_reference(q, k, v, n)
                 err = (got.float() - want.float()).abs().max().item()
                 rel = err / want.float().abs().max().item()
                 tol = TOL[tag]
                 print(f"check decode_attention {tag} B*H={BH} Dh={Dh} "
-                      f"Tmax={T} cache_len={n}: max_abs_err {err:.3e} rel "
-                      f"{rel:.3e} (tol {tol:.0e})")
+                      f"Tmax={T} cache offset {off} cache_len={n} (route "
+                      f"{route}): max_abs_err {err:.3e} rel {rel:.3e} (tol "
+                      f"{tol:.0e})")
                 if not torch.isfinite(got).all() or not rel <= tol:
                     fail(f"decode_attention: rel err {rel:.3e}")
-                if main_rec and Dh == 32:
+                if main_rec and (BH, Dh, off) == (512, 32, 0):
                     errs["decode_attention"] = max(errs["decode_attention"],
                                                    err)
         # f32 (the per-row kernel): B=64 runs one row per block, a batch
@@ -1258,6 +1311,7 @@ def train_main_path(cli, counters, engines, tmp, post_ln=False):
     final = json.loads(buf.getvalue().strip().splitlines()[-1])
     print(f"  train: {json.dumps(final)} ({secs:.1f} s)")
     print(f"  launches: {json.dumps(launches)}")
+    main_path_routes("cli train")
     composed = sorted(s for s in engines._seen
                       if s[0] in ("encoder-stack", "decoder-stack")
                       and s[1] == "composed")
@@ -1312,6 +1366,7 @@ def train_main_path(cli, counters, engines, tmp, post_ln=False):
     print(f"main path: python -m sketchformer_tpu_torch.cli eval --run-dir "
           f"{run} --device cuda\n  eval: {json.dumps(ev)}\n  launches: "
           f"{json.dumps(got)}")
+    main_path_routes("cli eval")
     for k in (("flash_attention_fwd",) if post_ln else
               ("linear", "layernorm_rows", "encoder_attention",
                "attention_fwd")):
@@ -1370,6 +1425,7 @@ def train_f32_main_path(cli, counters, tmp):
         losses = [r["loss"] for r in map(json.loads, f)
                   if "loss" in r and "val_loss" not in r]
     print(f"  launches: {json.dumps(launches)}")
+    main_path_routes("cli train (float32)")
     print(f"  losses {' '.join(f'{v:.3f}' for v in losses)}")
     if len(losses) != F32_TRAIN_STEPS or not np.isfinite(losses).all():
         fail(f"float32 train losses {losses}")
@@ -1422,6 +1478,13 @@ def profile_steps(label, step, batch, gpu, step_ms, n=2, top=12):
     print(f"  layernorm_bwd + sum_rows kernels: {ln_ms:.3f} ms/step, "
           f"{sum(r[1] for r in ln) // n} launches/step, "
           f"{ln_ms / (busy / n):.4f} of the busy time")
+    # the LayerNorm forward (the register plan's kernel and the
+    # one-warp-a-row kernel of the geometries it declines)
+    lnf = [r for r in rows if "layernorm_rows" in r[2]]
+    lnf_ms = sum(r[0] for r in lnf) / n
+    print(f"  layernorm_rows kernels: {lnf_ms:.3f} ms/step, "
+          f"{sum(r[1] for r in lnf) // n} launches/step, "
+          f"{lnf_ms / (busy / n):.4f} of the busy time")
     # the forward product linear (its bf16 and f32 kernels, not linear_nt /
     # linear_tn)
     lin = [r for r in rows
@@ -1435,27 +1498,14 @@ def profile_steps(label, step, batch, gpu, step_ms, n=2, top=12):
               f"{key[:90]}")
 
 
-def train_step_times(gpu, dev, cli):
-    """Train step ms and sketches/s (host clock around synchronised steps)
-    at the cont2cont_mdn and the cont_train shape (the stacks' dropout in
-    'prng' mode, and cont_train again with the stacks forced to 'bits', PR
-    3's mode, for the comparison) and at the JAX benchmark's token cells
-    train (H=2) and train_h8 (H=8); returns them."""
-    import torch
-
-    from sketchformer_tpu_torch.config import SketchformerConfig
-    from sketchformer_tpu_torch.convert import init_params
-    from sketchformer_tpu_torch.data.registry import get_dataloader_by_name
-    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
-    from sketchformer_tpu_torch.ops import dropout_prng as dp
+def train_cells():
+    """(label, shape, config overrides, dropout impl) of each train step
+    cell: the cont2cont_mdn and the cont_train shape (the stacks' dropout
+    in 'prng' mode, and cont_train again with the stacks forced to 'bits'
+    for the comparison), cont2cont_mdn post-LN and the JAX
+    benchmark's token cells train (H=2) and train_h8 (H=8)."""
     from sketchformer_tpu_torch.presets import get_preset
-    from sketchformer_tpu_torch.train.step import (
-        batch_to_device,
-        create_train_state,
-        make_train_step,
-    )
 
-    out = {}
     cont = {**get_preset("cont2cont_mdn").model_overrides, "num_classes": 32}
     cont_train = dict(cont, num_heads=2, qk_norm=False, max_len=96,
                       num_classes=345)
@@ -1464,57 +1514,80 @@ def train_step_times(gpu, dev, cli):
                num_layers=TRAIN["L"], num_heads=TRAIN["H"],
                dff=TRAIN["dff"], dropout=0.1, lowerdim=256,
                dtype="bfloat16", attn_impl="pallas", qk_norm=False)
-    resolve = dp.resolve_impl
-    for label, shape, over, impl in (
-            ("cont2cont_mdn", MDN, cont, "auto"),
+    return (("cont2cont_mdn", MDN, cont, "auto"),
             ("cont2cont_mdn post-LN (K8)", MDN, dict(cont, norm_first=False),
              "auto"),
             ("cont_train", CONT_TRAIN, cont_train, "auto"),
             ("cont_train (stacks in bits mode)", CONT_TRAIN, cont_train,
              "bits"),
             ("train", TRAIN, tok, "auto"),
-            ("train_h8", TRAIN, dict(tok, num_heads=8), "auto")):
-        B, T = shape["B"], shape["T"]
-        cfg = SketchformerConfig(**over)
-        model = Sketchformer(cfg)
-        model.load_state_dict(init_params(cfg, 0))
-        model.to(dev)
-        token = not cfg.use_continuous
-        loader = get_dataloader_by_name("synthetic")(
-            num_classes=cfg.num_classes if token else 32,
-            sketches_per_epoch=B * 2, batch_size=B, buckets=(T,),
-            token_mode=token)
-        batch = batch_to_device(next(loader.batch_iterator("train")), dev)
-        state = create_train_state(model, 0, 500, 2.0)
-        step = make_train_step(state)
-        if impl == "bits":
-            dp.resolve_impl = lambda *_: "bits"
-        try:
-            for _ in range(2):
-                step(batch)
+            ("train_h8", TRAIN, dict(tok, num_heads=8), "auto"))
+
+
+def train_cell(gpu, dev, label, shape, over, impl):
+    """One train step cell: the step's p50 ms (host clock around
+    synchronised steps) and sketches/s, with a ``torch.profiler``
+    breakdown (``profile_steps``). Returns (ms, sketches/s)."""
+    import torch
+
+    from sketchformer_tpu_torch.config import SketchformerConfig
+    from sketchformer_tpu_torch.convert import init_params
+    from sketchformer_tpu_torch.data.registry import get_dataloader_by_name
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
+    from sketchformer_tpu_torch.train.step import (
+        batch_to_device,
+        create_train_state,
+        make_train_step,
+    )
+
+    B, T = shape["B"], shape["T"]
+    cfg = SketchformerConfig(**over)
+    model = Sketchformer(cfg)
+    model.load_state_dict(init_params(cfg, 0))
+    model.to(dev)
+    token = not cfg.use_continuous
+    loader = get_dataloader_by_name("synthetic")(
+        num_classes=cfg.num_classes if token else 32,
+        sketches_per_epoch=B * 2, batch_size=B, buckets=(T,),
+        token_mode=token)
+    batch = batch_to_device(next(loader.batch_iterator("train")), dev)
+    state = create_train_state(model, 0, 500, 2.0)
+    step = make_train_step(state)
+    resolve = dp.resolve_impl
+    if impl == "bits":
+        dp.resolve_impl = lambda *_: "bits"
+    try:
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            m = step(batch)
             torch.cuda.synchronize()
-            ts = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                m = step(batch)
-                torch.cuda.synchronize()
-                ts.append((time.perf_counter() - t0) * 1e3)
-            ms = float(np.median(ts))
-            if not np.isfinite(m["loss"].item()):
-                fail(f"{label} train step loss not finite")
-            profile_steps(label, step, batch, gpu, ms)
-        finally:
-            dp.resolve_impl = resolve
-        out[label] = (ms, B / ms * 1e3)
-        print(f"time train step {label} ({'token' if token else 'MDN'}, "
-              f"B={B}, T={T}, d={cfg.d_model}, L={cfg.num_layers}, "
-              f"H={cfg.num_heads}, qk_norm={cfg.qk_norm}, {cfg.dtype}, "
-              f"dropout {cfg.dropout}): p50 {ms:.2f} ms (min {min(ts):.2f}, "
-              f"max {max(ts):.2f}, 5 steps), {B / ms * 1e3:.1f} sketches/s "
-              f"[{gpu}]")
-        del model, state, step
-        torch.cuda.empty_cache()
-    return out
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(ts))
+        if not np.isfinite(m["loss"].item()):
+            fail(f"{label} train step loss not finite")
+        profile_steps(label, step, batch, gpu, ms)
+    finally:
+        dp.resolve_impl = resolve
+    print(f"time train step {label} ({'token' if token else 'MDN'}, "
+          f"B={B}, T={T}, d={cfg.d_model}, L={cfg.num_layers}, "
+          f"H={cfg.num_heads}, qk_norm={cfg.qk_norm}, {cfg.dtype}, "
+          f"dropout {cfg.dropout}): p50 {ms:.2f} ms (min {min(ts):.2f}, "
+          f"max {max(ts):.2f}, 5 steps), {B / ms * 1e3:.1f} sketches/s "
+          f"[{gpu}]")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return ms, B / ms * 1e3
+
+
+def train_step_times(gpu, dev):
+    """Every cell of :func:`train_cells`; returns {label: (ms,
+    sketches/s)}."""
+    return {cell[0]: train_cell(gpu, dev, *cell) for cell in train_cells()}
 
 
 # ---------------------------------------------------------------------------
@@ -1905,6 +1978,7 @@ def train_tok_main_path(cli, counters, engines, tmp):
     print(f"  train: {json.dumps(final)} ({secs:.1f} s)")
     print(f"  launches: {json.dumps(launches)}; draw_dropout_bytes calls "
           f"{draws}")
+    main_path_routes("cli train (token)")
     for k in STACK_KERNELS + TOK_KERNELS + ("prng_draw",):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by cli train (token)")
@@ -1945,6 +2019,7 @@ def train_tok_main_path(cli, counters, engines, tmp):
     print(f"main path: python -m sketchformer_tpu_torch.cli eval --run-dir "
           f"{run} --device cuda\n  eval: {json.dumps(ev)}\n  launches: "
           f"{json.dumps(got)}")
+    main_path_routes("cli eval (token)")
     for k in ("linear", "layernorm_rows", "encoder_attention",
               "attention_fwd", "token_ce_fwd"):
         if got[k] <= 0:
@@ -2150,7 +2225,7 @@ def ce_fwd_spread(randn, gen, dev, gpu):
         sp = spread_ms(lambda: tce.token_ce_fwd(x, w, b, tgt),
                        lambda: tce.token_ce_fwd_reference(x, w, b, tgt),
                        lambda: torch.addmm(b.to(dt), x, wd))
-    b_ms, b_by = bound(*token_kernel_work(M, d, V, 1)["token_ce_fwd"])
+    b_ms, b_by = bound(*token_kernel_work(M, d, V)["token_ce_fwd"])
     print(f"time token_ce_fwd (bf16, M={M}, d={d}, V={V}, device time, "
           f"median of {SPREAD_CALLS}): kernel {fmt_spread(sp['kernel'])}, "
           f"plain {fmt_spread(sp['plain'])}, library (addmm of the logits) "
@@ -2209,7 +2284,7 @@ def token_ce_times(randn, gen, dev, gpu, paired):
                               libs["dx"][0])
         out["token_ce_dw"] = (parts["ce_dw_wgmma_kernel"][0], p_ms,
                               libs["dw"][0])
-        own, tpu = (bound(fl, token_kernel_work(M, d, V, 1)["token_ce_dw"][1])
+        own, tpu = (bound(fl, token_kernel_work(M, d, V)["token_ce_dw"][1])
                     for fl in (4 * M * d * V, 2 * M * d * V))
         print(f"bound ce_dw (bf16, M={M}, d={d}, V={V}): {own[0]:.4f} ms "
               f"({own[1]}) for its own work (the logits' recompute and the "
@@ -2238,21 +2313,6 @@ def token_ce_times(randn, gen, dev, gpu, paired):
             del x, w
     torch.cuda.empty_cache()
     return out
-
-
-def emit_times(dev, gpu, cuda_ms, paired):
-    """The emit kernel at the train shape's (2L, B, T, d) against the plain
-    Philox. Returns (ms, plain_ms)."""
-    from sketchformer_tpu_torch.ops import dropout_prng as dp
-
-    L, B, T, d = TRAIN["L"], TRAIN["B"], TRAIN["T"], TRAIN["d"]
-    k_ms, p_ms = paired(
-        lambda: dp.emit_dropout_bits(PRNG_SEED, L, 2, B, T, d, dev),
-        lambda: dp.emit_dropout_bits_reference(PRNG_SEED, L, 2, B, T, d, dev),
-        iters=5, warm=1)
-    print(f"time emit_dropout_bits ((2L, B, T, d) = ({2 * L}, {B}, {T}, {d}))"
-          f": kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
-    return k_ms, p_ms
 
 
 # ---------------------------------------------------------------------------
@@ -2720,9 +2780,9 @@ def linear_layer_work(M, d, dff):
 
 def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn, Mq=4):
     """{kernel: (flops, bytes)} of the timed calls of the serving kernels
-    (bf16): linear = one encoder layer's 4 products; encoder_attention and
-    layernorm_rows one call at (B, T); decode chunks the mean 16-step chunk
-    of a T=192 decode; decode_attention one call (B*H, cache_len T/2).
+    (bf16): linear = one encoder layer's 4 products; encoder_attention one
+    call at (B, T); decode chunks the mean 16-step chunk of a T=192
+    decode (layernorm_rows' and decode_attention's: ``rule2_work``).
 
     A chunk's K steps each re-read every filled k/v cache row of every
     layer (position t reads rows 0..t: (T + 1) / 2 on average over the
@@ -2745,32 +2805,27 @@ def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn, Mq=4):
               + 2 * L * B * H * Mq * Dh * 2
               + K * 2 * L * B * H * Dh * 2 + K * B * 8)
         return fl, by
-    n = T // 2
     return {
         "linear": lin,
         "encoder_attention": (4 * B * H * T * T * Dh,
                               3 * M * d * 2 + M * d * 2 + B * T * 4),
-        "layernorm_rows": (8 * M * d, 2 * M * d * 2 + 2 * d * 4),
         "decode_chunk": chunk(V, K * B * d * 2),
         "decode_cont_chunk": chunk(N_mdn, 5 * d * 2),
-        "decode_attention": (4 * B * H * n * Dh,
-                             (2 * B * H * Dh + 2 * B * H * n * Dh) * 2),
     }
 
 
-def token_kernel_work(M, d, V, L):
-    """{kernel: (flops, bytes)} of K6 and K7 at the train shape: the CE
+def token_kernel_work(M, d, V):
+    """{kernel: (flops, bytes)} of K6 at the train shape: the CE
     forward (2 M d V); the backward's two kernels each recompute the logits
     from their inputs and do one product, 4 M d V each (the TPU kernel's
     one recompute serves both products: 6 M d V in all, of which dW's
-    share is its 2 M d V product); emit writes (2L, B*T, d) bytes."""
+    share is its 2 M d V product)."""
     x, wb = M * d * 2, d * V * 2 + V * 4
     return {
         "token_ce_fwd": (2 * M * d * V, x + wb + M * 4 + 3 * M * 4),
         "token_ce_dx": (4 * M * d * V, x + wb + 3 * M * 4 + M * d * 2),
         "token_ce_dw": (4 * M * d * V, x + wb + 3 * M * 4 + d * V * 4
                         + V * 4),
-        "emit_dropout_bits": (0, 2 * L * M * d),
     }
 
 
@@ -3124,6 +3179,144 @@ def norm_times(randn, gpu):
     return out
 
 
+# the main-path shapes of the kernels redesigned under rule 2's second
+# part: layernorm_rows (bf16, D=256) at the sbir / cont2cont_mdn rows
+# (B=64 x T=192) and the train rows (B=512 x T=96); K12 at the composed
+# decode's B*H = 512, Dh = 32, Tmax = 192 midway and at the last step of a
+# decode; K7's emit at one composed site of pretrain_full (the stacks'
+# entry dropout of its largest bucket, (B, T, d) = (256, 192, 256))
+LN_ROWS_M = (MDN["B"] * MDN["T"], CONT_TRAIN["B"] * CONT_TRAIN["T"])
+K12_LENS = (AR["T"] // 2, AR["T"] - 1)
+EMIT_SITE = (256, 192, 256)
+
+
+def rule2_work(name, *shape):
+    """(flops, bytes) of one call: layernorm_rows (M, D) in bf16 (x read,
+    y written, f32 scale and bias); decode_attention (B*H, Dh, cache_len)
+    in bf16 (q, the filled k and v rows, the output); the emit of (B, T,
+    d) bytes."""
+    if name == "layernorm_rows":
+        M, D = shape
+        return 8 * M * D, 2 * M * D * 2 + 2 * D * 4
+    if name == "decode_attention":
+        BH, Dh, n = shape
+        return 4 * BH * n * Dh, (2 * BH * Dh + 2 * BH * n * Dh) * 2
+    B, T, d = shape
+    return 0, B * T * d
+
+
+def rule2_cases(randn):
+    """The calls of ``layernorm_rows``, K12 ``decode_attention`` and K7's
+    emit at their main-path shapes, as (name, shape, what, kernel, plain,
+    library or None, the library call's name, calls): bf16 rows with
+    ``F.layer_norm`` (its parameters in bf16) beside them; K12 with SDPA on
+    the filled slice ``k[:, :len]``; the emit with no library call, and
+    also at the (2L, B, T, d) = (16, 512, 96, 256) tensor of a whole 'bits'
+    stack, on no main path (20 calls: its plain version takes 47 ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sketchformer_tpu_torch.ops import decode_attention as da
+    from sketchformer_tpu_torch.ops import dropout_prng as dp
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+
+    dt, dev, d, cases = torch.bfloat16, torch.device("cuda"), MDN["d"], []
+    for M in LN_ROWS_M:
+        x = randn(M, d, dtype=dt)
+        s, b = 1.0 + randn(d, scale=0.1), randn(d, scale=0.1)
+        sd, bd = s.to(dt), b.to(dt)
+        cases.append((
+            "layernorm_rows", (M, d), f"bf16, M={M}, D={d}",
+            lambda x=x, s=s, b=b: es.layernorm_rows(x, s, b),
+            lambda x=x, s=s, b=b: es.layernorm_rows_reference(x, s, b),
+            lambda x=x, sd=sd, bd=bd: F.layer_norm(x, (d,), sd, bd, 1e-6),
+            "layer_norm", SPREAD_CALLS))
+    BH, Dh, T = AR["H"] * 64, AR["d"] // AR["H"], AR["T"]
+    q = randn(BH, 1, Dh, dtype=dt)
+    k, v = (randn(BH, T, Dh, dtype=dt) for _ in range(2))
+    for n in K12_LENS:
+        cases.append((
+            "decode_attention", (BH, Dh, n),
+            f"bf16, B*H={BH}, Dh={Dh}, Tmax={T}, cache_len={n}",
+            lambda n=n: da.decode_attention(q, k, v, n),
+            lambda n=n: da.decode_attention_reference(q, k, v, n),
+            lambda n=n: F.scaled_dot_product_attention(q, k[:, :n],
+                                                       v[:, :n]),
+            "SDPA on the filled slice", SPREAD_CALLS))
+    L, Bt, Tt = TRAIN["L"], TRAIN["B"], TRAIN["T"]
+    for shape, args, calls, where in (
+            (EMIT_SITE, (1, 1, *EMIT_SITE), SPREAD_CALLS,
+             "one pretrain_full site"),
+            ((2 * L * Bt, Tt, d), (L, 2, Bt, Tt, d), 20,
+             "a whole 'bits' stack's (2L, B, T, d), on no main path")):
+        cases.append((
+            "emit_dropout_bits", shape, f"{shape} u8, {where}",
+            lambda args=args: dp.emit_dropout_bits(PRNG_SEED, *args, dev),
+            lambda args=args: dp.emit_dropout_bits_reference(PRNG_SEED,
+                                                             *args, dev),
+            None, None, calls))
+    return cases
+
+
+def rule2_spreads(cases, gpu):
+    """Each of :func:`rule2_cases` as the median and spread of its calls'
+    device time (``call_ms``, in turns with its plain version and library
+    call), beside its bound; first the launch floor, what ``call_ms`` reads
+    for the least work the card can be given. Returns {(name, shape):
+    (kernel, plain, library) spreads}."""
+    import torch
+
+    tiny = torch.zeros(16, device=torch.device("cuda"))
+    floor = call_ms(tiny.zero_, SPREAD_CALLS)
+    print(f"time launch floor (call_ms of zero_ on 16 floats; median of "
+          f"{SPREAD_CALLS}): {float(np.median(floor)):.4f} ms (min "
+          f"{min(floor):.4f}, max {max(floor):.4f}) [{gpu}]")
+    out = {}
+    with torch.no_grad():
+        for name, shape, what, kern, plain, lib_fn, lib_name, calls in cases:
+            sp = spread_ms(kern, plain, lib_fn, n=calls)
+            b_ms, b_by = bound(*rule2_work(name, *shape))
+            k = sp["kernel"][0]
+            lib = "" if sp["lib"] is None else (
+                f", library ({lib_name}) {fmt_spread(sp['lib'])}; kernel /"
+                f" library {k / sp['lib'][0]:.2f}")
+            print(f"time {name} ({what}; device time, median of {calls}): "
+                  f"kernel {fmt_spread(sp['kernel'])}, plain "
+                  f"{fmt_spread(sp['plain'])}; bound {b_ms:.5f} ms "
+                  f"({b_by}); bound / kernel {b_ms / k:.2f}{lib} [{gpu}]")
+            out[(name, shape)] = sp
+    return out
+
+
+def rule2_kernel_events(cases, gpu):
+    """Each kernel of :func:`rule2_cases` alone: its launches' durations in
+    a profiler trace of its calls (after one warm call), which hold none of
+    the launch floor. Run after the checked traces. A trace late in a long
+    run can lose its first few events, so this reads the median of those
+    it kept and says how many; fewer than half is not read (the call_ms
+    readings are the measurement)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        for name, shape, what, kern, _, _, _, calls in cases:
+            kern()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(calls):
+                    kern()
+                torch.cuda.synchronize()
+            ev = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and name in e.name]
+            got = (f"{fmt_spread((float(np.median(ev)), min(ev), max(ev)))}"
+                   if calls // 2 <= len(ev) <= calls else "not read")
+            print(f"time {name} ({what}; the kernel's events in a profiler "
+                  f"trace, median of the {len(ev)} of {calls} launches it "
+                  f"kept): {got} [{gpu}]")
+
+
 def stack_work(B, T, d, H, dff, L, decoder):
     """(flops, bytes) of a train stack's forward + backward as the TPU
     kernels do it: the forward, its recompute in the backward and the two
@@ -3313,11 +3506,18 @@ def main() -> int:
                     es.attention_reference(qkv, kbias, num_heads=Hq,
                                            qk_norm=norms), dtype,
                     "encoder_attention" if main_rec and Hq == H else None)
-        for rows, D in ((M, d), (1000, 100)):
-            xr = x if rows == M else randn(rows, D, dtype=dtype)
+        for rows, D, off, route32, route16 in LN_ROWS_CHECKS:
+            xr = x if (rows, D, off) == (M, d, 0) else randn(
+                rows * D + off, dtype=dtype)[off:].view(rows, D)
             s, bb = ln_params(D)
-            compare(f"layernorm_rows {tag} M={rows} D={D}",
-                    es.layernorm_rows(xr, s, bb),
+            want = route32 if dtype == torch.float32 else route16
+            before = dict(es.ROUTES)
+            got = es.layernorm_rows(xr, s, bb)
+            if es.ROUTES != {**before, want: before[want] + 1}:
+                fail(f"layernorm_rows {tag} M={rows} D={D} offset {off}: "
+                     f"routes {es.ROUTES} (before {before}), not {want}")
+            compare(f"layernorm_rows {tag} M={rows} D={D} x offset {off} "
+                    f"(route {want})", got,
                     es.layernorm_rows_reference(xr, s, bb), dtype,
                     "layernorm_rows" if main_rec and rows == M else None)
         for (Bs, Hs, qk) in ((64, H, False), (64, H, True), (512, H, False),
@@ -3390,11 +3590,12 @@ def main() -> int:
                 fail(f"kernel {name} was not launched by the main path")
         # bf16 at H=8 / Dh=32: every encoder_attention call took the
         # tensor-core forward, none the FMA kernel
-        routes = dict(es.ROUTES)
+        routes = {k: es.ROUTES[k] for k in ("mma", "fma")}
         print(f"encoder_attention routes during the main path: "
               f"{json.dumps(routes)}")
         if routes != {"mma": launches["encoder_attention"], "fma": 0}:
             fail(f"the sbir path's encoder_attention routes {routes}")
+        main_path_routes("cli sbir")
         if launches["linear_nt"] or launches["linear_tn"]:
             fail("the sbir path launched a backward kernel")
         if dc.LAUNCHES["decode_chunk"] or da.LAUNCHES["decode_attention"]:
@@ -3460,6 +3661,7 @@ def main() -> int:
             fail(f"cli {argv[0]} returned {rc}")
         print(f"  {buf.getvalue().strip().splitlines()[-1]} ({secs:.1f} s)")
         print(f"  launches: {json.dumps(got)}")
+        main_path_routes(f"cli {argv[0]}")
         for k in needs:
             if got[k] <= 0:
                 fail(f"kernel {k} was not launched by cli {' '.join(argv)}")
@@ -3652,30 +3854,26 @@ def main() -> int:
         p2 = cuda_ms(plain_fn, iters, warm)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
-    import torch.nn.functional as F
-
     dt = cfg.compute_dtype
     times = {}
     lib = {}    # one PyTorch call computing the same function, where one does
     B = 64
     M = B * T
-    w = weights
-    x = randn(M, d, dtype=dt)
     k_ms, p_ms, lib["linear"] = linear_spreads(randn, gpu)
     times["linear"] = (k_ms, p_ms)
+    # the rule-2 kernels at their main-path shapes as device time (the JSON
+    # line takes layernorm_rows at the sbir rows, K12 midway through a
+    # decode and K7's emit at its pretrain_full site)
+    r2_cases = rule2_cases(randn)
+    r2 = rule2_spreads(r2_cases, gpu)
+    r2_main = (("layernorm_rows", (M, d)),
+               ("decode_attention", (B * H, d // H, AR["T"] // 2)),
+               ("emit_dropout_bits", EMIT_SITE))
+    for name, shape in r2_main:
+        sp = r2[(name, shape)]
+        times[name] = (sp["kernel"][0], sp["plain"][0])
+        lib[name] = None if sp["lib"] is None else sp["lib"][0]
     with torch.inference_mode():
-        times["layernorm_rows"] = paired(
-            lambda: es.layernorm_rows(x, w["lnfs"][0], w["lnfb"][0]),
-            lambda: es.layernorm_rows_reference(x, w["lnfs"][0],
-                                                w["lnfb"][0]))
-        lib["layernorm_rows"] = cuda_ms(
-            lambda: F.layer_norm(x, (d,), w["lnfs"][0].to(dt),
-                                 w["lnfb"][0].to(dt), 1e-6))
-        k_ms, p_ms = times["layernorm_rows"]
-        print(f"library layernorm_rows: {lib['layernorm_rows']:.4f} ms "
-              f"[{gpu}]")
-        print(f"time layernorm_rows (B={B}, T={T}, {str(dt)[6:]}): kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
         # encoder_attention on the tensor cores: the sbir call (no qk-norm),
         # cont2cont_mdn's encoder (qk-norm, each key normalised once a
         # block) and the B=512 / T=96 / H=2 training geometry
@@ -3807,16 +4005,6 @@ def main() -> int:
             2, 1) / nchunks
         del mdn
 
-        Dh = cfg.d_model // H
-        q = randn(B * H, 1, Dh, dtype=dt)
-        kq, vq = (randn(B * H, T, Dh, dtype=dt) for _ in range(2))
-        times["decode_attention"] = paired(
-            lambda: da.decode_attention(q, kq, vq, T // 2),
-            lambda: da.decode_attention_reference(q, kq, vq, T // 2),
-            iters=50)
-        lib["decode_attention"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, kq[:, :T // 2], vq[:, :T // 2]), iters=50)
     # beside each chunk: its bound (the self-attention cache rows read once
     # a step) and
     # the bf16 cluster kernel's serial floor, its chain of cluster barriers
@@ -3843,12 +4031,6 @@ def main() -> int:
               f"{bar_us:.3f} us = {barriers * K * bar_us / 1e3:.4f} ms "
               f"(clusters of {plan['C']}, {plan['G']} rows each); B=512: "
               f"kernel {big_ms[name]:.3f} ms per chunk [{gpu}]")
-    k_ms, p_ms = times["decode_attention"]
-    print(f"time decode_attention (B*H={B * H}, Dh={Dh}, Tmax={T}, "
-          f"cache_len={T // 2}, {str(dt)[6:]}, per call): kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (SDPA) "
-          f"{lib['decode_attention']:.4f} ms [{gpu}]")
-
     def host_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -3889,15 +4071,13 @@ def main() -> int:
             randn, gen, dev, gpu, paired).items():
         times[name] = (k_ms, p_ms)
         lib[name] = l_ms
-    times["emit_dropout_bits"] = emit_times(dev, gpu, cuda_ms, paired)
-    lib["emit_dropout_bits"] = None
     for name, (k_ms, p_ms, l_ms) in flash_times(
             randn, gen, dev, gpu, paired).items():
         times[name] = (k_ms, p_ms)
         lib[name] = l_ms
     times["decode_step"] = decode_step_times(
         randn, gen, dev, gpu, cuda_ms, paired, times["decode_chunk"][0])
-    steps_ms = train_step_times(gpu, dev, cli)
+    steps_ms = train_step_times(gpu, dev)
     print(f"train steps: {json.dumps(steps_ms)} [{gpu}]")
     # the decode path's device busy time and idle share (after the kernel
     # spreads, whose profiler sessions count every event): whether the
@@ -3907,6 +4087,8 @@ def main() -> int:
     for Bp, encp, wall in ((64, enc64, p50_64), (512, enc512, p50_512)):
         profile_decode(f"ar_decode chunk engine B={Bp}",
                        lambda: decoder(encp), gpu, wall)
+    rule2_kernel_events(r2_cases, gpu)
+    del r2_cases
 
     work = serving_kernel_work(B=64, T=SBIR["T"], d=SBIR["d"], H=SBIR["H"],
                                dff=SBIR["dff"], L=SBIR["L"], V=AR["V"],
@@ -3914,8 +4096,9 @@ def main() -> int:
     work.update(train_kernel_work(*(MDN[k] for k in ("B", "T", "d", "H",
                                                      "dff"))))
     work.update(token_kernel_work(TRAIN["B"] * TRAIN["T"], TRAIN["d"],
-                                  TRAIN["V"], TRAIN["L"]))
+                                  TRAIN["V"]))
     work.update(flash_work(*FLASH_SHAPES["cont2cont_mdn"]))
+    work.update({name: rule2_work(name, *shape) for name, shape in r2_main})
     work["decode_step"] = step_work(B=64, L=AR["L"], d=AR["d"],
                                     dff=AR["dff"], t=AR["T"] // 2,
                                     Mq=AR["Mq"])

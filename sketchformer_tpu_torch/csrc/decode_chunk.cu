@@ -888,17 +888,6 @@ __device__ __forceinline__ void st_cl_v4(uint32_t a, uint4 v) {
                : "memory");
 }
 
-// a 1-D bulk copy of `bytes` (a multiple of 16) into this block's shared
-// memory, completing on mbarrier `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 __device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src),
                "r"(bytes)

@@ -35,7 +35,8 @@
 //                      unnormalised exponentials rounded: the same
 //                      numerics), chosen by ops/encoder_stack.py.
 //   layernorm_rows     LN1 and LN2 ahead of QKV and FFN-in, and the final
-//                      LayerNorm; one warp per row, f32 statistics.
+//                      LayerNorm; a persistent grid whose warps hold rows
+//                      in registers, f32 statistics (see its note).
 //
 // What bounds it on the card: at d_model=256 every product is small in K
 // (256 or 512), so each layer moves its activations through device memory
@@ -1459,8 +1460,32 @@ encoder_attention_kernel(const T* __restrict__ qkv,
 }
 
 // ---------------------------------------------------------------------------
-// layernorm_rows: y = LN(x) over the last axis, one warp per row
+// layernorm_rows: y = LN(x) over the last axis
 // ---------------------------------------------------------------------------
+//
+// Replaces _ln of sketchformer_tpu/ops/pallas_encoder.py (fused_encoder_stack
+// and the train stacks' kernels). Bound by bytes: x read once, y written
+// once (D=256 bf16: 1 KB a row), a few operations an element. Two kernels:
+//
+//   layernorm_rows_warp_kernel  the plan of ops/encoder_stack.py::
+//     layernorm_rows_plan: a persistent grid of 8-warp blocks, four an SM
+//     (two at C = 2), whose warps walk groups of rows with a grid stride.
+//     A row is held by `lanes` lanes (a power of two up to 32, so a warp
+//     holds 32 / lanes rows at once), each lane holding C 16-byte vectors
+//     of it (vectors lane, lane + lanes, ..; D = 256 bf16 is one vector a
+//     lane) from its one read, and its columns of scale and bias in
+//     registers, loaded once a warp. The next group's loads are issued
+//     before the current group is reduced (xor shuffles over its lanes),
+//     so each warp keeps two groups in flight; the output leaves in
+//     16-byte stores. (A ring of three groups a warp spilled at 64
+//     registers and ran slower.)
+//   layernorm_rows_kernel  the geometries the plan declines (a D that is
+//     not whole 16-byte vectors, a misaligned base, a D past the registers:
+//     more than 2 x 32 vectors): one warp per row, eight rows a block, the
+//     row read twice and the parameters once an element.
+//
+// Both keep _ln's statistics: f32 sum and sum of squares in one pass, var =
+// max(E[x^2] - mu^2, 0), 1 / sqrt(var + eps), one rounding to x's dtype.
 
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -1502,6 +1527,89 @@ layernorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ s,
       for (int i = 0; i < VW; ++i)
         if (k + i < D)
           dst[i] = from_f<T>((to_f<T>(e[i]) - mu) * rstd * s[k + i] + bvec[k + i]);
+    }
+  }
+}
+
+// resident blocks an SM by C, the registers' share of a thread
+// (ops/encoder_stack.py LN_ROWS_BLOCKS_PER_SM): 64 registers at C = 1,
+// 128 at C = 2 (its scale, bias and two groups in flight spill in 64)
+__host__ __device__ constexpr int ln_rows_blocks_per_sm(int C) {
+  return C == 1 ? 4 : 2;
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads, ln_rows_blocks_per_sm(C))
+layernorm_rows_warp_kernel(const T* __restrict__ x,
+                           const float* __restrict__ s,
+                           const float* __restrict__ bvec, T* __restrict__ y,
+                           int M, int D, int lanes) {
+  constexpr int VW = 16 / sizeof(T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane / lanes, li = lane & (lanes - 1);
+  const int per_warp = 32 / lanes, nvec = D / VW;
+  const int groups = (M + per_warp - 1) / per_warp;
+  float sc[C][VW], bi[C][VW];
+  bool has[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int v = li + c * lanes;
+    has[c] = v < nvec;
+#pragma unroll
+    for (int i = 0; i < VW; ++i) {
+      sc[c][i] = has[c] ? s[v * VW + i] : 0.f;
+      bi[c][i] = has[c] ? bvec[v * VW + i] : 0.f;
+    }
+  }
+  auto load = [&](int g, uint4 (&u)[C]) {
+    const int m = g * per_warp + sub;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      u[c] = has[c] && m < M
+                 ? *reinterpret_cast<const uint4*>(
+                       x + (size_t)m * D + (li + c * lanes) * VW)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  };
+  const int stride = gridDim.x * kWarps;
+  int g = blockIdx.x * kWarps + warp;
+  uint4 cur[C], nxt[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) nxt[c] = make_uint4(0u, 0u, 0u, 0u);
+  if (g < groups) load(g, cur);
+  for (; g < groups; g += stride) {
+    if (g + stride < groups) load(g + stride, nxt);  // in flight meanwhile
+    float sum = 0.f, ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const T* e = reinterpret_cast<const T*>(&cur[c]);
+#pragma unroll
+      for (int i = 0; i < VW; ++i) {
+        const float f = to_f<T>(e[i]);
+        sum += f;
+        ss += f * f;
+      }
+    }
+    for (int o = lanes >> 1; o > 0; o >>= 1) {  // a row's lanes, xor tree
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    const float mu = sum / D;
+    const float rstd = 1.f / sqrtf(fmaxf(ss / D - mu * mu, 0.f) + kLnEps);
+    const int m = g * per_warp + sub;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (has[c] && m < M) {
+        const T* e = reinterpret_cast<const T*>(&cur[c]);
+        uint4 o;
+        T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+        for (int i = 0; i < VW; ++i)
+          oe[i] = from_f<T>((to_f<T>(e[i]) - mu) * rstd * sc[c][i] +
+                            bi[c][i]);
+        *reinterpret_cast<uint4*>(y + (size_t)m * D +
+                                  (li + c * lanes) * VW) = o;
+      }
+      cur[c] = nxt[c];
     }
   }
 }
@@ -1580,16 +1688,35 @@ int launch_linear_bf16(const void* a, const void* w, int a_pitch,
   return (int)cudaGetLastError();
 }
 
+// the plan of ops/encoder_stack.py::layernorm_rows_plan: `vecs` 0 is a
+// declined geometry (the one-warp-a-row kernel); else `blocks` persistent
+// blocks of `warps` warps, `lanes` lanes a row and `vecs` vectors a lane,
+// refused (invalid value) unless it covers a row of whole 16-byte vectors
+// from 16-byte aligned rows
 template <typename T>
 int launch_layernorm_rows(const void* x, const void* scale, const void* bias,
-                          void* y, int M, int D, cudaStream_t stream) {
-  const dim3 grid((M + kWarps - 1) / kWarps);
-  const bool vec = vector_ok<T>(x, D) && vector_ok<T>(y, D);
-  auto kernel =
-      vec ? layernorm_rows_kernel<T, true> : layernorm_rows_kernel<T, false>;
-  kernel<<<grid, kThreads, 0, stream>>>(
+                          void* y, int M, int D, int blocks, int warps,
+                          int lanes, int vecs, cudaStream_t stream) {
+  if (vecs == 0) {
+    const dim3 grid((M + kWarps - 1) / kWarps);
+    const bool vec = vector_ok<T>(x, D) && vector_ok<T>(y, D);
+    auto kernel =
+        vec ? layernorm_rows_kernel<T, true> : layernorm_rows_kernel<T, false>;
+    kernel<<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<T*>(y), M, D);
+    return (int)cudaGetLastError();
+  }
+  constexpr int VW = 16 / sizeof(T);
+  if (!vector_ok<T>(x, D) || !vector_ok<T>(y, D) || warps != kWarps ||
+      blocks < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+      vecs > 2 || lanes * vecs < D / VW)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = vecs == 1 ? layernorm_rows_warp_kernel<T, 1>
+                          : layernorm_rows_warp_kernel<T, 2>;
+  kernel<<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<T*>(y), M, D);
+      static_cast<const float*>(bias), static_cast<T*>(y), M, D, lanes);
   return (int)cudaGetLastError();
 }
 
@@ -1894,12 +2021,15 @@ int sk_encoder_attention(int dtype, const void* qkv, const void* key_bias,
 }
 
 int sk_layernorm_rows(int dtype, const void* x, const void* scale,
-                      const void* bias, void* y, int M, int D, void* stream) {
+                      const void* bias, void* y, int M, int D, int blocks,
+                      int warps, int lanes, int vecs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_layernorm_rows<float>(x, scale, bias, y, M, D, s);
+    return launch_layernorm_rows<float>(x, scale, bias, y, M, D, blocks,
+                                        warps, lanes, vecs, s);
   if (dtype == 1)
-    return launch_layernorm_rows<__nv_bfloat16>(x, scale, bias, y, M, D, s);
+    return launch_layernorm_rows<__nv_bfloat16>(x, scale, bias, y, M, D,
+                                                blocks, warps, lanes, vecs, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,8 @@
 // Tensor-core helpers shared by the kernel sources: the warp-level
 // mma.sync m16n8k16 tiles with ldmatrix and cp.async (attention_train.cu),
-// Hopper's mbarriers, TMA loads and wgmma products (encoder_stack.cu's
-// linear, linear_tn and linear_nt, token_ce.cu's ce_fwd, ce_dx and ce_dw),
-// and the host's tensor-map encoder. Each
+// Hopper's mbarriers, TMA loads and 1-D bulk copies, wgmma products
+// (encoder_stack.cu's linear, linear_tn and linear_nt, token_ce.cu's
+// ce_fwd, ce_dx and ce_dw), and the host's tensor-map encoder. Each
 // source includes this header into its own anonymous namespace scope, as
 // common.cuh, so the library links with no duplicate symbols.
 
@@ -193,6 +193,18 @@ struct RingPos {
     }
   }
 };
+
+// a 1-D bulk copy of `bytes` (a multiple of 16; src and dst 16-byte
+// aligned) into this block's shared memory, completing on mbarrier `bar`
+// (decode_chunk.cu's weight ring, decode_attention.cu's cache rows)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
                                             uint32_t bar, int c0, int c1) {

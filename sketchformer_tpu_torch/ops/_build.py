@@ -65,9 +65,9 @@ SIGNATURES = {
     "sk_token_ce_bwd": ([_I] + [_P] * 12 + [_I] * 7 + [_P], _I),
     "sk_encoder_attention": (
         [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P], _I),
-    "sk_layernorm_rows": ([_I, _P, _P, _P, _P, _I, _I, _P], _I),
-    "sk_decode_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-                            _I),
+    "sk_layernorm_rows": ([_I, _P, _P, _P, _P] + [_I] * 6 + [_P], _I),
+    "sk_decode_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                             _I, _I, _P], _I),
     "sk_decode_chunk": ([_I, _I] + [_P] * 22, _I),
     "sk_decode_cluster_fit": ([_I, _I, _I, _P], _I),
     "sk_cluster_barrier_probe": ([_I, _I, _I, _P], _I),

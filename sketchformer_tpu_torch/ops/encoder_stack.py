@@ -32,12 +32,13 @@ kernel and that ``chip_smoke.py`` holds the kernels to on the card.
 
 ``LAUNCHES`` counts kernel launches per wrapper (only where a kernel is
 actually launched), so a run can show that its path went through them;
-``ROUTES`` counts which kernel ``encoder_attention`` launched.
+``ROUTES`` counts which kernel ``encoder_attention`` and ``layernorm_rows``
+launched.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -53,9 +54,12 @@ MAX_HEAD_DIM = 128      # encoder_attention's kernels keep head rows in
 
 LAUNCHES = {"linear": 0, "encoder_attention": 0, "layernorm_rows": 0,
             "linear_nt": 0, "linear_tn": 0}
-# encoder_attention's launches by kernel: the tensor cores' forward (bf16,
-# head_dim a multiple of 16) or its own FMA kernel (f32, other bf16 widths)
-ROUTES = {"mma": 0, "fma": 0}
+# launches by kernel: encoder_attention's on the tensor cores' forward
+# (bf16, head_dim a multiple of 16) or its own FMA kernel (f32, other bf16
+# widths); layernorm_rows' on the persistent register plan
+# (:func:`layernorm_rows_plan`) or, for a geometry the plan declines, on
+# the one-warp-a-row kernel
+ROUTES = {"mma": 0, "fma": 0, "ln_rows": 0, "ln_declined": 0}
 
 
 def reset_launches() -> None:
@@ -192,6 +196,47 @@ def linear_plan(M, N, K, sms=132):
         + 1024 + 4 * LINEAR_TILE * 4
     return (cols, rows, -(-K // LINEAR_SLAB), LINEAR_STAGES,
             min(cols * rows, LINEAR_BLOCKS_PER_SM * sms), smem)
+
+
+LN_ROWS_WARPS = 8          # a layernorm_rows block (csrc: kThreads / 32)
+LN_ROWS_MAX_VECS = 2       # 16-byte vectors of a row a lane holds, at most
+# resident blocks an SM by vectors a lane (1, 2): its __launch_bounds__
+# (csrc: ln_rows_blocks_per_sm)
+LN_ROWS_BLOCKS_PER_SM = (4, 2)
+
+
+class LnRowsPlan(NamedTuple):
+    """One ``layernorm_rows`` launch: ``blocks`` blocks of ``warps`` warps,
+    a row held by ``lanes`` lanes of ``vecs`` 16-byte vectors each; ``vecs``
+    0: declined, the one-warp-a-row kernel (``blocks`` blocks of 8 rows)."""
+    blocks: int
+    warps: int
+    lanes: int
+    vecs: int
+
+
+def layernorm_rows_plan(M: int, D: int, dtype: torch.dtype, sms: int,
+                        aligned: bool = True) -> LnRowsPlan:
+    """The launch of a (M, D) LayerNorm on a card of ``sms`` SMs.
+
+    A row of n = D / (16 / element size) whole 16-byte vectors (x and y
+    16-byte ``aligned``) is held by ``lanes`` = the power of two at or above
+    n, at most 32, lanes (a warp holds 32 / lanes rows at once: a group),
+    lane l its vectors l, l + lanes, ..; at most ``LN_ROWS_MAX_VECS`` a
+    lane. The grid is persistent: at most ``LN_ROWS_BLOCKS_PER_SM[vecs -
+    1]`` blocks an SM, none without a group, warp w of block b walking the
+    groups b * warps + w + k * blocks * warps. A D that is not whole
+    vectors, a misaligned row or a D past 2 x 32 vectors is declined."""
+    vw = 16 // (torch.finfo(dtype).bits // 8)
+    n = D // vw
+    if not aligned or D % vw or not 1 <= n <= 32 * LN_ROWS_MAX_VECS:
+        return LnRowsPlan(-(-M // LN_ROWS_WARPS), LN_ROWS_WARPS, 32, 0)
+    lanes = min(32, 1 << (n - 1).bit_length())
+    vecs = -(-n // lanes)
+    groups = -(-M // (32 // lanes))
+    blocks = max(1, min(sms * LN_ROWS_BLOCKS_PER_SM[vecs - 1],
+                        -(-groups // LN_ROWS_WARPS)))
+    return LnRowsPlan(blocks, LN_ROWS_WARPS, lanes, vecs)
 
 
 def linear(a, w, bias, *, relu=False, residual=None, drop=None, thresh=0,
@@ -445,7 +490,8 @@ def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):
 
 
 def layernorm_rows(x, scale, bias):
-    """Row LayerNorm of a (M, D) tensor, output in ``x.dtype``."""
+    """Row LayerNorm of a (M, D) tensor, output in ``x.dtype``, on the
+    kernel :func:`layernorm_rows_plan` picks."""
     if x.device.type == "cpu":
         return layernorm_rows_reference(x, scale, bias)
     if x.device.type != "cuda":
@@ -457,13 +503,17 @@ def layernorm_rows(x, scale, bias):
     _build.require(scale, "scale", dev, torch.float32, (D,))
     _build.require(bias, "bias", dev, torch.float32, (D,))
     out = torch.empty_like(x)
+    plan = layernorm_rows_plan(M, D, x.dtype, _build.sm_count(dev),
+                               x.data_ptr() % 16 == 0 and
+                               out.data_ptr() % 16 == 0)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.sk_layernorm_rows(code, _build.ptr(x), _build.ptr(scale),
                                     _build.ptr(bias), _build.ptr(out), M, D,
-                                    _build.stream(x))
+                                    *plan, _build.stream(x))
     _build.check(err, "layernorm_rows")
     LAUNCHES["layernorm_rows"] += 1
+    ROUTES["ln_rows" if plan.vecs else "ln_declined"] += 1
     return out
 
 

@@ -146,15 +146,52 @@ def test_encoder_attention(cuda, dtype, B, T, H, Dh, qk):
     assert torch.isfinite(got[0]).all()
 
 
+# (M, D, x's offset in elements from a 16-byte boundary, route in f32, in
+# bf16): the main paths' rows, D=128 (bf16: half a warp a row) at an M that
+# is not a multiple of a warp's rows, widths with idle lanes, and the
+# declined geometries: a D of no whole 16-byte vectors, a D past the
+# registers (f32 512: 128 vectors), a misaligned view
+LN_ROWS_CASES = [(12288, 256, 0, "ln_rows", "ln_rows"),
+                 (49152, 256, 0, "ln_rows", "ln_rows"),
+                 (1000, 128, 0, "ln_rows", "ln_rows"),
+                 (1001, 128, 0, "ln_rows", "ln_rows"),
+                 (300, 96, 0, "ln_rows", "ln_rows"),
+                 (301, 50, 0, "ln_declined", "ln_declined"),
+                 (16, 512, 0, "ln_declined", "ln_rows"),
+                 (300, 256, 1, "ln_declined", "ln_declined")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M,D", [(300, 96), (301, 50), (16, 512)])
-def test_layernorm_rows(cuda, dtype, M, D):
+@pytest.mark.parametrize("M,D,offset,route32,route16", LN_ROWS_CASES)
+def test_layernorm_rows(cuda, dtype, M, D, offset, route32, route16):
     gen = torch.Generator(device=cuda).manual_seed(2)
-    x = _rand(gen, cuda, M, D, dtype=dtype)
+    x = _rand(gen, cuda, M * D + offset, dtype=dtype)[offset:].view(M, D)
     s, b = 1 + _rand(gen, cuda, D, scale=0.1), _rand(gen, cuda, D, scale=0.1)
-    _close(es.layernorm_rows(x, s, b), es.layernorm_rows_reference(x, s, b),
-           dtype)
+    route = route32 if dtype == torch.float32 else route16
+    before = dict(es.ROUTES)
+    got = es.layernorm_rows(x, s, b)
+    assert es.ROUTES == {**before, route: before[route] + 1}
+    _close(got, es.layernorm_rows_reference(x, s, b), dtype)
+    # near-constant rows, where the variance clamp acts: c in [0.5, 1) plus
+    # 0-3 of its f32 ulps an element (bf16 rounds most to constant rows).
+    # In f32 they are held within their conditioning: each mean is within
+    # (D - 1) 2^-24 max|x| of the exact one, x - mu within a few ulps of c,
+    # and both reach y times rstd <= 1 / sqrt(eps) times the scale
+    n = M // 2
+    c = 0.5 + 0.5 * torch.rand((n, 1), generator=gen, device=cuda)
+    ulp = torch.nextafter(c, torch.full_like(c, 2.0)) - c
+    near = c + torch.randint(0, 4, (n, D), generator=gen, device=cuda) * ulp
+    x[:n] = near.to(dtype)
+    got = es.layernorm_rows(x, s, b)
+    want = es.layernorm_rows_reference(x, s, b)
+    if dtype == torch.bfloat16:
+        _close(got, want, dtype)
+        return
+    _close(got[n:], want[n:], dtype)
+    bound = ((2 * (D - 1) * 2.0 ** -24 * near.abs().amax(1, keepdim=True)
+              + 4 * ulp) * 1e3 * s.abs().max())
+    assert ((got[:n] - want[:n]).abs() <= bound).all()
 
 
 @pytest.mark.cuda
@@ -190,16 +227,28 @@ def test_fused_encoder_stack(cuda, dtype, H, qk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("BH,Tmax,Dh", [(48, 40, 32), (6, 33, 128),
-                                        (10, 20, 64), (5, 9, 24)])
-def test_decode_attention(cuda, dtype, BH, Tmax, Dh):
+@pytest.mark.parametrize("BH,Tmax,Dh,offset,route", [
+    (48, 40, 32, 0, "bulk"), (6, 33, 128, 0, "bulk"), (10, 20, 64, 0, "bulk"),
+    (512, 192, 32, 0, "bulk"), (512, 192, 64, 0, "bulk"),
+    (512, 192, 128, 0, "bulk"), (511, 192, 32, 0, "bulk"),
+    (5, 9, 24, 0, "declined"), (48, 40, 32, 1, "declined")])
+def test_decode_attention(cuda, dtype, BH, Tmax, Dh, offset, route):
+    """The decode's B*H = 512 at the first, an early, the middle and the
+    last step of a T=192 decode; a B*H that is not a multiple of the bulk
+    kernel's rows a block; the declined geometries on the per-row kernel
+    (a head of three 16-byte vectors, a cache 2 bytes off its 16-byte
+    boundary)."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     q = _rand(gen, cuda, BH, 1, Dh, dtype=dtype)
-    k, v = (_rand(gen, cuda, BH, Tmax, Dh, dtype=dtype) for _ in range(2))
-    for cache_len in (1, 17 % Tmax + 1, Tmax):
+    k, v = (_rand(gen, cuda, BH * Tmax * Dh + offset, dtype=dtype)[offset:]
+            .view(BH, Tmax, Dh) for _ in range(2))
+    lens = (1, 31, 96, 191) if Tmax == 192 else (1, 17 % Tmax + 1, Tmax)
+    for cache_len in lens:
         before = da.LAUNCHES["decode_attention"]
+        routes = dict(da.ROUTES)
         got = da.decode_attention(q, k, v, cache_len)
         assert da.LAUNCHES["decode_attention"] == before + 1
+        assert da.ROUTES == {**routes, route: routes[route] + 1}
         _close(got, da.decode_attention_reference(q, k, v, cache_len), dtype)
 
 
