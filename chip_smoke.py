@@ -76,7 +76,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    300, dp 64-256, V 65 and 10,004, with three columns planted to tie
    exactly (corr: the first index);
    and the in-kernel dropout draw (K7): ``emit_dropout_bits`` bit-equal to
-   the plain Philox at (16, 512, 96, 256) with the kept share within 1e-3,
+   the plain Philox at one ``pretrain_full`` site (256, 192, 256), a post-LN
+   FFN site (64, 192, 512) (both on the 16-byte route) and a (3, 7, 10)
+   site (the byte route, ``ROUTES``), and at (16, 512, 96, 256) with the
+   kept share within 1e-3,
    and each 'prng' train stack equal to the 'bits' stack fed the emitted
    bytes (output and every gradient, torch.equal; f32 and bf16); the
    per-op attention (K8, ``flash_attention``: forward, dq, dk, dv) in every
@@ -88,9 +91,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    within STACK_BF16_FACTOR x the plain path's error against f32), at
    T=1024, and its decline at T=1040 to the composed math; the whole-step
    decode (K13, ``decode_step``) at the ``ar_decode`` width for t = 0, 17
-   and 191, qk-norm off and on, H=8 and H=2 (bf16 against f32 as the
-   stacks), and a 32-step f32 step loop whose picks equal two
-   ``decode_chunk`` launches' up to each row's first near tie;
+   and 191, qk-norm off and on, H=8 and H=2, B=64 and 40 (bf16 on the
+   cluster kernel's step kind, every launch, held against f32 as the
+   stacks; f32 on the per-row kernel), a 32-step f32 step loop whose picks
+   equal two ``decode_chunk`` launches' up to each row's first near tie,
+   and the 32-step bf16 loop against the plain step loop fed its picks,
+   every step away from a near tie of 4 ulps;
 4. main paths, each with every launch counter reset just before and read
    just after: the port's ``sbir`` CLI at the full width of the ``sbir``
    preset (seeded random weights) over 16 batches of 64 from the preset's
@@ -121,14 +127,17 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``decode`` on K8 (engines and stacks declined), ``train`` for 30 steps
    with K8 forward and backward 16 times a step and no stack kernel, and
    ``eval`` against the composed model; and the K13 step loop on
-   ``ar_decode`` (192 launches; every CLI path launches it 0 times). Each
+   ``ar_decode`` (192 launches, each on the cluster kernel; every CLI path
+   launches it 0 times). Each
    CLI run prints the routes of its ``layernorm_rows`` and
    ``decode_attention`` launches and fails if one was declined;
 5. times: ``layernorm_rows`` (bf16, M 12,288 and 49,152), K12 (B*H=512,
-   Dh=32, cache_len 96 and 191) and K7's emit (one ``pretrain_full`` site,
-   and a whole 'bits' stack's tensor) as the median and spread of 60
-   calls' device time beside their plain versions, ``F.layer_norm`` and
-   SDPA on the filled slice, and their bounds; kernel vs plain (CUDA
+   Dh=32, cache_len 96 and 191), K13 (B=64, t=96) and K7's emit (one
+   ``pretrain_full`` site, and a whole 'bits' stack's tensor) as the median
+   and spread of 60 calls' device time beside their plain versions,
+   ``F.layer_norm`` and SDPA on the filled slice, and their bounds, and
+   the same kernels' own events in a profiler trace; the emit kernel's
+   SASS opcodes and the dispatch floor of its Philox calls; kernel vs plain (CUDA
    events after warm-up), the end-to-end
    embed rate, per-chunk and per-call decode kernel times (each chunk at
    B=64 beside its bound, the self-attention cache rows counted once a
@@ -174,6 +183,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --rule2 ROOT LABEL
+
+times the rule-2 kernels (phase 5's first spreads and events, and the K13
+step loop's whole decode) of the package under ROOT alone: an unpacked
+``git archive`` of a parent commit, run in turns with this checkout in one
+chip call, reads parent and change on one card.
 """
 
 from __future__ import annotations
@@ -1872,7 +1888,8 @@ def check_ce_fwd_modes(randn, gen, dev, compare):
 
 
 def check_dropout_prng(dev, errs):
-    """K7: the emit kernel bit-equal to the plain Philox at the train
+    """K7: the emit kernel bit-equal to the plain Philox at each of
+    EMIT_CHECKS on the route it must take (``ROUTES``), and at the train
     shape's (2L, B, T, d) with the kept share within 1e-3 of 1 - 26/256;
     then each 'prng' train stack (L=2, cont2cont_mdn width: B=64, T=192,
     H=8, qk-norm; f32 and bf16) equal to the 'bits' stack fed the emitted
@@ -1882,6 +1899,18 @@ def check_dropout_prng(dev, errs):
     from sketchformer_tpu_torch.ops import dropout_prng as dp
     from sketchformer_tpu_torch.ops import encoder_stack_train as est
 
+    for (Bs, Ts, ds_), route in EMIT_CHECKS:
+        before = dict(dp.ROUTES)
+        got = dp.emit_dropout_bits(PRNG_SEED, 1, 1, Bs, Ts, ds_, dev)
+        want = dp.emit_dropout_bits_reference(PRNG_SEED, 1, 1, Bs, Ts, ds_,
+                                              dev)
+        torch.cuda.synchronize()
+        name = f"emit_dropout_bits (B, T, d) = {(Bs, Ts, ds_)} (route {route})"
+        if dp.ROUTES != {**before, route: before[route] + 1}:
+            fail(f"{name}: routes {dp.ROUTES} (before {before})")
+        if not torch.equal(got, want):
+            fail(f"{name}: differs from the plain Philox")
+        print(f"check {name}: bit-equal to the plain Philox")
     L, B, T, d = TRAIN["L"], TRAIN["B"], TRAIN["T"], TRAIN["d"]
     got = dp.emit_dropout_bits(PRNG_SEED, L, 2, B, T, d, dev)
     want = dp.emit_dropout_bits_reference(PRNG_SEED, L, 2, B, T, d, dev)
@@ -1894,6 +1923,7 @@ def check_dropout_prng(dev, errs):
           f"26/256 = {1 - 26 / 256:.6f})")
     if not abs(kept - (1 - 26 / 256)) <= 1e-3:
         fail(f"emit_dropout_bits kept share {kept}")
+    print(f"  emit_dropout_bits routes: {json.dumps(dp.ROUTES)}")
     errs["emit_dropout_bits"] = 0.0
     del got, want
     B, T = MDN["B"], MDN["T"]
@@ -2464,52 +2494,86 @@ def check_flash_attention(randn, gen, dev, errs, compare):
           f"math (no launch, equal)")
 
 
-def step_operands(randn, gen, dev, dtype, H, qk, t, K=1):
+def step_operands(randn, gen, dev, dtype, H, qk, t, K=1, B=64):
     """Operands of one whole decode step (or K steps of the loop) at the
     ar_decode width, the cache rows from t on set to NaN: the step reads
     rows [0, t) only."""
     import torch
 
     d, L, dff, V, T, Mq = (AR[k] for k in ("d", "L", "dff", "V", "T", "Mq"))
-    ops = chunk_operands(randn, gen, dev, B=64, L=L, d=d, H=H, dff=dff, N=V,
+    ops = chunk_operands(randn, gen, dev, B=B, L=L, d=d, H=H, dff=dff, N=V,
                          Tmax=T, Mq=Mq, K=K, t0=t, dtype=dtype, cont=False)
     if K == 1:
         ops["k_cache"][:, :, t:] = float("nan")
         ops["v_cache"][:, :, t:] = float("nan")
-    ops["x"] = randn(64, d, dtype=dtype)
+    ops["x"] = randn(B, d, dtype=dtype)
     return ops
 
 
+def plain_step_loop_fed(o, ids, kv, H):
+    """The plain step loop one step at a time from the caches ``kv`` (its
+    own new rows scattered into them), each step fed the kernel loop's pick
+    (and finished state) of the step before: its picks and margins given
+    the kernel's prefix."""
+    import torch
+
+    from sketchformer_tpu_torch.data.tokenizer import EOS_ID
+    from sketchformer_tpu_torch.ops import decode_step as dstep
+
+    prev, fin = o["prev"], o["finished"]
+    picks, margins = [], []
+    for j in range(ids.shape[1]):
+        got, _, m = dstep.greedy_steps(
+            prev, fin, *kv, o["cross_k"], o["cross_v"], o["emb"],
+            o["pos_chunk"][j:j + 1], o["head_w"], o["head_b"], o["w"], j,
+            num_heads=H, step=dstep.fused_decode_step_reference,
+            return_margins=True)
+        picks.append(got)
+        margins.append(m)
+        prev = ids[:, j].contiguous()
+        fin = torch.where(prev == EOS_ID, 1, fin)
+    return torch.cat(picks, 1), torch.cat(margins, 1)
+
+
 def check_decode_step(randn, gen, dev, errs):
-    """K13 against its plain version at the ar_decode width (B=64, L=8,
-    d=256, dff=512, Tmax=192) for t = 0, 17 and 191, qk-norm off and on,
-    at H=8/Dh=32 and H=2/Dh=128: h and the new k/v rows, f32 within TOL,
-    bf16 (8 layers deep) held to the f32 computation of the same inputs
+    """K13 against its plain version at the ar_decode width (L=8, d=256,
+    dff=512, Tmax=192) for t = 0, 17 and 191, qk-norm off and on, at
+    H=8/Dh=32 and H=2/Dh=128, at B=64 and at B=40 (a part-empty row group of
+    the cluster kernel): h and the new k/v rows, f32 (the per-row kernel)
+    within TOL, bf16 (8 layers deep; every launch on the cluster kernel's
+    step kind, ``ROUTES``) held to the f32 computation of the same inputs
     within STACK_BF16_FACTOR x the plain bf16 path's error. Then a
     STEP_LOOP-step f32 greedy loop, one launch a step, against two
-    decode_chunk launches from the same state: picks equal up to each
-    row's first near tie of the plain version."""
+    decode_chunk launches from the same state (picks equal up to each row's
+    first near tie of the plain version), and the bf16 loop against the
+    plain bf16 step loop fed the kernel's picks, every step compared away
+    from a near tie of BF16_TIE_ULPS ulps (as the bf16 chunks)."""
     import torch
 
     from sketchformer_tpu_torch.ops import decode_chunk as dc
     from sketchformer_tpu_torch.ops import decode_step as dstep
 
     T = AR["T"]
-    cases = [(8, qk, t) for qk in (False, True) for t in (0, 17, T - 1)]
-    cases += [(2, False, 17), (2, True, T - 1)]
+    cases = [(8, qk, t, 64) for qk in (False, True) for t in (0, 17, T - 1)]
+    cases += [(2, False, 17, 64), (2, True, T - 1, 64), (8, True, 17, 40),
+              (2, False, 0, 40), (8, False, T - 1, 40)]
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         tol = TOL[tag]
-        for H, qk, t in cases:
-            o = step_operands(randn, gen, dev, dtype, H, qk, t)
+        route = "rows" if dtype == torch.float32 else "cluster"
+        for H, qk, t, B in cases:
+            o = step_operands(randn, gen, dev, dtype, H, qk, t, B=B)
             args = (o["x"], o["k_cache"], o["v_cache"], o["cross_k"],
                     o["cross_v"], o["w"], t)
             kw = dict(num_heads=H, qk_norm=qk)
+            before = dict(dstep.ROUTES)
             got = dstep.fused_decode_step(*args, **kw)
             want = dstep.fused_decode_step_reference(*args, **kw)
             torch.cuda.synchronize()
-            name = (f"decode_step {tag} B=64 L={AR['L']} d={AR['d']} H={H} "
-                    f"Tmax={T} t={t} qk_norm={qk}")
+            name = (f"decode_step {tag} B={B} L={AR['L']} d={AR['d']} H={H} "
+                    f"Tmax={T} t={t} qk_norm={qk} (route {route})")
+            if dstep.ROUTES != {**before, route: before[route] + 1}:
+                fail(f"{name}: routes {dstep.ROUTES} (before {before})")
             if dtype == torch.bfloat16:
                 ref = dstep.fused_decode_step_reference(
                     *(a.float() for a in args[:5]),
@@ -2521,7 +2585,7 @@ def check_decode_step(randn, gen, dev, errs):
                 if not torch.isfinite(a).all():
                     fail(f"{name}: {part} not finite")
                 err = (a.float() - b.float()).abs().max().item()
-                if H == 8 and not qk and dtype == torch.bfloat16:
+                if H == 8 and not qk and B == 64 and dtype == torch.bfloat16:
                     errs["decode_step"] = max(errs["decode_step"], err)
                 if dtype == torch.float32:
                     rel = err / b.abs().max().item()
@@ -2541,7 +2605,7 @@ def check_decode_step(randn, gen, dev, errs):
                 if dtype == torch.float32 else
                 f"vs float32, worst kernel/plain error ratio {worst:.2f} "
                 f"(<= {STACK_BF16_FACTOR})"))
-    # the step loop against the chunk kernel, from the same state
+    # the f32 step loop against the chunk kernel, from the same state
     K = STEP_LOOP
     o = step_operands(randn, gen, dev, torch.float32, 8, False, 0, K=K)
     kv = (o["k_cache"], o["v_cache"])
@@ -2577,6 +2641,33 @@ def check_decode_step(randn, gen, dev, errs):
           f"decode_chunk ({K // AR['K']} launches): picks equal on "
           f"{compared}/{ids_step.numel()} row-steps up to each row's first "
           f"near tie")
+    # the bf16 step loop (the cluster kernel) against the plain step loop
+    o = step_operands(randn, gen, dev, torch.bfloat16, 8, False, 0, K=K)
+    kv = (o["k_cache"], o["v_cache"])
+    clone = lambda: tuple(c.clone() for c in kv)
+    head = (o["emb"], o["pos_chunk"], o["head_w"], o["head_b"], o["w"])
+    before = dict(dstep.ROUTES)
+    ids_k, _ = dstep.greedy_steps(o["prev"], o["finished"], *clone(),
+                                  o["cross_k"], o["cross_v"], *head, 0, **kw)
+    if dstep.ROUTES != {**before, "cluster": before["cluster"] + K}:
+        fail(f"bf16 step loop: routes {dstep.ROUTES} (before {before})")
+    ids_p, margins = plain_step_loop_fed(o, ids_k, clone(), 8)
+    torch.cuda.synchronize()
+    checked = margins >= BF16_TIE_ULPS
+    compared = int(checked.sum())
+    if compared < ids_k.numel() // 2:
+        fail(f"bf16 step loop: only {compared} row-steps away from a near "
+             f"tie")
+    if not torch.equal(ids_k[checked], ids_p[checked]):
+        bad = (ids_k != ids_p) & checked
+        b, j = (int(i) for i in bad.nonzero()[0])
+        fail(f"bf16 step loop: row {b} step {j} picks {int(ids_k[b, j])}, "
+             f"the plain loop {int(ids_p[b, j])} (margin "
+             f"{margins[b, j]:.3g})")
+    print(f"check greedy step loop bf16 ({K} decode_step launches on the "
+          f"cluster kernel) vs the plain step loop fed its picks: picks "
+          f"equal on {compared}/{ids_k.numel()} row-steps away from a near "
+          f"tie of {BF16_TIE_ULPS} ulps")
 
 
 def flash_times(randn, gen, dev, gpu, paired):
@@ -2635,29 +2726,6 @@ def flash_times(randn, gen, dev, gpu, paired):
             out = rows
         del sdpa, leaves
     return out
-
-
-def decode_step_times(randn, gen, dev, gpu, cuda_ms, paired, chunk_ms):
-    """K13 per step at the ar_decode width (t = T/2) against its plain
-    version, beside decode_chunk's time per step. Returns (ms, plain_ms)."""
-    import torch
-
-    from sketchformer_tpu_torch.ops import decode_step as dstep
-
-    t = AR["T"] // 2
-    o = step_operands(randn, gen, dev, torch.bfloat16, AR["H"], False, t)
-    args = (o["x"], o["k_cache"], o["v_cache"], o["cross_k"], o["cross_v"],
-            o["w"], t)
-    k_ms, p_ms = paired(
-        lambda: dstep.fused_decode_step(*args, num_heads=AR["H"]),
-        lambda: dstep.fused_decode_step_reference(*args, num_heads=AR["H"]),
-        iters=10, warm=2)
-    print(f"time decode_step (bf16, B=64, L={AR['L']}, d={AR['d']}, "
-          f"H={AR['H']}, Tmax={AR['T']}, t={t}, one step): kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; decode_chunk per step "
-          f"{chunk_ms / AR['K']:.4f} ms (a {AR['K']}-step chunk / {AR['K']}) "
-          f"[{gpu}]")
-    return k_ms, p_ms
 
 
 def cluster_barrier_us(dev, C, clusters, iters=20000):
@@ -3188,35 +3256,49 @@ def norm_times(randn, gpu):
 LN_ROWS_M = (MDN["B"] * MDN["T"], CONT_TRAIN["B"] * CONT_TRAIN["T"])
 K12_LENS = (AR["T"] // 2, AR["T"] - 1)
 EMIT_SITE = (256, 192, 256)
+# K7's emit checks: ((B, T, d) of one site, route): the pretrain_full
+# site, a post-LN FFN site and a row of 70 bytes (not whole 16-byte runs)
+EMIT_CHECKS = ((EMIT_SITE, "vec16"), ((64, 192, 512), "vec16"),
+               ((3, 7, 10), "bytes"))
 
 
 def rule2_work(name, *shape):
     """(flops, bytes) of one call: layernorm_rows (M, D) in bf16 (x read,
     y written, f32 scale and bias); decode_attention (B*H, Dh, cache_len)
-    in bf16 (q, the filled k and v rows, the output); the emit of (B, T,
-    d) bytes."""
+    in bf16 (q, the filled k and v rows, the output); decode_step (B, t)
+    at the ar_decode width (``step_work``); the emit of (B, T, d)
+    bytes."""
     if name == "layernorm_rows":
         M, D = shape
         return 8 * M * D, 2 * M * D * 2 + 2 * D * 4
     if name == "decode_attention":
         BH, Dh, n = shape
         return 4 * BH * n * Dh, (2 * BH * Dh + 2 * BH * n * Dh) * 2
+    if name == "decode_step":
+        B, t = shape
+        return step_work(B=B, L=AR["L"], d=AR["d"], dff=AR["dff"], t=t,
+                         Mq=AR["Mq"])
     B, T, d = shape
     return 0, B * T * d
 
 
+
 def rule2_cases(randn):
-    """The calls of ``layernorm_rows``, K12 ``decode_attention`` and K7's
-    emit at their main-path shapes, as (name, shape, what, kernel, plain,
-    library or None, the library call's name, calls): bf16 rows with
-    ``F.layer_norm`` (its parameters in bf16) beside them; K12 with SDPA on
-    the filled slice ``k[:, :len]``; the emit with no library call, and
+    """The calls of ``layernorm_rows``, K12 ``decode_attention``, K13
+    ``decode_step`` and K7's emit at their main-path shapes, as (name,
+    shape, what, kernel, plain, library or None, the library call's name,
+    calls): bf16 rows with ``F.layer_norm`` (its parameters in bf16) beside
+    them; K12 with SDPA on the filled slice ``k[:, :len]``; K13 (bf16, B=64,
+    t=96, the ar_decode width) and the emit with no library call, the emit
     also at the (2L, B, T, d) = (16, 512, 96, 256) tensor of a whole 'bits'
-    stack, on no main path (20 calls: its plain version takes 47 ms)."""
+    stack, on no main path (20 calls: its plain version takes 47 ms). The
+    calls reach each module through its wrapper alone, so the cases run on
+    the parent commit's package too."""
     import torch
     import torch.nn.functional as F
 
     from sketchformer_tpu_torch.ops import decode_attention as da
+    from sketchformer_tpu_torch.ops import decode_step as dstep
     from sketchformer_tpu_torch.ops import dropout_prng as dp
     from sketchformer_tpu_torch.ops import encoder_stack as es
 
@@ -3243,6 +3325,18 @@ def rule2_cases(randn):
             lambda n=n: F.scaled_dot_product_attention(q, k[:, :n],
                                                        v[:, :n]),
             "SDPA on the filled slice", SPREAD_CALLS))
+    t = AR["T"] // 2
+    o = step_operands(randn, torch.Generator(device=dev).manual_seed(13),
+                      dev, dt, AR["H"], False, t)
+    sargs = (o["x"], o["k_cache"], o["v_cache"], o["cross_k"],
+             o["cross_v"], o["w"], t)
+    cases.append((
+        "decode_step", (64, t),
+        f"bf16, B=64, L={AR['L']}, d={AR['d']}, H={AR['H']}, Tmax={T}, t={t}",
+        lambda: dstep.fused_decode_step(*sargs, num_heads=AR["H"]),
+        lambda: dstep.fused_decode_step_reference(*sargs,
+                                                  num_heads=AR["H"]),
+        None, None, SPREAD_CALLS))
     L, Bt, Tt = TRAIN["L"], TRAIN["B"], TRAIN["T"]
     for shape, args, calls, where in (
             (EMIT_SITE, (1, 1, *EMIT_SITE), SPREAD_CALLS,
@@ -3288,6 +3382,12 @@ def rule2_spreads(cases, gpu):
     return out
 
 
+# the device events of a kernel whose name is not its wrapper's: K13 runs
+# the cluster kernel's step kind in bf16 (the per-row decode_step_kernel
+# before)
+EVENT_NAMES = {"decode_step": ("decode_cluster_kernel", "decode_step_kernel")}
+
+
 def rule2_kernel_events(cases, gpu):
     """Each kernel of :func:`rule2_cases` alone: its launches' durations in
     a profiler trace of its calls (after one warm call), which hold none of
@@ -3307,14 +3407,65 @@ def rule2_kernel_events(cases, gpu):
                 for _ in range(calls):
                     kern()
                 torch.cuda.synchronize()
+            keys = EVENT_NAMES.get(name, (name,))
             ev = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                   if str(getattr(e, "device_type", "")).endswith("CUDA")
-                  and name in e.name]
+                  and any(k in e.name for k in keys)]
             got = (f"{fmt_spread((float(np.median(ev)), min(ev), max(ev)))}"
                    if calls // 2 <= len(ev) <= calls else "not read")
             print(f"time {name} ({what}; the kernel's events in a profiler "
                   f"trace, median of the {len(ev)} of {calls} launches it "
                   f"kept): {got} [{gpu}]")
+
+
+def emit_sass_floors(lib_path, gpu):
+    """K7's emit beside its instruction count: the opcodes of
+    ``emit_dropout_bits_kernel`` in the built library's SASS (cuobjdump,
+    where the toolkit has it), the Philox part of a call (its wide
+    multiplies and three-way XORs, a quarter of the kernel's: four calls an
+    item, unrolled) and two floors for EMIT_SITE's calls at the card's
+    highest SM clock (nvidia-smi) on 132 SMs: the dispatch floor, that part
+    at one warp instruction a clock for each of an SM's four schedulers,
+    and the multiply floor, each wide multiply two 32-bit multiplies (its
+    low and high halves) at the 64 a clock an SM that NVIDIA's throughput
+    table gives compute capability 9.0 for 32-bit integer multiplies."""
+    import collections
+
+    from sketchformer_tpu_torch.ops import _build
+
+    cuobj = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobj):
+        print("emit SASS: not measured (no cuobjdump in the toolkit)")
+        return
+    out = subprocess.run([cuobj, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    body = [p for p in re.split(r"\n\s*Function : ", out)
+            if "emit_dropout_bits_kernel" in p.split("\n", 1)[0]]
+    if len(body) != 1:
+        fail(f"emit SASS: {len(body)} emit kernels in the library")
+    ops = [".".join(m.split(".")[:2]) if m.startswith("IMAD.")
+           else m.split(".")[0]
+           for m in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                               r"([A-Z][A-Z0-9_.]*)", body[0])]
+    count = collections.Counter(ops)
+    # a call's multiplies (one wide, or a low and a high half) and XORs:
+    # a quarter of the kernel's, the prologue's few included
+    per_call = sum(n for op, n in count.items()
+                   if op in ("IMAD", "IMAD.WIDE", "IMAD.HI", "LOP3")) / 4
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    calls = EMIT_SITE[0] * EMIT_SITE[1] * EMIT_SITE[2] / 4
+    floor_ms = calls * per_call / (4 * 32 * 132 * mhz * 1e6) * 1e3
+    muls = (2 * count["IMAD.WIDE"] + count["IMAD"] + count["IMAD.HI"]) / 4
+    mul_ms = calls * muls / (64 * 132 * mhz * 1e6) * 1e3
+    print(f"emit SASS: {len(ops)} instructions, "
+          f"{json.dumps(dict(count.most_common(12)))}; a Philox call "
+          f"{per_call:.1f} multiplies and three-way XORs, {muls:.1f} 32-bit "
+          f"multiplies; at {EMIT_SITE} ({calls:.0f} calls, {mhz:.0f} MHz): "
+          f"dispatch floor {floor_ms:.5f} ms, multiply floor {mul_ms:.5f} ms "
+          f"[{gpu}]")
 
 
 def stack_work(B, T, d, H, dff, L, decoder):
@@ -3367,6 +3518,67 @@ def stack_times(dev, gpu, cuda_ms):
         del mod
 
 
+def rule2_only(argv) -> int:
+    """``python3 chip_smoke.py --rule2 ROOT LABEL``: build the package under
+    ROOT (this checkout, or an unpacked ``git archive`` of another commit,
+    so that a parent is timed in the same chip call) and print the rule-2
+    kernels' timings (``rule2_spreads``, ``rule2_kernel_events``) and the
+    K13 step loop's whole decode (p50 and profile) under LABEL. No check
+    runs and no result line is printed."""
+    import torch
+
+    if len(argv) != 3 or argv[0] != "--rule2":
+        print("usage: chip_smoke.py [--rule2 ROOT LABEL]", file=sys.stderr)
+        return 2
+    root, label = os.path.abspath(argv[1]), argv[2]
+    sys.path.insert(0, root)
+    import sketchformer_tpu_torch
+    from sketchformer_tpu_torch.ops import _build
+
+    pkg = os.path.dirname(os.path.abspath(sketchformer_tpu_torch.__file__))
+    if os.path.dirname(pkg) != root:
+        fail(f"--rule2: imported {pkg}, not the package under {root}")
+    info = _build.build()
+    _build.library()
+    gpu = gpu_line()
+    print(f"=== {label}: {pkg}, build {info['seconds']:.1f} s [{gpu}]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cases = rule2_cases(randn_from(torch.Generator(device=dev).manual_seed(0),
+                                   dev))
+    rule2_spreads(cases, gpu)
+    rule2_kernel_events(cases, gpu)
+    # the step loop's whole decode (K13's one path): ar_decode, seeded
+    # weights, the first batch of its loader
+    from sketchformer_tpu_torch import cli
+    from sketchformer_tpu_torch.infer.fast_decode import (
+        make_step_token_decoder,
+    )
+
+    model, loader = cli.build_model_and_loader(cli.build_parser().parse_args(
+        ["decode", "--preset", "ar_decode", "--init-seed", "0", "--device",
+         "cuda"]))
+    _, enc, _ = cli.first_batch(model, loader)
+    decode = make_step_token_decoder(model)
+    decode(enc)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode(enc)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(ts))
+    print(f"time decode ar_decode step loop (decode_step), B={enc.shape[0]}, "
+          f"T={AR['T']}: p50 {p50:.2f} ms (min {min(ts):.2f}, max "
+          f"{max(ts):.2f}, 5 runs) [{gpu}]")
+    profile_decode(f"ar_decode step loop B={enc.shape[0]}",
+                   lambda: decode(enc), gpu, p50)
+    print(f"=== {label} done")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3375,6 +3587,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if len(sys.argv) > 1:
+        return rule2_only(sys.argv[1:])
     sys.path.insert(0, REPO)
     from sketchformer_tpu_torch import cli
     from sketchformer_tpu_torch.infer import decode as dec
@@ -3830,7 +4044,12 @@ def main() -> int:
         fail(f"step loop: ids {tuple(ids.shape)}, "
              f"{launches['decode_step']} launches")
     print(f"main path: make_step_token_decoder on ar_decode (B=64, "
-          f"T={AR['T']}): {launches['decode_step']} decode_step launches")
+          f"T={AR['T']}): {launches['decode_step']} decode_step launches; "
+          f"routes {json.dumps(dstep.ROUTES)}")
+    if step_model.config.compute_dtype == torch.bfloat16 and \
+            dstep.ROUTES != {"cluster": AR["T"], "rows": 0}:
+        fail(f"step loop: bf16 launches off the cluster kernel: "
+             f"{dstep.ROUTES}")
     del step_model
 
     # ---- 5. times ----------------------------------------------------------
@@ -3866,8 +4085,10 @@ def main() -> int:
     # decode and K7's emit at its pretrain_full site)
     r2_cases = rule2_cases(randn)
     r2 = rule2_spreads(r2_cases, gpu)
+    emit_sass_floors(info["path"], gpu)
     r2_main = (("layernorm_rows", (M, d)),
                ("decode_attention", (B * H, d // H, AR["T"] // 2)),
+               ("decode_step", (B, AR["T"] // 2)),
                ("emit_dropout_bits", EMIT_SITE))
     for name, shape in r2_main:
         sp = r2[(name, shape)]
@@ -4020,7 +4241,9 @@ def main() -> int:
         plan = dc.cluster_plan(
             B, d=AR["d"], H=H, dff=AR["dff"],
             N=6 * MDN_MIXTURES + 3 if cont else AR["V"], Tmax=T, Mq=AR["Mq"],
-            cont=cont, max_clusters=dc.cluster_fit(torch.cuda.current_device(), cont))
+            cont=cont, max_clusters=dc.cluster_fit(
+                torch.cuda.current_device(),
+                dc.KIND_MDN if cont else dc.KIND_TOKEN))
         bar_us = cluster_barrier_us(dev, plan["C"], -(-B // plan["G"]))
         b_ms, b_by = bound(*chunk_work[name])
         print(f"time {name} (B={B}, L={cfg.num_layers}, d={cfg.d_model}, "
@@ -4059,6 +4282,8 @@ def main() -> int:
         if label.startswith("chunk engine"):
             chunk_engine = (decoder, float(np.median(ts)),
                             float(np.median(big)))
+        if label.startswith("step loop"):
+            step_loop = (decoder, float(np.median(ts)))
 
     # the training kernels, the stacks and whole train steps
     for name, (k_ms, p_ms, l_ms) in {
@@ -4075,8 +4300,12 @@ def main() -> int:
             randn, gen, dev, gpu, paired).items():
         times[name] = (k_ms, p_ms)
         lib[name] = l_ms
-    times["decode_step"] = decode_step_times(
-        randn, gen, dev, gpu, cuda_ms, paired, times["decode_chunk"][0])
+    print(f"time decode_step (bf16, B=64, L={AR['L']}, t={AR['T'] // 2}, "
+          f"one step, device time, median of {SPREAD_CALLS}): kernel "
+          f"{times['decode_step'][0]:.4f} ms, plain "
+          f"{times['decode_step'][1]:.4f} ms; decode_chunk per step "
+          f"{times['decode_chunk'][0] / AR['K']:.4f} ms (a {AR['K']}-step "
+          f"chunk / {AR['K']}) [{gpu}]")
     steps_ms = train_step_times(gpu, dev)
     print(f"train steps: {json.dumps(steps_ms)} [{gpu}]")
     # the decode path's device busy time and idle share (after the kernel
@@ -4087,6 +4316,8 @@ def main() -> int:
     for Bp, encp, wall in ((64, enc64, p50_64), (512, enc512, p50_512)):
         profile_decode(f"ar_decode chunk engine B={Bp}",
                        lambda: decoder(encp), gpu, wall)
+    profile_decode("ar_decode step loop B=64", lambda: step_loop[0](enc64),
+                   gpu, step_loop[1])
     rule2_kernel_events(r2_cases, gpu)
     del r2_cases
 
@@ -4099,9 +4330,6 @@ def main() -> int:
                                   TRAIN["V"]))
     work.update(flash_work(*FLASH_SHAPES["cont2cont_mdn"]))
     work.update({name: rule2_work(name, *shape) for name, shape in r2_main})
-    work["decode_step"] = step_work(B=64, L=AR["L"], d=AR["d"],
-                                    dff=AR["dff"], t=AR["T"] // 2,
-                                    Mq=AR["Mq"])
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "jaxlib"))

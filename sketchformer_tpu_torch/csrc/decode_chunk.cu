@@ -84,15 +84,22 @@
 //
 // decode_step is K13, sketchformer_tpu/ops/pallas_decode_stack.py::
 // fused_decode_step (_step_kernel): one whole L-layer step of an embedded
-// (B, d) input at position t, on the same trunk, returning the final
-// LayerNorm's output and each layer's new k/v row (L, B*H, Dh) for the
-// caller to scatter; the caches are only read, rows [0, t). Its one
-// numerical difference from the chunk trunk is the TPU kernel's: the new
-// position enters the self-attention from its f32 values before any
-// rounding (s_new = q.kn and e_new * vn in f32, o = (ctx + e_new * vn) /
-// denom), where the chunk kernels attend to the rounded row they wrote
-// into the cache. Only the step loop of ops/decode_step.py (and the probe
-// it ports) drives it: the chunk kernels superseded it on the TPU.
+// (B, d) input at position t, returning the final LayerNorm's output and
+// each layer's new k/v row (L, B*H, Dh) for the caller to scatter; the
+// caches are only read, rows [0, t). Its one numerical difference from the
+// chunk trunk is the TPU kernel's: the new position enters the
+// self-attention from its f32 values before any rounding (s_new = q.kn and
+// e_new * vn in f32, o = (ctx + e_new * vn) / denom), where the chunk
+// kernels attend to the rounded row they wrote into the cache. In bf16 it
+// is the cluster kernel's third kind (kKindStep): the group's rows read
+// from the (B, d) input in place of the embedding, one step of the L
+// layers, each pair's owner warp writing the new row (rounded) to k_new /
+// v_new and attending to it from the f32 values it holds, no head and no
+// pick, the final LayerNorm's output written out; the TPU kernel, too,
+// makes the batch pane its products' rows (pallas_decode_stack.py:176-247).
+// f32 and declined geometries run the per-row kernel's trunk<..., kStep>.
+// Only the step loop of ops/decode_step.py (and the probe it ports) drives
+// it: the chunk kernels superseded it on the TPU.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok).
 
@@ -818,6 +825,8 @@ constexpr int kProducts = 6;                       // a layer's products
 constexpr int kSmemLimit = 232448;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxTiles = 16;                      // 16-column tiles a slice
+// the cluster kernel's kinds: a token chunk, an MDN chunk, a decoder step
+constexpr int kKindToken = 0, kKindMdn = 1, kKindStep = 2;
 
 // ops/decode_chunk.py::cluster_plan, in PLAN_KEYS order: blocks a cluster,
 // rows a group, ring stages, ring slot (bf16 elements: the weight slice,
@@ -1152,10 +1161,12 @@ struct WMaps {
   CUtensorMap m[kProducts + 1];
 };
 
-template <bool kCont>
+template <int kKind>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_cluster_kernel(const Args<bf16> a, const __grid_constant__ CPlan p,
                       const __grid_constant__ WMaps maps) {
+  constexpr bool kCont = kKind == kKindMdn;
+  constexpr bool kIsStep = kKind == kKindStep;
   extern __shared__ __align__(128) unsigned char csm[];
   __shared__ __align__(8) uint64_t wbar[3];  // a ring slot's arrival
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1182,7 +1193,8 @@ decode_cluster_kernel(const Args<bf16> a, const __grid_constant__ CPlan p,
   bf16* mdn = reinterpret_cast<bf16*>(csm + p.o_mdn);      // [G][Np]
   const int h0 = p.cols[kProducts][rank];
   const int hn = p.cols[kProducts][rank + 1] - h0;
-  const int nh = (hn + p.hcols - 1) / p.hcols;
+  // the head's chunks of the block's columns (the step has no head)
+  const int nh = kIsStep ? 0 : (hn + p.hcols - 1) / p.hcols;
 
   // the weight stream: every product slice of every step in order, with
   // its parameters, NS - 1 slices in flight ahead of the one in use; warp 0
@@ -1300,7 +1312,8 @@ decode_cluster_kernel(const Args<bf16> a, const __grid_constant__ CPlan p,
     }
   };
   // the block's (row, head) pairs, a warp each: attention (self: after
-  // qk-norm and the new k/v row into the cache; cross (std::true_type):
+  // qk-norm and the new k/v row into the cache, or for the step into
+  // k_new / v_new, attended from its f32 values; cross (std::true_type):
   // against the bottleneck K/V) on 16-byte k/v rows, the output row pushed
   // to every block's act; qkn the qk-norm scales and biases
   auto attend_pairs = [&](int i, int t, auto cross, const float* qkn) {
@@ -1322,13 +1335,26 @@ decode_cluster_kernel(const Args<bf16> a, const __grid_constant__ CPlan p,
             warp_ln(q + Dh, Dh, qkn + 2 * Dh, qkn + 3 * Dh);
           }
           const size_t base = head * a.Tmax * Dh;
-          for (int n = lane; n < Dh; n += 32) {
-            a.kc[base + (size_t)t * Dh + n] = from_f<bf16>(q[Dh + n]);
-            a.vc[base + (size_t)t * Dh + n] = from_f<bf16>(q[2 * Dh + n]);
+          if constexpr (kIsStep) {
+            // the new row out, rounded; the caches' rows [0, t) and the
+            // new position's f32 key and value (still in q + Dh, q + 2 Dh)
+            for (int n = lane; n < Dh; n += 32) {
+              a.k_new[head * Dh + n] = from_f<bf16>(q[Dh + n]);
+              a.v_new[head * Dh + n] = from_f<bf16>(q[2 * Dh + n]);
+            }
+            attend<bf16, 2, 8, true, true>(q, a.kc + base, a.vc + base, t,
+                                           Dh, a.scale, false, 1, sc, ow,
+                                           q + Dh, q + 2 * Dh);
+          } else {
+            for (int n = lane; n < Dh; n += 32) {
+              a.kc[base + (size_t)t * Dh + n] = from_f<bf16>(q[Dh + n]);
+              a.vc[base + (size_t)t * Dh + n] = from_f<bf16>(q[2 * Dh + n]);
+            }
+            __syncwarp();
+            attend<bf16, 2, 8, true, true>(q, a.kc + base, a.vc + base,
+                                           t + 1, Dh, a.scale, false, 1, sc,
+                                           ow);
           }
-          __syncwarp();
-          attend<bf16, 2, 8, true, true>(q, a.kc + base, a.vc + base, t + 1,
-                                         Dh, a.scale, false, 1, sc, ow);
         }
       } else {
         for (int n = lane; n < Dh; n += 32) ow[n] = 0.f;
@@ -1386,15 +1412,17 @@ decode_cluster_kernel(const Args<bf16> a, const __grid_constant__ CPlan p,
     return prm + p.bmax + 2 * d;
   };
 
-  for (int r = tid; r < G; r += kThreads) {
-    const int b = b0 + r;
-    const bool ok = b < a.B;
-    fin_s[r] = ok ? a.fin_in[b] : 1;
-    if constexpr (kCont) {
-      for (int c = 0; c < 5; ++c)
-        row_s[r * 5 + c] = ok ? a.prev_row[b * 5 + c] : 0.f;
-    } else {
-      prev_s[r] = ok ? a.prev_tok[b] : a.pad_id;
+  if constexpr (!kIsStep) {
+    for (int r = tid; r < G; r += kThreads) {
+      const int b = b0 + r;
+      const bool ok = b < a.B;
+      fin_s[r] = ok ? a.fin_in[b] : 1;
+      if constexpr (kCont) {
+        for (int c = 0; c < 5; ++c)
+          row_s[r * 5 + c] = ok ? a.prev_row[b * 5 + c] : 0.f;
+      } else {
+        prev_s[r] = ok ? a.prev_tok[b] : a.pad_id;
+      }
     }
   }
   if (tid == 0) {
@@ -1407,10 +1435,18 @@ decode_cluster_kernel(const Args<bf16> a, const __grid_constant__ CPlan p,
 
   for (int j = 0; j < a.K; ++j) {
     const int t = a.t0 + j;
-    // ---- embed: dt(dt(e * sqrt_d) + dt(pos)), every block all G rows ------
+    // ---- embed: dt(dt(e * sqrt_d) + dt(pos)), every block all G rows; the
+    // step reads its embedded rows (zeros past B) -------------------------
     const int nv = d / 8;
     for (int idx = tid; idx < G * nv; idx += kThreads) {
       const int r = idx / nv, n = 8 * (idx - r * nv);
+      if constexpr (kIsStep) {
+        *reinterpret_cast<uint4*>(xs + r * d + n) =
+            b0 + r < a.B ? *reinterpret_cast<const uint4*>(
+                               a.x_in + (size_t)(b0 + r) * d + n)
+                         : make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
       float e[8];
       if constexpr (kCont) {
 #pragma unroll
@@ -1483,7 +1519,18 @@ decode_cluster_kernel(const Args<bf16> a, const __grid_constant__ CPlan p,
     }
 
     // ---- the head: the final LayerNorm with its first chunk -------------
-    if constexpr (kCont) {
+    if constexpr (kIsStep) {
+      // the step: the final LayerNorm (its parameters read in place), each
+      // block writing the rows r = rank (mod C) of the group
+      group_ln(xs, hs, p.ld_hs, G, d, a.w.lnfs, a.w.lnfb);
+      __syncthreads();
+      for (int idx = tid; idx < G * nv; idx += kThreads) {
+        const int r = idx / nv, n = 8 * (idx - r * nv);
+        if (r % C == rank && b0 + r < a.B)
+          *reinterpret_cast<uint4*>(a.h_out + (size_t)(b0 + r) * d + n) =
+              *reinterpret_cast<const uint4*>(hs + (size_t)r * p.ld_hs + n);
+      }
+    } else if constexpr (kCont) {
       // MDN: the 6M+3 values to every block, then the pick
       for (int ch = 0; ch < nh; ++ch) {
         Prod w;
@@ -1602,15 +1649,22 @@ decode_cluster_kernel(const Args<bf16> a, const __grid_constant__ CPlan p,
     }
     __syncthreads();
   }
-  if (rank == 0)
+  if (rank == 0 && !kIsStep)
     for (int r = tid; r < G; r += kThreads)
       if (b0 + r < a.B) a.fin_out[b0 + r] = fin_s[r];
   cluster_sync_all();
 }
 
-template <bool kCont>
-cudaError_t cluster_attrs(int C, int smem) {
-  auto kernel = decode_cluster_kernel<kCont>;
+// the cluster kernel of a kind (kKindToken, kKindMdn, kKindStep)
+using ClusterKernel = void (*)(const Args<bf16>, CPlan, WMaps);
+
+ClusterKernel cluster_kernel(int kind) {
+  return kind == kKindToken ? decode_cluster_kernel<kKindToken>
+         : kind == kKindMdn ? decode_cluster_kernel<kKindMdn>
+                            : decode_cluster_kernel<kKindStep>;
+}
+
+cudaError_t cluster_attrs(ClusterKernel kernel, int C, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && C > 8)
@@ -1636,17 +1690,22 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int C,
   return cfg;
 }
 
-// the launcher refuses a plan the kernel cannot run
-int launch_cluster(const Args<bf16>& a, const int* plan, int cont,
+// the launcher refuses a plan the kernel cannot run (kind: kKindToken,
+// kKindMdn or kKindStep; the step's plan has no head: hcols = Np = 0)
+int launch_cluster(const Args<bf16>& a, const int* plan, int kind,
                    cudaStream_t stream) {
   CPlan p;
   memcpy(&p, plan, sizeof(p));
+  const bool step = kind == kKindStep;
   const int offs[] = {p.o_xs, p.o_hs, p.o_act, p.o_own, p.o_state,
                       p.o_sc, p.o_ring, p.o_lbuf, p.o_cand, p.o_mdn};
-  bool ok = p.C >= 1 && p.C <= 16 && p.G >= 16 && p.G % 16 == 0 &&
+  bool ok = kind >= kKindToken && kind <= kKindStep && p.C >= 1 &&
+            p.C <= 16 && p.G >= 16 && p.G % 16 == 0 &&
             p.G <= kMaxGroup && (p.NS == 2 || p.NS == 3) && p.total > 0 &&
-            p.total <= kSmemLimit && p.hcols >= 16 && p.hcols % 16 == 0 &&
-            p.Np % 16 == 0 && p.slots * p.C >= p.G * a.H &&
+            p.total <= kSmemLimit &&
+            (step ? p.hcols == 0 && p.Np == 0 && a.K == 1
+                  : p.hcols >= 16 && p.hcols % 16 == 0 && p.Np % 16 == 0) &&
+            p.slots * p.C >= p.G * a.H &&
             p.pofs % 64 == 0 && p.slot % 64 == 0 && p.bmax % 16 == 0 &&
             p.o_ring % 128 == 0 &&
             a.d % 16 == 0 && a.dff % 16 == 0 && a.Dh % 8 == 0 &&
@@ -1680,9 +1739,10 @@ int launch_cluster(const Args<bf16>& a, const int* plan, int cont,
                        p.o_sc + S * items * 1024 <= p.o_ring));
     }
   WMaps maps;
+  memset(&maps, 0, sizeof(maps));
   TmapEncode encode = tmap_encode();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  for (int k = 0; k <= kProducts && ok; ++k) {
+  for (int k = 0; k < (step ? kProducts : kProducts + 1) && ok; ++k) {
     const bool head = k == kProducts;
     const int K = head ? a.d : Kd[k], n = head ? p.Np : N[k];
     const int box = head ? p.hcols : p.ldw[k];
@@ -1694,15 +1754,13 @@ int launch_cluster(const Args<bf16>& a, const int* plan, int cont,
                  CU_TENSOR_MAP_SWIZZLE_NONE);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cont ? cluster_attrs<true>(p.C, p.total)
-                               : cluster_attrs<false>(p.C, p.total);
+  const ClusterKernel kernel = cluster_kernel(kind);
+  const cudaError_t err = cluster_attrs(kernel, p.C, p.total);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
       attr, p.C, (a.B + p.G - 1) / p.G, p.total, stream);
-  const cudaError_t e =
-      cont ? cudaLaunchKernelEx(&cfg, decode_cluster_kernel<true>, a, p, maps)
-           : cudaLaunchKernelEx(&cfg, decode_cluster_kernel<false>, a, p, maps);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, p, maps);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1806,7 +1864,7 @@ int run(int cont, const void* const* weights, void* kc, void* vc,
   a.fin_out = static_cast<int*>(fin_out);
   if (plan != nullptr) {
     if constexpr (std::is_same<T, bf16>::value)
-      return launch_cluster(a, plan, cont, stream);
+      return launch_cluster(a, plan, cont ? kKindMdn : kKindToken, stream);
     return (int)cudaErrorInvalidValue;
   }
   return cont ? launch_rows<T, 1>(a, stream) : launch_rows<T, 0>(a, stream);
@@ -1816,7 +1874,7 @@ template <typename T>
 int run_step(const void* const* weights, const void* kc, const void* vc,
              const void* ck, const void* cv, const void* x, void* h,
              void* k_new, void* v_new, const int* dims, const float* fdims,
-             cudaStream_t stream) {
+             const int* plan, cudaStream_t stream) {
   Args<T> a;
   const int err = common_args(a, weights, const_cast<void*>(kc),
                               const_cast<void*>(vc), ck, cv, dims, fdims);
@@ -1825,6 +1883,16 @@ int run_step(const void* const* weights, const void* kc, const void* vc,
   a.h_out = static_cast<T*>(h);
   a.k_new = static_cast<T*>(k_new);
   a.v_new = static_cast<T*>(v_new);
+  if (plan != nullptr) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      // 16-byte rows of the input and the output
+      if (reinterpret_cast<uintptr_t>(x) % 16 ||
+          reinterpret_cast<uintptr_t>(h) % 16)
+        return (int)cudaErrorInvalidValue;
+      return launch_cluster(a, plan, kKindStep, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   return launch_rows<T, 2>(a, stream);
 }
 
@@ -1860,18 +1928,18 @@ extern "C" int sk_decode_chunk(int dtype, int cont, const void* const* weights,
 }
 
 // the clusters of C blocks, each with smem bytes of shared memory, that
-// the card runs at once for the cluster kernel (cont: 0 token, 1 MDN)
-extern "C" int sk_decode_cluster_fit(int cont, int C, int smem,
+// the card runs at once for the cluster kernel (kind: 0 token chunk, 1 MDN
+// chunk, 2 decode step)
+extern "C" int sk_decode_cluster_fit(int kind, int C, int smem,
                                      int* clusters) {
-  const cudaError_t err = cont ? cluster_attrs<true>(C, smem)
-                               : cluster_attrs<false>(C, smem);
+  if (kind < kKindToken || kind > kKindStep)
+    return (int)cudaErrorInvalidValue;
+  const ClusterKernel kernel = cluster_kernel(kind);
+  const cudaError_t err = cluster_attrs(kernel, C, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(attr, C, 1, smem, nullptr);
-  return (int)(cont ? cudaOccupancyMaxActiveClusters(
-                          clusters, decode_cluster_kernel<true>, &cfg)
-                    : cudaOccupancyMaxActiveClusters(
-                          clusters, decode_cluster_kernel<false>, &cfg));
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 // `iters` back-to-back cluster barriers in each of `clusters` clusters of
@@ -1895,17 +1963,21 @@ extern "C" int sk_cluster_barrier_probe(int C, int clusters, int iters,
 
 // decode_step at position dims[kT0] (dims[kK] = 1): x (B, d) in, h (B, d)
 // and the new rows k_new / v_new (L, B*H, Dh) out; the caches are read.
+// plan: null for the per-row kernel, else the kPlanInts ints of
+// ops/decode_chunk.py::cluster_plan with no head (N = 0) for the bf16
+// cluster kernel's step kind.
 extern "C" int sk_decode_step(int dtype, const void* const* weights,
                               const void* kc, const void* vc, const void* ck,
                               const void* cv, const void* x, void* h,
                               void* k_new, void* v_new, const int* dims,
-                              const float* fdims, void* stream) {
+                              const float* fdims, const int* plan,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_step<float>(weights, kc, vc, ck, cv, x, h, k_new, v_new, dims,
-                           fdims, s);
+                           fdims, plan, s);
   if (dtype == 1)
     return run_step<__nv_bfloat16>(weights, kc, vc, ck, cv, x, h, k_new,
-                                   v_new, dims, fdims, s);
+                                   v_new, dims, fdims, plan, s);
   return (int)cudaErrorInvalidValue;
 }

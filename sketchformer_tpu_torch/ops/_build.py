@@ -60,7 +60,8 @@ SIGNATURES = {
                                 _F, _P], _I),
     "sk_layernorm_bwd": ([_I, _I, _I] + [_P] * 8 + [_I] * 5 + [_P], _I),
     "sk_sum_rows": ([_I, _P, _P] + [_I] * 7 + [_P], _I),
-    "sk_emit_dropout_bits": ([_U, _P, _I, _I, _I, _I, _P], _I),
+    "sk_emit_dropout_bits": ([_U, _P, _I, _I, _I, _I, _I, _P, _P], _I),
+    "sk_emit_fit": ([_P], _I),
     "sk_token_ce_fwd": ([_I] + [_P] * 7 + [_I] * 7 + [_P], _I),
     "sk_token_ce_bwd": ([_I] + [_P] * 12 + [_I] * 7 + [_P], _I),
     "sk_encoder_attention": (
@@ -71,7 +72,7 @@ SIGNATURES = {
     "sk_decode_chunk": ([_I, _I] + [_P] * 22, _I),
     "sk_decode_cluster_fit": ([_I, _I, _I, _P], _I),
     "sk_cluster_barrier_probe": ([_I, _I, _I, _P], _I),
-    "sk_decode_step": ([_I] + [_P] * 12, _I),
+    "sk_decode_step": ([_I] + [_P] * 13, _I),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

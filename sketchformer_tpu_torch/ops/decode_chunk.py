@@ -50,6 +50,9 @@ _PRODUCT_KEYS = ("s_wqkv", "s_wo", "c_wq", "c_wo", "w1", "w2")
 
 LAUNCHES = {"decode_chunk": 0, "decode_cont_chunk": 0}
 ROUTES = {"cluster": 0, "rows": 0}
+# the cluster kernel's kinds (csrc/decode_chunk.cu): a token chunk, an MDN
+# chunk, a whole decoder step (ops/decode_step.py)
+KIND_TOKEN, KIND_MDN, KIND_STEP = 0, 1, 2
 
 
 def reset_launches() -> None:
@@ -347,7 +350,9 @@ def _align(n: int, to: int = 128) -> int:
 
 def _layout(C, G, NS, *, d, H, dff, Np, Tmax, Mq, cont):
     """The plan's strides, ring, slices and shared-memory offsets (bytes)
-    for clusters of C blocks holding G rows with an NS-slot weight ring."""
+    for clusters of C blocks holding G rows with an NS-slot weight ring;
+    Np = 0 lays out the step kind, which has no head (hcols 0), no head
+    buffers and no pick state."""
     Dh = d // H
     shapes = product_shapes(d, dff)
     slices = [split_columns(N, C) for _, N in shapes] + [
@@ -376,8 +381,9 @@ def _layout(C, G, NS, *, d, H, dff, Np, Tmax, Mq, cont):
                 cols=[[c0 for c0, _ in s] + [s[-1][0] + s[-1][1]]
                       * (MAX_CLUSTER + 1 - C) for s in slices],
                 split=split)
-    lbuf = 0 if cont else G * hcols * 4           # a head chunk's logits
-    cand = 0 if cont else C * G * 8               # the blocks' argmaxes
+    token = not cont and Np > 0
+    lbuf = G * hcols * 4 if token else 0          # a head chunk's logits
+    cand = C * G * 8 if token else 0              # the blocks' argmaxes
     mdn = G * Np * 2 if cont else 0               # the MDN head rows
     # the head's buffers share act, which no block writes in the head phase
     act = max(G * plan["ld_act"] * 2, _align(lbuf) + cand, mdn)
@@ -387,7 +393,7 @@ def _layout(C, G, NS, *, d, H, dff, Np, Tmax, Mq, cont):
              ("o_act", act),
              ("o_own", max(plan["slots"] * 3 * Dh * 4, G * bmax * 2)),
              # prev, fin, the stroke row (5), the head's best (value, index)
-             ("o_state", G * 9 * 4),
+             ("o_state", G * 9 * 4 if Np else 0),
              # the attention's score and output rows, or a split product's
              # partial tiles
              ("o_sc", max(WARPS * (max(Tmax, Mq) + Dh) * 4, partials)),
@@ -424,7 +430,8 @@ def cluster_plan(B: int, *, d: int, H: int, dff: int, N: int, Tmax: int,
     fits the shared memory, with a three-slot ring where it fits, else
     two; failing that, the largest G that fits, in several waves. Np is
     the head's width N in whole 16-column tiles (the kernel takes the head
-    so padded: :func:`pad_head`)."""
+    so padded: :func:`pad_head`); N = 0 plans the step kind (one decoder
+    step, no head: ``decode_step``)."""
     Np = _align(N, TILE)
     geo = dict(d=d, H=H, dff=dff, Np=Np, Tmax=Tmax, Mq=Mq, cont=cont)
 
@@ -485,17 +492,17 @@ def pad_head(head_w: torch.Tensor, head_b: torch.Tensor, *, cont: bool):
 
 
 @functools.cache
-def cluster_fit(device_index: int, cont: bool) -> dict:
+def cluster_fit(device_index: int, kind: int) -> dict:
     """{C: clusters of C blocks at the most shared memory that the card
-    runs at once} for the cluster kernel, by cudaOccupancyMaxActiveClusters.
-    A card may refuse the non-portable size 16 (then 0); an error at a
-    portable size raises."""
+    runs at once} for the cluster kernel of ``kind`` (KIND_TOKEN, KIND_MDN,
+    KIND_STEP), by cudaOccupancyMaxActiveClusters. A card may refuse the non-portable size
+    16 (then 0); an error at a portable size raises."""
     lib = _build.library()
     out = {}
     with torch.cuda.device(device_index):
         for C in CLUSTER_SIZES:
             n = ctypes.c_int(0)
-            err = lib.sk_decode_cluster_fit(int(cont), C, SMEM_LIMIT,
+            err = lib.sk_decode_cluster_fit(int(kind), C, SMEM_LIMIT,
                                             ctypes.byref(n))
             if C <= 8:
                 _build.check(err, "decode_cluster_fit")
@@ -589,7 +596,8 @@ def _launch(kernel, *, cont, prev, finished, k_cache, v_cache, cross_k,
                        aligned=aligned) is None:
         plan = cluster_plan(B, d=d, H=num_heads, dff=dims[5], N=N,
                             Tmax=dims[6], Mq=dims[7], cont=cont,
-                            max_clusters=cluster_fit(dev.index, cont))
+                            max_clusters=cluster_fit(
+                                dev.index, KIND_MDN if cont else KIND_TOKEN))
     plan_arr = None
     if plan is not None:
         plan_arr = (ctypes.c_int * PLAN_INTS)(*plan_ints(plan))

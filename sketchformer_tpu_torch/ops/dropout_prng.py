@@ -33,11 +33,17 @@ int64 tensors) is here too, and gives the same bytes on any device.
 
 ``LAUNCHES["emit_dropout_bits"]`` counts the emit kernel's launches;
 ``LAUNCHES["prng_draw"]`` counts launches of training kernels that drew a
-site in-kernel (each also counts under its own kernel's name).
+site in-kernel (each also counts under its own kernel's name). ``ROUTES``
+counts how each emit stored its bytes: ``vec16`` (one 16-byte store a run
+of 16 positions and site) or ``bytes`` (a row length that is not a multiple
+of 16). :func:`emit_plan` is the emit kernel's persistent grid and its walk
+over the (layer, b, run) items.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -50,6 +56,9 @@ LAYER_STRIDE = 1 << 20
 MAX_SITES = 4            # one 32-bit word serves up to four sites a layer
 
 LAUNCHES = {"emit_dropout_bits": 0, "prng_draw": 0}
+ROUTES = {"vec16": 0, "bytes": 0}
+EMIT_THREADS = 256       # the emit kernel's block
+EMIT_RUN = 16            # positions a thread writes an item: four calls
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57     # Philox-4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85     # Weyl key increments
@@ -59,6 +68,8 @@ _MASK = 0xFFFFFFFF
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in ROUTES:
+        ROUTES[k] = 0
 
 
 class PrngSite(NamedTuple):
@@ -181,6 +192,36 @@ def _check_sites(nsites):
 # ---------------------------------------------------------------------------
 
 
+def emit_plan(num_layers: int, B: int, TD: int, sms: int,
+              blocks_per_sm: int) -> dict:
+    """The emit kernel's persistent grid and its walk: ``runs`` 16-position
+    runs a row of TD bytes, ``items`` = num_layers * B * runs (layer
+    slowest, run fastest), ``grid`` blocks of EMIT_THREADS (the card's
+    resident blocks, fewer when the items do not fill them) and the grid
+    stride as (``dr`` runs, ``db`` rows, ``dl`` layers), by which a thread
+    moves from item to item with additions alone (the kernel's carries:
+    run past the row, b past the batch). Thread g's items are g, g +
+    stride, ... below ``items``."""
+    runs = -(-TD // EMIT_RUN)
+    items = num_layers * B * runs
+    grid = max(1, min(sms * blocks_per_sm, -(-items // EMIT_THREADS)))
+    stride = grid * EMIT_THREADS
+    rows = stride // runs
+    return dict(runs=runs, items=items, grid=grid, stride=stride,
+                dr=stride % runs, db=rows % B, dl=rows // B)
+
+
+@functools.cache
+def emit_fit(device_index: int) -> tuple:
+    """(SMs, resident emit blocks an SM) of the card, by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    lib = _build.library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _build.check(lib.sk_emit_fit(ctypes.byref(n)), "emit_fit")
+    return (_build.sm_count(torch.device("cuda", device_index)), n.value)
+
+
 def emit_dropout_bits(seed: int, num_layers: int, nsites: int, B: int,
                       T: int, d: int, device="cpu") -> torch.Tensor:
     """The bytes every 'prng' site of a stack draws, as a (num_layers *
@@ -193,17 +234,25 @@ def emit_dropout_bits(seed: int, num_layers: int, nsites: int, B: int,
     if device.type != "cuda":
         raise ValueError(f"emit_dropout_bits: unsupported device {device}")
     _check_sites(nsites)
-    if not (0 < B < min(LAYER_STRIDE, 65536) and 0 < num_layers < 65536):
-        raise ValueError(f"emit_dropout_bits: B={B}, num_layers={num_layers}")
+    if not (0 < B < LAYER_STRIDE and 0 < num_layers and T * d > 0):
+        raise ValueError(f"emit_dropout_bits: B={B}, num_layers={num_layers}, "
+                         f"T*d={T * d}")
     out = torch.empty((num_layers * nsites, B, T, d), dtype=torch.uint8,
                       device=device)
+    plan = emit_plan(num_layers, B, T * d, *emit_fit(out.device.index))
+    if plan["items"] >= 2 ** 31:
+        raise ValueError(f"emit_dropout_bits: {plan['items']} runs of "
+                         f"{EMIT_RUN} bytes exceed the kernel's 2^31")
+    route = ctypes.c_int(0)
     lib = _build.library()
-    with torch.cuda.device(device):
+    with torch.cuda.device(out.device):
         err = lib.sk_emit_dropout_bits(
             seed & 0xFFFFFFFFFFFFFFFF, _build.ptr(out), num_layers, nsites, B,
-            T * d, torch.cuda.current_stream(device).cuda_stream)
+            T * d, plan["grid"], ctypes.byref(route),
+            torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(err, "emit_dropout_bits")
     LAUNCHES["emit_dropout_bits"] += 1
+    ROUTES["vec16" if route.value else "bytes"] += 1
     return out
 
 

@@ -1361,3 +1361,86 @@ def test_encoder_attention_bf16_route(cuda, Dh, route):
                                            qk_norm=qk), bf)
         assert torch.isfinite(got[0]).all()
         assert torch.equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# K13's bf16 step kind of the cluster kernel; K7's emit on its persistent
+# grid of 16-byte runs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 40])
+@pytest.mark.parametrize("H", [8, 2])
+@pytest.mark.parametrize("qk", [False, True], ids=["plain", "qknorm"])
+@pytest.mark.parametrize("t", [0, 17, 191])
+def test_decode_step_cluster_kind(cuda, t, qk, H, B):
+    """bf16 at the ar_decode width (d=256, dff=512, Tmax=192; 2 layers) on
+    the cluster route: h and the new k/v rows held to the float32
+    computation of the same inputs within 2x the plain bf16 path's error;
+    the caches unread past t and unwritten. B=40 ends in a part-empty row
+    group."""
+    gen = torch.Generator(device=cuda).manual_seed(1400 + t + 7 * H + B)
+    L, d, dff, Tmax = 2, 256, 512, 192
+    ops = _chunk_operands(gen, cuda, B=B, L=L, d=d, H=H, dff=dff, N=16,
+                          Tmax=Tmax, Mq=4, K=1, t0=t, dtype=torch.bfloat16,
+                          cont=False)
+    ops["k_cache"][:, :, t:] = float("nan")     # rows the step must not read
+    ops["v_cache"][:, :, t:] = float("nan")
+    kc, vc = ops["k_cache"].clone(), ops["v_cache"].clone()
+    x = _rand(gen, cuda, B, d, dtype=torch.bfloat16)
+    args = (x, ops["k_cache"], ops["v_cache"], ops["cross_k"],
+            ops["cross_v"], ops["w"], t)
+    routes = dict(dstep.ROUTES)
+    got = dstep.fused_decode_step(*args, num_heads=H, qk_norm=qk)
+    assert dstep.ROUTES == {**routes, "cluster": routes["cluster"] + 1}
+    want = dstep.fused_decode_step_reference(*args, num_heads=H, qk_norm=qk)
+    ref = dstep.fused_decode_step_reference(
+        *(a.float() for a in args[:5]),
+        {k: v.float() for k, v in ops["w"].items()}, t, num_heads=H,
+        qk_norm=qk)
+    torch.cuda.synchronize()
+    for a, b, r in zip(got, want, ref):
+        assert torch.isfinite(a).all()
+        err_k = (a.float() - r).abs().max().item()
+        err_p = (b.float() - r).abs().max().item()
+        assert err_k <= 2.0 * err_p, (err_k, err_p)
+    assert torch.equal(ops["k_cache"].nan_to_num(), kc.nan_to_num())
+    assert torch.equal(ops["v_cache"].nan_to_num(), vc.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_decode_step_f32_keeps_the_rows_kernel(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1401)
+    ops = _chunk_operands(gen, cuda, B=40, L=2, d=256, H=8, dff=512, N=16,
+                          Tmax=32, Mq=4, K=1, t0=9, dtype=torch.float32,
+                          cont=False)
+    args = (_rand(gen, cuda, 40, 256), ops["k_cache"], ops["v_cache"],
+            ops["cross_k"], ops["cross_v"], ops["w"], 9)
+    routes = dict(dstep.ROUTES)
+    got = dstep.fused_decode_step(*args, num_heads=8)
+    assert dstep.ROUTES == {**routes, "rows": routes["rows"] + 1}
+    for a, b in zip(got, dstep.fused_decode_step_reference(*args,
+                                                           num_heads=8)):
+        _close(a, b, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [
+    ((1, 1, 256, 192, 256), "vec16"),          # pretrain_full's site
+    ((1, 1, 64, 192, 512), "vec16"),           # a post-LN FFN site
+    ((8, 2, 16, 96, 256), "vec16"),            # a whole stack's tensor
+    ((1, 1, 3, 7, 10), "bytes"),               # TD = 70
+    ((3, 4, 5, 1, 10), "bytes"),               # TD = 10
+])
+def test_emit_dropout_bits_routes(cuda, shape, route):
+    """The emit kernel bit-equal to the plain Philox on the route each
+    shape takes."""
+    L, nsites, B, T, d = shape
+    seed = 0x0F1E_2D3C_4B5A_6978
+    routes = dict(dp.ROUTES)
+    got = dp.emit_dropout_bits(seed, L, nsites, B, T, d, cuda)
+    assert dp.ROUTES == {**routes, route: routes[route] + 1}
+    torch.cuda.synchronize()
+    assert torch.equal(got, dp.emit_dropout_bits_reference(seed, L, nsites, B,
+                                                           T, d, cuda))
