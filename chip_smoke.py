@@ -117,10 +117,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    stack declines its kernels, the loss is finite and falls; and ``eval``
    on its checkpoint, whose loss the composed model matches; then
    ``train`` in float32 (2 layers, 3 steps), whose attention backward
-   leaves its qk-norm partial rows to ``sum_rows``; then the same for
-   token-mode
-   training: ``train`` on ``pretrain_full`` with a synthetic 345-class
-   token loader (its shards are not in the repo) and warmup 500, through
+   leaves its qk-norm partial rows to ``sum_rows``; then the port's
+   ``prep-data`` on 345 per-class npz files of synthetic sketches in the
+   sketch-rnn release's layout (the QuickDraw files are not in the repo;
+   8 train shards), and the same for token-mode training: ``train`` on
+   ``pretrain_full`` on those shards through its own
+   ``distributed_stroke3`` loader, warmup 500, through
    the K6 kernels, the stacks drawing their dropout in-kernel (no dropout
    byte tensor drawn) and the composed sites through the emit kernel;
    then the post-LN model (``--hparams norm_first=False``): ``sbir`` and
@@ -128,7 +130,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    with K8 forward and backward 16 times a step and no stack kernel, and
    ``eval`` against the composed model; and the K13 step loop on
    ``ar_decode`` (192 launches, each on the cluster kernel; every CLI path
-   launches it 0 times). Each
+   launches it 0 times); then data parallelism: the train CLI's body
+   (``cli.train``) on ``pretrain_full`` at its full width on the same
+   shards by 2 ranks over gloo on the one card (``parallel/multiprocess.py``;
+   kernels built once, by this process, before the ranks start; every rank
+   with a timeout): 10 steps and the eval, the final metrics and params
+   equal across ranks, one checkpoint and one ``metrics.jsonl``, both
+   ranks restoring the checkpoint, every rank's bf16 train kernels
+   launched, ``eval --run-dir`` on the run dir giving rank 0's final eval;
+   at dropout 0 and warmup 30 the 2-rank losses within 7e-5 relative of
+   one process on the concatenated 512-row batches, and the same process
+   averaging the ranks' local means (two microbatches) outside it; and
+   world size 1 on NCCL bit-equal to a run without a group. Each
    CLI run prints the routes of its ``layernorm_rows`` and
    ``decode_attention`` launches and fails if one was declined;
 5. times: ``layernorm_rows`` (bf16, M 12,288 and 49,152), K12 (B*H=512,
@@ -184,6 +197,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
+    python3 chip_smoke.py --profiler-window SECONDS
+
+reads how a profiler trace keeps device events as the process ages, with
+and without the guard that every kernel trace of this script takes.
+
     python3 chip_smoke.py --rule2 ROOT LABEL
 
 times the rule-2 kernels (phase 5's first spreads and events, and the K13
@@ -194,6 +212,7 @@ chip call, reads parent and change on one card.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -704,6 +723,22 @@ TRAIN_KERNELS = ("linear_nt", "linear_tn", "attention_fwd", "attention_bwd_q",
                  "attention_bwd_kv", "layernorm_bwd")
 TOK_KERNELS = ("token_ce_fwd", "token_ce_dx", "token_ce_dw",
                "emit_dropout_bits")
+# pretrain_full's shards: per-class npz files in the sketch-rnn release's
+# layout, of synthetic sketches (the QuickDraw files are not in the repo),
+# through the port's prep-data: 345 x 24 = 8,280 sketches, 90% train in
+# shards of 1,024 -> 8 train shards, 4 for each of the 2 ranks
+QD_CLASSES, QD_PER_CLASS, QD_SHARD_SIZE = 345, 24, 1024
+# the 2-rank run of pretrain_full (then its eval), the dropout-0 trajectory
+# against one process, and world size 1 on NCCL against a run without a group
+DDP_RANKS, DDP_STEPS, DDP_TRAJ_STEPS = 2, 10, 3
+# the trajectory's warmup: the learning rate climbs to 1.1e-3 at its 3rd
+# step (d 256), so that the loss moves (by 3.7%); past the 3rd step the
+# bf16 runs' error grows (2.1e-4 at the 4th, 7.1e-4 at the 6th). Its
+# tolerance, set from readings (PERF.md, PR 15), halfway in ratio between
+# the sound 2-rank run's largest error (3.4e-5) and that of one process
+# averaging the ranks' local means at the same batches (1.4e-4)
+DDP_TRAJ_WARMUP, DDP_TRAJ_TOL = 30, 7e-5
+DDP_TIMEOUT = 300.0   # seconds a rank may take; a hung rank fails the phase
 STACK_KERNELS = ("linear", "layernorm_rows", "encoder_attention") + \
     TRAIN_KERNELS
 
@@ -1962,11 +1997,67 @@ def check_dropout_prng(dev, errs):
             del mod, prng, bits, byt
 
 
-def train_tok_main_path(cli, counters, engines, tmp):
+def write_quickdraw_npz(in_dir, classes, per_class, seed=0):
+    """Per-class ``<name>.npz`` files in the sketch-rnn release's layout
+    (``train`` / ``valid`` / ``test`` object arrays of stroke-3 sketches),
+    of the port's synthetic sketches: what prep-data reads."""
+    from sketchformer_tpu_torch.data import synthetic
+
+    def objects(sketches):
+        arr = np.empty(len(sketches), dtype=object)
+        for i, sk in enumerate(sketches):
+            arr[i] = sk
+        return arr
+
+    os.makedirs(in_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_valid = max(1, per_class // 12)
+    cut = per_class - 2 * n_valid
+    for c in range(classes):
+        sks = [synthetic.generate_sketch(c, rng) for _ in range(per_class)]
+        np.savez(os.path.join(in_dir, f"class_{c:03d}.npz"),
+                 train=objects(sks[:cut]),
+                 valid=objects(sks[cut:cut + n_valid]),
+                 test=objects(sks[cut + n_valid:]))
+
+
+def prep_shards(cli, tmp):
+    """pretrain_full's shards: QD_CLASSES per-class npz files through the
+    port's ``prep-data``; at least 2 train shards a rank."""
+    from sketchformer_tpu_torch.data.shards import ShardedDataset
+
+    in_dir, out_dir = os.path.join(tmp, "quickdraw"), os.path.join(tmp,
+                                                                   "shards")
+    t0 = time.perf_counter()
+    write_quickdraw_npz(in_dir, QD_CLASSES, QD_PER_CLASS)
+    argv = ["prep-data", "--input-dir", in_dir, "--out-dir", out_dir,
+            "--shard-size", str(QD_SHARD_SIZE)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"cli prep-data returned {rc}")
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ds = ShardedDataset(out_dir)
+    n_train = sum(1 for f in os.listdir(out_dir) if f.startswith("train_"))
+    print(f"main path: python -m sketchformer_tpu_torch.cli "
+          f"{' '.join(argv)}\n  prep-data: {json.dumps(out)}; "
+          f"{n_train} train shards, {ds.num_classes} classes "
+          f"({time.perf_counter() - t0:.1f} s with the npz files)")
+    if out["classes"] != QD_CLASSES or \
+            out["sketches"] != QD_CLASSES * QD_PER_CLASS:
+        fail(f"prep-data wrote {out}")
+    if n_train < 2 * DDP_RANKS:
+        fail(f"prep-data wrote {n_train} train shards for {DDP_RANKS} ranks")
+    return out_dir
+
+
+def train_tok_main_path(cli, counters, engines, tmp, shards):
     """The port's train CLI on pretrain_full (token mode) for TRAIN_STEPS
-    steps from a synthetic 345-class token loader, then eval on its
-    checkpoint, each with every launch counter reset just before and read
-    just after. Returns the train launches."""
+    steps on the prep-data shards through the preset's own
+    distributed_stroke3 loader, then eval on its checkpoint, each with
+    every launch counter reset just before and read just after. Returns
+    the train launches."""
     import dataclasses
 
     import torch
@@ -1977,19 +2068,19 @@ def train_tok_main_path(cli, counters, engines, tmp):
     from sketchformer_tpu_torch.train.step import make_eval_step
 
     run = os.path.join(tmp, "run_tok")
-    argv = ["train", "--preset", "pretrain_full", "--loader", "synthetic",
-            "--loader-arg", "num_classes=345", "--loader-arg",
-            "sketches_per_epoch=8280", "--run-dir", run, "--device", "cuda",
+    argv = ["train", "--preset", "pretrain_full", "--data-dir", shards,
+            "--run-dir", run, "--device", "cuda",
             "--notifier", "none", "--loop-arg", f"total_steps={TRAIN_STEPS}",
             "--loop-arg", "warmup_steps=500", "--loop-arg", "log_every=1",
             "--loop-arg", "eval_every=1000", "--loop-arg",
             f"save_every={TRAIN_STEPS}"]
     print("main path: python -m sketchformer_tpu_torch.cli " + " ".join(argv))
-    print("  cuts: the preset's QuickDraw shards are not in the repo, so its "
-          "loader is the synthetic token loader of 345 classes (the preset's "
-          "batch 256 and buckets 64/96/128/192 kept); warmup 10,000 -> 500 so "
-          f"that the loss can move in {TRAIN_STEPS} steps; {TRAIN_STEPS} of "
-          "300,000 steps")
+    print(f"  cuts: the preset's loader (distributed_stroke3, batch 256, "
+          f"buckets 64/96/128/192) reads prep-data shards of "
+          f"{QD_CLASSES * QD_PER_CLASS:,} synthetic sketches (the QuickDraw "
+          f"files are not in the repo); warmup 10,000 -> 500 so that the "
+          f"loss can move in {TRAIN_STEPS} steps; {TRAIN_STEPS} of 300,000 "
+          "steps")
     engines.reset_seen()
     for m in counters:
         m.reset_launches()
@@ -2078,6 +2169,197 @@ def train_tok_main_path(cli, counters, engines, tmp):
     return launches
 
 
+def metrics_losses(run_dir):
+    """(train losses by step, whether no (step, keys) record repeats) of a
+    run dir's metrics.jsonl."""
+    seen, losses = set(), []
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            key = (rec["step"], tuple(sorted(k for k in rec if k != "time")))
+            unique = key not in seen
+            seen.add(key)
+            if "loss" in rec and "val_loss" not in rec:
+                losses.append(rec["loss"])
+            if not unique:
+                return losses, False
+    return losses, True
+
+
+def ddp_main_path(cli, shards, tmp, gpu):
+    """Multi-process data parallelism on the card: the train CLI's body
+    (``cli.train``) of pretrain_full (its full width: d 256, L 8, 8 heads,
+    bf16, qk-norm, 'prng' dropout 0.1, K6; batch 256 a rank, buckets
+    64-192) on the prep-data shards by DDP_RANKS ranks over gloo on the one
+    card (``parallel/multiprocess.py``, each rank streaming its own
+    shards), for DDP_STEPS steps and its eval: losses and params equal
+    across ranks, one checkpoint and one metrics.jsonl, both ranks
+    restoring the checkpoint, every rank's bf16 kernels launched, and
+    ``cli eval --run-dir`` on the run dir giving rank 0's final eval. Then
+    at dropout 0 and a learning rate that moves the loss, the 2-rank
+    losses against one process on the concatenated 512-row batches, within
+    DDP_TRAJ_TOL, which must not hold the same process averaging the
+    ranks' local means; and world size 1 on NCCL against a run without a
+    group, bit for bit. Returns rank 0's launches in the 2-rank run."""
+    import torch
+
+    from sketchformer_tpu_torch.convert import init_params
+    from sketchformer_tpu_torch.data.registry import get_dataloader_by_name
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.parallel import multiprocess as mp
+    from sketchformer_tpu_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.cuda.empty_cache()
+
+    def loop_args(steps, warmup=500):
+        return ["--notifier", "none", "--loop-arg", f"total_steps={steps}",
+                "--loop-arg", f"warmup_steps={warmup}", "--loop-arg",
+                "log_every=1", "--loop-arg", "eval_every=1000",
+                "--loop-arg", f"save_every={steps}"]
+
+    def launch(name, n, args):
+        work = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        res = mp.launch(work, n_processes=n, timeout=DDP_TIMEOUT,
+                        scenario="train", device="cuda", data_dir=shards,
+                        train_args=args)
+        return res, os.path.join(work, "run"), time.perf_counter() - t0
+
+    # 1. two ranks on the one card, the preset as it is
+    args = ["--preset", "pretrain_full", *loop_args(DDP_STEPS)]
+    res, run, secs = launch("ddp", DDP_RANKS, args)
+    r0 = res[0]
+    print(f"main path: parallel.multiprocess.launch({DDP_RANKS} ranks, "
+          f"scenario='train', device='cuda') -> cli.train "
+          f"{' '.join(args)} --data-dir {shards}")
+    print(f"  backends {[r['backend'] for r in res]} on "
+          f"{[r['device'] for r in res]}; {secs:.1f} s for the launch, "
+          f"run_training {[round(r['seconds'], 2) for r in res]} s a rank "
+          f"(two ranks sharing one card: no data-parallel scaling) [{gpu}]")
+    print(f"  final eval (rank 0): {json.dumps(r0['final'])}")
+    for r in res:
+        print(f"  rank {r['process_index']} launches: "
+              f"{json.dumps(r['launches'])}")
+    if [r["backend"] for r in res] != ["gloo"] * DDP_RANKS:
+        fail(f"ddp backends {[r['backend'] for r in res]}")
+    if any(r["final"] != r0["final"] or
+           r["params_digest"] != r0["params_digest"] for r in res):
+        fail("ddp: final metrics or params differ across ranks")
+    if any(r["ckpt_steps"] != [DDP_STEPS] or not r["restored_equal"]
+           for r in res):
+        fail(f"ddp: checkpoints {[r['ckpt_steps'] for r in res]}, restored "
+             f"{[r['restored_equal'] for r in res]}")
+    n_ckpt = sorted(os.listdir(os.path.join(run, "checkpoints")))
+    jsonl = [f for f in os.listdir(run) if f.endswith(".jsonl")]
+    losses, unique = metrics_losses(run)
+    print(f"  run dir: checkpoints {n_ckpt}, {jsonl}, {len(losses)} loss "
+          f"records (one writer: {unique}); losses "
+          f"{' '.join(f'{v:.3f}' for v in losses)}")
+    if n_ckpt != [str(DDP_STEPS)] or jsonl != ["metrics.jsonl"] or \
+            not unique or len(losses) != DDP_STEPS or \
+            not np.isfinite(losses).all():
+        fail("ddp: the run dir does not hold one writer's records")
+    for r in res:
+        idle = [k for k in STACK_KERNELS + TOK_KERNELS + ("prng_draw",)
+                if r["launches"][k] <= 0]
+        if idle:
+            fail(f"ddp rank {r['process_index']} did not launch {idle}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["eval", "--run-dir", run, "--device", "cuda"])
+    got = json.loads(out.getvalue().strip().splitlines()[-1])
+    want = {k[len("val_"):]: v for k, v in r0["final"].items()}
+    print(f"check cli eval --run-dir on the 2-rank run dir (its saved "
+          f"loader, no data flags): {json.dumps(got)}")
+    if rc != 0 or got.keys() != want.keys() or any(
+            abs(got[k] - want[k]) > 6e-5 for k in want):
+        fail("ddp: cli eval of the run dir differs from rank 0's final "
+             "eval")
+
+    # 2. dropout 0: the 2-rank trajectory against one process stepping over
+    # the rank-ordered concatenations of the ranks' batches; beside it, the
+    # same process stepping over the same batches as two microbatches of
+    # the ranks' rows (accum_steps 2), whose loss and gradient are the
+    # plain average of the ranks' local means: the fault global_shares
+    # exists to prevent, which the tolerance must see. 3. world size 1
+    # (NCCL on the card) against a run without a group: the kernels are
+    # run-to-run deterministic, so bit for bit. Both launches run while
+    # this process computes the references.
+    targs = ["--preset", "pretrain_full", "--hparams", "dropout=0.0",
+             *loop_args(DDP_TRAJ_STEPS, DDP_TRAJ_WARMUP)]
+    oargs = ["--preset", "pretrain_full", *loop_args(DDP_TRAJ_STEPS)]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        traj = pool.submit(launch, "ddp_traj", DDP_RANKS, targs)
+        world1 = pool.submit(launch, "world1", 1, oargs)
+        cargs = cli.build_parser().parse_args(
+            ["train", *targs, "--data-dir", shards, "--run-dir",
+             os.path.join(tmp, "ref"), "--device", "cuda"])
+        cfg, _ = cli.resolve_config(cargs)
+        lname, lkw = cli._resolve_loader_config(cargs)
+        streams = []
+        for p in range(DDP_RANKS):
+            ld = get_dataloader_by_name(lname)(**lkw, process_index=p,
+                                               process_count=DDP_RANKS)
+            it = ld.batch_iterator("train", epoch=0)
+            streams.append([next(it) for _ in range(DDP_TRAJ_STEPS)])
+        glob = [mp.concat_batches([s[i] for s in streams])
+                for i in range(DDP_TRAJ_STEPS)]
+        ref, fault = [], []
+        for accum, out in ((1, ref), (DDP_RANKS, fault)):
+            model = Sketchformer(cfg)
+            model.load_state_dict(init_params(cfg, 0))
+            step = make_train_step(create_train_state(
+                model.to("cuda"), 0, DDP_TRAJ_WARMUP, 1.0),
+                accum_steps=accum)
+            out += [float(step(b)["loss"]) for b in glob]
+            del model, step
+        prun = os.path.join(tmp, "nogroup")
+        plain_model, _ = cli.train(cli.build_parser().parse_args(
+            ["train", *oargs, "--data-dir", shards, "--run-dir", prun,
+             "--device", "cuda"]))
+        plain = (metrics_losses(prun)[0],
+                 mp.params_digest(plain_model.state_dict()))
+        del plain_model
+        _, trun, tsecs = traj.result()
+        one, orun, osecs = world1.result()
+    got, _ = metrics_losses(trun)
+
+    def rels(xs):
+        return [abs(a - b) / abs(b) for a, b in zip(xs, ref)]
+
+    rel, off = rels(got), rels(fault)
+    print(f"check ddp trajectory, dropout 0, warmup {DDP_TRAJ_WARMUP}, "
+          f"{DDP_RANKS} ranks {' '.join(f'{v:.5f}' for v in got)} vs one "
+          f"process on the concatenated batches ({DDP_RANKS} x 256 rows, "
+          f"each padded to the longer bucket) "
+          f"{' '.join(f'{v:.5f}' for v in ref)}: rel "
+          f"{' '.join(f'{v:.3e}' for v in rel)} (tol {DDP_TRAJ_TOL:.0e}); "
+          f"the average of the ranks' local means "
+          f"{' '.join(f'{v:.5f}' for v in fault)}: rel "
+          f"{' '.join(f'{v:.3e}' for v in off)} (launch {tsecs:.1f} s) "
+          f"[{gpu}]")
+    if len(got) != DDP_TRAJ_STEPS or not max(rel) <= DDP_TRAJ_TOL:
+        fail("ddp: the 2-rank trajectory differs from one process's")
+    if not max(off) > DDP_TRAJ_TOL:
+        fail("ddp: the trajectory's tolerance cannot see the average of "
+             "the ranks' local means on these batches")
+    one_losses, _ = metrics_losses(orun)
+    same = (one_losses, one[0]["params_digest"]) == plain
+    print(f"check world size 1 on {one[0]['backend']} "
+          f"({osecs:.1f} s): losses {' '.join(f'{v:.6f}' for v in one_losses)}"
+          f"; without a group (cli.train) "
+          f"{' '.join(f'{v:.6f}' for v in plain[0])}; bit-equal (losses "
+          f"and params): {same}")
+    if one[0]["backend"] != "nccl":
+        fail(f"world size 1 on the card ran on {one[0]['backend']}")
+    if not same:
+        fail("world size 1 differs from the run without a group")
+    return r0["launches"]
+
+
 # cycles the card spins before each timed call, long enough for the host to
 # queue the call's launches (a few ms at the H100's clock): the events then
 # time the device's work alone, not the host's launch overhead
@@ -2124,21 +2406,48 @@ def fmt_spread(t):
         f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
 
+# a kernel trace's guard: seconds the host idles inside the profiler's
+# window before the first launch and after the last; and the least share
+# of a trace's launches whose device events it must keep. As the process
+# ages, the window drops device events (``--profiler-window`` reads it on
+# PyTorch's own kernels: none lost in the first 20 s, then one more of 60
+# every 10 s or so; with the guard, none lost from about 150 s on), so a
+# kernel's time is the median of the events its trace kept
+TRACE_GUARD_S = 0.25
+TRACE_KEPT_SHARE = 0.5
+# --profiler-window: calls a trace, seconds between traces
+PW_CALLS, PW_EVERY = 60, 20.0
+
+
+@contextlib.contextmanager
+def device_trace(guard_s=TRACE_GUARD_S):
+    """A torch.profiler session of host and device activity whose calls
+    run ``guard_s`` seconds inside each end of its window; the card is
+    synchronised before the window closes."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(guard_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(guard_s)
+
+
 def kernel_spread(fn, names, n=SPREAD_CALLS):
-    """{name: (median, min, max)} device ms of each kernel whose name holds
-    one of ``names``, from its events in a torch.profiler trace of ``n``
-    calls of ``fn`` (after one warm call); each call must launch each named
-    kernel once."""
+    """{name: (median, min, max, events kept)} device ms of each kernel
+    whose name holds one of ``names``, from its events in a
+    ``device_trace`` of ``n`` calls of ``fn`` (after one warm call), each
+    call launching each named kernel once: a trace keeps at most ``n`` of
+    a name's events, and must keep TRACE_KEPT_SHARE of them."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_trace() as prof:
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
     got = {k: [] for k in names}
     for e in prof.events():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -2147,9 +2456,10 @@ def kernel_spread(fn, names, n=SPREAD_CALLS):
             if k in e.name:
                 got[k].append(e.time_range.elapsed_us() / 1e3)
     for k, v in got.items():
-        if len(v) != n:
+        if not n * TRACE_KEPT_SHARE <= len(v) <= n:
             fail(f"profiler: {len(v)} {k} events in {n} calls")
-    return {k: (float(np.median(v)), min(v), max(v)) for k, v in got.items()}
+    return {k: (float(np.median(v)), min(v), max(v), len(v))
+            for k, v in got.items()}
 
 
 def linear_layer_calls(fn, x, hid, w, drops=({}, {})):
@@ -2306,7 +2616,8 @@ def token_ce_times(randn, gen, dev, gpu, paired):
         for kname, lkey in (("ce_dx_wgmma_kernel", "dx"),
                             ("ce_dw_wgmma_kernel", "dw")):
             print(f"time {kname} (bf16, M={M}, d={d}, V={V}, device time, "
-                  f"median of {SPREAD_CALLS}): kernel "
+                  f"median of the {parts[kname][3]} of {SPREAD_CALLS} "
+                  f"launches its trace kept): kernel "
                   f"{fmt_spread(parts[kname])}, library (matmul "
                   f"{'dl.W^T' if lkey == 'dx' else 'x^T.dl'}) "
                   f"{fmt_spread(libs[lkey])} [{gpu}]")
@@ -2336,8 +2647,9 @@ def token_ce_times(randn, gen, dev, gpu, paired):
                 lambda: tce.token_ce_bwd(x, w, b, tgt, lse, gll),
                 ("ce_dx_wgmma_kernel", "ce_dw_wgmma_kernel"))
             print(f"time token_ce_bwd at d={dn} (bf16, M={M}, V={V}, kernel "
-                  f"events, median of {SPREAD_CALLS}): " + ", ".join(
-                      f"{k} {fmt_spread(v)}, "
+                  f"events, median of those of {SPREAD_CALLS} its trace "
+                  f"kept): " + ", ".join(
+                      f"{k} {fmt_spread(v)} ({v[3]} kept), "
                       f"{4 * M * dn * V / v[0] / 1e9:.1f} TFLOP/s"
                       for k, v in sw.items()) + f" [{gpu}]")
             del x, w
@@ -3390,38 +3702,55 @@ EVENT_NAMES = {"decode_step": ("decode_cluster_kernel", "decode_step_kernel")}
 
 def rule2_kernel_events(cases, gpu):
     """Each kernel of :func:`rule2_cases` alone: its launches' durations in
-    a profiler trace of its calls (after one warm call), which hold none of
-    the launch floor. Run after the checked traces. A trace late in a long
-    run can lose its first few events, so this reads the median of those
-    it kept and says how many; fewer than half is not read (the call_ms
-    readings are the measurement)."""
+    a ``device_trace`` of its calls (after one warm call), which hold none
+    of the launch floor. It reads the median of the events the trace kept
+    and says how many; fewer than TRACE_KEPT_SHARE is not read (the
+    call_ms readings are the measurement)."""
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     with torch.no_grad():
         for name, shape, what, kern, _, _, _, calls in cases:
             kern()
             torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
+            with device_trace() as prof:
                 for _ in range(calls):
                     kern()
-                torch.cuda.synchronize()
             keys = EVENT_NAMES.get(name, (name,))
             ev = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                   if str(getattr(e, "device_type", "")).endswith("CUDA")
                   and any(k in e.name for k in keys)]
             got = (f"{fmt_spread((float(np.median(ev)), min(ev), max(ev)))}"
-                   if calls // 2 <= len(ev) <= calls else "not read")
+                   if calls * TRACE_KEPT_SHARE <= len(ev) <= calls
+                   else "not read")
             print(f"time {name} ({what}; the kernel's events in a profiler "
                   f"trace, median of the {len(ev)} of {calls} launches it "
                   f"kept): {got} [{gpu}]")
 
 
-def emit_sass_floors(lib_path, gpu):
+def start_sass_dump(lib_path):
+    """(process, output path) of ``cuobjdump -sass`` of the built library,
+    started now so that its tens of seconds overlap the checks; None where
+    the toolkit has no cuobjdump. The process is killed at exit if it is
+    still running."""
+    import atexit
+
+    from sketchformer_tpu_torch.ops import _build
+
+    cuobj = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobj):
+        return None
+    fd, path = tempfile.mkstemp(suffix=".sass")
+    with os.fdopen(fd, "w") as f:
+        proc = subprocess.Popen([cuobj, "-sass", lib_path], stdout=f,
+                                stderr=subprocess.DEVNULL)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path
+
+
+def emit_sass_floors(sass, gpu):
     """K7's emit beside its instruction count: the opcodes of
-    ``emit_dropout_bits_kernel`` in the built library's SASS (cuobjdump,
-    where the toolkit has it), the Philox part of a call (its wide
+    ``emit_dropout_bits_kernel`` in the built library's SASS (``sass``,
+    :func:`start_sass_dump`'s dump), the Philox part of a call (its wide
     multiplies and three-way XORs, a quarter of the kernel's: four calls an
     item, unrolled) and two floors for EMIT_SITE's calls at the card's
     highest SM clock (nvidia-smi) on 132 SMs: the dispatch floor, that part
@@ -3431,14 +3760,15 @@ def emit_sass_floors(lib_path, gpu):
     table gives compute capability 9.0 for 32-bit integer multiplies."""
     import collections
 
-    from sketchformer_tpu_torch.ops import _build
-
-    cuobj = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    if not os.path.exists(cuobj):
+    if sass is None:
         print("emit SASS: not measured (no cuobjdump in the toolkit)")
         return
-    out = subprocess.run([cuobj, "-sass", lib_path], capture_output=True,
-                         text=True, check=True).stdout
+    proc, path = sass
+    if proc.wait() != 0:
+        fail(f"cuobjdump -sass returned {proc.returncode}")
+    with open(path) as f:
+        out = f.read()
+    os.unlink(path)
     body = [p for p in re.split(r"\n\s*Function : ", out)
             if "emit_dropout_bits_kernel" in p.split("\n", 1)[0]]
     if len(body) != 1:
@@ -3518,6 +3848,59 @@ def stack_times(dev, gpu, cuda_ms):
         del mod
 
 
+def profiler_window(argv) -> int:
+    """``python3 chip_smoke.py --profiler-window SECONDS``: how a profiler
+    trace's window keeps device events as the process ages, on PyTorch's
+    own kernels alone (nothing is built). For SECONDS the card multiplies
+    bf16 matrices; every PW_EVERY seconds PW_CALLS small products are
+    traced twice, with no guard and with :func:`device_trace`'s guard, and
+    each trace's kept events are printed beside the offset of each call's
+    device start from its host op's start (min and median over the calls
+    of the guarded trace: negative where the device's time reads early).
+    No check runs and no result line is printed."""
+    import torch
+
+    if len(argv) != 2:
+        print("usage: chip_smoke.py --profiler-window SECONDS",
+              file=sys.stderr)
+        return 2
+    gpu = gpu_line()
+    dev = torch.device("cuda")
+    big = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+    small = torch.randn(512, 512, device=dev, dtype=torch.bfloat16)
+    t_start = time.perf_counter()
+
+    def traced(guard_s):
+        torch.mm(small, small)
+        torch.cuda.synchronize()
+        with device_trace(guard_s) as prof:
+            for _ in range(PW_CALLS):
+                torch.mm(small, small)
+        ev = prof.events()
+        host = sorted(e.time_range.start for e in ev if e.name == "aten::mm")
+        kern = sorted(e.time_range.start for e in ev
+                      if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        off = ([k - h for h, k in zip(host, kern)]
+               if len(host) == len(kern) == PW_CALLS else [])
+        return len(kern), off
+
+    while time.perf_counter() - t_start < float(argv[1]):
+        age = time.perf_counter() - t_start
+        bare, _ = traced(0.0)
+        kept, off = traced(TRACE_GUARD_S)
+        print(f"profiler window at {age:.0f} s: unguarded trace kept {bare} "
+              f"of {PW_CALLS} device events, guarded ({TRACE_GUARD_S} s) "
+              f"{kept}; device start - host op start (us): "
+              + (f"min {min(off):.1f}, median {float(np.median(off)):.1f}"
+                 if off else "not read") + f" [{gpu}]", flush=True)
+        t_next = time.perf_counter() + PW_EVERY
+        while time.perf_counter() < t_next:
+            for _ in range(20):
+                torch.mm(big, big)
+            torch.cuda.synchronize()
+    return 0
+
+
 def rule2_only(argv) -> int:
     """``python3 chip_smoke.py --rule2 ROOT LABEL``: build the package under
     ROOT (this checkout, or an unpacked ``git archive`` of another commit,
@@ -3587,10 +3970,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--profiler-window"]:
+        return profiler_window(sys.argv[1:])
     if len(sys.argv) > 1:
         return rule2_only(sys.argv[1:])
     sys.path.insert(0, REPO)
-    from sketchformer_tpu_torch import cli
+    from sketchformer_tpu_torch import cli, ops
     from sketchformer_tpu_torch.infer import decode as dec
     from sketchformer_tpu_torch.infer.encode import embed_dataset
     from sketchformer_tpu_torch.infer.fast_decode import decoder_operands
@@ -3610,7 +3995,7 @@ def main() -> int:
     from sketchformer_tpu_torch.ops import token_ce as tce
     from sketchformer_tpu_torch.utils import engines
 
-    counters = (es, dc, da, at, nt, tce, dp, fa, dstep)
+    counters = ops.counted_modules()
 
     dev = torch.device("cuda")
     gpu = gpu_line()
@@ -3625,6 +4010,7 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     info = _build.build(force=True)
+    sass = start_sass_dump(info["path"])
     print(f"build: {info['seconds']:.1f} s -> {info['path']}")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
@@ -3988,9 +4374,13 @@ def main() -> int:
           f"{F32_TRAIN_STEPS} float32 steps of {F32_TRAIN_LAYERS} layers and "
           f"the final eval")
 
-    # ---- 4d. main path: token-mode training, then eval -------------------
+    # ---- 4d. main path: prep-data shards, token-mode training, eval ------
+    # (the shards stay for phase 4g)
+    shards_tmp = tempfile.TemporaryDirectory()
+    shards = prep_shards(cli, shards_tmp.name)
     with tempfile.TemporaryDirectory() as tmp:
-        tok_launches = train_tok_main_path(cli, counters, engines, tmp)
+        tok_launches = train_tok_main_path(cli, counters, engines, tmp,
+                                           shards)
     for k in TOK_KERNELS:
         launches[k] = tok_launches[k]
     print(f"sum_rows launches a token train step: "
@@ -4052,6 +4442,15 @@ def main() -> int:
              f"{dstep.ROUTES}")
     del step_model
 
+    # ---- 4g. main path: pretrain_full by 2 ranks on the card --------------
+    with shards_tmp, tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ddp_launches = ddp_main_path(cli, shards, tmp, gpu)
+    print(f"ddp phase: {time.perf_counter() - t0:.1f} s; rank 0's launches "
+          f"in {DDP_STEPS} steps and the eval: " + ", ".join(
+              f"{k} {ddp_launches[k]}" for k in STACK_KERNELS + TOK_KERNELS)
+          + f" [{gpu}]")
+
     # ---- 5. times ----------------------------------------------------------
     def cuda_ms(fn, iters=20, warm=3):
         for _ in range(warm):
@@ -4085,7 +4484,7 @@ def main() -> int:
     # decode and K7's emit at its pretrain_full site)
     r2_cases = rule2_cases(randn)
     r2 = rule2_spreads(r2_cases, gpu)
-    emit_sass_floors(info["path"], gpu)
+    emit_sass_floors(sass, gpu)
     r2_main = (("layernorm_rows", (M, d)),
                ("decode_attention", (B * H, d // H, AR["T"] // 2)),
                ("decode_step", (B, AR["T"] // 2)),
@@ -4265,14 +4664,17 @@ def main() -> int:
             out.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    for label, decoder, reps in (
-            ("chunk engine (decode_chunk)", dec.make_token_decoder(model), 7),
-            ("step loop (decode_step)", make_step_token_decoder(model), 3),
+    # (label, decoder, runs at B=64, runs at B=512): the composed decode
+    # takes ~4 s a run
+    for label, decoder, reps, big_reps in (
+            ("chunk engine (decode_chunk)", dec.make_token_decoder(model), 7,
+             2),
+            ("step loop (decode_step)", make_step_token_decoder(model), 3, 2),
             ("composed (decode_attention)",
-             dec.make_token_decoder(model, fast=False), 3)):
+             dec.make_token_decoder(model, fast=False), 2, 1)):
         ended = int((decoder(enc64) == EOS_ID).any(1).sum())
         ts = host_ms(lambda: decoder(enc64), reps)
-        big = host_ms(lambda: decoder(enc512), 2)
+        big = host_ms(lambda: decoder(enc512), big_reps)
         print(f"time decode ar_decode {label}, T={T}, {ended} of 64 rows "
               f"reach EOS: "
               f"B=64 p50 {float(np.median(ts)):.2f} ms (min {min(ts):.2f}, "

@@ -1,15 +1,19 @@
-"""Command line for the PyTorch port: training and eval (token and
-continuous (MDN) models), embedding extraction, SBIR eval, AR
+"""Command line for the PyTorch port: data preparation, training and eval
+(token and continuous (MDN) models), embedding extraction, SBIR eval, AR
 reconstruction and latent interpolation.
 
-Port of the ``train``, ``eval``, ``embed``, ``sbir``, ``decode`` and
-``interpolate`` subcommands of ``sketchformer_tpu.cli``, with the same
-outputs. Loaders and presets are the port's copies (``data/``,
+Port of the ``prep-data``, ``train``, ``eval``, ``embed``, ``sbir``,
+``decode`` and ``interpolate`` subcommands of ``sketchformer_tpu.cli``,
+with the same outputs (``bench`` is not ported yet). Loaders and presets are the port's copies (``data/``,
 ``presets.py``). ``train`` writes a run dir (config, loader config,
 checkpoints, metrics) that ``eval`` and the serving subcommands read
 (``--run-dir``); the serving subcommands also take weights from an
 ``.npz`` written by ``convert.save_npz`` or a seeded initialisation::
 
+    python -m sketchformer_tpu_torch.cli prep-data --input-dir npz/ \
+        --out-dir shards/ --fit-dictionary
+    python -m sketchformer_tpu_torch.cli train --preset pretrain_full \
+        --data-dir shards/ --run-dir R3 --device cuda
     python -m sketchformer_tpu_torch.cli train --preset cont2cont_mdn \
         --run-dir R --device cuda --loop-arg total_steps=30
     python -m sketchformer_tpu_torch.cli train --preset pretrain_full \
@@ -32,12 +36,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from sketchformer_tpu_torch import parallel
 from sketchformer_tpu_torch.config import SketchformerConfig
 
 
@@ -120,9 +126,14 @@ def build_model_and_loader(args):
     return model.to(torch.device(args.device)).eval(), loader
 
 
-def cmd_train(args) -> int:
-    """Train from a seeded initialisation (``--loop-arg seed``) or resume
-    the run dir's newest checkpoint; prints the final eval metrics."""
+def train(args):
+    """The train command's body: the config, loader and loop config from
+    preset and flags, the seeded model (``--loop-arg seed``) on
+    ``args.device``, the data config saved for eval, then ``run_training``
+    (which resumes the run dir's newest checkpoint). Inside a process group
+    call it after the group formed: the sharded loader then streams this
+    rank's shards, and rank 0 alone writes the run dir. Returns (trained
+    model, final eval metrics)."""
     from sketchformer_tpu_torch.convert import init_params
     from sketchformer_tpu_torch.models.sketchformer import Sketchformer
     from sketchformer_tpu_torch.presets import get_preset
@@ -143,11 +154,19 @@ def cmd_train(args) -> int:
     model.load_state_dict(init_params(cfg, loop_cfg.seed))
     model.to(torch.device(args.device))
     # persist the data config so eval rebuilds the same loader
-    loader_name, loader_kwargs = _resolve_loader_config(args)
-    CheckpointManager(args.run_dir).save_meta(
-        {"loader": loader_name, "loader_kwargs": loader_kwargs})
+    if parallel.is_main():
+        loader_name, loader_kwargs = _resolve_loader_config(args)
+        CheckpointManager(args.run_dir).save_meta(
+            {"loader": loader_name, "loader_kwargs": loader_kwargs})
     final = run_training(model, loader, args.run_dir, loop_cfg,
                          notifier=build_notifier(args.notifier, args.run_dir))
+    return model, final
+
+
+def cmd_train(args) -> int:
+    """Train from a seeded initialisation or resume the run dir's newest
+    checkpoint; prints the final eval metrics."""
+    _, final = train(args)
     print(json.dumps({k: round(v, 4) for k, v in final.items()}))
     return 0
 
@@ -323,6 +342,72 @@ def cmd_interpolate(args) -> int:
     return 0
 
 
+def cmd_prep_data(args) -> int:
+    """QuickDraw per-class npz (the sketch-rnn release) or ndjson ->
+    class-mixed shards (+ optional dictionary codebook)."""
+    from sketchformer_tpu_torch.data import stroke3
+    from sketchformer_tpu_torch.data.shards import write_shards
+    from sketchformer_tpu_torch.data.tokenizer import DictionaryTokenizer
+
+    sketches, labels, names = [], [], []
+    exts = (".npz", ".ndjson") if args.format == "auto" else (
+        "." + args.format,)
+    files = sorted(
+        f for f in os.listdir(args.input_dir) if f.endswith(exts))
+    if not files:
+        print(f"no {exts} files in {args.input_dir}", file=sys.stderr)
+        return 1
+    for ci, fname in enumerate(files):
+        names.append(os.path.splitext(fname)[0])
+        path = os.path.join(args.input_dir, fname)
+        if fname.endswith(".npz"):
+            # Google sketch-rnn release: per-class npz of stroke-3 arrays
+            with np.load(path, allow_pickle=True, encoding="latin1") as data:
+                for split in ("train", "valid", "test"):
+                    if split not in data:
+                        continue
+                    for sk in data[split][: args.per_class_limit]:
+                        sk = np.asarray(sk, dtype=np.float32)
+                        if args.rdp_epsilon > 0:
+                            sk = stroke3.rdp_simplify(sk, args.rdp_epsilon)
+                        sketches.append(sk)
+                        labels.append(ci)
+        else:
+            # QuickDraw raw/simplified ndjson: one JSON drawing per line,
+            # "drawing" = list of strokes, each [[x...], [y...], (t...)]
+            count = 0
+            with open(path) as f:
+                for line in f:
+                    if args.per_class_limit and count >= args.per_class_limit:
+                        break
+                    rec = json.loads(line)
+                    lines_xy = [
+                        np.stack([s[0], s[1]], axis=1).astype(np.float32)
+                        for s in rec["drawing"] if len(s[0])
+                    ]
+                    if not lines_xy:
+                        continue
+                    sk = stroke3.lines_to_strokes(lines_xy)
+                    if args.rdp_epsilon > 0:
+                        sk = stroke3.rdp_simplify(sk, args.rdp_epsilon)
+                    sketches.append(sk)
+                    labels.append(ci)
+                    count += 1
+    labels_arr = np.asarray(labels, np.int32)
+    write_shards(args.out_dir, sketches, labels_arr, names,
+                 shard_size=args.shard_size, seed=args.seed)
+    if args.fit_dictionary:
+        scale = stroke3.compute_deviation(sketches)
+        norm = [stroke3.normalize(s, scale) for s in sketches[:20000]]
+        tok = DictionaryTokenizer.fit(norm, num_tokens=args.dict_size)
+        tok.save(os.path.join(args.out_dir, "dictionary.npz"))
+    print(json.dumps({
+        "classes": len(names), "sketches": len(sketches),
+        "out_dir": args.out_dir,
+    }))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sketchformer_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -398,6 +483,21 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--temperature", type=float, default=0.0)
     sp.add_argument("--output", default="reconstructions.npz")
     sp.set_defaults(fn=cmd_decode)
+
+    sp = sub.add_parser("prep-data",
+                        help="QuickDraw per-class npz -> mixed shards")
+    sp.add_argument("--input-dir", required=True)
+    sp.add_argument("--out-dir", required=True)
+    sp.add_argument("--format", default="auto",
+                    choices=["auto", "npz", "ndjson"])
+    sp.add_argument("--shard-size", type=int, default=2048)
+    sp.add_argument("--per-class-limit", type=int, default=None)
+    sp.add_argument("--rdp-epsilon", type=float, default=0.0,
+                    help="re-simplify with RDP (QuickDraw ships simplified)")
+    sp.add_argument("--fit-dictionary", action="store_true")
+    sp.add_argument("--dict-size", type=int, default=1000)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_prep_data)
     return p
 
 

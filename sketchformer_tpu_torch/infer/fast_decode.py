@@ -67,6 +67,11 @@ def fast_decode_support(model: Sketchformer):
     return _structural_support(model.config)
 
 
+def supports_fast_decode(model: Sketchformer) -> bool:
+    """Whether greedy token decode of ``model`` runs on the chunk engine."""
+    return fast_decode_support(model)[0]
+
+
 def _structural_support(cfg):
     if not cfg.norm_first:
         return False, "post-LN config"

@@ -175,3 +175,21 @@ class Sketchformer(nn.Module):
         return self.out_head(self.decoder(x, memory,
                                           cross_key_mask=memory_mask,
                                           caches=cache))
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+from sketchformer_tpu_torch.models.registry import models  # noqa: E402
+
+
+@models.register("sketchformer")
+def build_sketchformer(**overrides) -> Sketchformer:
+    return Sketchformer(SketchformerConfig(**overrides))
+
+
+@models.register("sketchformer-cont")
+def build_sketchformer_cont(**overrides) -> Sketchformer:
+    overrides.setdefault("use_continuous", True)
+    return Sketchformer(SketchformerConfig(**overrides))

@@ -8,7 +8,8 @@ A checkpoint holds the FULL train state: parameters, optimizer state (count
 and moments), step and the dropout seed. Saves are synchronous, keep the
 newest ``max_to_keep``, and honour ``save_interval_steps`` unless forced;
 ``save_on_signal`` installs a SIGTERM handler that saves before the process
-exits.
+exits. In a process group rank 0 alone saves and installs the handler
+(``train/loop.py``); every rank restores.
 """
 
 from __future__ import annotations

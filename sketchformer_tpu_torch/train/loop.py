@@ -12,21 +12,36 @@ Registered val metrics (``train/val_metrics.py``): ``retrieval`` and
 ``embedding_stats`` (the kernel embed), ``recon_grid`` and
 ``interpolation_grid`` (the chunk decoders) all run on ported paths.
 
+``profile_steps`` traces steps [start + 10, start + 10 + N) of the run
+with ``torch.profiler`` (``utils/metrics.py::profile_block``) into
+``run_dir/profile``.
+
+Multi-process runs (an initialised ``torch.distributed`` group, as
+``parallel/multiprocess.py`` forms it): every rank drives the same loop on
+its own rows of the global batch (the step reduces over the group), but
+the run dir has ONE writer. Rank 0 owns ``config.json``, ``run_meta.json``,
+``metrics.jsonl``, the notifier, the registered val metrics, the SIGTERM
+save and every checkpoint write; a barrier follows each save, and every
+rank restores on resume. Eval reads the whole val split on every rank (the
+loader's policy), so val metrics agree without a reduction.
+
 Not ported: ``steps_per_call``, ``device_prefetch`` (its asynchronous
 staging answered a remote TPU's blocking ``device_put``), ``remat``,
-``mesh``, ``prng_impl`` (the card's dropout draws from the Philox streams
-of ``ops/dropout_prng.py``, the CPU's from a ``torch.Generator``),
-``profile_steps`` and ``recon_grid_every`` (name ``recon_grid`` in
+``mesh`` (GSPMD sharding), ``prng_impl`` (the card's dropout draws from
+the Philox streams of ``ops/dropout_prng.py``, the CPU's from a
+``torch.Generator``) and ``recon_grid_every`` (name ``recon_grid`` in
 ``metrics``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional
 
 import torch
 
+from sketchformer_tpu_torch import parallel
 from sketchformer_tpu_torch.data.pipeline import Prefetcher
 from sketchformer_tpu_torch.models.sketchformer import Sketchformer
 from sketchformer_tpu_torch.train.checkpoint import CheckpointManager
@@ -36,7 +51,12 @@ from sketchformer_tpu_torch.train.step import (
     make_eval_step,
     make_train_step,
 )
-from sketchformer_tpu_torch.utils.metrics import MetricWriter, StepTimer
+from sketchformer_tpu_torch.utils.metrics import (
+    MetricWriter,
+    NullMetricWriter,
+    StepTimer,
+    profile_block,
+)
 from sketchformer_tpu_torch.utils.notify import Notifier, NullNotifier
 
 
@@ -58,6 +78,7 @@ class TrainLoopConfig:
     # run every metrics_every steps (0 -> at eval_every cadence)
     metrics: str = ""
     metrics_every: int = 0
+    profile_steps: int = 0      # trace steps [10, 10+N) with torch.profiler
 
 
 def evaluate(eval_step, batches) -> Dict[str, float]:
@@ -78,9 +99,12 @@ def run_training(
     max_eval_batches: int = 8,
 ) -> Dict[str, float]:
     """Train ``model`` (its parameters already on their device) to
-    ``total_steps``; returns the final eval metrics."""
+    ``total_steps``; returns the final eval metrics. Inside a process
+    group, build ``loader`` after the group formed, so that a sharded
+    loader streams this rank's shards."""
     loop_cfg = loop_cfg or TrainLoopConfig()
-    notifier = notifier or NullNotifier()
+    is_main = parallel.is_main()
+    notifier = (notifier or NullNotifier()) if is_main else NullNotifier()
     dev = next(model.parameters()).device
     state = create_train_state(model, loop_cfg.seed, loop_cfg.warmup_steps,
                                loop_cfg.peak_scale)
@@ -98,12 +122,20 @@ def run_training(
 
     stream = Prefetcher(batch_stream(), depth=4)
     ckpt = CheckpointManager(run_dir, save_interval_steps=loop_cfg.save_every)
-    ckpt.save_config(model.config)
+    if is_main:
+        ckpt.save_config(model.config)
     if loop_cfg.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
-    ckpt.save_on_signal(lambda: state)
+    if is_main:
+        ckpt.save_on_signal(lambda: state)
 
-    writer = MetricWriter(run_dir, use_tensorboard=False)
+    def save(force: bool = False) -> None:
+        if is_main:
+            ckpt.save(state, force=force)
+        parallel.barrier()
+
+    writer = (MetricWriter(run_dir, use_tensorboard=False) if is_main
+              else NullMetricWriter())
     timer = StepTimer()
     last_metrics: Dict[str, float] = {}
     last_eval_step = -1
@@ -124,6 +156,8 @@ def run_training(
     metrics_every = loop_cfg.metrics_every or loop_cfg.eval_every
 
     def run_registered_metrics(step):
+        if not is_main:
+            return
         metric_ctx.step = step
         for m in registered:
             out = m.compute(metric_ctx)
@@ -135,7 +169,16 @@ def run_training(
                 last_metrics.update(out)
 
     start_step = state.step
+    trace = contextlib.ExitStack()
+    profiling = False
     while state.step < loop_cfg.total_steps:
+        if loop_cfg.profile_steps:
+            if not profiling and state.step == start_step + 10:
+                trace.enter_context(profile_block(run_dir, enabled=True))
+                profiling = True
+            elif profiling and (state.step
+                                == start_step + 10 + loop_cfg.profile_steps):
+                trace.close()
         metrics = train_step(batch_to_device(next(stream), dev))
         step = state.step
         timer.tick()
@@ -157,7 +200,8 @@ def run_training(
         if registered and step % metrics_every == 0:
             run_registered_metrics(step)
         if step % loop_cfg.save_every == 0:
-            ckpt.save(state)
+            save()
+    trace.close()
 
     if last_eval_step == state.step:
         final = {k: v for k, v in last_metrics.items()
@@ -165,7 +209,7 @@ def run_training(
     else:
         final = run_eval()
         writer.write_scalars(state.step, final)
-    ckpt.save(state, force=True)
+    save(force=True)
     writer.close()
     stream.close()
     return final

@@ -4,6 +4,11 @@ classification CE.
 Port of ``sketchformer_tpu/train/loss.py``, with the same metric keys. All
 losses run in f32 on the f32 head outputs. ``is_real`` (B,) row weights,
 when a batch has them, zero repeat-padded duplicate rows out of every term.
+
+Every term is a weighted mean over the batch. :func:`mean_denominators`
+gives the weight sums those means divide by, so that a data-parallel step
+(``train/step.py``) can rescale each rank's means to its share of the
+means over the global batch.
 """
 
 from __future__ import annotations
@@ -47,6 +52,25 @@ def classification_loss(
     rw = row_weights.float()
     denom = torch.clamp(rw.sum(), min=1.0)
     return -(ll * rw).sum() / denom, (correct * rw).sum() / denom
+
+
+def mean_denominators(batch: Dict[str, torch.Tensor],
+                      continuous: bool, pad_id: int = PAD_ID) -> torch.Tensor:
+    """(2,) f32: the weight sums of the reconstruction terms (non-pad
+    target tokens, or live decoder positions in continuous mode) and of
+    the classification terms (rows), ``is_real`` applied, before the
+    losses clamp them to >= 1."""
+    rw = batch.get("is_real")
+    if continuous:
+        m = batch["dec_mask"].float()
+    else:
+        m = (batch["dec_tgt"] != pad_id).float()
+    if rw is None:
+        rows = torch.tensor(float(m.shape[0]), device=m.device)
+    else:
+        m = m * rw.float()[:, None]
+        rows = rw.float().sum()
+    return torch.stack([m.sum(), rows])
 
 
 def _tok_total(recon, recon_acc, outputs, batch, w_recon, w_cls):

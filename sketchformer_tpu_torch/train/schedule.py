@@ -17,9 +17,24 @@ place by multi-tensor ops.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List
 
 import torch
+
+
+def noam_schedule(d_model: int, warmup_steps: int = 4000,
+                  peak_scale: float = 1.0) -> Callable[[int], float]:
+    """The Noam rate as a function of the step count, in f32:
+    peak_scale * d_model^-0.5 * min(step^-0.5, step * warmup^-1.5), the
+    step clamped to >= 1 (reference: models/sketchformer.py
+    ``CustomSchedule``)."""
+
+    def schedule(count: int) -> float:
+        step = torch.tensor(max(float(count), 1.0), dtype=torch.float32)
+        return float(peak_scale * d_model ** -0.5 * torch.minimum(
+            step ** -0.5, step * warmup_steps ** -1.5))
+
+    return schedule
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -42,20 +57,12 @@ class NoamAdam:
         self.params = list(params)
         if any(p.dtype != torch.float32 for p in self.params):
             raise TypeError("NoamAdam keeps f32 parameters, as flax does")
-        self.d_model = d_model
-        self.warmup_steps = warmup_steps
-        self.peak_scale = peak_scale
+        self.rate = noam_schedule(d_model, warmup_steps, peak_scale)
         self.b1, self.b2, self.eps = beta1, beta2, eps
         self.clip_norm = clip_norm
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-
-    def rate(self, count: int) -> float:
-        """The Noam rate at step ``count`` (clamped to >= 1), in f32."""
-        step = torch.tensor(max(float(count), 1.0), dtype=torch.float32)
-        return float(self.peak_scale * self.d_model ** -0.5 * torch.minimum(
-            step ** -0.5, step * self.warmup_steps ** -1.5))
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor], grad_norm: torch.Tensor) -> bool:
@@ -92,3 +99,17 @@ class NoamAdam:
             dst.copy_(src)
         for dst, src in zip(self.nu, state["nu"]):
             dst.copy_(src)
+
+
+def make_optimizer(params: List[torch.Tensor], d_model: int,
+                   warmup_steps: int = 4000, peak_scale: float = 1.0,
+                   beta1: float = 0.9, beta2: float = 0.98, eps: float = 1e-9,
+                   clip_norm: float = 1.0) -> NoamAdam:
+    """Adam with Noam warmup + global-norm clipping (the reference
+    optimizer), with the JAX package's defaults. Its signature differs from
+    the JAX ``make_optimizer`` only by ``params``: an optax transformation
+    is stateless and takes the parameters at each update, while this
+    optimizer keeps its moments beside the parameters it updates."""
+    return NoamAdam(params, d_model, warmup_steps=warmup_steps,
+                    peak_scale=peak_scale, beta1=beta1, beta2=beta2, eps=eps,
+                    clip_norm=clip_norm)

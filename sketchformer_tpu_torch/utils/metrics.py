@@ -13,10 +13,12 @@ scalars + plot images pushed to TensorBoard and the notifier). Re-design:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import socket
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
@@ -68,6 +70,20 @@ class MetricWriter:
         self._jsonl.close()
 
 
+class NullMetricWriter:
+    """No-op writer for non-primary processes in multi-process runs: the
+    run dir has ONE writer (rank 0), everyone else burns no IO."""
+
+    def write_scalars(self, step: int, scalars: Dict[str, float]) -> None:
+        pass
+
+    def write_image(self, step: int, name: str, image: np.ndarray) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def reconstruction_grid(
     originals: Iterable[np.ndarray],
     reconstructions: Iterable[np.ndarray],
@@ -103,6 +119,30 @@ def sketch_strip(
     if not cells:
         return np.zeros((side, side), np.float32)
     return np.concatenate(cells, axis=1).astype(np.float32)
+
+
+@contextlib.contextmanager
+def profile_block(run_dir: Optional[str] = None, enabled: bool = False):
+    """``torch.profiler`` trace around a code block (host activity, and the
+    card's kernels where CUDA is available), written as a Chrome trace to
+    ``run_dir/profile/<host>_<pid>.pt.trace.json`` (Perfetto,
+    chrome://tracing)."""
+    if not enabled or run_dir is None:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    trace_dir = os.path.join(run_dir, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"{socket.gethostname()}_{os.getpid()}.pt.trace.json"))
 
 
 class StepTimer:

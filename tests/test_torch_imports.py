@@ -49,7 +49,9 @@ def test_the_walk_sees_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "pipeline.py", "encoder_stack_train.py",
             "decoder_stack_train.py", "cli.py", "token_ce.py",
-            "dropout_prng.py"} <= names
+            "dropout_prng.py", "multiprocess.py", "registry.py",
+            "basic_usage.py"} <= names
+    assert ROOT / "sketchformer_tpu_torch" / "parallel" / "__init__.py" in FILES
 
 
 def _batches(get_loader, token_mode, split, n=3):
