@@ -141,7 +141,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    at dropout 0 and warmup 30 the 2-rank losses within 7e-5 relative of
    one process on the concatenated 512-row batches, and the same process
    averaging the ranks' local means (two microbatches) outside it; and
-   world size 1 on NCCL bit-equal to a run without a group. Each
+   world size 1 on NCCL bit-equal to a run without a group; then the
+   reference-weight importer (``tools/import_reference_weights.py``) on a
+   made-up reference of seeded weights at the ``ar_decode`` width (shuffled
+   names, 2-D leaves stored transposed): template, mapping, import into a
+   run dir, and ``embed`` and ``decode`` on that run dir bit-equal to the
+   same CLIs on the seeded npz, the run-dir path launching ``linear``,
+   ``encoder_attention``, ``layernorm_rows`` and ``decode_chunk``. Each
    CLI run prints the routes of its ``layernorm_rows`` and
    ``decode_attention`` launches and fails if one was declined;
 5. times: ``layernorm_rows`` (bf16, M 12,288 and 49,152), K12 (B*H=512,
@@ -2360,6 +2366,121 @@ def ddp_main_path(cli, shards, tmp, gpu):
     return r0["launches"]
 
 
+IMPORT_SEED = 5
+IMPORT_KERNELS = ("linear", "encoder_attention", "layernorm_rows")
+
+
+def import_main_path(cli, counters, tmp, gpu):
+    """Phase 4h: the reference-weight importer's run dir served on the
+    card. A made-up reference of ``init_params(cfg, IMPORT_SEED)`` at the
+    ``ar_decode`` width (the config ``cli.resolve_config`` gives the
+    preset: vocab and classes from its loader): an npz of ``ref/<i>`` names
+    in a shuffled order, every 2-D leaf of unequal dims stored transposed.
+    The importer (``tools/import_reference_weights.py``, in this process)
+    dumps its template, the mapping is filled, and it imports the npz into
+    a run dir. Then ``embed`` and ``decode`` on ``--run-dir`` and on
+    ``--weights`` (the seeded state_dict saved by ``convert.save_npz``):
+    the embeddings and the decoded strokes equal bit for bit, and the
+    run-dir path launching the encoder kernels and ``decode_chunk``.
+    Returns the phase's seconds."""
+    import dataclasses
+
+    import torch
+
+    from sketchformer_tpu_torch.config import SketchformerConfig
+    from sketchformer_tpu_torch.convert import init_params, save_npz
+    from sketchformer_tpu_torch.tools import import_reference_weights as iw
+
+    t0 = time.perf_counter()
+    cfg, _ = cli.resolve_config(cli.build_parser().parse_args(
+        ["decode", "--preset", "ar_decode", "--init-seed", "0"]))
+    default = dataclasses.asdict(SketchformerConfig())
+    hparams = ",".join(f"{k}={v}" for k, v in dataclasses.asdict(cfg).items()
+                       if v != default[k])
+    if iw.build_config(hparams) != cfg:
+        fail(f"importer config from {hparams!r} is not ar_decode's {cfg}")
+
+    def tool(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = iw.main(argv)
+        if rc != 0:
+            fail(f"import_reference_weights {argv[2:]} returned {rc}")
+        return buf.getvalue().strip().splitlines()[-1]
+
+    sd = init_params(cfg, IMPORT_SEED)
+    seeded = os.path.join(tmp, "seeded.npz")
+    save_npz(seeded, sd)
+    tmpl, refs = os.path.join(tmp, "map.json"), os.path.join(tmp, "ref.npz")
+    tool(["--hparams", hparams, "--dump-template", tmpl])
+    with open(tmpl) as f:
+        mapping = json.load(f)
+    if set(mapping) != {k.replace(".", "/") for k in sd}:
+        fail("the importer's template is not the model's state_dict")
+    order = np.random.default_rng(IMPORT_SEED).permutation(len(mapping))
+    weights, flipped = {}, 0
+    for i, path in zip(order, sorted(mapping)):
+        arr = sd[path.replace("/", ".")].numpy()
+        spec = mapping[path]
+        spec["ref"] = f"ref/{i}"
+        if arr.ndim == 2 and arr.shape[0] != arr.shape[1]:
+            arr, spec["transpose"] = arr.T, [1, 0]
+            flipped += 1
+        weights[spec["ref"]] = arr
+    with open(tmpl, "w") as f:
+        json.dump(mapping, f)
+    np.savez(refs, **weights)
+    run = os.path.join(tmp, "run")
+    said = tool(["--hparams", hparams, "--weights", refs, "--mapping", tmpl,
+                 "--out", run])
+    print(f"main path: import_reference_weights at ar_decode's width "
+          f"({len(mapping)} leaves, {flipped} stored transposed, shuffled "
+          f"names): {said}")
+
+    def serve(cmd, source, flags):
+        """``cli <cmd>`` on ar_decode from ``source``, every counter reset
+        just before and read just after; (output arrays, launches)."""
+        out = os.path.join(tmp, f"{cmd}_{source}.npz")
+        argv = [cmd, "--preset", "ar_decode", *flags, "--device", "cuda",
+                "--output", out]
+        for m in counters:
+            m.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        got = {k: v for m in counters for k, v in m.LAUNCHES.items()}
+        if rc != 0:
+            fail(f"cli {' '.join(argv)} returned {rc}")
+        main_path_routes(f"cli {cmd} ({source})")
+        with np.load(out) as data:
+            arrays = {k: data[k] for k in data.files}
+        return arrays, got
+
+    for cmd, needs in (("embed", IMPORT_KERNELS),
+                       ("decode", IMPORT_KERNELS + ("decode_chunk",))):
+        ours, launched = serve(cmd, "run_dir", ["--run-dir", run])
+        want, _ = serve(cmd, "weights", ["--weights", seeded])
+        print(f"  cli {cmd} --run-dir: launches "
+              + ", ".join(f"{k} {launched[k]}" for k in needs))
+        for k in needs:
+            if launched[k] <= 0:
+                fail(f"kernel {k} was not launched by cli {cmd} --run-dir")
+        if ours.keys() != want.keys():
+            fail(f"cli {cmd}: outputs {sorted(ours)} != {sorted(want)}")
+        for k, v in want.items():
+            if not np.isfinite(v).all() or ours[k].shape != v.shape or \
+                    ours[k].dtype != v.dtype or \
+                    ours[k].tobytes() != v.tobytes():
+                fail(f"cli {cmd}: {k} from the imported run dir is not bit "
+                     f"for bit the seeded npz's")
+        shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in want.items())
+        print(f"  cli {cmd}: run dir == seeded npz, bit for bit ({shapes})")
+    secs = time.perf_counter() - t0
+    print(f"import phase: {secs:.1f} s [{gpu}]")
+    return secs
+
+
 # cycles the card spins before each timed call, long enough for the host to
 # queue the call's launches (a few ms at the H100's clock): the events then
 # time the device's work alone, not the host's launch overhead
@@ -4450,6 +4571,10 @@ def main() -> int:
           f"in {DDP_STEPS} steps and the eval: " + ", ".join(
               f"{k} {ddp_launches[k]}" for k in STACK_KERNELS + TOK_KERNELS)
           + f" [{gpu}]")
+
+    # ---- 4h. main path: reference weights imported, then served ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        import_main_path(cli, counters, tmp, gpu)
 
     # ---- 5. times ----------------------------------------------------------
     def cuda_ms(fn, iters=20, warm=3):

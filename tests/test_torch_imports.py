@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``sketchformer_tpu_torch`` and no
-line of ``chip_smoke.py`` imports the JAX package or JAX itself; and the
-port's own copy of the data path gives the JAX package's batches bit for
-bit, from the same arguments."""
+line of ``chip_smoke.py`` imports the JAX package, JAX itself or the
+repo-root ``tools`` package (the JAX side's scripts), and the port's own
+``tools`` import neither TensorFlow nor protobuf (the card's host has
+neither); and the port's own copy of the data path gives the JAX package's
+batches bit for bit, from the same arguments."""
 
 import ast
 import pathlib
@@ -20,6 +22,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
 FILES = sorted((ROOT / "sketchformer_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# the port's tools read TF2 checkpoints themselves (data/tfrecord.py keeps
+# its lazy TensorFlow import, as the JAX package's copy does)
+TOOLS = sorted((ROOT / "sketchformer_tpu_torch" / "tools").glob("*.py"))
+TOOLS_FORBIDDEN = ("tensorflow", "google.protobuf")
 
 
 def _imports(path):
@@ -34,7 +40,7 @@ def _imports(path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in FORBIDDEN or top == "sketchformer_tpu"
+    return top in FORBIDDEN or top in ("sketchformer_tpu", "tools")
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -45,13 +51,28 @@ def test_no_jax_package_imports(path):
     assert not bad, bad
 
 
+@pytest.mark.parametrize("path", TOOLS,
+                         ids=[str(p.relative_to(ROOT)) for p in TOOLS])
+def test_port_tools_import_no_tensorflow(path):
+    bad = [f"{path.relative_to(ROOT)}:{line} imports {name}"
+           for line, name in _imports(path)
+           if _forbidden(name) or any(name == m or name.startswith(m + ".")
+                                      for m in TOOLS_FORBIDDEN)
+           or name == "google"]
+    assert not bad, bad
+
+
 def test_the_walk_sees_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "pipeline.py", "encoder_stack_train.py",
             "decoder_stack_train.py", "cli.py", "token_ce.py",
             "dropout_prng.py", "multiprocess.py", "registry.py",
-            "basic_usage.py"} <= names
+            "basic_usage.py", "import_reference_weights.py",
+            "tf_bundle.py"} <= names
     assert ROOT / "sketchformer_tpu_torch" / "parallel" / "__init__.py" in FILES
+    assert {p.name for p in TOOLS} == {"__init__.py",
+                                       "import_reference_weights.py",
+                                       "tf_bundle.py"}
 
 
 def _batches(get_loader, token_mode, split, n=3):

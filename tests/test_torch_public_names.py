@@ -5,6 +5,7 @@ and the example; and a walk of both packages that fails when a public
 top-level name of the JAX package has no counterpart in the port."""
 
 import importlib
+import importlib.util
 import inspect
 import json
 import pathlib
@@ -202,7 +203,8 @@ RENAMES = {("sketchformer_tpu.models.attention", "padding_mask_from_ids"):
            "key_mask_from_ids",
            ("sketchformer_tpu.models.attention", "padding_mask_from_float"):
            "key_mask_from_float"}
-# the benchmark subcommand is the port benchmark's (ROADMAP item 1.2)
+# the benchmark subcommand waits for the port's benchmark, which comes in
+# a benchmark change of its own (ROADMAP item 1.2)
 NOT_YET = {("sketchformer_tpu.cli", "cmd_bench")}
 
 
@@ -249,6 +251,22 @@ def test_every_public_name_has_a_counterpart(name):
         if not hasattr(port, want):
             missing.append(want)
     assert not missing, f"{port.__name__} lacks {missing}"
+
+
+def test_the_importer_has_the_jax_tools_public_names():
+    """The repo-root ``tools/import_reference_weights.py`` (the JAX side's
+    script, outside the package walk) against the port's tool."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_import_tool", ROOT / "tools" / "import_reference_weights.py")
+    jtool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jtool)
+    port = importlib.import_module(
+        "sketchformer_tpu_torch.tools.import_reference_weights")
+    names = [k for k, v in vars(jtool).items()
+             if not k.startswith("_") and inspect.isfunction(v)
+             and v.__module__ == jtool.__name__]
+    assert names == ["main"]
+    assert all(inspect.isfunction(getattr(port, k, None)) for k in names)
 
 
 def test_the_walk_sees_every_package():
