@@ -147,9 +147,16 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    names, 2-D leaves stored transposed): template, mapping, import into a
    run dir, and ``embed`` and ``decode`` on that run dir bit-equal to the
    same CLIs on the seeded npz, the run-dir path launching ``linear``,
-   ``encoder_attention``, ``layernorm_rows`` and ``decode_chunk``. Each
-   CLI run prints the routes of its ``layernorm_rows`` and
-   ``decode_attention`` launches and fails if one was declined;
+   ``encoder_attention``, ``layernorm_rows`` and ``decode_chunk``; then
+   the benchmark's first sections (the headline encode, ``train`` and
+   ``decode``) through ``python -m sketchformer_tpu_torch.cli bench`` in a
+   subprocess whose ``SKETCHFORMER_BENCH_BUDGET_S``
+   (``bench.prefix_budget``) skips the rest: exit code 0, JSON lines only
+   on stdout, the last with value > 0, those sections' keys, no error and
+   every other section skipped, each section's own checks passed (its
+   lines printed). Each CLI run prints the routes of its
+   ``layernorm_rows`` and ``decode_attention`` launches and fails if one
+   was declined;
 5. times: ``layernorm_rows`` (bf16, M 12,288 and 49,152), K12 (B*H=512,
    Dh=32, cache_len 96 and 191), K13 (B=64, t=96) and K7's emit (one
    ``pretrain_full`` site, and a whole 'bits' stack's tensor) as the median
@@ -231,6 +238,20 @@ import time
 
 import numpy as np
 
+from sketchformer_tpu_torch.utils import checks, timing
+from sketchformer_tpu_torch.utils.checks import TOL, set_attn_impl
+from sketchformer_tpu_torch.utils.timing import (
+    SPREAD_CALLS,
+    TRACE_GUARD_S,
+    TRACE_KEPT_SHARE,
+    bound,
+    call_ms,
+    device_trace,
+    gpu_line,
+    nvcc_version,
+    spread_ms,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "sketchformer_tpu_torch/csrc/"
 # source of each Hopper kernel, and the TPU kernel it replaces (the body of
@@ -282,8 +303,6 @@ REPLACES = {
     "flash_attention_bwd": "sketchformer_tpu/ops/pallas_attention.py:249",
     "decode_step": "sketchformer_tpu/ops/pallas_decode_stack.py:223",
 }
-# max |kernel - plain| / max |plain| allowed, by dtype
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # layernorm_rows' checks: (M, D, x's offset in elements from a 16-byte
 # boundary, route in f32, in bf16): the main paths' rows (sbir and
 # cont2cont_mdn's 64 x 192, train's 512 x 96), D=128 (bf16: half a warp a
@@ -331,17 +350,12 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def nvcc_version(nvcc: str) -> str:
-    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
-                         check=True)
-    return out.stdout.strip().splitlines()[-1]
+def teacher_forced_check(*args, **kwargs):
+    """``checks.teacher_forced_check``, a failed check failing the run."""
+    try:
+        checks.teacher_forced_check(*args, **kwargs)
+    except checks.CheckFailed as e:
+        fail(str(e))
 
 
 # ---------------------------------------------------------------------------
@@ -620,76 +634,6 @@ def check_decode_kernels(randn, gen, dev, errs):
                 errs[kname] = max(errs[kname], err)
 
 
-def teacher_forced_check(name, model, enc, mask, out):
-    """Every emitted greedy pick of a whole decode must be the argmax of
-    the plain teacher-forced forward given the decoded prefix, except at
-    near ties; the MDN xy must be that step's component mean."""
-    import torch
-    import torch.nn.functional as F
-
-    from sketchformer_tpu_torch.data.pipeline import PEN_END
-    from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
-    from sketchformer_tpu_torch.ops.decode_chunk import NEG_INF, tie_margin
-
-    cfg = model.config
-    f32 = torch.float32
-    if cfg.use_continuous:
-        xy, pen, valid = out
-        B, T = pen.shape
-        prev = torch.cat([xy, F.one_hot(pen.long(), 3).float()], -1)
-        sos = torch.zeros((B, 1, 5), device=xy.device)
-        sos[..., 3] = 1.0
-        dec_in = torch.cat([sos, prev[:, :-1]], 1)
-        with torch.inference_mode():
-            raw = model(enc, dec_in, mask)["recon"]
-        M = cfg.num_mixtures
-        comp = raw[..., :M].argmax(-1)
-        want_pen = raw[..., 6 * M:].argmax(-1)
-        margins = torch.minimum(tie_margin(raw[..., :M], f32),
-                                tie_margin(raw[..., 6 * M:], f32))
-        want_xy = torch.stack([raw.gather(-1, (M + comp)[..., None])[..., 0],
-                               raw.gather(-1, (2 * M + comp)[..., None])
-                               [..., 0]], -1)
-        live = valid.bool()
-        picks, want_picks = pen, want_pen
-    else:
-        ids = out
-        B, T = ids.shape
-        dec_in = torch.cat([torch.full((B, 1), SOS_ID, dtype=ids.dtype,
-                                       device=ids.device), ids[:, :-1]], 1)
-        with torch.inference_mode():
-            logits = model(enc, dec_in)["recon"]
-        lane = torch.arange(logits.shape[-1], device=logits.device)
-        logits = torch.where((lane == PAD_ID) | (lane == SOS_ID), NEG_INF,
-                             logits)
-        want_picks = logits.argmax(-1)
-        margins = tie_margin(logits, f32)
-        ended = torch.cumsum((ids == EOS_ID).int(), 1)
-        live = (ended == 0) | ((ended == 1) & (ids == EOS_ID))
-        if not torch.all(ids[~live] == PAD_ID):
-            fail(f"{name}: a finished row emitted something other than PAD")
-        picks = ids
-    # the forward reads the decode's own prefix, so a near tie leaves only
-    # its own step undecided
-    checked = live & (margins >= 1)
-    if not torch.equal(picks[checked].long(), want_picks[checked].long()):
-        fail(f"{name}: a pick is not the teacher-forced argmax")
-    msg = ""
-    if cfg.use_continuous:
-        err = (xy[checked] - want_xy[checked]).abs().max().item()
-        scale = want_xy[checked].abs().max().item()
-        if not err <= TOL["float32"] * scale:
-            fail(f"{name}: xy differs from the component mean by {err:.3e}")
-        if not torch.all(pen[~live] == PEN_END):
-            fail(f"{name}: a finished row emitted a pen other than PEN_END")
-        msg = f", xy max_abs_err {err:.3e}"
-    print(f"check {name}: {int(checked.sum())} of {int(live.sum())} live "
-          f"row-steps held to the teacher-forced argmax (the rest are near "
-          f"ties){msg}")
-    if int(checked.sum()) < int(live.sum()) // 2:
-        fail(f"{name}: fewer than half the live steps were checked")
-
-
 # ---------------------------------------------------------------------------
 # the training stacks' kernels (K3 / K4 / K5)
 # ---------------------------------------------------------------------------
@@ -699,7 +643,6 @@ def teacher_forced_check(name, model, enc, mask, out):
 MDN = dict(B=64, T=192, d=256, H=8, dff=512, L=8)
 CONT_TRAIN = dict(B=512, T=96, d=256, H=2, dff=512, L=8)
 TRAIN_STEPS = 30
-SPREAD_CALLS = 60   # per-call timings of the redesigned kernels' rows
 # sum_rows launches a cont2cont_mdn step while linear_tn's partials and the
 # bias gradients each took a sum_rows launch (this script's train path on
 # an NVIDIA H100 80GB HBM3, 11,760 in 30 steps), and while the attention
@@ -1325,14 +1268,6 @@ def check_train_stack(draws, dev, decoder, H, qk, dtype):
     print(f"check {name}: output and {len(got) - 1} gradients vs float32, "
           f"worst kernel/plain L2 error ratio {worst:.2f} (<= "
           f"{STACK_BF16_FACTOR})")
-
-
-def set_attn_impl(model, impl):
-    """Every module's attention implementation (the stacks' gates and each
-    layer's attention): 'xla' makes the model the plain composed one."""
-    for m in model.modules():
-        if hasattr(m, "attn_impl"):
-            m.attn_impl = impl
 
 
 def train_main_path(cli, counters, engines, tmp, post_ln=False):
@@ -2481,106 +2416,85 @@ def import_main_path(cli, counters, tmp, gpu):
     return secs
 
 
-# cycles the card spins before each timed call, long enough for the host to
-# queue the call's launches (a few ms at the H100's clock): the events then
-# time the device's work alone, not the host's launch overhead
-QUEUE_AHEAD_CYCLES = 4_000_000
-
-
-def call_ms(fn, n, warm=5):
-    """Device time (ms) of each of ``n`` calls after ``warm`` calls: each
-    call between its own CUDA events, queued behind a spin of the card so
-    that the host's launch overhead is not in it."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    out = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b))
-    return out
-
-
-def spread_ms(kernel_fn, plain_fn, lib_fn, n=SPREAD_CALLS):
-    """(median, min, max) device ms (``call_ms``) of the kernel, the plain
-    version and the library call (or None): n calls each, in turns plain,
-    kernel, library, kernel, plain, library (n / 2 a turn)."""
-    out = {"kernel": [], "plain": [], "lib": []}
-    for name, fn in (("plain", plain_fn), ("kernel", kernel_fn),
-                     ("lib", lib_fn), ("kernel", kernel_fn),
-                     ("plain", plain_fn), ("lib", lib_fn)):
-        if fn is not None:
-            out[name] += call_ms(fn, n // 2)
-    return {k: (float(np.median(v)), min(v), max(v)) if v else None
-            for k, v in out.items()}
-
-
 def fmt_spread(t):
     return "n/a" if t is None else \
         f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
 
-# a kernel trace's guard: seconds the host idles inside the profiler's
-# window before the first launch and after the last; and the least share
-# of a trace's launches whose device events it must keep. As the process
-# ages, the window drops device events (``--profiler-window`` reads it on
-# PyTorch's own kernels: none lost in the first 20 s, then one more of 60
-# every 10 s or so; with the guard, none lost from about 150 s on), so a
-# kernel's time is the median of the events its trace kept
-TRACE_GUARD_S = 0.25
-TRACE_KEPT_SHARE = 0.5
+# the bench phase: the sections that run (``bench.prefix_budget``), and the
+# seconds the subprocess may take
+BENCH_RUNS = ("headline", "train", "decode")
+BENCH_TIMEOUT = 600.0
+
+
+def bench_main_path(gpu):
+    """``python -m sketchformer_tpu_torch.cli bench`` in a subprocess under
+    ``bench.prefix_budget`` of BENCH_RUNS: fails unless it exits 0, prints
+    only JSON lines on stdout, the last with value > 0, the keys of
+    BENCH_RUNS' sections, no ``*_error`` key, and every other section in
+    ``skipped``."""
+    import torch
+
+    from sketchformer_tpu_torch import bench
+
+    table = bench.sections()
+    if tuple(name for name, _, _ in table[:len(BENCH_RUNS)]) != BENCH_RUNS:
+        fail(f"bench sections {[name for name, _, _ in table]}")
+    budget = bench.prefix_budget(len(BENCH_RUNS))
+    env = dict(os.environ, **{bench.BUDGET_ENV: f"{budget:.1f}"})
+    argv = [sys.executable, "-m", "sketchformer_tpu_torch.cli", "bench"]
+    print(f"main path: {bench.BUDGET_ENV}={budget:.1f} python -m "
+          f"sketchformer_tpu_torch.cli bench")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(argv, capture_output=True, text=True, cwd=REPO,
+                           env=env, timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"cli bench ran past {BENCH_TIMEOUT:.0f} s")
+    secs = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        if line.startswith(("check ", "[bench")):
+            print(f"  {line}")
+    if r.returncode != 0:
+        fail(f"cli bench returned {r.returncode}: "
+             f"{r.stderr.strip()[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    try:
+        results = [json.loads(line) for line in lines]
+    except json.JSONDecodeError:
+        fail(f"cli bench printed a line that is not JSON: {lines}")
+    last = results[-1] if results else {}
+    print(f"  bench result ({secs:.1f} s): {lines[-1] if lines else ''}")
+    ex = last.get("extras", {})
+    want = ("encode_ms_per_batch", "mfu_encode", "train_sketches_per_sec",
+            "decode_p50_ms", "decode_sketches_per_sec",
+            "decode_batch512_sketches_per_sec")
+    missing = [k for k in want if not ex.get(k, 0) > 0]
+    if not last.get("value", 0) > 0 or missing:
+        fail(f"cli bench: value {last.get('value')}, keys missing or not "
+             f"positive {missing}")
+    errors = [k for k in ex if k.endswith("_error")]
+    rest = [name for name, _, _ in table[len(BENCH_RUNS):]]
+    if errors or ex.get("skipped") != rest:
+        fail(f"cli bench: errors {errors}, skipped {ex.get('skipped')} "
+             f"(want {rest})")
+    print(f"bench phase: {secs:.1f} s, headline {last['value']} sketches/s, "
+          f"train {ex['train_sketches_per_sec']} sketches/s, decode p50 "
+          f"{ex['decode_p50_ms']} ms [{gpu}]")
+
+
 # --profiler-window: calls a trace, seconds between traces
 PW_CALLS, PW_EVERY = 60, 20.0
 
 
-@contextlib.contextmanager
-def device_trace(guard_s=TRACE_GUARD_S):
-    """A torch.profiler session of host and device activity whose calls
-    run ``guard_s`` seconds inside each end of its window; the card is
-    synchronised before the window closes."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        time.sleep(guard_s)
-        yield prof
-        torch.cuda.synchronize()
-        time.sleep(guard_s)
-
-
 def kernel_spread(fn, names, n=SPREAD_CALLS):
-    """{name: (median, min, max, events kept)} device ms of each kernel
-    whose name holds one of ``names``, from its events in a
-    ``device_trace`` of ``n`` calls of ``fn`` (after one warm call), each
-    call launching each named kernel once: a trace keeps at most ``n`` of
-    a name's events, and must keep TRACE_KEPT_SHARE of them."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    with device_trace() as prof:
-        for _ in range(n):
-            fn()
-    got = {k: [] for k in names}
-    for e in prof.events():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        for k in names:
-            if k in e.name:
-                got[k].append(e.time_range.elapsed_us() / 1e3)
-    for k, v in got.items():
-        if not n * TRACE_KEPT_SHARE <= len(v) <= n:
-            fail(f"profiler: {len(v)} {k} events in {n} calls")
-    return {k: (float(np.median(v)), min(v), max(v), len(v))
-            for k, v in got.items()}
+    """``timing.kernel_spread``, a trace that kept too few events failing
+    the run."""
+    try:
+        return timing.kernel_spread(fn, names, n)
+    except timing.TraceTooShort as e:
+        fail(str(e))
 
 
 def linear_layer_calls(fn, x, hid, w, drops=({}, {})):
@@ -3217,22 +3131,9 @@ def profile_decode(label, run, gpu, wall_ms):
 
 
 # ---------------------------------------------------------------------------
-# bounds: the least time the card could take for a call's work
+# the work of each timed call, which ``timing.bound`` turns into the least
+# time the card could take for it
 # ---------------------------------------------------------------------------
-
-PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core rate, FLOP/s
-PEAK_F32 = 67e12        # float32 outside the tensor cores
-HBM = 3.35e12           # bytes/s
-
-
-def bound(flops, nbytes, dtype_bytes=2):
-    """(ms, 'operations' | 'bytes'): the larger of the two times; the
-    operations at the bf16 tensor-core peak (``dtype_bytes`` 2) or the f32
-    peak outside the tensor cores (4)."""
-    peak = PEAK_BF16 if dtype_bytes == 2 else PEAK_F32
-    t_op, t_by = flops / peak, nbytes / HBM
-    return (max(t_op, t_by) * 1e3,
-            "operations" if t_op >= t_by else "bytes")
 
 
 def gemm_work(shapes, es_=2):
@@ -4035,6 +3936,11 @@ def rule2_only(argv) -> int:
         print("usage: chip_smoke.py [--rule2 ROOT LABEL]", file=sys.stderr)
         return 2
     root, label = os.path.abspath(argv[1]), argv[2]
+    # this script's helpers came from this checkout's package; the package
+    # timed is the one under ROOT
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "sketchformer_tpu_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, root)
     import sketchformer_tpu_torch
     from sketchformer_tpu_torch.ops import _build
@@ -4575,6 +4481,9 @@ def main() -> int:
     # ---- 4h. main path: reference weights imported, then served ----------
     with tempfile.TemporaryDirectory() as tmp:
         import_main_path(cli, counters, tmp, gpu)
+
+    # ---- 4i. the benchmark's first sections, through the CLI --------------
+    bench_main_path(gpu)
 
     # ---- 5. times ----------------------------------------------------------
     def cuda_ms(fn, iters=20, warm=3):

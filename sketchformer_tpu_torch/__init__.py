@@ -14,9 +14,13 @@ the reference; module names mirror it::
                   train stacks' autograd Functions, MDN math
       infer/      embedding extraction, AR decode, SBIR metrics
       train/      losses, optimizer, train / eval steps, checkpoints, loop
-      utils/      hparams, registries, engine notes, metric writers
+      utils/      hparams, registries, engine notes, metric writers, the
+                  card's timing helpers and the checks against plain routes
+      tools/      the reference-weight importer and the benchmark's tools
       presets.py  the named experiment presets
-      cli.py      train / eval / embed / sbir / decode / interpolate
+      bench.py    the benchmark: the JAX benchmark's sections on the card
+      cli.py      prep-data / train / eval / embed / sbir / decode /
+                  interpolate / bench
 
 The package imports torch and never jax, flax, optax or orbax, nor any
 module of ``sketchformer_tpu``: what it needs of the JAX package's

@@ -3,12 +3,14 @@
 reconstruction and latent interpolation.
 
 Port of the ``prep-data``, ``train``, ``eval``, ``embed``, ``sbir``,
-``decode`` and ``interpolate`` subcommands of ``sketchformer_tpu.cli``,
-with the same outputs (``bench`` is not ported yet). Loaders and presets are the port's copies (``data/``,
-``presets.py``). ``train`` writes a run dir (config, loader config,
-checkpoints, metrics) that ``eval`` and the serving subcommands read
-(``--run-dir``); the serving subcommands also take weights from an
-``.npz`` written by ``convert.save_npz`` or a seeded initialisation::
+``decode``, ``interpolate`` and ``bench`` subcommands of
+``sketchformer_tpu.cli``, with the same outputs (``bench`` runs the port's
+benchmark, ``bench.py``, on the card). Loaders and presets are the port's
+copies (``data/``, ``presets.py``). ``train`` writes a run dir (config,
+loader config, checkpoints, metrics) that ``eval`` and the serving
+subcommands read (``--run-dir``); the serving subcommands also take
+weights from an ``.npz`` written by ``convert.save_npz`` or a seeded
+initialisation::
 
     python -m sketchformer_tpu_torch.cli prep-data --input-dir npz/ \
         --out-dir shards/ --fit-dictionary
@@ -30,6 +32,7 @@ checkpoints, metrics) that ``eval`` and the serving subcommands read
         --init-seed 0 --device cuda
     python -m sketchformer_tpu_torch.cli interpolate --preset ar_decode \\
         --init-seed 0 --device cuda
+    python -m sketchformer_tpu_torch.cli bench --device cuda
 """
 
 from __future__ import annotations
@@ -408,6 +411,14 @@ def cmd_prep_data(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The benchmark's sections (``bench.py``): one cumulative JSON result
+    line on stdout after each; 1 if a section failed."""
+    from sketchformer_tpu_torch import bench
+
+    return bench.main(["--device", args.device])
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sketchformer_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -498,6 +509,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--dict-size", type=int, default=1000)
     sp.add_argument("--seed", type=int, default=0)
     sp.set_defaults(fn=cmd_prep_data)
+
+    sp = sub.add_parser("bench", help="run the benchmark on the card")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device, e.g. cuda, cuda:0 or cpu")
+    sp.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -203,9 +203,7 @@ RENAMES = {("sketchformer_tpu.models.attention", "padding_mask_from_ids"):
            "key_mask_from_ids",
            ("sketchformer_tpu.models.attention", "padding_mask_from_float"):
            "key_mask_from_float"}
-# the benchmark subcommand waits for the port's benchmark, which comes in
-# a benchmark change of its own (ROADMAP item 1.2)
-NOT_YET = {("sketchformer_tpu.cli", "cmd_bench")}
+NOT_YET = set()
 
 
 def _jax_modules():
@@ -266,6 +264,23 @@ def test_the_importer_has_the_jax_tools_public_names():
              if not k.startswith("_") and inspect.isfunction(v)
              and v.__module__ == jtool.__name__]
     assert names == ["main"]
+    assert all(inspect.isfunction(getattr(port, k, None)) for k in names)
+
+
+@pytest.mark.parametrize("name", ["bench_embed_pipeline",
+                                  "bench_decode_realistic"])
+def test_the_bench_tools_have_the_jax_tools_public_names(name):
+    """The repo-root benchmark tools (outside the package walk) against
+    the port's tools of the same names."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", ROOT / "tools" / f"{name}.py")
+    jtool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jtool)
+    port = importlib.import_module(f"sketchformer_tpu_torch.tools.{name}")
+    names = [k for k, v in vars(jtool).items()
+             if not k.startswith("_") and inspect.isfunction(v)
+             and v.__module__ == jtool.__name__]
+    assert "measure" in names and "main" in names
     assert all(inspect.isfunction(getattr(port, k, None)) for k in names)
 
 
