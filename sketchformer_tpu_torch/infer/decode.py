@@ -12,7 +12,9 @@ decoder only, as in the JAX package. MDN temperature sampling draws from a
 ``torch.Generator``.
 
 ``tokens_to_sketches`` / ``cont_to_sketches`` turn the outputs back into
-stroke-3 on the host.
+stroke-3 on the host. Under a profiler each read of the finished flags is
+the span ``decode.exit_read`` and a loop that stops before its horizon
+marks ``decode.early_exit`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
 from sketchformer_tpu_torch.utils.engines import note_engine
 from sketchformer_tpu_torch.models.sketchformer import Sketchformer
 from sketchformer_tpu_torch.ops import mdn
+from sketchformer_tpu_torch.utils.trace import mark, span
 
 NEG_INF = -1e9
 
@@ -42,6 +45,17 @@ def check_len(cfg, max_len: Optional[int]) -> int:
             f"decode max_len={max_len} exceeds model max_len={cfg.max_len} "
             "(the posenc table is sized by the model config)")
     return max_len
+
+
+def all_finished(finished: torch.Tensor, stop: int, horizon: int) -> bool:
+    """The host's read of whether every row of ``finished`` (bool) has
+    finished, for a loop that would stop after step ``stop`` of
+    ``horizon``; an exit before the horizon is marked."""
+    with span("decode.exit_read"):
+        done = bool(finished.all())
+    if done and stop < horizon:
+        mark("decode.early_exit")
+    return done
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +145,7 @@ def _decode_tokens_from_memory(model, memory, memory_mask, T,
         finished = finished | (nxt == EOS_ID)
         out[:, t] = nxt
         prev = nxt
-        if early_exit and bool(finished.all()):
+        if early_exit and all_finished(finished, t + 1, T):
             break
     return out
 
@@ -219,7 +233,7 @@ def _decode_cont_from_memory(model, memory, memory_mask, T, generator,
         valid[:, t] = ~finished
         finished = finished | (pen_t == PEN_END)
         row = torch.cat([xy_t, F.one_hot(pen_t.long(), 3).float()], dim=-1)
-        if early_exit and bool(finished.all()):
+        if early_exit and all_finished(finished, t + 1, T):
             break
     return xy, pen, valid
 

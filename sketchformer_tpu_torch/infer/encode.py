@@ -6,7 +6,10 @@ memory with a non-blocking copy, embedded on the model's device, and its z
 is copied back into pinned memory without blocking; results are read two
 batches behind (a 3-deep readback queue), so the host prepares batch N+1
 while the device works on batch N. Repeat-padded rows (``is_real`` = 0)
-are dropped, so a gallery never counts a sketch twice.
+are dropped, so a gallery never counts a sketch twice. Under a profiler
+each batch is the span ``embed.batch`` and each host copy of its inputs
+(pinned on the card) and each pinned z buffer a span ``embed.pin``
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+from sketchformer_tpu_torch.utils.trace import span
 
 READBACK_DEPTH = 3
 
@@ -54,10 +58,11 @@ def interpolate(za: np.ndarray, zb: np.ndarray, steps: int = 8) -> np.ndarray:
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    with span("embed.pin"):   # the host copy: pinned where it feeds a card
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if device.type == "cuda":
+            t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def embed_dataset(model: Sketchformer, batches: Iterable[dict],
@@ -82,21 +87,24 @@ def embed_dataset(model: Sketchformer, batches: Iterable[dict],
         labels.append(lab)
 
     for b in batches:
-        enc = _to_device(b["enc"], device)
-        mask = _to_device(b["enc_mask"], device) if cont else None
-        z = embed(enc, mask)
-        ready = None
-        if device.type == "cuda":
-            z_host = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
-            z_host.copy_(z, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        else:
-            z_host = z
-        inflight.append((z_host, ready, np.asarray(b["label"]),
-                         b.get("is_real")))
-        if len(inflight) >= READBACK_DEPTH:
-            drain_one()
+        with span("embed.batch"):
+            enc = _to_device(b["enc"], device)
+            mask = _to_device(b["enc_mask"], device) if cont else None
+            z = embed(enc, mask)
+            ready = None
+            if device.type == "cuda":
+                with span("embed.pin"):
+                    z_host = torch.empty(z.shape, dtype=z.dtype,
+                                         pin_memory=True)
+                z_host.copy_(z, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                z_host = z
+            inflight.append((z_host, ready, np.asarray(b["label"]),
+                             b.get("is_real")))
+            if len(inflight) >= READBACK_DEPTH:
+                drain_one()
     while inflight:
         drain_one()
     return np.concatenate(zs, axis=0), np.concatenate(labels, axis=0)

@@ -10,6 +10,13 @@ granularity. Token semantics are those of ``infer/decode.py``'s composed
 decoder (SOS start, PAD/SOS logits masked, EOS finishes a row, finished
 rows emit PAD); MDN greedy semantics those of its greedy composed decoder.
 
+Under a profiler (``utils/trace.py``) a call of a decoder is the span
+``decode.request``; inside it ``decode.prologue`` (the encoder or the
+memory from z, the cross K/V, the zeroed caches and the position table),
+then per chunk ``decode.chunk`` (the launch and its output writes) and
+``decode.exit_read`` (the host's read of the finished flags), and the
+mark ``decode.early_exit`` where the loop stops before its horizon.
+
 The configurations declined are the JAX engine's (post-LN, the ``direct``
 bottleneck, d_model not divisible by num_heads), logged once through
 ``note_engine`` and served by the composed decoder. The decode cache holds
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 from sketchformer_tpu_torch.data.pipeline import PEN_END
 from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
 from sketchformer_tpu_torch.utils.engines import note_engine
+from sketchformer_tpu_torch.utils.trace import span
 from sketchformer_tpu_torch.infer import decode as composed
 from sketchformer_tpu_torch.models.embeddings import (
     sinusoidal_position_encoding,
@@ -119,24 +127,29 @@ def _chunk_state(model, ops, memory, T, steps_per_call):
     return K, Tp, ck, cv, kc, torch.zeros_like(kc), pos
 
 
-def _decode_ids_from_memory(model, ops, memory, T, steps_per_call=None):
+def _decode_ids(model, ops, memory_of, T, steps_per_call=None):
+    """Token ids of a decode of T steps from the memory ``memory_of()``
+    gives."""
     cfg = model.config
+    with span("decode.prologue"):
+        memory = memory_of()
+        K, Tp, ck, cv, kc, vc, pos = _chunk_state(model, ops, memory, T,
+                                                  steps_per_call)
     B = memory.shape[0]
     dev = memory.device
-    K, Tp, ck, cv, kc, vc, pos = _chunk_state(model, ops, memory, T,
-                                              steps_per_call)
     prev = torch.full((B,), SOS_ID, dtype=torch.int32, device=dev)
     fin = torch.zeros((B,), dtype=torch.int32, device=dev)
     out = torch.full((B, Tp), PAD_ID, dtype=torch.int32, device=dev)
     for t in range(0, Tp, K):
-        ids, fin = decode_chunk(
-            prev, fin, kc, vc, ck, cv, ops["emb"], pos[t:t + K],
-            ops["head_w"], ops["head_b"], ops["w"], t,
-            num_heads=cfg.num_heads, qk_norm=cfg.qk_norm, pad_id=PAD_ID,
-            sos_id=SOS_ID, eos_id=EOS_ID)
-        out[:, t:t + K] = ids
-        prev = ids[:, K - 1].contiguous()
-        if bool((fin != 0).all()):
+        with span("decode.chunk"):
+            ids, fin = decode_chunk(
+                prev, fin, kc, vc, ck, cv, ops["emb"], pos[t:t + K],
+                ops["head_w"], ops["head_b"], ops["w"], t,
+                num_heads=cfg.num_heads, qk_norm=cfg.qk_norm, pad_id=PAD_ID,
+                sos_id=SOS_ID, eos_id=EOS_ID)
+            out[:, t:t + K] = ids
+            prev = ids[:, K - 1].contiguous()
+        if composed.all_finished(fin != 0, t + K, Tp):
             break
     return out[:, :T]
 
@@ -165,8 +178,9 @@ def make_fast_token_decoder(model: Sketchformer,
 
     @torch.inference_mode()
     def decode(enc):
-        _, memory, _ = model.encode(enc)
-        return _decode_ids_from_memory(model, ops, memory, T, steps_per_call)
+        with span("decode.request"):
+            return _decode_ids(model, ops, lambda: model.encode(enc)[1], T,
+                               steps_per_call)
 
     return decode
 
@@ -214,7 +228,8 @@ def make_fast_token_decoder_from_z(model: Sketchformer,
 
     @torch.inference_mode()
     def decode(z):
-        return _decode_ids_from_memory(model, ops, model.memory_from_z(z), T)
+        with span("decode.request"):
+            return _decode_ids(model, ops, lambda: model.memory_from_z(z), T)
 
     return decode
 
@@ -224,13 +239,16 @@ def make_fast_token_decoder_from_z(model: Sketchformer,
 # ---------------------------------------------------------------------------
 
 
-def _decode_cont_from_memory_fast(model, ops, memory, T,
-                                  steps_per_call=None):
+def _decode_cont_fast(model, ops, memory_of, T, steps_per_call=None):
+    """(xy, pen, valid) of a greedy decode of T steps from the memory
+    ``memory_of()`` gives."""
     cfg = model.config
+    with span("decode.prologue"):
+        memory = memory_of()
+        K, Tp, ck, cv, kc, vc, pos = _chunk_state(model, ops, memory, T,
+                                                  steps_per_call)
     B = memory.shape[0]
     dev = memory.device
-    K, Tp, ck, cv, kc, vc, pos = _chunk_state(model, ops, memory, T,
-                                              steps_per_call)
     # the composed decoder's start row
     prev = torch.zeros((B, 5), dtype=torch.float32, device=dev)
     prev[:, 3] = 1.0
@@ -239,18 +257,19 @@ def _decode_cont_from_memory_fast(model, ops, memory, T,
     pen = torch.full((B, Tp), PEN_END, dtype=torch.int32, device=dev)
     valid = torch.zeros((B, Tp), dtype=torch.int32, device=dev)
     for t in range(0, Tp, K):
-        xy_c, pen_c, valid_c, fin = decode_cont_chunk(
-            prev, fin, kc, vc, ck, cv, ops["in_w"], ops["in_b"],
-            pos[t:t + K], ops["head_w"], ops["head_b"], ops["w"], t,
-            num_heads=cfg.num_heads, num_mixtures=cfg.num_mixtures,
-            qk_norm=cfg.qk_norm, pen_end=PEN_END)
-        xy[:, t:t + K] = xy_c
-        pen[:, t:t + K] = pen_c
-        valid[:, t:t + K] = valid_c
-        prev = torch.cat([xy_c[:, K - 1],
-                          F.one_hot(pen_c[:, K - 1].long(), 3).float()],
-                         dim=-1)
-        if bool((fin != 0).all()):
+        with span("decode.chunk"):
+            xy_c, pen_c, valid_c, fin = decode_cont_chunk(
+                prev, fin, kc, vc, ck, cv, ops["in_w"], ops["in_b"],
+                pos[t:t + K], ops["head_w"], ops["head_b"], ops["w"], t,
+                num_heads=cfg.num_heads, num_mixtures=cfg.num_mixtures,
+                qk_norm=cfg.qk_norm, pen_end=PEN_END)
+            xy[:, t:t + K] = xy_c
+            pen[:, t:t + K] = pen_c
+            valid[:, t:t + K] = valid_c
+            prev = torch.cat([xy_c[:, K - 1],
+                              F.one_hot(pen_c[:, K - 1].long(), 3).float()],
+                             dim=-1)
+        if composed.all_finished(fin != 0, t + K, Tp):
             break
     return xy[:, :T], pen[:, :T], valid[:, :T].bool()
 
@@ -273,8 +292,9 @@ def make_fast_cont_decoder(model: Sketchformer,
     @torch.inference_mode()
     def decode(enc, enc_mask=None, generator=None):
         del generator  # greedy: deterministic
-        _, memory, _ = model.encode(enc, enc_mask)
-        return _decode_cont_from_memory_fast(model, ops, memory, T)
+        with span("decode.request"):
+            return _decode_cont_fast(
+                model, ops, lambda: model.encode(enc, enc_mask)[1], T)
 
     return decode
 
@@ -297,7 +317,8 @@ def make_fast_cont_decoder_from_z(model: Sketchformer,
     @torch.inference_mode()
     def decode(z, generator=None):
         del generator
-        return _decode_cont_from_memory_fast(model, ops,
-                                             model.memory_from_z(z), T)
+        with span("decode.request"):
+            return _decode_cont_fast(model, ops,
+                                     lambda: model.memory_from_z(z), T)
 
     return decode

@@ -14,7 +14,9 @@ Registered val metrics (``train/val_metrics.py``): ``retrieval`` and
 
 ``profile_steps`` traces steps [start + 10, start + 10 + N) of the run
 with ``torch.profiler`` (``utils/metrics.py::profile_block``) into
-``run_dir/profile``.
+``run_dir/profile``; the trace holds the program's spans
+(``utils/trace.py``): ``train.data_wait`` (the wait for the next host
+batch) and each step's ``train.step`` with its parts.
 
 Multi-process runs (an initialised ``torch.distributed`` group, as
 ``parallel/multiprocess.py`` forms it): every rank drives the same loop on
@@ -58,6 +60,7 @@ from sketchformer_tpu_torch.utils.metrics import (
     profile_block,
 )
 from sketchformer_tpu_torch.utils.notify import Notifier, NullNotifier
+from sketchformer_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass
@@ -134,8 +137,7 @@ def run_training(
             ckpt.save(state, force=force)
         parallel.barrier()
 
-    writer = (MetricWriter(run_dir, use_tensorboard=False) if is_main
-              else NullMetricWriter())
+    writer = MetricWriter(run_dir) if is_main else NullMetricWriter()
     timer = StepTimer()
     last_metrics: Dict[str, float] = {}
     last_eval_step = -1
@@ -179,7 +181,9 @@ def run_training(
             elif profiling and (state.step
                                 == start_step + 10 + loop_cfg.profile_steps):
                 trace.close()
-        metrics = train_step(batch_to_device(next(stream), dev))
+        with span("train.data_wait"):
+            batch = next(stream)
+        metrics = train_step(batch_to_device(batch, dev))
         step = state.step
         timer.tick()
         if step % loop_cfg.log_every == 0 or step == start_step + 1:

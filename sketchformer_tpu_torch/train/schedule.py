@@ -12,7 +12,8 @@ optax.adam(noam_schedule(...), b1, b2, eps))``:
   ``scale_by_learning_rate``), and Noam clamps the step to >= 1.
 
 All state is f32 and lives beside the parameters, which are updated in
-place by multi-tensor ops.
+place by multi-tensor ops. Under a profiler (``utils/trace.py``) the read
+of the norm is the span ``train.guard`` and the update ``train.update``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from __future__ import annotations
 from typing import Callable, Dict, List
 
 import torch
+
+from sketchformer_tpu_torch.utils.trace import span
 
 
 def noam_schedule(d_model: int, warmup_steps: int = 4000,
@@ -70,23 +73,26 @@ class NoamAdam:
         global norm. An update whose norm is not finite is skipped, leaving
         parameters, moments and count as they were (the norm is read on the
         host). Returns whether it was applied."""
-        if not bool(torch.isfinite(grad_norm)):
+        with span("train.guard"):
+            finite = bool(torch.isfinite(grad_norm))
+        if not finite:
             return False
-        lr = self.rate(self.count)
-        self.count += 1
-        clip = self.clip_norm
-        g = [torch.where(grad_norm < clip, t, t / grad_norm * clip)
-             for t in grads]
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - self.b1))
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(
-            torch._foreach_mul(g, g), 1.0 - self.b2))
-        m_hat = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
-        v_hat = torch._foreach_div(self.nu, 1.0 - self.b2 ** self.count)
-        denom = torch._foreach_add(torch._foreach_sqrt(v_hat), self.eps)
-        torch._foreach_add_(self.params, torch._foreach_div(m_hat, denom),
-                            alpha=-lr)
+        with span("train.update"):
+            lr = self.rate(self.count)
+            self.count += 1
+            clip = self.clip_norm
+            g = [torch.where(grad_norm < clip, t, t / grad_norm * clip)
+                 for t in grads]
+            torch._foreach_mul_(self.mu, self.b1)
+            torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - self.b1))
+            torch._foreach_mul_(self.nu, self.b2)
+            torch._foreach_add_(self.nu, torch._foreach_mul(
+                torch._foreach_mul(g, g), 1.0 - self.b2))
+            m_hat = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
+            v_hat = torch._foreach_div(self.nu, 1.0 - self.b2 ** self.count)
+            denom = torch._foreach_add(torch._foreach_sqrt(v_hat), self.eps)
+            torch._foreach_add_(self.params, torch._foreach_div(m_hat, denom),
+                                alpha=-lr)
         return True
 
     def state_dict(self) -> Dict:

@@ -38,6 +38,12 @@ step does over a mesh:
 - dropout keys fold in the rank when the world is larger than one (a world
   of one keeps the keys of a run without a group).
 
+Under a profiler (``utils/trace.py``) a step is the span ``train.step``;
+inside it ``train.h2d`` (a host batch's copy to the device),
+``train.forward`` and ``train.backward`` (each microbatch's launches),
+``train.guard`` (the gradient norm and the host's read of whether it is
+finite) and ``train.update`` (the clipped Adam update).
+
 Not ported: ``steps_per_call`` (it amortised host dispatch on a remote
 TPU), ``mesh`` / ``explicit_spmd`` (GSPMD sharding; data parallelism is
 the process group above) and ``remat`` (the fused stacks already save only
@@ -63,6 +69,7 @@ from sketchformer_tpu_torch.train.schedule import (
     global_norm,
     make_optimizer,
 )
+from sketchformer_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass
@@ -97,8 +104,10 @@ def dropout_context(device, seed: int, step: int, micro: int = 0,
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """Packed numpy batch -> torch tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
-            for k, v in pack_batch(batch).items()}
+    with span("train.h2d"):
+        return {k: torch.as_tensor(np.asarray(v)).to(device,
+                                                      non_blocking=True)
+                for k, v in pack_batch(batch).items()}
 
 
 def _forward_loss(model, batch, w_recon, w_cls):
@@ -175,16 +184,22 @@ def make_train_step(state: TrainState, w_recon: float = 1.0,
         for p in params:
             p.grad = None
         with dropout_context(dev, state.seed, state.step, micro, drop_rank):
-            total, metrics = _forward_loss(model, batch, w_recon, w_cls)
-            if group:
-                total, metrics = global_shares(model, batch, metrics,
-                                               w_recon, w_cls)
-        total.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
-                 for p in params]
+            with span("train.forward"):
+                total, metrics = _forward_loss(model, batch, w_recon, w_cls)
+                if group:
+                    total, metrics = global_shares(model, batch, metrics,
+                                                   w_recon, w_cls)
+        with span("train.backward"):
+            total.backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
+                     for p in params]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def step(batch) -> Dict[str, torch.Tensor]:
+        with span("train.step"):
+            return one_step(batch)
+
+    def one_step(batch) -> Dict[str, torch.Tensor]:
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = batch_to_device(batch, dev)
         batch = unpack_batch(batch)
@@ -212,7 +227,8 @@ def make_train_step(state: TrainState, w_recon: float = 1.0,
             p.grad = None
         if group:
             grads, metrics = all_reduce_sum(grads, metrics)
-        grad_norm = global_norm(grads)
+        with span("train.guard"):
+            grad_norm = global_norm(grads)
         applied = state.opt.step(grads, grad_norm)
         metrics["grad_norm"] = grad_norm
         metrics["skipped_nonfinite"] = torch.tensor(0.0 if applied else 1.0,

@@ -9,13 +9,17 @@ warning, repeat calls are free (selection runs inside jit tracing, so the
 dedup also keeps retraces quiet).
 
 The port keeps its own copy (and its own once-per-process record) under
-the logger ``sketchformer_tpu_torch.engines``.
+the logger ``sketchformer_tpu_torch.engines``. Under a profiler every call
+also records the mark ``engine.<site>.<engine>`` (``utils/trace.py``), so
+a trace counts each selection, silent fallbacks included.
 """
 
 from __future__ import annotations
 
 import logging
 from typing import Set, Tuple
+
+from sketchformer_tpu_torch.utils.trace import mark
 
 log = logging.getLogger("sketchformer_tpu_torch.engines")
 
@@ -29,6 +33,7 @@ def note_engine(site: str, engine: str, reason: str = "") -> None:
     ``reason`` says why a faster path was declined (empty for the fast
     path itself, which logs at INFO).
     """
+    mark("engine", site, engine)
     key = (site, engine, reason)
     if key in _seen:
         return

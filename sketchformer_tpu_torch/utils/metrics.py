@@ -5,8 +5,7 @@ Capability parity with the reference's metric framework (reference:
 core/metrics.py — registered metric classes computed on validation slices,
 scalars + plot images pushed to TensorBoard and the notifier). Re-design:
 
-- ``MetricWriter`` appends JSONL (always) and TensorBoard event files when
-  TF is importable — no hard TF dependency on the training path;
+- ``MetricWriter`` appends scalars to JSONL and saves images as ``.npy``;
 - plot metrics use the pure-numpy rasterizer (utils has no matplotlib
   dependency on the step path);
 """
@@ -26,45 +25,24 @@ from sketchformer_tpu_torch.data import stroke3
 
 
 class MetricWriter:
-    """Scalars -> metrics.jsonl (+ TensorBoard if available) per step."""
+    """Scalars -> ``metrics.jsonl`` per step; images -> ``images/*.npy``."""
 
-    def __init__(self, run_dir: str, use_tensorboard: bool = True) -> None:
+    def __init__(self, run_dir: str) -> None:
         self.run_dir = run_dir
         os.makedirs(run_dir, exist_ok=True)
         self._jsonl = open(os.path.join(run_dir, "metrics.jsonl"), "a")
-        self._tb = None
-        if use_tensorboard:
-            try:
-                import tensorflow as tf  # optional
-
-                self._tb = tf.summary.create_file_writer(
-                    os.path.join(run_dir, "tb"))
-            except Exception:
-                self._tb = None
 
     def write_scalars(self, step: int, scalars: Dict[str, float]) -> None:
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
-        if self._tb is not None:
-            import tensorflow as tf
-
-            with self._tb.as_default():
-                for k, v in scalars.items():
-                    tf.summary.scalar(k, float(v), step=int(step))
 
     def write_image(self, step: int, name: str, image: np.ndarray) -> None:
-        """image (H, W) or (H, W, C) float in [0,1]; saved as npy + TB."""
+        """image (H, W) or (H, W, C) float in [0,1]; saved as npy."""
         img_dir = os.path.join(self.run_dir, "images")
         os.makedirs(img_dir, exist_ok=True)
         np.save(os.path.join(img_dir, f"{name}_{step:08d}.npy"), image)
-        if self._tb is not None:
-            import tensorflow as tf
-
-            img = image[None, ..., None] if image.ndim == 2 else image[None]
-            with self._tb.as_default():
-                tf.summary.image(name, img, step=int(step))
 
     def close(self) -> None:
         self._jsonl.close()

@@ -34,7 +34,7 @@ from sketchformer_tpu_torch.models import (
 )
 from sketchformer_tpu_torch.train import schedule
 from sketchformer_tpu_torch.train.loop import TrainLoopConfig, run_training
-from sketchformer_tpu_torch.utils.metrics import NullMetricWriter
+from sketchformer_tpu_torch.utils.metrics import MetricWriter, NullMetricWriter
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = dict(vocab_size=64, num_classes=5, max_len=24, d_model=32,
@@ -120,6 +120,19 @@ def test_null_metric_writer_writes_nothing(tmp_path):
     assert list(tmp_path.iterdir()) == []
 
 
+def test_metric_writer_writes_jsonl_and_npy_only(tmp_path):
+    w = MetricWriter(str(tmp_path))
+    w.write_scalars(3, {"loss": 1.5})
+    w.write_image(3, "grid", np.ones((4, 4), np.float32))
+    w.close()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["images",
+                                                          "metrics.jsonl"]
+    rec = json.loads((tmp_path / "metrics.jsonl").read_text())
+    assert rec["step"] == 3 and rec["loss"] == 1.5
+    np.testing.assert_array_equal(
+        np.load(tmp_path / "images" / "grid_00000003.npy"), np.ones((4, 4)))
+
+
 def _tiny_loader():
     return get_dataloader_by_name("synthetic")(
         num_classes=4, sketches_per_epoch=64, batch_size=4, buckets=(24,))
@@ -128,7 +141,8 @@ def _tiny_loader():
 @pytest.mark.parametrize("profile_steps", [0, 2])
 def test_profile_steps_leaves_a_trace(profile_steps, tmp_path):
     """profile_steps=N traces steps [start + 10, start + 10 + N) into
-    run_dir/profile; 0 traces nothing."""
+    run_dir/profile, with the program's spans of each step and of its wait
+    for a batch; 0 traces nothing."""
     loader = _tiny_loader()
     model = Sketchformer(SketchformerConfig(
         **dict(TINY, vocab_size=loader.vocab_size, num_classes=4,
@@ -146,6 +160,10 @@ def test_profile_steps_leaves_a_trace(profile_steps, tmp_path):
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("backward" in str(e.get("name", "")).lower() for e in events)
+    names = [str(e.get("name", "")) for e in events]
+    for span in ("sk.train.step", "sk.train.data_wait"):
+        assert names.count(span) == profile_steps
+    assert "sk.train.guard" in names and "sk.train.update" in names
 
 
 def test_console_script():
