@@ -193,7 +193,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    wrapper launching both, also at d 64, 128 and 192; ``linear_nt``'s four
    calls also one by one); ``layernorm_bwd`` (M 12,288 and 49,152)
    and ``sum_rows`` ((12,288, 768) and the partial rows) as device time
-   against ``native_layer_norm_backward`` and ``sum``; ``sum_rows``
+   against ``native_layer_norm_backward`` and ``sum``; the optimizer step
+   (``global_norm`` + ``NoamAdam.step``, three launches) at ``tok_h8``'s
+   parameter list against its plain route and its bound; ``sum_rows``
    launches a ``cont2cont_mdn`` and a token step beside the counts before
    its three in-launch sums; the train stacks' forward + backward; K6;
    the train step p50 and sketches/s at the
@@ -3581,6 +3583,86 @@ def norm_times(randn, gpu):
     return out
 
 
+# the optimizer step's micro-timing: tok_h8's parameter list (the token
+# training cell's), gradients of norm ~4 (clipped)
+OPT_CONFIG = os.path.join(REPO, "perfbench", "configs", "tok_h8.json")
+
+
+def optimizer_times(dev, gpu):
+    """The optimizer step (``schedule.global_norm`` + ``NoamAdam.step``: the
+    norm, prepare and update kernels) at tok_h8's parameter list, held to
+    the plain route from the same state on two steps: from count 0, where
+    the bias corrections weigh most, and from count 5,000, past the warmup,
+    where the rate is ~3,600 times count 0's. The parameters start at zero,
+    so each is the sum of its changes, and an update's error shows against
+    the update's size and not against the parameter's. Then the step as the
+    median and spread of SPREAD_CALLS calls' device time (``call_ms``)
+    beside the plain route on the same tensors (its ~1,500 launches
+    outlast the spin that queues a call ahead, so its device time holds
+    the host's gaps) and the bound: each gradient read twice (the norm, the
+    update), p, mu and nu read and written once, 32 bytes an element.
+    Returns (ms, plain_ms)."""
+    import dataclasses
+
+    import torch
+
+    from sketchformer_tpu_torch.config import SketchformerConfig
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.ops import optimizer as opt_ops
+    from sketchformer_tpu_torch.train import schedule
+
+    with open(OPT_CONFIG) as f:
+        cfg = json.load(f)
+    fields = {f.name for f in dataclasses.fields(SketchformerConfig)}
+    shapes = [p.shape for p in Sketchformer(SketchformerConfig(
+        **{k: v for k, v in cfg.items() if k in fields})).parameters()]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = [torch.zeros(s, device=dev) for s in shapes]
+    grads = [1e-3 * torch.randn(s, generator=gen, device=dev)
+             for s in shapes]
+    opt = schedule.make_optimizer(params, cfg["d_model"])
+    twin = [[t.clone() for t in ts] for ts in (params, opt.mu, opt.nu)]
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def kern():
+        opt.step(grads, schedule.global_norm(grads))
+
+    def plain():
+        tp, tm, tv = twin
+        opt_ops.adam_update_reference(
+            tp, grads, tm, tv, opt_ops.global_norm_reference(grads), count,
+            **opt.hyper())
+
+    for at in (0, 5000):
+        opt.count = at
+        count.fill_(at)
+        opt_ops.reset_launches()
+        kern()
+        launches = sum(opt_ops.LAUNCHES.values())
+        plain()
+        for name, got, want in zip(("params", "mu", "nu"),
+                                   (params, opt.mu, opt.nu), twin):
+            err = max(((a - b).abs().max()
+                       / b.abs().max().clamp_min(1e-30)).item()
+                      for a, b in zip(got, want))
+            if not err <= 1e-6:
+                fail(f"optimizer step from count {at}: {name} rel err "
+                     f"{err:.3e}")
+    sp = spread_ms(kern, plain, None)
+    elements = sum(int(np.prod(s)) for s in shapes)
+    b_ms, b_by = bound(15 * elements, 32 * elements, 4)
+    print(f"time optimizer step (global_norm + NoamAdam.step, tok_h8: "
+          f"{len(shapes)} tensors, {elements} elements, {launches} launches;"
+          f" device time, median of {SPREAD_CALLS}): kernels "
+          f"{fmt_spread(sp['kernel'])}, plain route "
+          f"{fmt_spread(sp['plain'])}; bound {b_ms:.4f} ms ({b_by}); "
+          f"kernels / bound {sp['kernel'][0] / b_ms:.2f}, plain / kernels "
+          f"{sp['plain'][0] / sp['kernel'][0]:.1f} [{gpu}]")
+    del params, grads, opt, twin
+    torch.cuda.empty_cache()
+    return sp["kernel"][0], sp["plain"][0]
+
+
 # the main-path shapes of the kernels redesigned under rule 2's second
 # part: layernorm_rows (bf16, D=256) at the sbir / cont2cont_mdn rows
 # (B=64 x T=192) and the train rows (B=512 x T=96); K12 at the composed
@@ -4727,6 +4809,7 @@ def main() -> int:
             **norm_times(randn, gpu)}.items():
         times[name] = (k_ms, p_ms)
         lib[name] = l_ms
+    optimizer_times(dev, gpu)
     stack_times(dev, gpu, cuda_ms)
     for name, (k_ms, p_ms, l_ms) in token_ce_times(
             randn, gen, dev, gpu, paired).items():

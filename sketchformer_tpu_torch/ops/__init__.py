@@ -22,11 +22,13 @@ def counted_modules():
         encoder_stack,
         flash_attention,
         norm_train,
+        optimizer,
         token_ce,
     )
 
     return (encoder_stack, decode_chunk, decode_attention, attention_train,
-            norm_train, token_ce, dropout_prng, flash_attention, decode_step)
+            norm_train, token_ce, dropout_prng, flash_attention, decode_step,
+            optimizer)
 
 
 def reset_launches() -> None:

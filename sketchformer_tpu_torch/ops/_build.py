@@ -34,6 +34,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _U = ctypes.c_ulonglong
+_D = ctypes.c_double
 _DROP = [_P, _U, _I, _I, _I]
 # C entry points of csrc/*.cu: (argtypes, restype)
 SIGNATURES = {
@@ -73,6 +74,9 @@ SIGNATURES = {
     "sk_decode_cluster_fit": ([_I, _I, _I, _P], _I),
     "sk_cluster_barrier_probe": ([_I, _I, _I, _P], _I),
     "sk_decode_step": ([_I] + [_P] * 13, _I),
+    "sk_global_sumsq": ([_I, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P], _I),
+    "sk_adam_prepare": ([_P, _P, _P, _P, _F, _F, _D, _D, _P], _I),
+    "sk_adam_update": ([_I] + [_P] * 7 + [_F] * 6 + [_P], _I),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

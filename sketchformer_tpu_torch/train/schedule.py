@@ -12,8 +12,12 @@ optax.adam(noam_schedule(...), b1, b2, eps))``:
   ``scale_by_learning_rate``), and Noam clamps the step to >= 1.
 
 All state is f32 and lives beside the parameters, which are updated in
-place by multi-tensor ops. Under a profiler (``utils/trace.py``) the read
-of the norm is the span ``train.guard`` and the update ``train.update``.
+place; the step count lives there too, so the norm, the non-finite guard,
+the rate and the update run on the device without a host read. On the card
+they are the multi-tensor kernels of ``ops/optimizer.py`` (three launches
+a step; CUDA tensors they cannot take raise); on the CPU the same
+arithmetic in plain torch. Under a profiler (``utils/trace.py``) the update
+is the span ``train.update``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Callable, Dict, List
 
 import torch
 
+from sketchformer_tpu_torch.ops import optimizer
+from sketchformer_tpu_torch.utils.engines import note_engine
 from sketchformer_tpu_torch.utils.trace import span
 
 
@@ -29,29 +35,33 @@ def noam_schedule(d_model: int, warmup_steps: int = 4000,
                   peak_scale: float = 1.0) -> Callable[[int], float]:
     """The Noam rate as a function of the step count, in f32:
     peak_scale * d_model^-0.5 * min(step^-0.5, step * warmup^-1.5), the
-    step clamped to >= 1 (reference: models/sketchformer.py
-    ``CustomSchedule``)."""
+    step clamped to >= 1 (``ops/optimizer.py::noam_rate``, which the
+    update computes on the device)."""
 
     def schedule(count: int) -> float:
         step = torch.tensor(max(float(count), 1.0), dtype=torch.float32)
-        return float(peak_scale * d_model ** -0.5 * torch.minimum(
-            step ** -0.5, step * warmup_steps ** -1.5))
+        return float(optimizer.noam_rate(step, peak_scale * d_model ** -0.5,
+                                         warmup_steps ** -1.5))
 
     return schedule
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``),
-    a 0-d f32 tensor."""
-    return torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(tensors)))
+    a 0-d f32 tensor on the tensors' device: one kernel launch on the card
+    (``ops/optimizer.py::global_norm``)."""
+    if tensors and tensors[0].device.type == "cuda":
+        return optimizer.global_norm(
+            optimizer.tensor_table(tensors[0].device, tensors))
+    return optimizer.global_norm_reference(tensors)
 
 
 class NoamAdam:
     """Clip-by-global-norm + Adam with the Noam schedule (the reference
-    optimizer), as multi-tensor (``torch._foreach``) updates of the
-    parameters in place. ``state_dict`` / ``load_state_dict`` keep the step
-    count and the f32 moments."""
+    optimizer), updating the parameters in place. The step count lives on
+    the parameters' device; ``count`` reads it as an ``int`` (a host read)
+    and sets it. ``state_dict`` / ``load_state_dict`` keep the count (an
+    ``int``) and the f32 moments."""
 
     def __init__(self, params: List[torch.Tensor], d_model: int,
                  warmup_steps: int = 4000, peak_scale: float = 1.0,
@@ -63,37 +73,50 @@ class NoamAdam:
         self.rate = noam_schedule(d_model, warmup_steps, peak_scale)
         self.b1, self.b2, self.eps = beta1, beta2, eps
         self.clip_norm = clip_norm
-        self.count = 0
+        self._rate_args = dict(rate_scale=peak_scale * d_model ** -0.5,
+                               rate_warm=warmup_steps ** -1.5)
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        self._count = torch.zeros((), dtype=torch.int64, device=dev)
+        self._scalars = torch.zeros(optimizer.SCALARS, dtype=torch.float32,
+                                    device=dev)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
+    @property
+    def count(self) -> int:
+        """The updates applied so far (read from the device)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count.fill_(int(value))
+
+    def hyper(self) -> Dict:
+        """The update's settings as ``ops/optimizer.py`` takes them."""
+        return dict(clip=self.clip_norm, b1=self.b1, b2=self.b2, eps=self.eps,
+                    **self._rate_args)
+
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], grad_norm: torch.Tensor) -> bool:
+    def step(self, grads: List[torch.Tensor],
+             grad_norm: torch.Tensor) -> torch.Tensor:
         """One update from ``grads`` (f32, one per parameter) and their
-        global norm. An update whose norm is not finite is skipped, leaving
-        parameters, moments and count as they were (the norm is read on the
-        host). Returns whether it was applied."""
-        with span("train.guard"):
-            finite = bool(torch.isfinite(grad_norm))
-        if not finite:
-            return False
+        global norm, on the device and without a host read. An update
+        whose norm is not finite is skipped, leaving parameters, moments
+        and count as they were. Returns a 0-d f32 tensor on the device, 1
+        where the update applied, else 0. On the card, tensors the kernels
+        cannot take (``ops/optimizer.py::tensor_table``) raise."""
+        hyper = self.hyper()
         with span("train.update"):
-            lr = self.rate(self.count)
-            self.count += 1
-            clip = self.clip_norm
-            g = [torch.where(grad_norm < clip, t, t / grad_norm * clip)
-                 for t in grads]
-            torch._foreach_mul_(self.mu, self.b1)
-            torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - self.b1))
-            torch._foreach_mul_(self.nu, self.b2)
-            torch._foreach_add_(self.nu, torch._foreach_mul(
-                torch._foreach_mul(g, g), 1.0 - self.b2))
-            m_hat = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
-            v_hat = torch._foreach_div(self.nu, 1.0 - self.b2 ** self.count)
-            denom = torch._foreach_add(torch._foreach_sqrt(v_hat), self.eps)
-            torch._foreach_add_(self.params, torch._foreach_div(m_hat, denom),
-                                alpha=-lr)
-        return True
+            dev = self._count.device
+            if dev.type == "cuda":
+                table = optimizer.tensor_table(dev, grads, self.params,
+                                               self.mu, self.nu)
+                note_engine("train-update", "kernels")
+                return optimizer.adam_update(
+                    table, grad_norm, self._count, self._scalars, **hyper)
+            return optimizer.adam_update_reference(
+                self.params, grads, self.mu, self.nu, grad_norm, self._count,
+                **hyper)
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mu": [m.clone() for m in self.mu],

@@ -18,8 +18,9 @@ takes a seed derived on the host from them and the call's index
 - ``grad_norm`` is the global norm of the unclipped gradients;
 - the non-finite guard rejects an update whose gradient norm is not
   finite: parameters and optimizer state stay as they were, and
-  ``skipped_nonfinite`` is 1 (the norm is read on the host once a step to
-  decide);
+  ``skipped_nonfinite`` is 1; the norm, the guard and the update run on
+  the device (``train/schedule.py``), so no value is read on the host to
+  decide;
 - ``accum_steps > 1`` splits the batch's rows into that many microbatches
   and averages their gradients and metrics before one update.
 
@@ -41,8 +42,8 @@ step does over a mesh:
 Under a profiler (``utils/trace.py``) a step is the span ``train.step``;
 inside it ``train.h2d`` (a host batch's copy to the device),
 ``train.forward`` and ``train.backward`` (each microbatch's launches),
-``train.guard`` (the gradient norm and the host's read of whether it is
-finite) and ``train.update`` (the clipped Adam update).
+``train.guard`` (the gradient norm's launch) and ``train.update`` (the
+guarded, clipped Adam update's launches).
 
 Not ported: ``steps_per_call`` (it amortised host dispatch on a remote
 TPU), ``mesh`` / ``explicit_spmd`` (GSPMD sharding; data parallelism is
@@ -231,8 +232,8 @@ def make_train_step(state: TrainState, w_recon: float = 1.0,
             grad_norm = global_norm(grads)
         applied = state.opt.step(grads, grad_norm)
         metrics["grad_norm"] = grad_norm
-        metrics["skipped_nonfinite"] = torch.tensor(0.0 if applied else 1.0,
-                                                    device=dev)
+        metrics["skipped_nonfinite"] = 1.0 - torch.as_tensor(
+            applied, dtype=torch.float32, device=dev)
         state.step += 1
         return metrics
 

@@ -1444,3 +1444,307 @@ def test_emit_dropout_bits_routes(cuda, shape, route):
     torch.cuda.synchronize()
     assert torch.equal(got, dp.emit_dropout_bits_reference(seed, L, nsites, B,
                                                            T, d, cuda))
+
+
+# ---------------------------------------------------------------------------
+# the optimizer step: the global norm, the guard and the update
+# ---------------------------------------------------------------------------
+
+import ctypes  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from sketchformer_tpu_torch.ops import optimizer as opt_ops  # noqa: E402
+from sketchformer_tpu_torch.train import schedule  # noqa: E402
+
+CONFIGS = Path(__file__).resolve().parent.parent / "perfbench" / "configs"
+OPT_HYPER = dict(warmup_steps=10, peak_scale=2.0)
+OPT_RTOL, OPT_ATOL = 1e-6, 1e-7
+
+
+def _config_shapes(name):
+    """The parameter shapes of a benchmark configuration's model, in the
+    order of ``model.parameters()``."""
+    from sketchformer_tpu_torch.config import SketchformerConfig
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+
+    cfg = json.loads((CONFIGS / f"{name}.json").read_text())
+    fields = {f.name for f in dataclasses.fields(SketchformerConfig)}
+    model = Sketchformer(SketchformerConfig(
+        **{k: v for k, v in cfg.items() if k in fields}))
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+class _PlainTwin:
+    """The plain route's state beside a kernel optimizer: its own copies of
+    the parameters, moments and count on the card."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.params = [p.clone() for p in opt.params]
+        self.mu = [m.clone() for m in opt.mu]
+        self.nu = [v.clone() for v in opt.nu]
+        self.count = torch.tensor(opt.count, device=opt.params[0].device)
+
+    def step(self, grads):
+        norm = opt_ops.global_norm_reference(grads)
+        applied = opt_ops.adam_update_reference(
+            self.params, grads, self.mu, self.nu, norm, self.count,
+            **self.opt.hyper())
+        return norm, applied
+
+    def check(self, label):
+        torch.cuda.synchronize()
+        assert self.opt.count == int(self.count), label
+        for name, got, want in (("params", self.opt.params, self.params),
+                                ("mu", self.opt.mu, self.mu),
+                                ("nu", self.opt.nu, self.nu)):
+            for i, (a, b) in enumerate(zip(got, want)):
+                torch.testing.assert_close(
+                    a, b, rtol=OPT_RTOL, atol=OPT_ATOL,
+                    msg=lambda s, i=i, n=name: f"{label} {n}[{i}]: {s}")
+
+
+def _kernel_walk(starts, n):
+    """Each chunk's (tensor, first, last) segments as the kernels walk
+    them (``csrc/optimizer.cu``: find_tensor, then the tensors that start
+    before the chunk's end), over a group's rebased starts."""
+    total = starts[n]
+    for c0 in range(0, total, opt_ops.CHUNK):
+        c1 = min(c0 + opt_ops.CHUNK, total)
+        lo, hi = 0, n - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            lo, hi = (mid, hi) if starts[mid] <= c0 else (lo, mid - 1)
+        t = lo
+        while t < n and starts[t] < c1:
+            yield t, max(c0, starts[t]) - starts[t], \
+                min(c1, starts[t + 1]) - starts[t]
+            t += 1
+
+
+@pytest.mark.parametrize("numels", [
+    [5000, 1, 0, 3, 4096, 8191, 0],
+    [0, 0, 7] + [13] * 600 + [0],
+    [1] * (opt_ops.MAX_TENSORS + 1),
+], ids=["ragged", "split", "one_element_each"])
+def test_optimizer_table_walk_covers_every_element_once(numels):
+    """The tables' launch groups (at most MAX_TENSORS tensors, starts
+    rebased to the group's first) and the kernels' chunk walk over them
+    cover every element of every tensor exactly once."""
+    table = opt_ops.TensorTable(torch.device("cpu"), numels,
+                                [1000 * (i + 1) for i in range(len(numels))])
+    seen = [np.zeros(k, np.int64) for k in numels]
+    first = 0
+    for n, (ptrs,), starts, total in table.groups():
+        assert 1 <= n <= opt_ops.MAX_TENSORS
+        st = (ctypes.c_longlong * (n + 1)).from_address(starts)
+        base = [st[i] - st[0] for i in range(n + 1)]
+        assert base[n] == total == sum(numels[first:first + n])
+        assert ctypes.c_void_p.from_address(ptrs).value == 1000 * (first + 1)
+        for t, a, b in _kernel_walk(base, n):
+            assert 0 <= a <= b <= numels[first + t]
+            seen[first + t][a:b] += 1
+        first += n
+    assert first == len(numels)
+    assert all((s == 1).all() for s in seen)
+
+
+def _kernel_step(opt, grads):
+    norm = schedule.global_norm(grads)
+    return norm, opt.step(grads, norm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["tok_h8", "cont_mdn"])
+def test_optimizer_kernels_match_the_plain_route(cuda, config):
+    """The norm and update kernels against the plain route on a benchmark
+    configuration's whole parameter list, over four steps: one under the
+    clip, one clipped, one with a NaN gradient (skipped by both), and one
+    after a state_dict round trip to count 5,000. Norms and state within
+    rtol 1e-6, atol 1e-7; three launches a step."""
+    gen = torch.Generator(device=cuda).manual_seed(2100)
+    shapes = _config_shapes(config)
+    params = [_rand(gen, cuda, *s, scale=0.05) for s in shapes]
+    opt = schedule.NoamAdam(params, 256, **OPT_HYPER)
+    twin = _PlainTwin(opt)
+    scales = (1e-5, 1e-2, 1e-3, 1e-4)   # norms under 1, ~35-45, NaN, under 1
+    for k, scale in enumerate(scales):
+        grads = [_rand(gen, cuda, *s, scale=scale) for s in shapes]
+        if k == 2:
+            grads[len(grads) // 2].view(-1)[0] = float("nan")
+        if k == 3:   # a round trip, to a count past the warmup's start
+            state = opt.state_dict()
+            state["count"] = 5000
+            opt.load_state_dict(state)
+            twin.count.fill_(5000)
+        opt_ops.reset_launches()
+        norm, applied = _kernel_step(opt, grads)
+        assert opt_ops.LAUNCHES == {"global_sumsq": 1, "adam_prepare": 1,
+                                    "adam_update": 1}
+        want_norm, want_applied = twin.step(grads)
+        torch.cuda.synchronize()
+        if k == 2:
+            assert not torch.isfinite(norm).item()
+        else:
+            assert (norm.item() >= 1.0) == (k == 1), norm.item()
+            torch.testing.assert_close(norm, want_norm, rtol=OPT_RTOL,
+                                       atol=OPT_ATOL)
+        assert applied.item() == want_applied.item() == float(k != 2)
+        twin.check(f"step {k}")
+    assert opt.count == 5001
+
+
+@pytest.mark.cuda
+def test_optimizer_kernels_take_unaligned_views(cuda):
+    """Gradients as views into one flat buffer at an odd offset (as the
+    data-parallel all-reduce leaves them), and parameters at a shared odd
+    offset: the element loops instead of the vectors, the same results."""
+    gen = torch.Generator(device=cuda).manual_seed(2101)
+    shapes = _config_shapes("cont_mdn")[:40] + [(3,), (1,), (4099,)]
+    sizes = [int(np.prod(s)) for s in shapes]
+    total = sum(sizes)
+
+    def views(flat, at):
+        out = []
+        for s, n in zip(shapes, sizes):
+            out.append(flat[at:at + n].view(s))
+            at += n
+        return out
+
+    params = views(_rand(gen, cuda, total + 3, scale=0.05), 3)
+    opt = schedule.NoamAdam(params, 256, **OPT_HYPER)
+    twin = _PlainTwin(opt)
+    for k, scale in enumerate((1e-3, 1.0)):
+        grads = views(_rand(gen, cuda, total + 1, scale=scale), 1)
+        norm, _ = _kernel_step(opt, grads)
+        want, _ = twin.step(grads)
+        torch.testing.assert_close(norm, want, rtol=OPT_RTOL, atol=OPT_ATOL)
+        twin.check(f"step {k}")
+
+
+@pytest.mark.cuda
+def test_optimizer_kernels_split_a_long_list(cuda):
+    """More tensors than one launch's table holds: two norm launches (the
+    last adding both's partials) and two update launches."""
+    gen = torch.Generator(device=cuda).manual_seed(2103)
+    shapes = [(7 + i % 13,) for i in range(opt_ops.MAX_TENSORS + 88)]
+    opt = schedule.NoamAdam([_rand(gen, cuda, *s) for s in shapes], 256,
+                            **OPT_HYPER)
+    twin = _PlainTwin(opt)
+    for k, scale in enumerate((1e-3, 1.0)):
+        grads = [_rand(gen, cuda, *s, scale=scale) for s in shapes]
+        opt_ops.reset_launches()
+        norm, _ = _kernel_step(opt, grads)
+        assert opt_ops.LAUNCHES == {"global_sumsq": 2, "adam_prepare": 1,
+                                    "adam_update": 2}
+        want, _ = twin.step(grads)
+        torch.testing.assert_close(norm, want, rtol=OPT_RTOL, atol=OPT_ATOL)
+        twin.check(f"step {k}")
+
+
+@pytest.mark.cuda
+def test_optimizer_rate_on_the_card_is_the_schedule(cuda):
+    """The prepare launch's rate equals noam_schedule's within 1 ulp."""
+    params = [torch.zeros(5, device=cuda)]
+    opt = schedule.NoamAdam(params, 256, **OPT_HYPER)
+    sched = schedule.noam_schedule(256, **OPT_HYPER)
+    grads = [torch.ones(5, device=cuda)]
+    for c in (0, 1, 2, 9, 10, 11, 100, 4000, 10_000):
+        opt.count = c
+        _kernel_step(opt, grads)
+        got = np.float32(opt._scalars[1].item())
+        want = np.float32(sched(c))
+        assert abs(int(got.view(np.int32)) - int(want.view(np.int32))) <= 1
+        assert opt.count == c + 1
+
+
+def _optimizer_pair(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2102)
+    shapes = _config_shapes("tok_h8")
+    opt = schedule.NoamAdam([_rand(gen, cuda, *s) for s in shapes], 256,
+                            **OPT_HYPER)
+    grads = [_rand(gen, cuda, *s, scale=1e-3) for s in shapes]
+    _kernel_step(opt, grads)       # builds, loads and sizes the scratch
+    torch.cuda.synchronize()
+    return opt, grads
+
+
+@pytest.mark.cuda
+def test_optimizer_step_makes_no_host_sync(cuda):
+    """global_norm + step under the sync debug mode 'error': no call of
+    either waits for the card."""
+    opt, grads = _optimizer_pair(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            _kernel_step(opt, grads)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert opt.count == 3
+
+
+@pytest.mark.cuda
+def test_optimizer_step_launches_three_kernels(cuda):
+    """A profiler's count of the device work of global_norm + step: at most
+    three kernels (the norm, the prepare, the update), no copy or fill."""
+    opt, grads = _optimizer_pair(cuda)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _kernel_step(opt, grads)
+        torch.cuda.synchronize()
+    # among the device events the profiler also shows its own buffer
+    # requests and the program's spans (utils/trace.py), which launch nothing
+    names = [e.name for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")
+             and not e.name.startswith(("Activity Buffer", "sk."))]
+    assert 1 <= len(names) <= 3, names
+    assert all("sumsq" in n or "adam" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", [1e19, 1e20])
+def test_optimizer_guard_skips_where_the_f32_sum_overflows(cuda, big):
+    """One gradient element at 1e20 squares past f32's range: the norm
+    kernel, which sums in f64, reads inf as optax's f32 sum of squares
+    does, and the step is skipped; at 1e19 the norm stays finite and the
+    clipped step applies. Both as the plain route."""
+    gen = torch.Generator(device=cuda).manual_seed(2104)
+    shapes = [(3, 4), (5,), (1,), (4099,)]
+    opt = schedule.NoamAdam([_rand(gen, cuda, *s, scale=0.05)
+                             for s in shapes], 256, **OPT_HYPER)
+    twin = _PlainTwin(opt)
+    grads = [_rand(gen, cuda, *s, scale=1e-3) for s in shapes]
+    grads[2][0] = big
+    norm, applied = _kernel_step(opt, grads)
+    want, want_applied = twin.step(grads)
+    torch.cuda.synchronize()
+    finite = big < 1.8e19
+    assert torch.isfinite(norm).item() == torch.isfinite(want).item() \
+        == finite
+    torch.testing.assert_close(norm, want, rtol=OPT_RTOL, atol=OPT_ATOL)
+    assert applied.item() == want_applied.item() == float(finite)
+    twin.check(f"a gradient element at {big}")
+    assert opt.count == int(finite)
+
+
+@pytest.mark.cuda
+def test_optimizer_kernels_refuse_what_they_cannot_take(cuda):
+    """On the card the optimizer has no plain fallback: gradients the
+    kernels cannot take (a non-contiguous view, float16, another size than
+    the parameter's, on the CPU) raise, and the state stays as it was."""
+    params = [torch.zeros(4, 6, device=cuda)]
+    opt = schedule.NoamAdam(params, 256, **OPT_HYPER)
+    good = torch.ones(4, 6, device=cuda)
+    norm = schedule.global_norm([good])
+    for bad in (torch.ones(6, 4, device=cuda).t(), good.half(),
+                torch.ones(5, 6, device=cuda), good.cpu()):
+        with pytest.raises((ValueError, TypeError)):
+            opt.step([bad], norm)
+    with pytest.raises(ValueError):
+        schedule.global_norm([torch.ones(6, 4, device=cuda).t()])
+    torch.cuda.synchronize()
+    assert opt.count == 0 and bool((params[0] == 0).all())

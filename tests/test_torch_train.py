@@ -232,6 +232,120 @@ def test_optimizer_matches_optax():
                                        atol=1e-6)
 
 
+def _small_optimizer(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    ps = [torch.randn(s, generator=g) for s in ((3, 4), (5,), (2, 3, 2))]
+    return NoamAdam(ps, 64, warmup_steps=2, peak_scale=2.0), g
+
+
+def _grads_of(opt, g, scale=1.0):
+    return [torch.randn(p.shape, generator=g) * scale for p in opt.params]
+
+
+def test_step_returns_a_device_flag_and_a_nonfinite_norm_changes_nothing():
+    """step() answers with a 0-d f32 flag on the parameters' device (no
+    host bool); a non-finite norm leaves the parameters, both moments and
+    the count as they were, through the plain route."""
+    opt, g = _small_optimizer()
+    tg = _grads_of(opt, g)
+    applied = opt.step(tg, global_norm(tg))
+    assert isinstance(applied, torch.Tensor) and applied.dim() == 0
+    assert applied.dtype == torch.float32 and applied.item() == 1.0
+    before = [[t.clone() for t in ts] for ts in (opt.params, opt.mu, opt.nu)]
+    for bad in (float("nan"), float("inf")):
+        tg = _grads_of(opt, g)
+        tg[1][0] = bad
+        applied = opt.step(tg, global_norm(tg))
+        assert applied.dim() == 0 and applied.item() == 0.0
+        for ts, was in zip((opt.params, opt.mu, opt.nu), before):
+            assert all(torch.equal(t, w) for t, w in zip(ts, was))
+        assert opt.count == 1
+
+
+def test_count_reads_as_an_int_and_takes_assignment():
+    opt, g = _small_optimizer()
+    assert opt.count == 0 and type(opt.count) is int
+    tg = _grads_of(opt, g)
+    opt.step(tg, global_norm(tg))
+    opt.count += 1
+    assert opt.count == 2 and type(opt.count) is int
+    opt.count = 7
+    assert opt.count == 7
+
+
+def test_state_dict_round_trips_the_count_as_an_int(tmp_path):
+    """After one applied and one skipped step the state holds count 1 (an
+    int, through a checkpoint file too), and a fresh optimizer loaded from
+    it continues exactly as the original."""
+    opt, g = _small_optimizer()
+    tg = _grads_of(opt, g, scale=3.0)
+    opt.step(tg, global_norm(tg))
+    tg = _grads_of(opt, g)
+    tg[0][0, 0] = float("nan")
+    opt.step(tg, global_norm(tg))
+    torch.save(opt.state_dict(), tmp_path / "opt.pt")
+    state = torch.load(tmp_path / "opt.pt")
+    assert state["count"] == 1 and type(state["count"]) is int
+    twin = NoamAdam([p.clone() for p in opt.params], 64, warmup_steps=2,
+                    peak_scale=2.0)
+    twin.load_state_dict(state)
+    assert twin.count == 1 and type(twin.count) is int
+    tg = _grads_of(opt, g)
+    for o in (opt, twin):
+        o.step(tg, global_norm(tg))
+    for a, b in zip(opt.params + opt.mu + opt.nu,
+                    twin.params + twin.mu + twin.nu):
+        assert torch.equal(a, b)
+    assert opt.count == twin.count == 2
+
+
+def test_device_rate_equals_the_host_schedule():
+    """The rate the update computes from the count on the device equals
+    noam_schedule's on the host within 1 ulp, over counts 0-10,000."""
+    from sketchformer_tpu_torch.ops.optimizer import rate_scalars
+    from sketchformer_tpu_torch.train.schedule import noam_schedule
+
+    hyper = NoamAdam([torch.zeros(3)], 64, warmup_steps=40,
+                     peak_scale=2.0).hyper()
+    sched = noam_schedule(64, 40, 2.0)
+    got, want = [], []
+    for c in range(10_001):
+        lr, _, _ = rate_scalars(torch.tensor(c), hyper["b1"], hyper["b2"],
+                                hyper["rate_scale"], hyper["rate_warm"])
+        got.append(lr.item())
+        want.append(sched(c))
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1
+
+
+@pytest.mark.parametrize("big", [1e19, 1e20, 3e38])
+def test_global_norm_overflows_where_optax_does(big):
+    """A gradient element whose f32 square overflows (1e20, 3e38), here
+    alone in its tensor, makes the norm inf as optax.global_norm's f32 sum
+    of squares does, so the guard skips the step; at 1e19 the square is a
+    finite f32, the norm agrees with optax and the step applies."""
+    rng = np.random.default_rng(2)
+    shapes = ((3, 4), (5,), (1,))
+    gs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    gs[2][0] = big
+    want = float(optax.global_norm([jnp.asarray(g) for g in gs]))
+    tg = [torch.from_numpy(g) for g in gs]
+    got = global_norm(tg)
+    finite = big < 1.8e19
+    assert np.isfinite(want) == finite
+    if finite:
+        np.testing.assert_allclose(got.item(), want, rtol=1e-6)
+    else:
+        assert got.item() == float("inf")
+    opt = NoamAdam([torch.zeros(s) for s in shapes], 64, warmup_steps=2,
+                   peak_scale=2.0)
+    assert opt.step(tg, got).item() == float(finite)
+    assert opt.count == int(finite)
+
+
 def test_params_to_flax_inverts_params_from_flax():
     _, _, state = _jax_setup(_batches(1)[0])
     back = params_to_flax(params_from_flax(state.params))
