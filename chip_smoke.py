@@ -100,9 +100,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 4. main paths, each with every launch counter reset just before and read
    just after: the port's ``sbir`` CLI at the full width of the ``sbir``
    preset (seeded random weights) over 16 batches of 64 from the preset's
-   synthetic 345-class loader, every ``encoder_attention`` call on the
-   tensor-core route; then classifier logits on z, and the
-   kernel z against the plain-path z on one batch. Then the port's
+   synthetic 345-class loader, its batches on the packed stack (every
+   attention a ``ragged_attention`` launch, no ``encoder_attention``; the
+   batches' valid share printed); then classifier logits on z, the
+   kernel z against the plain-path z on one batch, padded and packed
+   (``fast_embed`` given the batch's valid rows against
+   ``encoder_stack_packed_reference``), and ``ragged_attention`` against
+   ``ragged_attention_reference`` on that batch's rows, with and without
+   qk-norm. Then the port's
    ``decode`` and ``interpolate`` CLI on ``ar_decode`` (B=64, T=192, through
    ``decode_chunk``), ``decode`` on ``cont2cont_mdn`` (greedy, through
    ``decode_cont_chunk``) and with ``--temperature 0.7`` (composed, through
@@ -147,7 +152,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    names, 2-D leaves stored transposed): template, mapping, import into a
    run dir, and ``embed`` and ``decode`` on that run dir bit-equal to the
    same CLIs on the seeded npz, the run-dir path launching ``linear``,
-   ``encoder_attention``, ``layernorm_rows`` and ``decode_chunk``; then
+   ``layernorm_rows``, ``ragged_attention`` (``embed``) and
+   ``encoder_attention`` and ``decode_chunk`` (``decode``); then
    the benchmark's first sections (the headline encode, ``train`` and
    ``decode``) through ``python -m sketchformer_tpu_torch.cli bench`` in a
    subprocess whose ``SKETCHFORMER_BENCH_BUDGET_S``
@@ -163,7 +169,11 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and spread of 60 calls' device time beside their plain versions,
    ``F.layer_norm`` and SDPA on the filled slice, and their bounds, and
    the same kernels' own events in a profiler trace; the emit kernel's
-   SASS opcodes and the dispatch floor of its Philox calls; kernel vs plain (CUDA
+   SASS opcodes and the dispatch floor of its Philox calls; the embed
+   cell's batch (B=2048, T=192, lengths 16-191) on the packed stack beside
+   the padded one (``packed_embed_times``: the ragged attention, without
+   and with qk-norm, and a whole ``fast_embed`` batch, each equal to the
+   padded result); kernel vs plain (CUDA
    events after warm-up), the end-to-end
    embed rate, per-chunk and per-call decode kernel times (each chunk at
    B=64 beside its bound, the self-attention cache rows counted once a
@@ -261,9 +271,12 @@ CSRC = "sketchformer_tpu_torch/csrc/"
 # pallas_packed.group_attn_fwd; at H=8/Dh=32 the JAX decode runs the
 # lane-packed chunk kernels). encoder_attention's main path (bf16, Dh=32)
 # runs the tensor-core forward of attention_train.cu; its FMA kernel in
-# encoder_stack.cu serves f32 and the bf16 widths that one does not take
+# encoder_stack.cu serves f32 and the bf16 widths that one does not take.
+# ragged_attention is the same forward over packed valid rows, the embed
+# path's attention (the TPU kernel pads every sketch to T)
 SOURCES = {"linear": "encoder_stack.cu", "encoder_attention":
-           "attention_train.cu", "layernorm_rows": "encoder_stack.cu",
+           "attention_train.cu", "ragged_attention": "attention_train.cu",
+           "layernorm_rows": "encoder_stack.cu",
            "decode_chunk": "decode_chunk.cu",
            "decode_cont_chunk": "decode_chunk.cu",
            "decode_attention": "decode_attention.cu",
@@ -286,6 +299,7 @@ SOURCES = {"linear": "encoder_stack.cu", "encoder_attention":
 REPLACES = {
     "linear": "sketchformer_tpu/ops/pallas_encoder.py:140",
     "encoder_attention": "sketchformer_tpu/ops/pallas_packed.py:169",
+    "ragged_attention": "sketchformer_tpu/ops/pallas_packed.py:169",
     "layernorm_rows": "sketchformer_tpu/ops/pallas_encoder.py:63",
     "decode_chunk": "sketchformer_tpu/ops/pallas_decode_packed.py:455",
     "decode_cont_chunk": "sketchformer_tpu/ops/pallas_decode_packed.py:549",
@@ -2305,6 +2319,8 @@ def ddp_main_path(cli, shards, tmp, gpu):
 
 IMPORT_SEED = 5
 IMPORT_KERNELS = ("linear", "encoder_attention", "layernorm_rows")
+# the kernels of embed_dataset's packed stack (bf16, a card)
+EMBED_KERNELS = ("linear", "ragged_attention", "layernorm_rows")
 
 
 def import_main_path(cli, counters, tmp, gpu):
@@ -2394,7 +2410,7 @@ def import_main_path(cli, counters, tmp, gpu):
             arrays = {k: data[k] for k in data.files}
         return arrays, got
 
-    for cmd, needs in (("embed", IMPORT_KERNELS),
+    for cmd, needs in (("embed", EMBED_KERNELS),
                        ("decode", IMPORT_KERNELS + ("decode_chunk",))):
         ours, launched = serve(cmd, "run_dir", ["--run-dir", run])
         want, _ = serve(cmd, "weights", ["--weights", seeded])
@@ -3218,6 +3234,17 @@ def serving_kernel_work(B, T, d, H, dff, L, V, K, N_mdn, Mq=4):
     }
 
 
+def ragged_work(rows, H, Dh):
+    """(flops, bytes) of one ``ragged_attention`` call (bf16) on the packed
+    rows ``rows``: the two products over each sketch's own n x n pairs
+    (sum n^2, not B T^2), q, k and v read once, the output written once,
+    and the work list."""
+    M = int(rows.lengths.sum())
+    pairs = int((rows.lengths.astype(np.int64) ** 2).sum())
+    return (4 * H * pairs * Dh,
+            4 * M * H * Dh * 2 + int(rows.work.shape[0]) * 12)
+
+
 def token_kernel_work(M, d, V):
     """{kernel: (flops, bytes)} of K6 at the train shape: the CE
     forward (2 M d V); the backward's two kernels each recompute the logits
@@ -3395,6 +3422,105 @@ def encoder_attention_spread(dev, B, T, H, Dh, qk, gpu, randn):
           f"{fmt_spread(sp['plain'])}, library (SDPA, the same boolean mask) "
           f"{fmt_spread(sp['lib'])}; bound {b_ms:.4f} ms ({b_by}) [{gpu}]")
     return sp["kernel"][0], sp["plain"][0], sp["lib"][0]
+
+
+def packed_embed_times(dev, gpu):
+    """The embed cell's batch (B=2048, T=192, lengths 16-191 then EOS and
+    PAD, tok_h8's widths, random weights) on the packed stack beside the
+    padded one: ``ragged_attention`` on its valid rows against the padded
+    ``encoder_attention`` (one layer's call, without and with qk-norm), then
+    a whole ``fast_embed`` batch, given the batch's valid rows or not, at
+    the cell's lengths and at near-full lengths (176-191, where packing
+    saves little); device time, median of SPREAD_CALLS calls. The ragged
+    rows must equal the padded kernel's and the packed z the padded z
+    (torch.equal)."""
+    import torch
+
+    from sketchformer_tpu_torch.config import SketchformerConfig
+    from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID
+    from sketchformer_tpu_torch.infer import fast_encode
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+    from sketchformer_tpu_torch.ops import encoder_stack as es
+
+    B, T, H, Dh = 2048, 192, SBIR["H"], SBIR["d"] // SBIR["H"]
+    rng = np.random.default_rng(22)
+
+    def batch(lo):
+        """(ids, valid, rows on the card) of sketches of lo-191 tokens."""
+        n = rng.integers(lo, T, B)
+        pos = np.arange(T)[None]
+        ids = rng.integers(4, 10004, (B, T)).astype(np.int32)
+        ids[pos == n[:, None]] = EOS_ID
+        ids[pos > n[:, None]] = PAD_ID
+        valid = ids != PAD_ID
+        rows, _ = es.pack_rows(valid)
+        return ids, valid, rows._replace(index=rows.index.to(dev),
+                                         work=rows.work.to(dev))
+
+    ids, valid, rows = batch(16)
+    index = rows.index.long()
+    M, keys = int(valid.sum()), valid.sum(1).astype(np.int64)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    bias = torch.where(torch.from_numpy(valid).to(dev), 0.0,
+                       es.NEG_INF).float()
+    with torch.inference_mode():
+        for qk in (False, True):
+            qkv = torch.randn((B, T, 3 * H * Dh), generator=gen,
+                              device=dev).to(torch.bfloat16)
+            norms = tuple(1.0 + 0.1 * torch.randn(
+                Dh, generator=gen, device=dev) if i % 2 == 0 else
+                0.1 * torch.randn(Dh, generator=gen, device=dev)
+                for i in range(4)) if qk else None
+            packed = qkv.reshape(B * T, -1).index_select(0, index)
+            kw = dict(num_heads=H, qk_norm=norms)
+
+            def ragged():
+                return es.ragged_attention(packed, rows, **kw)
+
+            def padded():
+                return es.encoder_attention(qkv, bias, **kw)
+
+            got = ragged()
+            want = padded().reshape(B * T, -1).index_select(0, index)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"ragged_attention (qk-norm {qk}) differs from the "
+                     f"padded kernel on valid rows")
+            sp = spread_ms(ragged, padded, None)
+            b_ms, b_by = bound(4 * H * Dh * int((keys ** 2).sum()),
+                               4 * M * H * Dh * 2)
+            print(f"time ragged_attention (bf16, B={B}, T={T}, H={H}, "
+                  f"Dh={Dh}{', qk-norm' if qk else ''}, {M} valid rows of "
+                  f"{B * T}; device time, median of {SPREAD_CALLS}): ragged "
+                  f"{fmt_spread(sp['kernel'])}, padded encoder_attention "
+                  f"{fmt_spread(sp['plain'])}; bound {b_ms:.4f} ms ({b_by}) "
+                  f"[{gpu}]")
+        torch.manual_seed(22)
+        cfg = SketchformerConfig(
+            vocab_size=10004, num_classes=345, max_len=T, d_model=SBIR["d"],
+            num_layers=SBIR["L"], num_heads=H, dff=SBIR["dff"],
+            lowerdim=256, num_queries=4, dropout=0.0, attn_impl="pallas",
+            dtype="bfloat16")
+        model = Sketchformer(cfg).to(dev).eval()
+        embed = fast_encode.make_fast_embed_fn(model)
+        for lo in (16, 176):
+            if lo != 16:
+                ids, valid, rows = batch(lo)
+            enc = torch.from_numpy(ids).to(dev)
+            z_packed, z_padded = embed(enc, None, rows), embed(enc)
+            torch.cuda.synchronize()
+            if not torch.equal(z_packed, z_padded):
+                fail(f"the packed embed batch's z (lengths {lo}-191) "
+                     f"differs from the padded one's")
+            sp = spread_ms(lambda: embed(enc, None, rows),
+                           lambda: embed(enc), None)
+            print(f"time fast_embed batch (tok_h8 widths, bf16, B={B}, "
+                  f"T={T}, lengths {lo}-191, {int(valid.sum())} valid rows, "
+                  f"valid share {valid.mean():.4f}; device time, median of "
+                  f"{SPREAD_CALLS}): packed {fmt_spread(sp['kernel'])}, "
+                  f"padded {fmt_spread(sp['plain'])}; packed "
+                  f"{B / sp['kernel'][0] * 1e3:.0f} sketches/s, padded "
+                  f"{B / sp['plain'][0] * 1e3:.0f} [{gpu}]")
 
 
 def linear_nt_spread(o, B, T, d, dff, gpu):
@@ -4088,7 +4214,10 @@ def main() -> int:
     from sketchformer_tpu_torch.infer import decode as dec
     from sketchformer_tpu_torch.infer.encode import embed_dataset
     from sketchformer_tpu_torch.infer.fast_decode import decoder_operands
-    from sketchformer_tpu_torch.infer.fast_encode import fast_embed
+    from sketchformer_tpu_torch.infer.fast_encode import (
+        fast_embed,
+        packed_rows,
+    )
     from sketchformer_tpu_torch.ops import _build
     from sketchformer_tpu_torch.ops import decode_attention as da
     from sketchformer_tpu_torch.ops import decode_chunk as dc
@@ -4294,16 +4423,17 @@ def main() -> int:
         metrics = json.loads(buf.getvalue().strip().splitlines()[-1])
         print(f"sbir metrics: {json.dumps(metrics)} ({main_s:.1f} s)")
         print(f"launches during the main path: {json.dumps(launches)}")
-        for name in ("linear", "encoder_attention", "layernorm_rows"):
+        for name in EMBED_KERNELS:
             if launches[name] <= 0:
                 fail(f"kernel {name} was not launched by the main path")
-        # bf16 at H=8 / Dh=32: every encoder_attention call took the
-        # tensor-core forward, none the FMA kernel
-        routes = {k: es.ROUTES[k] for k in ("mma", "fma")}
-        print(f"encoder_attention routes during the main path: "
-              f"{json.dumps(routes)}")
-        if routes != {"mma": launches["encoder_attention"], "fma": 0}:
-            fail(f"the sbir path's encoder_attention routes {routes}")
+        # bf16 at H=8 / Dh=32: every batch on the packed stack, each
+        # attention the ragged forward, none the padded kernel
+        stacks = {k: es.ROUTES[k] for k in ("packed", "padded")}
+        print(f"encoder stacks during the main path: {json.dumps(stacks)}")
+        if launches["encoder_attention"] or stacks["padded"] or \
+                launches["ragged_attention"] != \
+                stacks["packed"] * SBIR["L"]:
+            fail(f"the sbir path's stacks {stacks}, launches {launches}")
         main_path_routes("cli sbir")
         if launches["linear_nt"] or launches["linear_tn"]:
             fail("the sbir path launched a backward kernel")
@@ -4336,17 +4466,47 @@ def main() -> int:
           f"{(logits.argmax(1).cpu().numpy() == labels).mean():.4f}")
 
     batches = loader.get_validation_set(max_batches=MAIN_BATCHES)
+    shares = [float(np.asarray(model.enc_key_mask(b["enc"], None)).mean())
+              for b in batches]
+    print(f"main path's loader batches: valid share of the positions "
+          f"{np.mean(shares):.4f} (min {min(shares):.4f}, max "
+          f"{max(shares):.4f}; {len(batches)} batches of "
+          f"{batches[0]['enc'].shape})")
     enc = torch.from_numpy(batches[0]["enc"]).to(dev)
+    main_rows = packed_rows(model, batches[0]["enc"], None, dev)
+    if main_rows is None:
+        fail("the main path's first batch was not packed")
+    main_rows = main_rows._replace(index=main_rows.index.to(dev),
+                                   work=main_rows.work.to(dev))
     with torch.inference_mode():
         weights = model.encoder.stacked_weights()
-        z_kernel = fast_embed(model, enc, None, weights)
         km = model.enc_key_mask(enc, None)
-        enc_out = es.encoder_stack_reference(
-            model.embed_input(enc), km, weights, num_heads=cfg.num_heads,
-            qk_norm=cfg.qk_norm)
-        z_plain = model.bottleneck.pooled_z(enc_out, km).float()
-    compare("main-path z, kernel vs plain (one batch of 64)", z_kernel,
-            z_plain, cfg.compute_dtype)
+        x_main = model.embed_input(enc)
+        kw_main = dict(num_heads=cfg.num_heads, qk_norm=cfg.qk_norm)
+        for route, z_kernel, enc_out in (
+                ("padded", fast_embed(model, enc, None, weights),
+                 es.encoder_stack_reference(x_main, km, weights, **kw_main)),
+                ("packed", fast_embed(model, enc, None, weights, main_rows),
+                 es.encoder_stack_packed_reference(x_main, main_rows, weights,
+                                                  **kw_main))):
+            z_plain = model.bottleneck.pooled_z(enc_out, km).float()
+            compare(f"main-path z, {route} kernel stack vs its plain stack "
+                    f"(one batch of 64)", z_kernel, z_plain,
+                    cfg.compute_dtype)
+        # the ragged forward against its plain version on that batch's rows
+        dh_main = cfg.d_model // cfg.num_heads
+        m_main = int(main_rows.index.shape[0])
+        for qk in (False, True):
+            qkv = randn(m_main, 3 * cfg.d_model, dtype=torch.bfloat16)
+            norms = tuple(p for _ in range(2) for p in ln_params(dh_main)) \
+                if qk else None
+            kw_main = dict(num_heads=cfg.num_heads, qk_norm=norms)
+            compare(f"ragged_attention bfloat16 main-path batch ({m_main} "
+                    f"rows of 64 x {enc.shape[1]}) H={cfg.num_heads} "
+                    f"Dh={dh_main} qk_norm={qk}",
+                    es.ragged_attention(qkv, main_rows, **kw_main),
+                    es.ragged_attention_reference(qkv, main_rows, **kw_main),
+                    torch.bfloat16, "ragged_attention")
 
     # ---- 4b. main paths: AR reconstruction and interpolation --------------
     seeded = ["--init-seed", "0", "--device", "cuda"]
@@ -4404,6 +4564,9 @@ def main() -> int:
         got = drive(["decode", "--preset", "ar_decode", *seeded,
                      *out("ar.npz")], ("decode_chunk",) + enc_kernels)
         launches["decode_chunk"] = got["decode_chunk"]
+        # the padded encoder_attention's main path since sbir's batches take
+        # the ragged forward: the decode prologue's encoder
+        launches["encoder_attention"] = got["encoder_attention"]
         check_sketches(os.path.join(tmp, "ar.npz"), 64)
         drive(["interpolate", "--preset", "ar_decode", *seeded,
                *out("interp.npz")], ("decode_chunk",) + enc_kernels)
@@ -4507,7 +4670,8 @@ def main() -> int:
                      f"sketches_per_epoch={SKETCHES_PER_EPOCH}", *POST_LN,
                      "--output", os.path.join(tmp, "z.npz")],
                     ("flash_attention_fwd",))
-        if any(got[k] for k in enc_kernels) or got["flash_attention_bwd"]:
+        if any(got[k] for k in enc_kernels + ("ragged_attention",)) or \
+                got["flash_attention_bwd"]:
             fail("the post-LN sbir path launched an encoder-stack or a "
                  "backward kernel")
         if ("embed", "composed", "post-LN config") not in engines._seen:
@@ -4620,6 +4784,27 @@ def main() -> int:
                                  CONT_TRAIN["H"],
                                  CONT_TRAIN["d"] // CONT_TRAIN["H"], False,
                                  gpu, randn)
+        # the ragged forward at the main path's shapes (the sbir loader's
+        # first batch, its valid rows): the kernels line's entry
+        qkv_main = randn(m_main, 3 * d, dtype=dt)
+        kw_main = dict(num_heads=H)
+        sp = spread_ms(
+            lambda: es.ragged_attention(qkv_main, main_rows, **kw_main),
+            lambda: es.ragged_attention_reference(qkv_main, main_rows,
+                                                  **kw_main), None)
+        times["ragged_attention"] = (sp["kernel"][0], sp["plain"][0])
+        lib["ragged_attention"] = None
+        b_ms, b_by = bound(*ragged_work(main_rows, H, d // H))
+        print(f"time ragged_attention (bf16, the sbir loader's batch: "
+              f"{m_main} valid rows of 64 x {T}, H={H}, Dh={d // H}; device "
+              f"time, median of {SPREAD_CALLS}): kernel "
+              f"{fmt_spread(sp['kernel'])}, plain (a loop over the sketches) "
+              f"{fmt_spread(sp['plain'])}; bound {b_ms:.4f} ms ({b_by}) "
+              f"[{gpu}]")
+    # the embed cell's batch on the packed stack: the ragged attention and a
+    # whole batch beside the padded ones
+    packed_embed_times(dev, gpu)
+    with torch.inference_mode():
         for Bs in (64, 512):
             xs = randn(Bs, T, d, dtype=dt)
             km = key_mask(Bs, T)
@@ -4849,6 +5034,7 @@ def main() -> int:
                                   TRAIN["V"]))
     work.update(flash_work(*FLASH_SHAPES["cont2cont_mdn"]))
     work.update({name: rule2_work(name, *shape) for name, shape in r2_main})
+    work["ragged_attention"] = ragged_work(main_rows, H, d // H)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "jaxlib"))

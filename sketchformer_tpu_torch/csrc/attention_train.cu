@@ -40,7 +40,8 @@
 //
 // In bf16 every product runs on the tensor cores (mma.sync m16n8k16):
 // the forward of the stacks and of K8 (attention_fwd_mma_kernel), which
-// encoder_stack.py's encoder_attention also runs; K8's backward
+// encoder_stack.py's encoder_attention also runs, and ragged_attention on
+// packed rows (its kRagged variant); K8's backward
 // (flash_bwd_mma_kernel); and the stacks' backward, K5
 // (attention_bwd_mma_kernel, whose qk-norm parameter gradients are summed
 // in the same launch through split_reduce.cuh). See their notes.
@@ -184,6 +185,8 @@ struct AttnArgs {
   int causal;  // 0 none; 1 -1e9 added before the bias; 2 -1e9 set after it
   int recip;   // the backward's p = e * (1 / sum), else e / sum
   float scale;
+  const int* work;  // the ragged forward's work list (see
+                    // attention_fwd_mma_kernel), else null
 };
 
 // s = (q . k) * scale (+ causal bias) (+ bias) (causal where), the TPU
@@ -1030,6 +1033,20 @@ int launch_flash_bwd_mma(const AttnArgs& a, const GradArgs& g, int B,
 // costs 2 Dh FLOPs against one or two exponentials, so the SFU and the
 // score tiles' register traffic set the time, not the products (a 64-row
 // wgmma tile would buy nothing) or the bytes.
+//
+// kRagged: the inference encoder stack on packed rows (encoder_stack.py::
+// ragged_attention; no TPU kernel: the TPU pads every sketch to T). The
+// sketches' valid rows lie back to back in q, k and v; a.work lists one
+// (first query row, sketch's first row, sketch's length) triple a 64-row
+// query block, and the grid is (work items, heads). A block takes its
+// sketch as its batch element: rows counted from the sketch's first, Tq =
+// Tk = its length, no bias. So a block reads only its sketch's keys, in
+// 32-key tiles counted from the sketch's first row, and a padded batch's
+// query blocks and key tiles of padding are not computed at all. The
+// padded layout gives a valid row the same tiles, and its masked keys add
+// exact zeros to the max, the sum and P.V, so a valid row's output is the
+// padded kernel's bit for bit. Only !kNormP is built ragged (the numerics
+// of encoder_attention). The padded instantiations compile as before.
 
 // qk-norm of rows [0, n) of a bf16 tile in shared memory (row stride
 // kDh + 8), in place, by the block's kThreads threads: kDh / 8 neighbouring
@@ -1092,7 +1109,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // blocks an SM: 7 at Dh = 32, 5 at Dh = 64, 4 at Dh = 128 (72, 96 and 128
 // registers a thread); the compiler left alone takes more registers and
 // fewer blocks fit, which cost 10-15% (an A/B on one card)
-template <int kDh, bool kNormP, bool kResident>
+template <int kDh, bool kNormP, bool kResident, bool kRagged = false>
 __global__ void __launch_bounds__(kFbThreads,
                                   kDh == 32 ? 7 : kDh == 64 ? 5 : 4)
 attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
@@ -1105,7 +1122,18 @@ attention_fwd_mma_kernel(AttnArgs a, __nv_bfloat16* __restrict__ out,
   bf* kvb = qs + kFbOwn * kLd;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, cq = lane & 3;
-  const int r0 = blockIdx.x * kFbOwn, h = blockIdx.y, b = blockIdx.z;
+  int r0 = blockIdx.x * kFbOwn;
+  if constexpr (kRagged) {
+    const int* w = a.work + 3 * (size_t)blockIdx.x;
+    const int q0 = w[0], s0 = w[1];
+    a.Tq = a.Tk = w[2];
+    r0 = q0 - s0;
+    a.q = static_cast<const bf*>(a.q) + (size_t)s0 * a.q_rs;
+    a.k = static_cast<const bf*>(a.k) + (size_t)s0 * a.k_rs;
+    a.v = static_cast<const bf*>(a.v) + (size_t)s0 * a.v_rs;
+    out += (size_t)s0 * o_rs;
+  }
+  const int h = blockIdx.y, b = blockIdx.z;
   const bf* q = static_cast<const bf*>(a.q) + b * a.q_bs + h * a.Dh;
   const bf* k = static_cast<const bf*>(a.k) + b * a.k_bs + h * a.Dh;
   const bf* v = static_cast<const bf*>(a.v) + b * a.v_bs + h * a.Dh;
@@ -1293,35 +1321,42 @@ bool fwd_mma_shapes_ok(const AttnArgs& a, const void* out, long long o_bs,
 }
 
 // whole: the whole-head variant (kResident), the host's choice; a head
-// whose K and V exceed the card's shared memory fails in set_smem
+// whose K and V exceed the card's shared memory fails in set_smem. W > 0:
+// the ragged variant (norm_p false) over a.work's W items, a grid of (W,
+// heads); a.Tk, the longest sketch, sizes the whole-head variant
 template <int kDh>
 int launch_fwd_mma_dh(const AttnArgs& a, void* out, long long o_bs, int o_rs,
-                      int norm_p, int whole, int B, cudaStream_t stream) {
+                      int norm_p, int whole, int B, cudaStream_t stream,
+                      int W) {
   const size_t row = (kDh + 8) * 2;
   const size_t smem =
       whole ? (kFbOwn + 2 * (size_t)((a.Tk + kFbIn - 1) / kFbIn) * kFbIn) * row
             : (kFbOwn + 4 * kFbIn) * row;
   auto kernel =
-      whole ? (norm_p ? attention_fwd_mma_kernel<kDh, true, true>
-                      : attention_fwd_mma_kernel<kDh, false, true>)
-            : (norm_p ? attention_fwd_mma_kernel<kDh, true, false>
-                      : attention_fwd_mma_kernel<kDh, false, false>);
+      W > 0 ? (whole ? attention_fwd_mma_kernel<kDh, false, true, true>
+                     : attention_fwd_mma_kernel<kDh, false, false, true>)
+      : whole ? (norm_p ? attention_fwd_mma_kernel<kDh, true, true>
+                        : attention_fwd_mma_kernel<kDh, false, true>)
+              : (norm_p ? attention_fwd_mma_kernel<kDh, true, false>
+                        : attention_fwd_mma_kernel<kDh, false, false>);
   int err = set_smem(kernel, smem);
   if (err) return err;
-  kernel<<<dim3((a.Tq + kFbOwn - 1) / kFbOwn, a.H, B), kFbThreads, smem,
-           stream>>>(a, static_cast<__nv_bfloat16*>(out), o_bs, o_rs);
+  const dim3 grid = W > 0 ? dim3(W, a.H)
+                          : dim3((a.Tq + kFbOwn - 1) / kFbOwn, a.H, B);
+  kernel<<<grid, kFbThreads, smem, stream>>>(
+      a, static_cast<__nv_bfloat16*>(out), o_bs, o_rs);
   return (int)cudaGetLastError();
 }
 
 int launch_fwd_mma(const AttnArgs& a, void* out, long long o_bs, int o_rs,
-                   int norm_p, int whole, int B, cudaStream_t s) {
-  if (!fwd_mma_shapes_ok(a, out, o_bs, o_rs))
+                   int norm_p, int whole, int B, cudaStream_t s, int W = 0) {
+  if (!fwd_mma_shapes_ok(a, out, o_bs, o_rs) || (W > 0 && norm_p))
     return (int)cudaErrorInvalidValue;
   if (a.Dh <= 32)
-    return launch_fwd_mma_dh<32>(a, out, o_bs, o_rs, norm_p, whole, B, s);
+    return launch_fwd_mma_dh<32>(a, out, o_bs, o_rs, norm_p, whole, B, s, W);
   if (a.Dh <= 64)
-    return launch_fwd_mma_dh<64>(a, out, o_bs, o_rs, norm_p, whole, B, s);
-  return launch_fwd_mma_dh<128>(a, out, o_bs, o_rs, norm_p, whole, B, s);
+    return launch_fwd_mma_dh<64>(a, out, o_bs, o_rs, norm_p, whole, B, s, W);
+  return launch_fwd_mma_dh<128>(a, out, o_bs, o_rs, norm_p, whole, B, s, W);
 }
 
 // ---------------------------------------------------------------------------
@@ -1880,6 +1915,7 @@ AttnArgs make_args(const void* q, long long q_bs, int q_rs, const void* k,
   a.Tq = Tq; a.Tk = Tk; a.H = H; a.Dh = Dh; a.causal = causal;
   a.recip = recip;
   a.scale = scale;
+  a.work = nullptr;
   return a;
 }
 
@@ -1928,6 +1964,27 @@ int sk_attention_fwd(int dtype, const void* q, long long q_bs, int q_rs,
   }
   GradArgs g = {};
   return dispatch_dtype(dtype, 0, a, g, out, o_bs, o_rs, norm_p, B, stream);
+}
+
+// the inference encoder stack's attention on packed rows, bf16 only: q, k
+// and v hold every sketch's valid rows back to back (row strides q_rs, k_rs,
+// v_rs); work (W, 3) int32 lists a (first query row, sketch's first row,
+// sketch's length) triple a 64-row query block; T is the longest sketch.
+// No bias, the unnormalised e rounded (encoder_attention's numerics);
+// resident runs the whole-head variant
+int sk_attention_fwd_ragged(const void* q, int q_rs, const void* k, int k_rs,
+                            const void* v, int v_rs, const void* qn_s,
+                            const void* qn_b, const void* kn_s,
+                            const void* kn_b, const void* work, int W,
+                            void* out, int o_rs, int T, int H, int Dh,
+                            int resident, float scale, void* stream) {
+  AttnArgs a = make_args(q, 0, q_rs, k, 0, k_rs, v, 0, v_rs, nullptr, 0, 0,
+                         qn_s, qn_b, kn_s, kn_b, T, T, H, Dh, 0, 0, scale);
+  a.work = static_cast<const int*>(work);
+  if (!args_ok(a) || W < 1 || work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd_mma(a, out, 0, o_rs, 0, resident, 1,
+                        static_cast<cudaStream_t>(stream), W);
 }
 
 // the qk-norm parameter gradients: f32 writes per-block partial rows to

@@ -1,21 +1,24 @@
 """Embedding extraction: sketches -> fixed-length bottleneck vectors.
 
 Port of ``sketchformer_tpu/infer/encode.py``. ``embed_dataset`` is the
-serving loop over loader batches: each batch is copied from pinned host
-memory with a non-blocking copy, embedded on the model's device, and its z
-is copied back into pinned memory without blocking; results are read two
-batches behind (a 3-deep readback queue), so the host prepares batch N+1
-while the device works on batch N. Repeat-padded rows (``is_real`` = 0)
-are dropped, so a gallery never counts a sketch twice. Under a profiler
-each batch is the span ``embed.batch`` and each host copy of its inputs
-(pinned on the card) and each pinned z buffer a span ``embed.pin``
-(``utils/trace.py``).
+serving loop over loader batches: the host finds each batch's valid rows
+(``fast_encode.packed_rows``), the batch and their layout are copied from
+one pinned host buffer with a non-blocking copy, embedded on the model's
+device (the encoder stack on the valid rows alone where the packed stack
+takes the batch), and its z is copied back into pinned memory without
+blocking; results are read two batches behind (a 3-deep readback queue),
+so the host prepares batch N+1 while the device works on batch N.
+Repeat-padded rows (``is_real`` = 0) are dropped, so a gallery never
+counts a sketch twice. Under a profiler each batch is the span
+``embed.batch``, the layout's construction a span ``embed.pack``, and the
+host copy of its inputs (pinned on the card) and each pinned z buffer a
+span ``embed.pin`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, List, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +41,8 @@ def make_embed_fn(model: Sketchformer, fast: bool = True) -> Callable:
     """``embed(enc, enc_mask=None) -> (B, lowerdim)`` f32 on the model's
     device. ``fast=True`` runs supported configs through the kernel stack
     (``infer/fast_encode.py``, which itself falls back for declined
-    configs); ``fast=False`` forces the composed model."""
+    configs; its ``embed`` also takes a batch's valid rows, ``rows``);
+    ``fast=False`` forces the composed model."""
     if fast:
         from sketchformer_tpu_torch.infer.fast_encode import make_fast_embed_fn
 
@@ -57,18 +61,33 @@ def interpolate(za: np.ndarray, zb: np.ndarray, steps: int = 8) -> np.ndarray:
     return (1.0 - alphas) * za[None] + alphas * zb[None]
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(arrays: List[np.ndarray],
+               device: torch.device) -> List[torch.Tensor]:
+    """The host arrays as tensors on ``device``; for a card, one pinned
+    buffer holds them all, each from a 16-byte boundary, and one
+    non-blocking copy moves it."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offsets = np.cumsum([0] + [-(-a.nbytes // 16) * 16 for a in arrays])
     with span("embed.pin"):   # the host copy: pinned where it feeds a card
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if device.type == "cuda":
-            t = t.pin_memory()
-    return t.to(device, non_blocking=True)
+        if device.type != "cuda":
+            return [torch.from_numpy(a).to(device) for a in arrays]
+        buf = torch.empty(int(offsets[-1]), dtype=torch.uint8,
+                          pin_memory=True)
+        host = buf.numpy()
+        for a, o in zip(arrays, offsets):
+            host[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = buf.to(device, non_blocking=True)
+    dtypes = [torch.from_numpy(np.empty(0, a.dtype)).dtype for a in arrays]
+    return [buf[o:o + a.nbytes].view(dt).view(a.shape)
+            for a, o, dt in zip(arrays, offsets, dtypes)]
 
 
 def embed_dataset(model: Sketchformer, batches: Iterable[dict],
                   fast: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """Embed loader batch dicts; returns ``(Z, labels)`` as numpy, real rows
     only."""
+    from sketchformer_tpu_torch.infer.fast_encode import packed_rows
+
     device = next(model.parameters()).device
     embed = make_embed_fn(model, fast)
     cont = model.config.use_continuous
@@ -88,9 +107,25 @@ def embed_dataset(model: Sketchformer, batches: Iterable[dict],
 
     for b in batches:
         with span("embed.batch"):
-            enc = _to_device(b["enc"], device)
-            mask = _to_device(b["enc_mask"], device) if cont else None
-            z = embed(enc, mask)
+            host = [np.asarray(b["enc"])]
+            if cont:
+                host.append(np.asarray(b["enc_mask"]))
+            rows = None
+            if fast:
+                with span("embed.pack"):
+                    rows = packed_rows(model, host[0],
+                                       host[1] if cont else None, device)
+            if rows is not None:
+                host += [rows.index.numpy(), rows.work.numpy()]
+            on_device = _to_device(host, device)
+            enc = on_device[0]
+            mask = on_device[1] if cont else None
+            if rows is None:
+                z = embed(enc, mask)
+            else:
+                rows = rows._replace(index=on_device[-2],
+                                     work=on_device[-1])
+                z = embed(enc, mask, rows)
             ready = None
             if device.type == "cuda":
                 with span("embed.pin"):

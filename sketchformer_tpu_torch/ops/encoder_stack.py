@@ -30,16 +30,26 @@ launches the kernel or raises. ``encoder_stack_reference`` is the whole
 stack on the plain versions; it is the oracle the CPU tests hold to the JAX
 kernel and that ``chip_smoke.py`` holds the kernels to on the card.
 
+The inference stack also runs on packed rows
+(:func:`fused_encoder_stack_packed`): a padded (B, T) batch's valid rows,
+gathered back to back (:class:`PackedRows`, built on the host by
+:func:`pack_rows`), run the same layers with each sketch attending over its
+own rows (:func:`ragged_attention`), and the result is scattered back into
+a zero-filled (B, T, d) batch. No row that a valid row's output depends on
+is left out, so each valid row's output is the padded stack's; the
+padding's rows are not computed.
+
 ``LAUNCHES`` counts kernel launches per wrapper (only where a kernel is
 actually launched), so a run can show that its path went through them;
 ``ROUTES`` counts which kernel ``encoder_attention`` and ``layernorm_rows``
-launched.
+launched, and which stack, padded or packed, ran on the card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, NamedTuple, Optional
+from typing import Callable, Mapping, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sketchformer_tpu_torch.models.layers import layer_norm
@@ -52,14 +62,16 @@ MAX_FUSED_LEN = 1024    # the JAX engine's limit (pallas_encoder.py)
 MAX_HEAD_DIM = 128      # encoder_attention's kernels keep head rows in
                         # registers
 
-LAUNCHES = {"linear": 0, "encoder_attention": 0, "layernorm_rows": 0,
-            "linear_nt": 0, "linear_tn": 0}
+LAUNCHES = {"linear": 0, "encoder_attention": 0, "ragged_attention": 0,
+            "layernorm_rows": 0, "linear_nt": 0, "linear_tn": 0}
 # launches by kernel: encoder_attention's on the tensor cores' forward
 # (bf16, head_dim a multiple of 16) or its own FMA kernel (f32, other bf16
 # widths); layernorm_rows' on the persistent register plan
 # (:func:`layernorm_rows_plan`) or, for a geometry the plan declines, on
-# the one-warp-a-row kernel
-ROUTES = {"mma": 0, "fma": 0, "ln_rows": 0, "ln_declined": 0}
+# the one-warp-a-row kernel; the stacks: fused_encoder_stack ("padded") or
+# fused_encoder_stack_packed ("packed")
+ROUTES = {"mma": 0, "fma": 0, "ln_rows": 0, "ln_declined": 0, "padded": 0,
+          "packed": 0}
 
 
 def reset_launches() -> None:
@@ -161,6 +173,18 @@ def attention_reference(qkv, key_bias, *, num_heads, qk_norm=None):
     denom = e.sum(dim=-1, keepdim=True)
     o = torch.matmul(e.to(dt).float(), v.float()) / denom
     return o.to(dt).transpose(1, 2).reshape(B, T, HD)
+
+
+def ragged_attention_reference(qkv, rows, *, num_heads, qk_norm=None):
+    """:func:`attention_reference` of each sketch's packed rows over its own
+    rows, with no mask: the (M, 3*H*Dh) pane of every sketch's valid rows
+    back to back, laid out by ``rows`` (:class:`PackedRows`)."""
+    out = qkv.new_empty((qkv.shape[0], qkv.shape[1] // 3))
+    for s, n in zip(rows.starts.tolist(), rows.lengths.tolist()):
+        out[s:s + n] = attention_reference(qkv[None, s:s + n], None,
+                                           num_heads=num_heads,
+                                           qk_norm=qk_norm)[0]
+    return out
 
 
 def layernorm_rows_reference(x, scale, bias):
@@ -489,6 +513,74 @@ def encoder_attention(qkv, key_bias, *, num_heads, qk_norm=None):
     return out
 
 
+def ragged_declines(device: torch.device, dtype: torch.dtype,
+                    head_dim: int) -> str:
+    """Why :func:`ragged_attention`'s kernel cannot take sketches of this
+    compute dtype and head width on ``device``, or "" where it can: a
+    card, bf16, a head_dim that is a multiple of 16 up to
+    ``MAX_HEAD_DIM``."""
+    if device.type != "cuda":
+        return f"{device.type}: the ragged attention kernel runs on a card"
+    if dtype != torch.bfloat16:
+        return f"{dtype}: the ragged attention kernel is bf16"
+    if head_dim % 16 or not 0 < head_dim <= MAX_HEAD_DIM:
+        return (f"head_dim {head_dim}: the ragged attention kernel takes a "
+                f"multiple of 16 up to {MAX_HEAD_DIM}")
+    return ""
+
+
+def ragged_attention(qkv, rows, *, num_heads, qk_norm=None):
+    """Each sketch's self-attention over its own packed rows: ``qkv`` the
+    (M, 3*H*Dh) fused pane of every sketch's valid rows back to back, laid
+    out by ``rows`` (:class:`PackedRows`); the output (M, H*Dh).
+
+    On a card the tensor-core forward of ``attention_train`` with the
+    numerics of :func:`encoder_attention` (unnormalised exponentials
+    rounded, the division after), over a work list of 64-row query blocks,
+    each reading its sketch's keys alone in 32-key tiles from the sketch's
+    first row, so a valid row's output is the padded call's bit for bit.
+    What the kernel does not take (:func:`ragged_declines`) raises; CPU
+    tensors run :func:`ragged_attention_reference`."""
+    if qkv.device.type == "cpu":
+        return ragged_attention_reference(qkv, rows, num_heads=num_heads,
+                                          qk_norm=qk_norm)
+    M, three_hd = qkv.shape
+    H = num_heads
+    HD = three_hd // 3
+    Dh = HD // H
+    if three_hd != 3 * H * Dh:
+        raise ValueError(f"qkv width {three_hd} is not 3 * {H} heads")
+    why = ragged_declines(qkv.device, qkv.dtype, Dh)
+    if why:
+        raise ValueError(f"ragged_attention: {why}")
+    dev = qkv.device
+    _build.require(qkv, "qkv", dev, qkv.dtype, (M, three_hd))
+    W = rows.work.shape[0]
+    _build.require(rows.work, "work", dev, torch.int32, (W, 3))
+    if qkv.data_ptr() % 16:
+        raise ValueError("ragged_attention: qkv must be 16-byte aligned")
+    T = int(rows.lengths.max())
+    if T > MAX_FUSED_LEN:
+        raise ValueError(f"a sketch of {T} rows exceeds {MAX_FUSED_LEN}")
+    norms = [None] * 4
+    if qk_norm is not None:
+        for p in qk_norm:
+            _build.require(p, "qk-norm param", dev, torch.float32, (Dh,))
+        norms = list(qk_norm)
+    out = torch.empty((M, HD), dtype=qkv.dtype, device=dev)
+    resident = at.fwd_resident(T, Dh, qk_norm is not None) is not None
+    with torch.cuda.device(dev):
+        err = _build.library().sk_attention_fwd_ragged(
+            _build.ptr(qkv), three_hd, _build.ptr(qkv[:, HD:]), three_hd,
+            _build.ptr(qkv[:, 2 * HD:]), three_hd,
+            *(_build.ptr(p) for p in norms), _build.ptr(rows.work), W,
+            _build.ptr(out), HD, T, H, Dh, int(resident), 1.0 / Dh ** 0.5,
+            _build.stream(qkv))
+    _build.check(err, "ragged_attention")
+    LAUNCHES["ragged_attention"] += 1
+    return out
+
+
 def layernorm_rows(x, scale, bias):
     """Row LayerNorm of a (M, D) tensor, output in ``x.dtype``, on the
     kernel :func:`layernorm_rows_plan` picks."""
@@ -522,32 +614,58 @@ def layernorm_rows(x, scale, bias):
 # ---------------------------------------------------------------------------
 
 
+def _layers(h, w, *, qk_norm, attend: Callable, lin: Callable,
+            norm: Callable):
+    """The L pre-LN layers and the final LayerNorm over the (R, d) rows
+    ``h``; ``attend(qkv, norms)`` is the attention of the (R, 3*H*Dh) fused
+    pane."""
+    for i in range(w["wqkv"].shape[0]):
+        qkv = lin(norm(h, w["ln1s"][i], w["ln1b"][i]), w["wqkv"][i],
+                  w["bqkv"][i])
+        norms = ((w["qns"][i], w["qnb"][i], w["kns"][i], w["knb"][i])
+                 if qk_norm else None)
+        h = lin(attend(qkv, norms), w["wo"][i], w["bo"][i], residual=h)
+        f = lin(norm(h, w["ln2s"][i], w["ln2b"][i]), w["w1"][i], w["b1"][i],
+                relu=True)
+        h = lin(f, w["w2"][i], w["b2"][i], residual=h)
+    return norm(h, w["lnfs"].reshape(-1), w["lnfb"].reshape(-1))
+
+
 def _run_stack(x, key_mask, w, *, num_heads, qk_norm, lin: Callable,
                attn: Callable, norm: Callable):
     B, T, d = x.shape
     if T > MAX_FUSED_LEN:
         raise ValueError(f"T={T} exceeds fused limit {MAX_FUSED_LEN}")
-    L = w["wqkv"].shape[0]
     key_bias = None
     if key_mask is not None:
         key_bias = torch.where(
             key_mask.to(torch.bool),
             torch.zeros((), dtype=torch.float32, device=x.device),
             torch.full((), NEG_INF, dtype=torch.float32, device=x.device))
-    h = x.contiguous().reshape(B * T, d)
-    for i in range(L):
-        qkv = lin(norm(h, w["ln1s"][i], w["ln1b"][i]), w["wqkv"][i],
-                  w["bqkv"][i])
-        norms = ((w["qns"][i], w["qnb"][i], w["kns"][i], w["knb"][i])
-                 if qk_norm else None)
-        o = attn(qkv.reshape(B, T, -1), key_bias, num_heads=num_heads,
-                 qk_norm=norms)
-        h = lin(o.reshape(B * T, -1), w["wo"][i], w["bo"][i], residual=h)
-        f = lin(norm(h, w["ln2s"][i], w["ln2b"][i]), w["w1"][i], w["b1"][i],
-                relu=True)
-        h = lin(f, w["w2"][i], w["b2"][i], residual=h)
-    y = norm(h, w["lnfs"].reshape(-1), w["lnfb"].reshape(-1))
+
+    def attend(qkv, norms):
+        return attn(qkv.reshape(B, T, -1), key_bias, num_heads=num_heads,
+                    qk_norm=norms).reshape(B * T, -1)
+
+    y = _layers(x.contiguous().reshape(B * T, d), w, qk_norm=qk_norm,
+                attend=attend, lin=lin, norm=norm)
     return y.reshape(B, T, d)
+
+
+def _run_packed(x, rows, w, *, num_heads, qk_norm, lin: Callable,
+                attn: Callable, norm: Callable):
+    B, T, d = x.shape
+    if T > MAX_FUSED_LEN:
+        raise ValueError(f"T={T} exceeds fused limit {MAX_FUSED_LEN}")
+    index = rows.index.long()
+    h = x.contiguous().reshape(B * T, d).index_select(0, index)
+    y = _layers(h, w, qk_norm=qk_norm, lin=lin, norm=norm,
+                attend=lambda qkv, norms: attn(qkv, rows, num_heads=num_heads,
+                                               qk_norm=norms))
+    # zeros, not empty: the pooling's weights of masked rows are exact zeros,
+    # and 0 x NaN would be NaN
+    out = y.new_zeros((B * T, d))
+    return out.index_copy_(0, index, y).reshape(B, T, d)
 
 
 def fused_encoder_stack(x: torch.Tensor, key_mask: Optional[torch.Tensor],
@@ -559,6 +677,8 @@ def fused_encoder_stack(x: torch.Tensor, key_mask: Optional[torch.Tensor],
     attend, or None; ``w`` from :func:`stack_encoder_weights`. CPU tensors
     run the plain versions (same result as :func:`encoder_stack_reference`).
     """
+    if x.device.type == "cuda":
+        ROUTES["padded"] += 1
     return _run_stack(x, key_mask, w, num_heads=num_heads, qk_norm=qk_norm,
                       lin=linear, attn=encoder_attention,
                       norm=layernorm_rows)
@@ -569,6 +689,75 @@ def encoder_stack_reference(x, key_mask, w, *, num_heads, qk_norm=False):
     return _run_stack(x, key_mask, w, num_heads=num_heads, qk_norm=qk_norm,
                       lin=linear_reference, attn=attention_reference,
                       norm=layernorm_rows_reference)
+
+
+class PackedRows(NamedTuple):
+    """Where a padded (B, T) batch's valid rows lie once packed back to
+    back, sketch by sketch, in row-major order (:func:`pack_rows`).
+
+    ``index`` (M,) int32: each packed row's flat position b * T + t in the
+    padded batch; ``work`` (W, 3) int32: one row a 64-row query block of a
+    sketch, (its first query row, the sketch's first row, the sketch's
+    length) in packed rows, the ragged attention's work list. Both on the
+    stack's device. ``starts`` and ``lengths`` (B,) int64 numpy: each
+    sketch's first packed row and number of rows, on the host."""
+    index: torch.Tensor
+    work: torch.Tensor
+    starts: np.ndarray
+    lengths: np.ndarray
+
+
+def pack_rows(valid: np.ndarray) -> Tuple[Optional[PackedRows], str]:
+    """The :class:`PackedRows` (CPU tensors) of a (B, T) bool host mask,
+    True = a valid row, and ""; or None and why the packed stack would not
+    give the padded stack's output: a sketch with no valid row (the padded
+    stack attends over its masked keys, and pools them), or one whose valid
+    rows are not the first of its positions (packed, its keys would sit in
+    other tiles, and their sums run in another order)."""
+    B, T = valid.shape
+    # each sketch's first invalid position (T for none): its length, if no
+    # valid position lies past it
+    first = np.argmin(valid, axis=1)
+    lengths = np.where(valid[np.arange(B), first], T, first)
+    if np.count_nonzero(valid) != lengths.sum():
+        return None, "a sketch whose valid positions are not a prefix"
+    if not lengths.all():
+        return None, "a sketch with no valid position"
+    starts = np.cumsum(lengths) - lengths
+    blocks = -(-lengths // at.MMA_ROWS)
+    sketch = np.repeat(np.arange(B), blocks)
+    nth = np.arange(len(sketch)) - np.repeat(np.cumsum(blocks) - blocks,
+                                             blocks)
+    s0 = starts[sketch]
+    work = np.stack([s0 + at.MMA_ROWS * nth, s0, lengths[sketch]],
+                    axis=1).astype(np.int32)
+    index = np.flatnonzero(valid).astype(np.int32)
+    return PackedRows(torch.from_numpy(index), torch.from_numpy(work),
+                      starts, lengths), ""
+
+
+def fused_encoder_stack_packed(x: torch.Tensor, rows: PackedRows,
+                               w: Mapping[str, torch.Tensor], *,
+                               num_heads: int,
+                               qk_norm: bool = False) -> torch.Tensor:
+    """:func:`fused_encoder_stack` of the valid rows alone: ``x`` (B, T, d)
+    in the compute dtype, ``rows`` its valid rows (:func:`pack_rows`, its
+    tensors on ``x``'s device). The rows are gathered, run through the
+    layers with :func:`ragged_attention` and scattered back: (B, T, d) with
+    each valid row the padded stack's and every other row zero. CPU tensors
+    run the plain versions."""
+    if x.device.type == "cuda":
+        ROUTES["packed"] += 1
+    return _run_packed(x, rows, w, num_heads=num_heads, qk_norm=qk_norm,
+                       lin=linear, attn=ragged_attention, norm=layernorm_rows)
+
+
+def encoder_stack_packed_reference(x, rows, w, *, num_heads, qk_norm=False):
+    """:func:`fused_encoder_stack_packed` on the plain torch versions, any
+    device."""
+    return _run_packed(x, rows, w, num_heads=num_heads, qk_norm=qk_norm,
+                       lin=linear_reference, attn=ragged_attention_reference,
+                       norm=layernorm_rows_reference)
 
 
 def stack_encoder_weights(enc_state: Mapping[str, torch.Tensor], *,

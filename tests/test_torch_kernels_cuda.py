@@ -207,6 +207,7 @@ def test_fused_encoder_stack(cuda, dtype, H, qk):
     es.reset_launches()
     got = es.fused_encoder_stack(x, km, w, num_heads=H, qk_norm=qk)
     assert es.LAUNCHES == {"linear": 4 * L, "encoder_attention": L,
+                           "ragged_attention": 0,
                            "layernorm_rows": 2 * L + 1, "linear_nt": 0,
                            "linear_tn": 0}
     ref = es.encoder_stack_reference(x, km, w, num_heads=H, qk_norm=qk)
@@ -223,6 +224,102 @@ def test_fused_encoder_stack(cuda, dtype, H, qk):
     err_k = (got.float() - ref32).abs().max().item()
     err_p = (ref.float() - ref32).abs().max().item()
     assert err_k <= 2.0 * err_p, (err_k, err_p)
+
+
+# the ragged attention's tile edges (64-row query blocks, 32-key tiles),
+# one row and a whole sketch, in one T = 192 batch
+RAGGED_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 191, 192]
+
+
+def _on(rows, dev):
+    """:class:`es.PackedRows` with its tensors on ``dev``."""
+    return rows._replace(index=rows.index.to(dev), work=rows.work.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Dh", [(8, 32), (4, 64), (2, 128)])
+@pytest.mark.parametrize("qk", [False, True], ids=["plain", "qk-norm"])
+def test_ragged_attention_equals_the_padded_kernel_on_valid_rows(cuda, H, Dh,
+                                                                 qk):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    r = lambda *s, **kw: _rand(gen, cuda, *s, **kw)
+    B, T = len(RAGGED_LENGTHS), 192
+    qkv = r(B, T, 3 * H * Dh, dtype=torch.bfloat16)
+    valid = np.arange(T)[None, :] < np.array(RAGGED_LENGTHS)[:, None]
+    bias = torch.where(torch.from_numpy(valid).to(cuda), 0.0,
+                       es.NEG_INF).float()
+    norms = tuple(1 + r(Dh, scale=0.1) if i % 2 == 0 else r(Dh, scale=0.1)
+                  for i in range(4)) if qk else None
+    rows, _ = es.pack_rows(valid)
+    rows = _on(rows, cuda)
+    index = rows.index.long()
+    padded = es.encoder_attention(qkv, bias, num_heads=H, qk_norm=norms)
+    before, routes = dict(es.LAUNCHES), dict(es.ROUTES)
+    got = es.ragged_attention(
+        qkv.reshape(B * T, -1).index_select(0, index), rows, num_heads=H,
+        qk_norm=norms)
+    # its own counter: encoder_attention's count and routes are the padded
+    # kernel's launches alone
+    assert es.LAUNCHES == {**before,
+                           "ragged_attention": before["ragged_attention"] + 1}
+    assert es.ROUTES == routes
+    torch.cuda.synchronize()
+    assert torch.equal(got, padded.reshape(B * T, -1).index_select(0, index))
+
+
+def _cell_batches(cont, B, n, T=192, seed=5):
+    """n host batches of the embed cell's traffic: lengths 16-191, then
+    EOS and PAD (tokens), or stroke rows then zeros with their mask."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        lengths = rng.integers(16, 192, B)
+        pos = np.arange(T)[None, :]
+        b = {"label": rng.integers(0, 345, B).astype(np.int32)}
+        if cont:
+            valid = pos < lengths[:, None]
+            rows = rng.standard_normal((B, T, 3)).astype(np.float32)
+            b["enc"] = rows * valid[..., None]
+            b["enc_mask"] = valid.astype(np.float32)
+        else:
+            ids = rng.integers(4, 10004, (B, T)).astype(np.int32)
+            ids[pos == lengths[:, None]] = 2           # EOS
+            ids[pos > lengths[:, None]] = 0            # PAD
+            b["enc"] = ids
+        out.append(b)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cont,B", [(False, 2048), (True, 256)],
+                         ids=["tok-cell", "cont"])
+def test_embed_dataset_packed_equals_padded(cuda, cont, B, monkeypatch):
+    from sketchformer_tpu_torch.config import SketchformerConfig
+    from sketchformer_tpu_torch.infer import fast_encode
+    from sketchformer_tpu_torch.infer.encode import embed_dataset
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+
+    torch.manual_seed(0)
+    cfg = SketchformerConfig(
+        vocab_size=10004, num_classes=345, max_len=192, d_model=256,
+        num_layers=8, num_heads=8, dff=512, lowerdim=256, num_queries=4,
+        dropout=0.0, attn_impl="pallas", dtype="bfloat16",
+        use_continuous=cont, qk_norm=cont, num_mixtures=20)
+    model = Sketchformer(cfg).to(cuda).eval()
+    batches = _cell_batches(cont, B, 2)
+    es.reset_launches()
+    before = dict(es.ROUTES)
+    Z, labels = embed_dataset(model, batches)
+    assert es.ROUTES["packed"] == before["packed"] + 2
+    assert es.ROUTES["padded"] == before["padded"]
+    assert es.LAUNCHES["ragged_attention"] == 2 * cfg.num_layers
+    assert es.LAUNCHES["encoder_attention"] == 0
+    monkeypatch.setattr(fast_encode, "packed_rows", lambda *a: None)
+    Z_pad, labels_pad = embed_dataset(model, batches)
+    assert es.ROUTES["padded"] == before["padded"] + 2
+    assert Z.shape == (2 * B, 256) and np.isfinite(Z).all()
+    np.testing.assert_array_equal(labels, labels_pad)
+    np.testing.assert_array_equal(Z, Z_pad)
 
 
 @pytest.mark.cuda
@@ -421,6 +518,7 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
                        es.layernorm_rows_reference(a, torch.ones(8),
                                                    b[:1].expand(8)))
     assert es.LAUNCHES == {"linear": 0, "encoder_attention": 0,
+                           "ragged_attention": 0,
                            "layernorm_rows": 0, "linear_nt": 0,
                            "linear_tn": 0}
     q = torch.from_numpy(rng.standard_normal((6, 1, 8)).astype(np.float32))

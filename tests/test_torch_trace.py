@@ -168,6 +168,24 @@ def test_embed_dataset_spans_a_batch_and_its_host_copies(cont):
     assert all(any(_inside(p, b) for b in batches) for p in pins)
 
 
+@pytest.mark.parametrize("cont", [False, True], ids=["tok", "cont"])
+def test_embed_dataset_spans_the_packing_of_each_batch(cont, monkeypatch):
+    from sketchformer_tpu_torch.infer import fast_encode
+
+    # packed as on a card (the CPU takes the padded batch otherwise)
+    monkeypatch.setattr(fast_encode, "packed_support",
+                        lambda model, device: (True, ""))
+    model = _model(cont).eval()
+    host = _host_batches(cont)
+    _, ev = _profiled(lambda: embed_dataset(model, iter(host)))
+    batches, packs = _named(ev, "embed.batch"), _named(ev, "embed.pack")
+    assert len(packs) == len(batches) == len(host)
+    assert all(_inside(p, b) for p, b in zip(packs, batches))
+    packed = _named(ev, "engine.embed.fused-encoder-kernel-packed")
+    assert len(packed) == len(host)
+    assert not _named(ev, "engine.embed.fused-encoder-kernel")
+
+
 def _decoder(kind):
     """(decoder, its input, chunks to the horizon, whether a row may
     finish early) of each fast decoder."""
