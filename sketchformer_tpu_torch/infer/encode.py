@@ -9,10 +9,12 @@ takes the batch), and its z is copied back into pinned memory without
 blocking; results are read two batches behind (a 3-deep readback queue),
 so the host prepares batch N+1 while the device works on batch N.
 Repeat-padded rows (``is_real`` = 0) are dropped, so a gallery never
-counts a sketch twice. Under a profiler each batch is the span
-``embed.batch``, the layout's construction a span ``embed.pack``, and the
+counts a sketch twice. Nothing else in the loop waits on the device: the
+host runs up to two batches ahead. Under a profiler each batch is the span
+``embed.batch``, the layout's construction a span ``embed.pack``, the
 host copy of its inputs (pinned on the card) and each pinned z buffer a
-span ``embed.pin`` (``utils/trace.py``).
+span ``embed.pin``, and the wait for a z two batches behind a span
+``embed.drain`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -96,8 +98,9 @@ def embed_dataset(model: Sketchformer, batches: Iterable[dict],
 
     def drain_one():
         z_host, ready, lab, is_real = inflight.popleft()
-        if ready is not None:
-            ready.synchronize()
+        with span("embed.drain"):   # the host's one wait on the device
+            if ready is not None:
+                ready.synchronize()
         z = z_host.numpy()
         if is_real is not None:
             keep = np.asarray(is_real) > 0.5

@@ -27,10 +27,12 @@ NEG_INF = -1e9
 
 
 def _scale(q: torch.Tensor) -> torch.Tensor:
-    """1/sqrt(Dh) computed in f32 as ``jnp.sqrt`` does, in q's dtype."""
+    """1/sqrt(Dh) computed in f32 as ``jnp.sqrt`` does, in q's dtype, as a
+    0-d CPU tensor: a CUDA op takes it as a kernel argument, with no copy
+    to the card and no wait on it."""
     depth = np.float32(q.shape[-1])
     return torch.tensor(float(np.float32(1.0) / np.sqrt(depth)),
-                        dtype=q.dtype, device=q.device)
+                        dtype=q.dtype)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

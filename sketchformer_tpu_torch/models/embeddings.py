@@ -31,12 +31,15 @@ def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
 
 class _PositionalInput(nn.Module):
     """Shared tail: ``emb * sqrt(d) + table[pos:pos + T]`` in the compute
-    dtype (``pos`` 0 when None)."""
+    dtype (``pos`` 0 when None). sqrt(d) is a 0-d CPU tensor in that dtype,
+    not a buffer: a CUDA op takes it as a kernel argument, so the multiply
+    copies nothing to the card and never waits on it."""
 
     def __init__(self, d_model: int, max_len: int, dtype: torch.dtype):
         super().__init__()
         self.d_model = d_model
         self.dtype = dtype
+        self.sqrt_d = torch.tensor(np.sqrt(d_model), dtype=dtype)
         self.register_buffer(
             "table",
             torch.from_numpy(sinusoidal_position_encoding(max_len, d_model)),
@@ -44,12 +47,9 @@ class _PositionalInput(nn.Module):
 
     def _add_positions(self, emb: torch.Tensor,
                        pos: Optional[int] = None) -> torch.Tensor:
-        dt = self.dtype
-        scale = torch.tensor(np.sqrt(self.d_model), dtype=dt,
-                             device=emb.device)
         start = pos or 0
         pe = self.table[start:start + emb.shape[-2]]
-        return emb * scale + pe.to(dt)
+        return emb * self.sqrt_d + pe.to(self.dtype)
 
 
 class TokenEmbed(_PositionalInput):

@@ -322,6 +322,98 @@ def test_embed_dataset_packed_equals_padded(cuda, cont, B, monkeypatch):
     np.testing.assert_array_equal(Z, Z_pad)
 
 
+def _tok_h8_model(dev):
+    """The embed cell's model (tok_h8's widths, bf16, seeded weights) on
+    ``dev``."""
+    from sketchformer_tpu_torch.config import SketchformerConfig
+    from sketchformer_tpu_torch.convert import init_params
+    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
+
+    cfg = SketchformerConfig(
+        vocab_size=10004, num_classes=345, max_len=192, d_model=256,
+        num_layers=8, num_heads=8, dff=512, lowerdim=256, num_queries=4,
+        dropout=0.0, attn_impl="pallas", dtype="bfloat16")
+    model = Sketchformer(cfg)
+    model.load_state_dict(init_params(cfg, seed=3))
+    return model.to(dev).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "padded"])
+def test_embed_dataset_waits_on_the_device_only_in_its_drain(cuda, packed,
+                                                             monkeypatch):
+    """Every call of the loop's body (the pack, the pinned input copy,
+    ``fast_embed``, the pinned z copy) runs under
+    ``set_sync_debug_mode("error")``; the drain's event wait alone is let
+    through."""
+    from sketchformer_tpu_torch.infer import fast_encode
+    from sketchformer_tpu_torch.infer.encode import embed_dataset
+
+    model = _tok_h8_model(cuda)
+    batches = _cell_batches(False, 2048, 4)
+    if not packed:
+        monkeypatch.setattr(fast_encode, "packed_rows", lambda *a: None)
+    want, _ = embed_dataset(model, batches)   # builds the kernels, warms
+    torch.cuda.synchronize()
+    waits = []
+    event_sync = torch.cuda.Event.synchronize
+
+    def drain_wait(event):
+        waits.append(event)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            event_sync(event)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", drain_wait)
+    route = "packed" if packed else "padded"
+    before = es.ROUTES[route]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):   # a pageable scalar copy syncs
+            torch.tensor(1.0, device=cuda)
+        Z, _ = embed_dataset(model, batches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(waits) == len(batches)
+    assert es.ROUTES[route] == before + len(batches)
+    np.testing.assert_array_equal(Z, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "padded"])
+def test_fast_embed_z_equals_the_device_scalar_formula(cuda, packed,
+                                                       monkeypatch):
+    """z with sqrt(d_model) and 1/sqrt(head_dim) as 0-d CPU tensors equals,
+    bit for bit, z with each made as a 0-d tensor on the card."""
+    from sketchformer_tpu_torch.infer import fast_encode
+    from sketchformer_tpu_torch.models import attention
+
+    model = _tok_h8_model(cuda)
+    (b,) = _cell_batches(False, 2048, 1, seed=9)
+    enc = torch.from_numpy(b["enc"]).to(cuda)
+    rows = None
+    if packed:
+        rows = _on(fast_encode.packed_rows(model, b["enc"], None, cuda),
+                   cuda)
+    embed = fast_encode.make_fast_embed_fn(model)
+    z = embed(enc, None, rows)
+    host_scalar = attention._scale
+
+    def device_scale(q):
+        return host_scalar(q).to(q.device)
+
+    monkeypatch.setattr(attention, "_scale", device_scale)
+    monkeypatch.setattr(model.enc_embed, "sqrt_d",
+                        model.enc_embed.sqrt_d.to(cuda))
+    z_device = embed(enc, None, rows)
+    torch.cuda.synchronize()
+    assert model.enc_embed.sqrt_d.device.type == "cuda"
+    assert torch.isfinite(z).all() and z.abs().max() > 0
+    assert torch.equal(z, z_device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("BH,Tmax,Dh,offset,route", [

@@ -2,11 +2,15 @@
 CPU's plain routes at a tiny width: none outside a profiler, the span
 catalogue's nesting and counts inside one (an embed batch, a decode
 request and its chunks, a training step and its parts), outputs bit-equal
-with and without the profiler, and ``note_engine``'s marks (the training
-loop's ``profile_steps`` trace: ``test_torch_public_names.py``)."""
+with and without the profiler, ``note_engine``'s marks (the training
+loop's ``profile_steps`` trace: ``test_torch_public_names.py``), and the
+benchmark's reader of the embed drain's span
+(``perfbench/metrics/drain_wait_ms_per_batch.embed.py``) on a hand-built
+trace and on a profiled ``embed_dataset``."""
 
 import logging
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -103,7 +107,7 @@ def _token_model_without_eos():
 # outside a profiler
 # ---------------------------------------------------------------------------
 
-NAMES = ["embed.batch", "decode.request", "train.step"]
+NAMES = ["embed.batch", "embed.drain", "decode.request", "train.step"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -184,6 +188,72 @@ def test_embed_dataset_spans_the_packing_of_each_batch(cont, monkeypatch):
     packed = _named(ev, "engine.embed.fused-encoder-kernel-packed")
     assert len(packed) == len(host)
     assert not _named(ev, "engine.embed.fused-encoder-kernel")
+
+
+@pytest.mark.parametrize("cont", [False, True], ids=["tok", "cont"])
+def test_embed_dataset_spans_the_drain_of_each_batch(cont):
+    from sketchformer_tpu_torch.infer.encode import READBACK_DEPTH
+
+    model = _model(cont).eval()
+    host = _host_batches(cont, n=5)
+    _, ev = _profiled(lambda: embed_dataset(model, iter(host)))
+    batches, drains = _named(ev, "embed.batch"), _named(ev, "embed.drain")
+    assert len(drains) == len(batches) == len(host)
+    # a batch that fills the readback queue drains the one two behind it;
+    # the queue's last two drain after the loop
+    ahead = READBACK_DEPTH - 1
+    for b, d in zip(batches[ahead:], drains):
+        assert _inside(d, b)
+    assert all(d[1] >= batches[-1][2] for d in drains[-ahead:])
+    assert not any(_inside(d, b) for d in drains for b in batches[:ahead])
+
+
+def _reader(name):
+    from perfbench import harness
+
+    return harness.load_reader(name)
+
+
+def test_drain_wait_metric_reads_the_drains_alone():
+    from perfbench import devtrace
+
+    # two traced batches; the second's drain and the loop's last two
+    # (after the batches) are 6 + 4 + 1 us, the device busy throughout
+    t = devtrace.Trace.__new__(devtrace.Trace)
+    t.host = [("sk.embed.batch", 0.0, 40.0), ("sk.embed.pin", 2.0, 5.0),
+              ("sk.embed.batch", 40.0, 80.0), ("sk.embed.pin", 42.0, 45.0),
+              ("sk.embed.drain", 70.0, 76.0), ("sk.embed.drain", 80.0, 84.0),
+              ("sk.embed.drain", 84.0, 85.0)]
+    t.busy, t.kernels, t.w0, t.w1, t.units = [(0.0, 100.0)], [], 0.0, 100.0, 2
+    ctx = SimpleNamespace(trace=t)
+    assert _reader("drain_wait_ms_per_batch.embed")(ctx) == pytest.approx(
+        0.0055)
+    assert _reader("pin_ms_per_batch.embed")(ctx) == pytest.approx(0.003)
+    # a trace without the span (a program that does not record it) and
+    # no trace at all read nothing
+    t.host = [h for h in t.host if h[0] != "sk.embed.drain"]
+    assert _reader("drain_wait_ms_per_batch.embed")(ctx) is None
+    assert _reader("drain_wait_ms_per_batch.embed")(
+        SimpleNamespace(trace=None)) is None
+
+
+@pytest.mark.parametrize("cont", [False, True], ids=["tok", "cont"])
+def test_drain_wait_metric_reads_a_profiled_embed_dataset(cont):
+    from perfbench import devtrace
+
+    model = _model(cont).eval()
+    host = _host_batches(cont, n=5)
+    window = devtrace.SubWindow()
+    window.start()
+    embed_dataset(model, iter(host))
+    window.stop()
+    t = devtrace.Trace(window.prof, units=len(host))
+    drains = [h for h in t.host if h[0] == "sk.embed.drain"]
+    assert len(drains) == len(host)
+    got = _reader("drain_wait_ms_per_batch.embed")(SimpleNamespace(trace=t))
+    assert got == pytest.approx(
+        sum(e - s for _, s, e in drains) / 1e3 / len(host))
+    assert 0 < got * len(host) <= t.window_s * 1e3
 
 
 def _decoder(kind):
