@@ -153,36 +153,25 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    run dir, and ``embed`` and ``decode`` on that run dir bit-equal to the
    same CLIs on the seeded npz, the run-dir path launching ``linear``,
    ``layernorm_rows``, ``ragged_attention`` (``embed``) and
-   ``encoder_attention`` and ``decode_chunk`` (``decode``); then
-   the benchmark's first sections (the headline encode, ``train`` and
-   ``decode``) through ``python -m sketchformer_tpu_torch.cli bench`` in a
-   subprocess whose ``SKETCHFORMER_BENCH_BUDGET_S``
-   (``bench.prefix_budget``) skips the rest: exit code 0, JSON lines only
-   on stdout, the last with value > 0, those sections' keys, no error and
-   every other section skipped, each section's own checks passed (its
-   lines printed). Each CLI run prints the routes of its
-   ``layernorm_rows`` and ``decode_attention`` launches and fails if one
-   was declined;
+   ``encoder_attention`` and ``decode_chunk`` (``decode``). Each CLI run
+   prints the routes of its ``layernorm_rows`` and ``decode_attention``
+   launches and fails if one was declined;
 5. times: ``layernorm_rows`` (bf16, M 12,288 and 49,152), K12 (B*H=512,
    Dh=32, cache_len 96 and 191), K13 (B=64, t=96) and K7's emit (one
    ``pretrain_full`` site, and a whole 'bits' stack's tensor) as the median
    and spread of 60 calls' device time beside their plain versions,
    ``F.layer_norm`` and SDPA on the filled slice, and their bounds, and
    the same kernels' own events in a profiler trace; the emit kernel's
-   SASS opcodes and the dispatch floor of its Philox calls; the embed
-   cell's batch (B=2048, T=192, lengths 16-191) on the packed stack beside
-   the padded one (``packed_embed_times``: the ragged attention, without
-   and with qk-norm, and a whole ``fast_embed`` batch, each equal to the
-   padded result); kernel vs plain (CUDA
-   events after warm-up), the end-to-end
-   embed rate, per-chunk and per-call decode kernel times (each chunk at
-   B=64 beside its bound, the self-attention cache rows counted once a
-   step and the cross K/V once a chunk, and its serial floor: the cluster
-   kernel's barriers a step x K x one barrier's measured cost; the kernel
-   alone at B=512), and the whole-decode p50 at B=64/T=192 and sketches/s at B=512
-   for the chunk engine (with a ``torch.profiler`` trace of one whole
-   decode at each batch: device busy time, idle share, launches), the K13
-   step loop and the composed decoder; K8 forward and
+   SASS opcodes and the dispatch floor of its Philox calls;
+   ``ragged_attention`` on the ``sbir`` loader's first batch beside its
+   plain version, and at the embed cell's batch (B=2048, T=192, lengths
+   16-191; ``packed_embed_times``), without and with qk-norm, beside the
+   padded ``encoder_attention`` and equal to it on the valid rows; the
+   decode chunk kernels per chunk (CUDA events after warm-up; each chunk
+   at B=64 beside its plain version and its bound, the self-attention
+   cache rows counted once a step and the cross K/V once a chunk, and its
+   serial floor: the cluster kernel's barriers a step x K x one barrier's
+   measured cost; the kernel alone at B=512); K8 forward and
    backward against SDPA with the same mask (and its backward) at both
    geometries; K13 per step beside ``decode_chunk``'s; each training kernel (one layer's
    calls) against its plain version and one PyTorch call where one
@@ -208,13 +197,6 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    parameter list against its plain route and its bound; ``sum_rows``
    launches a ``cont2cont_mdn`` and a token step beside the counts before
    its three in-launch sums; the train stacks' forward + backward; K6;
-   the train step p50 and sketches/s at the
-   ``cont2cont_mdn`` shape, the JAX benchmark's ``cont_train`` shape
-   (B=512, T=96, H=2; 'prng' and 'bits' dropout), ``cont2cont_mdn``
-   post-LN, and its token cells
-   ``train`` (H=2) and ``train_h8`` (H=8), with a ``torch.profiler``
-   breakdown of each and the LayerNorm backward's, ``layernorm_rows``' and
-   ``linear``'s share;
    each with the card's name and power limit. Every kernel's bound (the least time for
    its bytes and operations at the card's published peaks) is computed
    from the timed calls' shapes.
@@ -222,17 +204,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --profiler-window SECONDS
-
-reads how a profiler trace keeps device events as the process ages, with
-and without the guard that every kernel trace of this script takes.
-
     python3 chip_smoke.py --rule2 ROOT LABEL
 
-times the rule-2 kernels (phase 5's first spreads and events, and the K13
-step loop's whole decode) of the package under ROOT alone: an unpacked
-``git archive`` of a parent commit, run in turns with this checkout in one
-chip call, reads parent and change on one card.
+times the rule-2 kernels (phase 5's first spreads and events) of the
+package under ROOT alone: an unpacked ``git archive`` of a parent commit,
+run in turns with this checkout in one chip call, reads parent and change
+on one card.
 """
 
 from __future__ import annotations
@@ -254,7 +231,6 @@ from sketchformer_tpu_torch.utils import checks, timing
 from sketchformer_tpu_torch.utils.checks import TOL, set_attn_impl
 from sketchformer_tpu_torch.utils.timing import (
     SPREAD_CALLS,
-    TRACE_GUARD_S,
     TRACE_KEPT_SHARE,
     bound,
     call_ms,
@@ -1444,160 +1420,6 @@ def train_f32_main_path(cli, counters, tmp):
     return launches
 
 
-def profile_steps(label, step, batch, gpu, step_ms, n=2, top=12):
-    """torch.profiler over ``n`` train steps: the device's busy time per
-    step, its idle share against the untraced step time ``step_ms`` (the
-    tracer slows the host, so the traced window's wall time overstates
-    it), and the kernels with the most device time."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts):   # the tracer's set-up
-        step(batch)
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            step(batch)
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only: a host op's "self device time" also
-        # holds the kernels launched under it without an op of their own
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    busy = sum(r[0] for r in rows)
-    rows.sort(reverse=True)
-    print(f"profile train step {label} ({n} steps under torch.profiler): "
-          f"device busy {busy / n:.2f} ms/step, idle share "
-          f"{1 - busy / n / step_ms:.3f} of the untraced p50 {step_ms:.2f} "
-          f"ms (traced wall {wall / n:.2f} ms/step) [{gpu}]")
-    # the LayerNorm backward's own kernels (a copy kernel of PyTorch's that
-    # fed sum_rows before it summed in-launch has no name of its own)
-    ln = [r for r in rows if "layernorm_bwd" in r[2] or "sum_rows" in r[2]]
-    ln_ms = sum(r[0] for r in ln) / n
-    print(f"  layernorm_bwd + sum_rows kernels: {ln_ms:.3f} ms/step, "
-          f"{sum(r[1] for r in ln) // n} launches/step, "
-          f"{ln_ms / (busy / n):.4f} of the busy time")
-    # the LayerNorm forward (the register plan's kernel and the
-    # one-warp-a-row kernel of the geometries it declines)
-    lnf = [r for r in rows if "layernorm_rows" in r[2]]
-    lnf_ms = sum(r[0] for r in lnf) / n
-    print(f"  layernorm_rows kernels: {lnf_ms:.3f} ms/step, "
-          f"{sum(r[1] for r in lnf) // n} launches/step, "
-          f"{lnf_ms / (busy / n):.4f} of the busy time")
-    # the forward product linear (its bf16 and f32 kernels, not linear_nt /
-    # linear_tn)
-    lin = [r for r in rows
-           if re.search(r"\blinear_(?:wgmma_|f32_)?kernel", r[2])]
-    lin_ms = sum(r[0] for r in lin) / n
-    print(f"  linear kernels: {lin_ms:.3f} ms/step, "
-          f"{sum(r[1] for r in lin) // n} launches/step, "
-          f"{lin_ms / (busy / n):.4f} of the busy time")
-    for dev_ms, count, key in rows[:top]:
-        print(f"  {dev_ms / n:8.3f} ms/step {count // n:6d} calls/step  "
-              f"{key[:90]}")
-
-
-def train_cells():
-    """(label, shape, config overrides, dropout impl) of each train step
-    cell: the cont2cont_mdn and the cont_train shape (the stacks' dropout
-    in 'prng' mode, and cont_train again with the stacks forced to 'bits'
-    for the comparison), cont2cont_mdn post-LN and the JAX
-    benchmark's token cells train (H=2) and train_h8 (H=8)."""
-    from sketchformer_tpu_torch.presets import get_preset
-
-    cont = {**get_preset("cont2cont_mdn").model_overrides, "num_classes": 32}
-    cont_train = dict(cont, num_heads=2, qk_norm=False, max_len=96,
-                      num_classes=345)
-    tok = dict(vocab_size=TRAIN["V"], num_classes=TRAIN["classes"],
-               max_len=TRAIN["T"], d_model=TRAIN["d"],
-               num_layers=TRAIN["L"], num_heads=TRAIN["H"],
-               dff=TRAIN["dff"], dropout=0.1, lowerdim=256,
-               dtype="bfloat16", attn_impl="pallas", qk_norm=False)
-    return (("cont2cont_mdn", MDN, cont, "auto"),
-            ("cont2cont_mdn post-LN (K8)", MDN, dict(cont, norm_first=False),
-             "auto"),
-            ("cont_train", CONT_TRAIN, cont_train, "auto"),
-            ("cont_train (stacks in bits mode)", CONT_TRAIN, cont_train,
-             "bits"),
-            ("train", TRAIN, tok, "auto"),
-            ("train_h8", TRAIN, dict(tok, num_heads=8), "auto"))
-
-
-def train_cell(gpu, dev, label, shape, over, impl):
-    """One train step cell: the step's p50 ms (host clock around
-    synchronised steps) and sketches/s, with a ``torch.profiler``
-    breakdown (``profile_steps``). Returns (ms, sketches/s)."""
-    import torch
-
-    from sketchformer_tpu_torch.config import SketchformerConfig
-    from sketchformer_tpu_torch.convert import init_params
-    from sketchformer_tpu_torch.data.registry import get_dataloader_by_name
-    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
-    from sketchformer_tpu_torch.ops import dropout_prng as dp
-    from sketchformer_tpu_torch.train.step import (
-        batch_to_device,
-        create_train_state,
-        make_train_step,
-    )
-
-    B, T = shape["B"], shape["T"]
-    cfg = SketchformerConfig(**over)
-    model = Sketchformer(cfg)
-    model.load_state_dict(init_params(cfg, 0))
-    model.to(dev)
-    token = not cfg.use_continuous
-    loader = get_dataloader_by_name("synthetic")(
-        num_classes=cfg.num_classes if token else 32,
-        sketches_per_epoch=B * 2, batch_size=B, buckets=(T,),
-        token_mode=token)
-    batch = batch_to_device(next(loader.batch_iterator("train")), dev)
-    state = create_train_state(model, 0, 500, 2.0)
-    step = make_train_step(state)
-    resolve = dp.resolve_impl
-    if impl == "bits":
-        dp.resolve_impl = lambda *_: "bits"
-    try:
-        for _ in range(2):
-            step(batch)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            m = step(batch)
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        ms = float(np.median(ts))
-        if not np.isfinite(m["loss"].item()):
-            fail(f"{label} train step loss not finite")
-        profile_steps(label, step, batch, gpu, ms)
-    finally:
-        dp.resolve_impl = resolve
-    print(f"time train step {label} ({'token' if token else 'MDN'}, "
-          f"B={B}, T={T}, d={cfg.d_model}, L={cfg.num_layers}, "
-          f"H={cfg.num_heads}, qk_norm={cfg.qk_norm}, {cfg.dtype}, "
-          f"dropout {cfg.dropout}): p50 {ms:.2f} ms (min {min(ts):.2f}, "
-          f"max {max(ts):.2f}, 5 steps), {B / ms * 1e3:.1f} sketches/s "
-          f"[{gpu}]")
-    del model, state, step
-    torch.cuda.empty_cache()
-    return ms, B / ms * 1e3
-
-
-def train_step_times(gpu, dev):
-    """Every cell of :func:`train_cells`; returns {label: (ms,
-    sketches/s)}."""
-    return {cell[0]: train_cell(gpu, dev, *cell) for cell in train_cells()}
-
-
 # ---------------------------------------------------------------------------
 # token-mode training: the fused vocab-CE head (K6) and the in-kernel
 # dropout draw (K7)
@@ -2439,73 +2261,6 @@ def fmt_spread(t):
         f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
 
-# the bench phase: the sections that run (``bench.prefix_budget``), and the
-# seconds the subprocess may take
-BENCH_RUNS = ("headline", "train", "decode")
-BENCH_TIMEOUT = 600.0
-
-
-def bench_main_path(gpu):
-    """``python -m sketchformer_tpu_torch.cli bench`` in a subprocess under
-    ``bench.prefix_budget`` of BENCH_RUNS: fails unless it exits 0, prints
-    only JSON lines on stdout, the last with value > 0, the keys of
-    BENCH_RUNS' sections, no ``*_error`` key, and every other section in
-    ``skipped``."""
-    import torch
-
-    from sketchformer_tpu_torch import bench
-
-    table = bench.sections()
-    if tuple(name for name, _, _ in table[:len(BENCH_RUNS)]) != BENCH_RUNS:
-        fail(f"bench sections {[name for name, _, _ in table]}")
-    budget = bench.prefix_budget(len(BENCH_RUNS))
-    env = dict(os.environ, **{bench.BUDGET_ENV: f"{budget:.1f}"})
-    argv = [sys.executable, "-m", "sketchformer_tpu_torch.cli", "bench"]
-    print(f"main path: {bench.BUDGET_ENV}={budget:.1f} python -m "
-          f"sketchformer_tpu_torch.cli bench")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    try:
-        r = subprocess.run(argv, capture_output=True, text=True, cwd=REPO,
-                           env=env, timeout=BENCH_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        fail(f"cli bench ran past {BENCH_TIMEOUT:.0f} s")
-    secs = time.perf_counter() - t0
-    for line in r.stderr.splitlines():
-        if line.startswith(("check ", "[bench")):
-            print(f"  {line}")
-    if r.returncode != 0:
-        fail(f"cli bench returned {r.returncode}: "
-             f"{r.stderr.strip()[-2000:]}")
-    lines = r.stdout.strip().splitlines()
-    try:
-        results = [json.loads(line) for line in lines]
-    except json.JSONDecodeError:
-        fail(f"cli bench printed a line that is not JSON: {lines}")
-    last = results[-1] if results else {}
-    print(f"  bench result ({secs:.1f} s): {lines[-1] if lines else ''}")
-    ex = last.get("extras", {})
-    want = ("encode_ms_per_batch", "mfu_encode", "train_sketches_per_sec",
-            "decode_p50_ms", "decode_sketches_per_sec",
-            "decode_batch512_sketches_per_sec")
-    missing = [k for k in want if not ex.get(k, 0) > 0]
-    if not last.get("value", 0) > 0 or missing:
-        fail(f"cli bench: value {last.get('value')}, keys missing or not "
-             f"positive {missing}")
-    errors = [k for k in ex if k.endswith("_error")]
-    rest = [name for name, _, _ in table[len(BENCH_RUNS):]]
-    if errors or ex.get("skipped") != rest:
-        fail(f"cli bench: errors {errors}, skipped {ex.get('skipped')} "
-             f"(want {rest})")
-    print(f"bench phase: {secs:.1f} s, headline {last['value']} sketches/s, "
-          f"train {ex['train_sketches_per_sec']} sketches/s, decode p50 "
-          f"{ex['decode_p50_ms']} ms [{gpu}]")
-
-
-# --profiler-window: calls a trace, seconds between traces
-PW_CALLS, PW_EVERY = 60, 20.0
-
-
 def kernel_spread(fn, names, n=SPREAD_CALLS):
     """``timing.kernel_spread``, a trace that kept too few events failing
     the run."""
@@ -2863,8 +2618,6 @@ def step_operands(randn, gen, dev, dtype, H, qk, t, K=1, B=64):
     """Operands of one whole decode step (or K steps of the loop) at the
     ar_decode width, the cache rows from t on set to NaN: the step reads
     rows [0, t) only."""
-    import torch
-
     d, L, dff, V, T, Mq = (AR[k] for k in ("d", "L", "dff", "V", "T", "Mq"))
     ops = chunk_operands(randn, gen, dev, B=B, L=L, d=d, H=H, dff=dff, N=V,
                          Tmax=T, Mq=Mq, K=K, t0=t, dtype=dtype, cont=False)
@@ -3113,39 +2866,6 @@ def cluster_barrier_us(dev, C, clusters, iters=20000):
     torch.cuda.synchronize()
     return (ev[2].elapsed_time(ev[3]) - ev[0].elapsed_time(ev[1])) \
         / iters * 1e3
-
-
-def profile_decode(label, run, gpu, wall_ms):
-    """torch.profiler over one whole decode: the device's busy time, its
-    idle share of the untraced p50 ``wall_ms`` and the kernel launches (a
-    launch per device event), with the kernels that took the most time."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts):   # the tracer's set-up
-        run()
-        torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    busy = sum(r[0] for r in rows)
-    rows.sort(reverse=True)
-    print(f"profile decode {label}: device busy {busy:.2f} ms, idle share "
-          f"{1 - busy / wall_ms:.3f} of the untraced p50 {wall_ms:.2f} ms, "
-          f"{sum(r[1] for r in rows)} kernel launches [{gpu}]")
-    for dev_ms, count, key in rows[:5]:
-        print(f"  {dev_ms:8.3f} ms {count:5d} calls  {key[:80]}")
-    return busy
 
 
 # ---------------------------------------------------------------------------
@@ -3426,38 +3146,20 @@ def encoder_attention_spread(dev, B, T, H, Dh, qk, gpu, randn):
 
 def packed_embed_times(dev, gpu):
     """The embed cell's batch (B=2048, T=192, lengths 16-191 then EOS and
-    PAD, tok_h8's widths, random weights) on the packed stack beside the
-    padded one: ``ragged_attention`` on its valid rows against the padded
-    ``encoder_attention`` (one layer's call, without and with qk-norm), then
-    a whole ``fast_embed`` batch, given the batch's valid rows or not, at
-    the cell's lengths and at near-full lengths (176-191, where packing
-    saves little); device time, median of SPREAD_CALLS calls. The ragged
-    rows must equal the padded kernel's and the packed z the padded z
-    (torch.equal)."""
+    PAD; tok_h8's heads): ``ragged_attention`` on its valid rows against
+    the padded ``encoder_attention`` (one layer's call, without and with
+    qk-norm); device time, median of SPREAD_CALLS calls. The ragged rows
+    must equal the padded kernel's (torch.equal)."""
     import torch
 
-    from sketchformer_tpu_torch.config import SketchformerConfig
-    from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID
-    from sketchformer_tpu_torch.infer import fast_encode
-    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
     from sketchformer_tpu_torch.ops import encoder_stack as es
 
     B, T, H, Dh = 2048, 192, SBIR["H"], SBIR["d"] // SBIR["H"]
     rng = np.random.default_rng(22)
-
-    def batch(lo):
-        """(ids, valid, rows on the card) of sketches of lo-191 tokens."""
-        n = rng.integers(lo, T, B)
-        pos = np.arange(T)[None]
-        ids = rng.integers(4, 10004, (B, T)).astype(np.int32)
-        ids[pos == n[:, None]] = EOS_ID
-        ids[pos > n[:, None]] = PAD_ID
-        valid = ids != PAD_ID
-        rows, _ = es.pack_rows(valid)
-        return ids, valid, rows._replace(index=rows.index.to(dev),
-                                         work=rows.work.to(dev))
-
-    ids, valid, rows = batch(16)
+    # the valid positions of sketches of 16-191 tokens and their EOS
+    valid = np.arange(T)[None] <= rng.integers(16, T, B)[:, None]
+    rows, _ = es.pack_rows(valid)
+    rows = rows._replace(index=rows.index.to(dev), work=rows.work.to(dev))
     index = rows.index.long()
     M, keys = int(valid.sum()), valid.sum(1).astype(np.int64)
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -3495,32 +3197,6 @@ def packed_embed_times(dev, gpu):
                   f"{fmt_spread(sp['kernel'])}, padded encoder_attention "
                   f"{fmt_spread(sp['plain'])}; bound {b_ms:.4f} ms ({b_by}) "
                   f"[{gpu}]")
-        torch.manual_seed(22)
-        cfg = SketchformerConfig(
-            vocab_size=10004, num_classes=345, max_len=T, d_model=SBIR["d"],
-            num_layers=SBIR["L"], num_heads=H, dff=SBIR["dff"],
-            lowerdim=256, num_queries=4, dropout=0.0, attn_impl="pallas",
-            dtype="bfloat16")
-        model = Sketchformer(cfg).to(dev).eval()
-        embed = fast_encode.make_fast_embed_fn(model)
-        for lo in (16, 176):
-            if lo != 16:
-                ids, valid, rows = batch(lo)
-            enc = torch.from_numpy(ids).to(dev)
-            z_packed, z_padded = embed(enc, None, rows), embed(enc)
-            torch.cuda.synchronize()
-            if not torch.equal(z_packed, z_padded):
-                fail(f"the packed embed batch's z (lengths {lo}-191) "
-                     f"differs from the padded one's")
-            sp = spread_ms(lambda: embed(enc, None, rows),
-                           lambda: embed(enc), None)
-            print(f"time fast_embed batch (tok_h8 widths, bf16, B={B}, "
-                  f"T={T}, lengths {lo}-191, {int(valid.sum())} valid rows, "
-                  f"valid share {valid.mean():.4f}; device time, median of "
-                  f"{SPREAD_CALLS}): packed {fmt_spread(sp['kernel'])}, "
-                  f"padded {fmt_spread(sp['plain'])}; packed "
-                  f"{B / sp['kernel'][0] * 1e3:.0f} sketches/s, padded "
-                  f"{B / sp['plain'][0] * 1e3:.0f} [{gpu}]")
 
 
 def linear_nt_spread(o, B, T, d, dff, gpu):
@@ -4078,66 +3754,12 @@ def stack_times(dev, gpu, cuda_ms):
         del mod
 
 
-def profiler_window(argv) -> int:
-    """``python3 chip_smoke.py --profiler-window SECONDS``: how a profiler
-    trace's window keeps device events as the process ages, on PyTorch's
-    own kernels alone (nothing is built). For SECONDS the card multiplies
-    bf16 matrices; every PW_EVERY seconds PW_CALLS small products are
-    traced twice, with no guard and with :func:`device_trace`'s guard, and
-    each trace's kept events are printed beside the offset of each call's
-    device start from its host op's start (min and median over the calls
-    of the guarded trace: negative where the device's time reads early).
-    No check runs and no result line is printed."""
-    import torch
-
-    if len(argv) != 2:
-        print("usage: chip_smoke.py --profiler-window SECONDS",
-              file=sys.stderr)
-        return 2
-    gpu = gpu_line()
-    dev = torch.device("cuda")
-    big = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
-    small = torch.randn(512, 512, device=dev, dtype=torch.bfloat16)
-    t_start = time.perf_counter()
-
-    def traced(guard_s):
-        torch.mm(small, small)
-        torch.cuda.synchronize()
-        with device_trace(guard_s) as prof:
-            for _ in range(PW_CALLS):
-                torch.mm(small, small)
-        ev = prof.events()
-        host = sorted(e.time_range.start for e in ev if e.name == "aten::mm")
-        kern = sorted(e.time_range.start for e in ev
-                      if str(getattr(e, "device_type", "")).endswith("CUDA"))
-        off = ([k - h for h, k in zip(host, kern)]
-               if len(host) == len(kern) == PW_CALLS else [])
-        return len(kern), off
-
-    while time.perf_counter() - t_start < float(argv[1]):
-        age = time.perf_counter() - t_start
-        bare, _ = traced(0.0)
-        kept, off = traced(TRACE_GUARD_S)
-        print(f"profiler window at {age:.0f} s: unguarded trace kept {bare} "
-              f"of {PW_CALLS} device events, guarded ({TRACE_GUARD_S} s) "
-              f"{kept}; device start - host op start (us): "
-              + (f"min {min(off):.1f}, median {float(np.median(off)):.1f}"
-                 if off else "not read") + f" [{gpu}]", flush=True)
-        t_next = time.perf_counter() + PW_EVERY
-        while time.perf_counter() < t_next:
-            for _ in range(20):
-                torch.mm(big, big)
-            torch.cuda.synchronize()
-    return 0
-
-
 def rule2_only(argv) -> int:
     """``python3 chip_smoke.py --rule2 ROOT LABEL``: build the package under
     ROOT (this checkout, or an unpacked ``git archive`` of another commit,
     so that a parent is timed in the same chip call) and print the rule-2
-    kernels' timings (``rule2_spreads``, ``rule2_kernel_events``) and the
-    K13 step loop's whole decode (p50 and profile) under LABEL. No check
-    runs and no result line is printed."""
+    kernels' timings (``rule2_spreads``, ``rule2_kernel_events``) under
+    LABEL. No check runs and no result line is printed."""
     import torch
 
     if len(argv) != 3 or argv[0] != "--rule2":
@@ -4167,32 +3789,6 @@ def rule2_only(argv) -> int:
                                    dev))
     rule2_spreads(cases, gpu)
     rule2_kernel_events(cases, gpu)
-    # the step loop's whole decode (K13's one path): ar_decode, seeded
-    # weights, the first batch of its loader
-    from sketchformer_tpu_torch import cli
-    from sketchformer_tpu_torch.infer.fast_decode import (
-        make_step_token_decoder,
-    )
-
-    model, loader = cli.build_model_and_loader(cli.build_parser().parse_args(
-        ["decode", "--preset", "ar_decode", "--init-seed", "0", "--device",
-         "cuda"]))
-    _, enc, _ = cli.first_batch(model, loader)
-    decode = make_step_token_decoder(model)
-    decode(enc)
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        decode(enc)
-        torch.cuda.synchronize()
-        ts.append((time.perf_counter() - t0) * 1e3)
-    p50 = float(np.median(ts))
-    print(f"time decode ar_decode step loop (decode_step), B={enc.shape[0]}, "
-          f"T={AR['T']}: p50 {p50:.2f} ms (min {min(ts):.2f}, max "
-          f"{max(ts):.2f}, 5 runs) [{gpu}]")
-    profile_decode(f"ar_decode step loop B={enc.shape[0]}",
-                   lambda: decode(enc), gpu, p50)
     print(f"=== {label} done")
     return 0
 
@@ -4205,14 +3801,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--profiler-window"]:
-        return profiler_window(sys.argv[1:])
     if len(sys.argv) > 1:
         return rule2_only(sys.argv[1:])
     sys.path.insert(0, REPO)
     from sketchformer_tpu_torch import cli, ops
     from sketchformer_tpu_torch.infer import decode as dec
-    from sketchformer_tpu_torch.infer.encode import embed_dataset
     from sketchformer_tpu_torch.infer.fast_decode import decoder_operands
     from sketchformer_tpu_torch.infer.fast_encode import (
         fast_embed,
@@ -4221,16 +3814,12 @@ def main() -> int:
     from sketchformer_tpu_torch.ops import _build
     from sketchformer_tpu_torch.ops import decode_attention as da
     from sketchformer_tpu_torch.ops import decode_chunk as dc
-    from sketchformer_tpu_torch.ops import attention_train as at
     from sketchformer_tpu_torch.ops import encoder_stack as es
     from sketchformer_tpu_torch.infer.fast_decode import (
         make_step_token_decoder,
     )
     from sketchformer_tpu_torch.ops import decode_step as dstep
-    from sketchformer_tpu_torch.ops import dropout_prng as dp
     from sketchformer_tpu_torch.ops import flash_attention as fa
-    from sketchformer_tpu_torch.ops import norm_train as nt
-    from sketchformer_tpu_torch.ops import token_ce as tce
     from sketchformer_tpu_torch.utils import engines
 
     counters = ops.counted_modules()
@@ -4728,9 +4317,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         import_main_path(cli, counters, tmp, gpu)
 
-    # ---- 4i. the benchmark's first sections, through the CLI --------------
-    bench_main_path(gpu)
-
     # ---- 5. times ----------------------------------------------------------
     def cuda_ms(fn, iters=20, warm=3):
         for _ in range(warm):
@@ -4801,33 +4387,11 @@ def main() -> int:
               f"{fmt_spread(sp['kernel'])}, plain (a loop over the sketches) "
               f"{fmt_spread(sp['plain'])}; bound {b_ms:.4f} ms ({b_by}) "
               f"[{gpu}]")
-    # the embed cell's batch on the packed stack: the ragged attention and a
-    # whole batch beside the padded ones
+    # the ragged attention at the embed cell's batch beside the padded one
     packed_embed_times(dev, gpu)
-    with torch.inference_mode():
-        for Bs in (64, 512):
-            xs = randn(Bs, T, d, dtype=dt)
-            km = key_mask(Bs, T)
-            k_ms, p_ms = paired(
-                lambda: es.fused_encoder_stack(xs, km, weights, num_heads=H),
-                lambda: es.encoder_stack_reference(xs, km, weights,
-                                                   num_heads=H),
-                iters=10)
-            print(f"time fused_encoder_stack (L={L}, B={Bs}, T={T}, d={d}, "
-                  f"H={H}, {str(dt)[6:]}): kernel {k_ms:.3f} ms, plain "
-                  f"{p_ms:.3f} ms, kernel {Bs / k_ms * 1e3:.0f} sketches/s "
-                  f"[{gpu}]")
 
-    embed_dataset(model, batches[:2])       # warm-up
-    t0 = time.perf_counter()
-    Z2, _ = embed_dataset(model, batches)
-    e2e_s = time.perf_counter() - t0
-    print(f"time embed_dataset end to end ({len(batches)} batches of 64, "
-          f"bucket {T}): {len(Z2) / e2e_s:.1f} sketches/s "
-          f"({e2e_s * 1e3:.2f} ms) [{gpu}]")
-
-    # decode: per chunk (the mean over a T=192 decode's 12 chunks) and per
-    # decode_attention call, kernel vs plain; then whole decodes
+    # decode: per chunk (the mean over a T=192 decode's 12 chunks), kernel
+    # vs plain
     from sketchformer_tpu_torch.data.pipeline import PEN_END
     from sketchformer_tpu_torch.data.tokenizer import EOS_ID, PAD_ID, SOS_ID
 
@@ -4954,41 +4518,8 @@ def main() -> int:
               f"{bar_us:.3f} us = {barriers * K * bar_us / 1e3:.4f} ms "
               f"(clusters of {plan['C']}, {plan['G']} rows each); B=512: "
               f"kernel {big_ms[name]:.3f} ms per chunk [{gpu}]")
-    def host_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
 
-    # (label, decoder, runs at B=64, runs at B=512): the composed decode
-    # takes ~4 s a run
-    for label, decoder, reps, big_reps in (
-            ("chunk engine (decode_chunk)", dec.make_token_decoder(model), 7,
-             2),
-            ("step loop (decode_step)", make_step_token_decoder(model), 3, 2),
-            ("composed (decode_attention)",
-             dec.make_token_decoder(model, fast=False), 2, 1)):
-        ended = int((decoder(enc64) == EOS_ID).any(1).sum())
-        ts = host_ms(lambda: decoder(enc64), reps)
-        big = host_ms(lambda: decoder(enc512), big_reps)
-        print(f"time decode ar_decode {label}, T={T}, {ended} of 64 rows "
-              f"reach EOS: "
-              f"B=64 p50 {float(np.median(ts)):.2f} ms (min {min(ts):.2f}, "
-              f"max {max(ts):.2f}, {reps} runs); B=512 "
-              f"{512 / float(np.median(big)) * 1e3:.1f} sketches/s "
-              f"({float(np.median(big)):.1f} ms) [{gpu}]")
-        if label.startswith("chunk engine"):
-            chunk_engine = (decoder, float(np.median(ts)),
-                            float(np.median(big)))
-        if label.startswith("step loop"):
-            step_loop = (decoder, float(np.median(ts)))
-
-    # the training kernels, the stacks and whole train steps
+    # the training kernels and the stacks
     for name, (k_ms, p_ms, l_ms) in {
             **train_kernel_times(randn, dev, gpu, paired),
             **norm_times(randn, gpu)}.items():
@@ -5010,18 +4541,6 @@ def main() -> int:
           f"{times['decode_step'][1]:.4f} ms; decode_chunk per step "
           f"{times['decode_chunk'][0] / AR['K']:.4f} ms (a {AR['K']}-step "
           f"chunk / {AR['K']}) [{gpu}]")
-    steps_ms = train_step_times(gpu, dev)
-    print(f"train steps: {json.dumps(steps_ms)} [{gpu}]")
-    # the decode path's device busy time and idle share (after the kernel
-    # spreads, whose profiler sessions count every event): whether the
-    # chunk kernel or the host (the encode, the cross K/V, each chunk's
-    # finished-rows read) sets the p50
-    decoder, p50_64, p50_512 = chunk_engine
-    for Bp, encp, wall in ((64, enc64, p50_64), (512, enc512, p50_512)):
-        profile_decode(f"ar_decode chunk engine B={Bp}",
-                       lambda: decoder(encp), gpu, wall)
-    profile_decode("ar_decode step loop B=64", lambda: step_loop[0](enc64),
-                   gpu, step_loop[1])
     rule2_kernel_events(r2_cases, gpu)
     del r2_cases
 

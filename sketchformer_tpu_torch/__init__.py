@@ -18,9 +18,8 @@ the reference; module names mirror it::
                   card's timing helpers and the checks against plain routes
       tools/      the reference-weight importer and the benchmark's tools
       presets.py  the named experiment presets
-      bench.py    the benchmark: the JAX benchmark's sections on the card
       cli.py      prep-data / train / eval / embed / sbir / decode /
-                  interpolate / bench
+                  interpolate / bench (the benchmark's cells)
 
 The package imports torch and never jax, flax, optax or orbax, nor any
 module of ``sketchformer_tpu``: what it needs of the JAX package's

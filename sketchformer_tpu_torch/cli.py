@@ -4,10 +4,10 @@ reconstruction and latent interpolation.
 
 Port of the ``prep-data``, ``train``, ``eval``, ``embed``, ``sbir``,
 ``decode``, ``interpolate`` and ``bench`` subcommands of
-``sketchformer_tpu.cli``, with the same outputs (``bench`` runs the port's
-benchmark, ``bench.py``, on the card). Loaders and presets are the port's
-copies (``data/``, ``presets.py``). ``train`` writes a run dir (config,
-loader config, checkpoints, metrics) that ``eval`` and the serving
+``sketchformer_tpu.cli``, with the same outputs (``bench`` runs the cells
+of the repo's benchmark, ``BENCHMARK.json``). Loaders and presets are the
+port's copies (``data/``, ``presets.py``). ``train`` writes a run dir
+(config, loader config, checkpoints, metrics) that ``eval`` and the serving
 subcommands read (``--run-dir``); the serving subcommands also take
 weights from an ``.npz`` written by ``convert.save_npz`` or a seeded
 initialisation::
@@ -32,7 +32,7 @@ initialisation::
         --init-seed 0 --device cuda
     python -m sketchformer_tpu_torch.cli interpolate --preset ar_decode \\
         --init-seed 0 --device cuda
-    python -m sketchformer_tpu_torch.cli bench --device cuda
+    python -m sketchformer_tpu_torch.cli bench
 """
 
 from __future__ import annotations
@@ -412,11 +412,23 @@ def cmd_prep_data(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    """The benchmark's sections (``bench.py``): one cumulative JSON result
-    line on stdout after each; 1 if a section failed."""
-    from sketchformer_tpu_torch import bench
+    """The repo's benchmark: each cell of ``BENCHMARK.json``'s
+    ``workloads``, in order, as one process of its ``command`` from the repo
+    root (``setup_s`` counts from the process's start), at seed 0 for
+    ``run_seconds``; each cell's result line goes to stdout. Every cell
+    runs; 1 if any cell's run failed."""
+    import subprocess
 
-    return bench.main(["--device", args.device])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        spec = json.load(f)
+    rc = 0
+    for cell in spec["workloads"]:
+        if subprocess.call([*spec["command"], "--workload", cell["name"],
+                            "--seed", "0", "--seconds",
+                            str(spec["run_seconds"])], cwd=root) != 0:
+            rc = 1
+    return rc
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -510,9 +522,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.set_defaults(fn=cmd_prep_data)
 
-    sp = sub.add_parser("bench", help="run the benchmark on the card")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device, e.g. cuda, cuda:0 or cpu")
+    sp = sub.add_parser("bench", help="run the benchmark's cells on the card")
     sp.set_defaults(fn=cmd_bench)
     return p
 

@@ -1,15 +1,14 @@
 """Checks of a kernel path's output against the plain route, for the runs
-that time the kernels on the card (``chip_smoke.py``, ``bench.py``): the
-tolerances, the embedding against the plain encoder stack, a whole greedy
-decode against the teacher-forced forward of its own output, and a train
-step's loss and gradients against the composed model's autograd. A failed check raises
-:class:`CheckFailed`.
+on the card: ``chip_smoke.py`` and the two benchmark tools
+(``tools/bench_embed_pipeline.py``, ``tools/bench_decode_realistic.py``).
+The tolerances, the embedding against the plain encoder stack, and a whole
+greedy decode against the teacher-forced forward of its own output. A
+failed check raises :class:`CheckFailed`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 import torch.nn.functional as F
@@ -22,21 +21,8 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # so their logits stray from the float32 ones by a few ulps: the widest
 # margin at which a pick differed was 2.92 (H=2) and 3.21 (H=8) of 12,288
 # steps each, at B=64, T=192 on an NVIDIA H100 80GB HBM3, 700 W
-# (``bench.py``'s first full run, PERF.md §6), so this is about twice that
+# (PERF.md §6), so this is about twice that
 BF16_DECODE_TIE_ULPS = 6
-# a first train step at dropout 0 against the composed float32 model's
-# autograd on the same batch: the loss's relative difference allowed, and
-# the worst gradient leaf's ||kernel - plain|| / ||plain||. A leaf's norm is
-# floored at GRAD_FLOOR of the whole gradient's: the attention key biases'
-# true gradient is zero (the softmax ignores a shift shared by every key),
-# so their own norm is rounding. The bf16 values are about twice the worst
-# of the readings at B=512 (H=2, H=8, the 20-mixture model) and B=1024 on
-# an NVIDIA H100 80GB HBM3, 700 W (PERF.md §6): losses 4.7e-6 to 2.9e-5,
-# worst leaves 0.048 to 0.084 (the token embedding table; the classifier
-# of the 20-mixture model), whole gradients 0.0068 to 0.038
-TRAIN_LOSS_TOL = {"float32": 1e-5, "bfloat16": 6e-5}
-GRAD_TOL = {"float32": 1e-4, "bfloat16": 0.17}
-GRAD_FLOOR = 1e-3
 # the kernels an embedding launches
 ENCODE_KERNELS = ("linear", "encoder_attention", "layernorm_rows")
 
@@ -200,63 +186,3 @@ def teacher_forced_check(name, model, enc, mask, out, dtype=torch.float32):
     if int(checked.sum()) < int(live.sum()) // 2:
         raise CheckFailed(f"{name}: fewer than half the live steps were "
                           "checked")
-
-
-def train_step_check(name, model, batch, kernels, on_card: bool):
-    """One forward and backward of ``model``'s weights at dropout 0 on
-    ``batch`` (unpacked, on the device), the kernel path (which must
-    launch ``kernels`` on the card) held to the composed float32 model's
-    autograd: the loss within TRAIN_LOSS_TOL relative, and every leaf's
-    gradient within GRAD_TOL (:func:`grad_errors`)."""
-    from sketchformer_tpu_torch.models.sketchformer import Sketchformer
-    from sketchformer_tpu_torch.train.step import (
-        _forward_loss,
-        dropout_context,
-    )
-
-    dev = next(model.parameters()).device
-    weights = model.state_dict()
-    base = dataclasses.replace(model.config, dropout=0.0)
-
-    def loss_and_grads(cfg):
-        m = Sketchformer(cfg)
-        m.load_state_dict(weights)
-        m.to(dev).train()
-        with dropout_context(dev, 0, 0):
-            total, _ = _forward_loss(m, batch, 1.0, 1.0)
-        total.backward()
-        return total.item(), {
-            n: (torch.zeros(p.shape, device=dev) if p.grad is None
-                else p.grad.float()) for n, p in m.named_parameters()}
-
-    loss_k, g_k = launched(kernels, lambda: loss_and_grads(base), on_card)
-    loss_p, g_p = loss_and_grads(
-        dataclasses.replace(base, dtype="float32", attn_impl="xla"))
-    dt = dtype_name(base.compute_dtype)
-    rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
-    worst, leaf, whole = grad_errors(g_k, g_p)
-    print(f"check {name}: dropout 0, loss {loss_k:.5f} vs composed f32 "
-          f"{loss_p:.5f}: rel {rel:.3e} (tol {TRAIN_LOSS_TOL[dt]:.2g}); "
-          f"gradients: worst leaf {leaf} rel {worst:.3e} (tol "
-          f"{GRAD_TOL[dt]:.2g}), whole rel {whole:.3e}", flush=True)
-    if not (math.isfinite(loss_k) and rel <= TRAIN_LOSS_TOL[dt]):
-        raise CheckFailed(f"{name}: loss {loss_k} vs composed {loss_p}")
-    if not worst <= GRAD_TOL[dt]:
-        raise CheckFailed(f"{name}: gradient of {leaf} rel err {worst:.3e} "
-                          f"above {GRAD_TOL[dt]:.2g}")
-
-
-def grad_errors(got, want):
-    """(worst leaf's error, its name, the whole gradient's error):
-    ||got - want|| over ||want||, a leaf's norm floored at GRAD_FLOOR of
-    the whole gradient's."""
-    whole = torch.sqrt(sum((w.double() ** 2).sum() for w in want.values()))
-    floor = GRAD_FLOOR * whole.item()
-    worst, leaf, diff2 = -1.0, None, 0.0
-    for n, w in want.items():
-        d = (got[n].double() - w.double()).norm().item()
-        diff2 += d * d
-        r = d / max(w.double().norm().item(), floor, 1e-30)
-        if r > worst or math.isnan(r):    # a NaN is the worst
-            worst, leaf = r, n
-    return worst, leaf, math.sqrt(diff2) / max(whole.item(), 1e-30)

@@ -2,7 +2,7 @@
 version and a library call, a kernel's own events in a profiler trace, the
 least time the card could take for a call's work, and the card's identity.
 
-``chip_smoke.py`` and ``bench.py`` time with these. Nothing here imports
+``chip_smoke.py`` times its kernels with these. Nothing here imports
 the rest of the package, so a script can load this module beside another
 checkout's package. Every function that touches the card imports torch
 inside.
@@ -76,10 +76,11 @@ def spread_ms(kernel_fn, plain_fn, lib_fn, n=SPREAD_CALLS):
 # a kernel trace's guard: seconds the host idles inside the profiler's
 # window before the first launch and after the last; and the least share
 # of a trace's launches whose device events it must keep. As the process
-# ages, the window drops device events (``chip_smoke.py --profiler-window``
-# reads it on PyTorch's own kernels: none lost in the first 20 s, then one
-# more of 60 every 10 s or so; with the guard, none lost from about 150 s
-# on), so a kernel's time is the median of the events its trace kept
+# ages, the window drops device events: a probe that traced 60 of
+# PyTorch's own small bf16 products every 20 s beside a busy card (NVIDIA
+# H100 80GB HBM3, 700 W) lost none in the first 20 s, then one more of the
+# 60 every 10 s or so without the guard, and none from about 150 s on with
+# it. So a kernel's time is the median of the events its trace kept
 TRACE_GUARD_S = 0.25
 TRACE_KEPT_SHARE = 0.5
 
@@ -89,19 +90,19 @@ class TraceTooShort(RuntimeError):
 
 
 @contextlib.contextmanager
-def device_trace(guard_s=TRACE_GUARD_S):
+def device_trace():
     """A torch.profiler session of host and device activity whose calls
-    run ``guard_s`` seconds inside each end of its window; the card is
+    run TRACE_GUARD_S seconds inside each end of its window; the card is
     synchronised before the window closes."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        time.sleep(guard_s)
+        time.sleep(TRACE_GUARD_S)
         yield prof
         torch.cuda.synchronize()
-        time.sleep(guard_s)
+        time.sleep(TRACE_GUARD_S)
 
 
 def kernel_spread(fn, names, n=SPREAD_CALLS):

@@ -68,7 +68,7 @@ def test_the_walk_sees_the_port():
             "decoder_stack_train.py", "cli.py", "token_ce.py",
             "dropout_prng.py", "multiprocess.py", "registry.py",
             "basic_usage.py", "import_reference_weights.py",
-            "tf_bundle.py", "bench.py", "timing.py", "checks.py",
+            "tf_bundle.py", "timing.py", "checks.py",
             "bench_embed_pipeline.py", "bench_decode_realistic.py"} <= names
     assert ROOT / "sketchformer_tpu_torch" / "parallel" / "__init__.py" in FILES
     assert {p.name for p in TOOLS} == {"__init__.py",
