@@ -101,9 +101,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    just after: the port's ``sbir`` CLI at the full width of the ``sbir``
    preset (seeded random weights) over 16 batches of 64 from the preset's
    synthetic 345-class loader, its batches on the packed stack (every
-   attention a ``ragged_attention`` launch, no ``encoder_attention``; the
-   batches' valid share printed); then classifier logits on z, the
-   kernel z against the plain-path z on one batch, padded and packed
+   attention a ``ragged_attention`` launch on the persistent walk, no
+   ``encoder_attention``; the batches' valid share printed); then
+   classifier logits on z, the kernel z against the plain-path z on one
+   batch, padded and packed
    (``fast_embed`` given the batch's valid rows against
    ``encoder_stack_packed_reference``), and ``ragged_attention`` against
    ``ragged_attention_reference`` on that batch's rows, with and without
@@ -163,7 +164,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``F.layer_norm`` and SDPA on the filled slice, and their bounds, and
    the same kernels' own events in a profiler trace; the emit kernel's
    SASS opcodes and the dispatch floor of its Philox calls;
-   ``ragged_attention`` on the ``sbir`` loader's first batch beside its
+   ``ragged_attention`` (the persistent walk, and beside it the 64-row
+   query blocks' grid) on the ``sbir`` loader's first batch beside its
    plain version, and at the embed cell's batch (B=2048, T=192, lengths
    16-191; ``packed_embed_times``), without and with qk-norm, beside the
    padded ``encoder_attention`` and equal to it on the valid rows; the
@@ -3148,8 +3150,10 @@ def packed_embed_times(dev, gpu):
     """The embed cell's batch (B=2048, T=192, lengths 16-191 then EOS and
     PAD; tok_h8's heads): ``ragged_attention`` on its valid rows against
     the padded ``encoder_attention`` (one layer's call, without and with
-    qk-norm); device time, median of SPREAD_CALLS calls. The ragged rows
-    must equal the padded kernel's (torch.equal)."""
+    qk-norm); without qk-norm the persistent walk beside the 64-row query
+    blocks' grid ("tiles"), which qk-norm takes; device time, median of
+    SPREAD_CALLS calls. Every ragged route's rows must equal the padded
+    kernel's (torch.equal)."""
     import torch
 
     from sketchformer_tpu_torch.ops import encoder_stack as es
@@ -3159,7 +3163,7 @@ def packed_embed_times(dev, gpu):
     # the valid positions of sketches of 16-191 tokens and their EOS
     valid = np.arange(T)[None] <= rng.integers(16, T, B)[:, None]
     rows, _ = es.pack_rows(valid)
-    rows = rows._replace(index=rows.index.to(dev), work=rows.work.to(dev))
+    rows = rows.to(dev)
     index = rows.index.long()
     M, keys = int(valid.sum()), valid.sum(1).astype(np.int64)
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -3175,28 +3179,36 @@ def packed_embed_times(dev, gpu):
                 for i in range(4)) if qk else None
             packed = qkv.reshape(B * T, -1).index_select(0, index)
             kw = dict(num_heads=H, qk_norm=norms)
+            route = es.ragged_route(T, Dh, qk)[0]
 
-            def ragged():
-                return es.ragged_attention(packed, rows, **kw)
+            def ragged(route):
+                return lambda: es.ragged_attention_on(route, packed, rows,
+                                                      **kw)
 
             def padded():
                 return es.encoder_attention(qkv, bias, **kw)
 
-            got = ragged()
             want = padded().reshape(B * T, -1).index_select(0, index)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"ragged_attention (qk-norm {qk}) differs from the "
-                     f"padded kernel on valid rows")
-            sp = spread_ms(ragged, padded, None)
+            for r in {route, "tiles"}:
+                got = ragged(r)()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"ragged_attention {r} (qk-norm {qk}) differs from "
+                         f"the padded kernel on valid rows")
+            sp = spread_ms(ragged(route), padded, None)
+            beside = ""
+            if route != "tiles":
+                tiles = spread_ms(ragged("tiles"), None, None)["kernel"]
+                beside = (f", the 64-row query blocks' grid (\"tiles\") "
+                          f"{fmt_spread(tiles)}")
             b_ms, b_by = bound(4 * H * Dh * int((keys ** 2).sum()),
                                4 * M * H * Dh * 2)
             print(f"time ragged_attention (bf16, B={B}, T={T}, H={H}, "
                   f"Dh={Dh}{', qk-norm' if qk else ''}, {M} valid rows of "
-                  f"{B * T}; device time, median of {SPREAD_CALLS}): ragged "
-                  f"{fmt_spread(sp['kernel'])}, padded encoder_attention "
-                  f"{fmt_spread(sp['plain'])}; bound {b_ms:.4f} ms ({b_by}) "
-                  f"[{gpu}]")
+                  f"{B * T}; device time, median of {SPREAD_CALLS}): "
+                  f"{route} {fmt_spread(sp['kernel'])}{beside}, padded "
+                  f"encoder_attention {fmt_spread(sp['plain'])}; bound "
+                  f"{b_ms:.4f} ms ({b_by}) [{gpu}]")
 
 
 def linear_nt_spread(o, B, T, d, dff, gpu):
@@ -4016,13 +4028,18 @@ def main() -> int:
             if launches[name] <= 0:
                 fail(f"kernel {name} was not launched by the main path")
         # bf16 at H=8 / Dh=32: every batch on the packed stack, each
-        # attention the ragged forward, none the padded kernel
+        # attention the ragged forward's persistent walk, none the padded
+        # kernel
         stacks = {k: es.ROUTES[k] for k in ("packed", "padded")}
-        print(f"encoder stacks during the main path: {json.dumps(stacks)}")
+        print(f"encoder stacks during the main path: {json.dumps(stacks)}; "
+              f"ragged routes {json.dumps(es.RAGGED_ROUTES)}")
         if launches["encoder_attention"] or stacks["padded"] or \
                 launches["ragged_attention"] != \
-                stacks["packed"] * SBIR["L"]:
-            fail(f"the sbir path's stacks {stacks}, launches {launches}")
+                stacks["packed"] * SBIR["L"] or \
+                es.RAGGED_ROUTES["persistent"] != \
+                launches["ragged_attention"]:
+            fail(f"the sbir path's stacks {stacks}, launches {launches}, "
+                 f"ragged routes {es.RAGGED_ROUTES}")
         main_path_routes("cli sbir")
         if launches["linear_nt"] or launches["linear_tn"]:
             fail("the sbir path launched a backward kernel")
@@ -4065,8 +4082,7 @@ def main() -> int:
     main_rows = packed_rows(model, batches[0]["enc"], None, dev)
     if main_rows is None:
         fail("the main path's first batch was not packed")
-    main_rows = main_rows._replace(index=main_rows.index.to(dev),
-                                   work=main_rows.work.to(dev))
+    main_rows = main_rows.to(dev)
     with torch.inference_mode():
         weights = model.encoder.stacked_weights()
         km = model.enc_key_mask(enc, None)
@@ -4378,15 +4394,18 @@ def main() -> int:
             lambda: es.ragged_attention(qkv_main, main_rows, **kw_main),
             lambda: es.ragged_attention_reference(qkv_main, main_rows,
                                                   **kw_main), None)
+        tiles = spread_ms(lambda: es.ragged_attention_on(
+            "tiles", qkv_main, main_rows, **kw_main), None, None)["kernel"]
         times["ragged_attention"] = (sp["kernel"][0], sp["plain"][0])
         lib["ragged_attention"] = None
         b_ms, b_by = bound(*ragged_work(main_rows, H, d // H))
         print(f"time ragged_attention (bf16, the sbir loader's batch: "
               f"{m_main} valid rows of 64 x {T}, H={H}, Dh={d // H}; device "
-              f"time, median of {SPREAD_CALLS}): kernel "
-              f"{fmt_spread(sp['kernel'])}, plain (a loop over the sketches) "
-              f"{fmt_spread(sp['plain'])}; bound {b_ms:.4f} ms ({b_by}) "
-              f"[{gpu}]")
+              f"time, median of {SPREAD_CALLS}): kernel (the persistent "
+              f"walk) {fmt_spread(sp['kernel'])}, the 64-row query blocks' "
+              f"grid (\"tiles\") {fmt_spread(tiles)}, plain (a loop over "
+              f"the sketches) {fmt_spread(sp['plain'])}; bound {b_ms:.4f} ms "
+              f"({b_by}) [{gpu}]")
     # the ragged attention at the embed cell's batch beside the padded one
     packed_embed_times(dev, gpu)
 

@@ -41,7 +41,8 @@
 // In bf16 every product runs on the tensor cores (mma.sync m16n8k16):
 // the forward of the stacks and of K8 (attention_fwd_mma_kernel), which
 // encoder_stack.py's encoder_attention also runs, and ragged_attention on
-// packed rows (its kRagged variant); K8's backward
+// packed rows (its kRagged variant, and the persistent walk over (sketch,
+// head) items, ragged_attention_fwd_mma_kernel); K8's backward
 // (flash_bwd_mma_kernel); and the stacks' backward, K5
 // (attention_bwd_mma_kernel, whose qk-norm parameter gradients are summed
 // in the same launch through split_reduce.cuh). See their notes.
@@ -1029,24 +1030,30 @@ int launch_flash_bwd_mma(const AttnArgs& a, const GradArgs& g, int B,
 // value row of the head at once, normalises each key once, and runs both
 // sweeps from shared memory with no barrier between tiles. Keys past Tk
 // are excluded by index from the max, the sum and P.V. Each output row has
-// one owner, so re-runs are bit-stable. What bounds it: at Dh = 32 a score
-// costs 2 Dh FLOPs against one or two exponentials, so the SFU and the
-// score tiles' register traffic set the time, not the products (a 64-row
-// wgmma tile would buy nothing) or the bytes.
+// one owner, so re-runs are bit-stable. At Dh = 32 a score costs 2 Dh
+// FLOPs against one or two exponentials, so the products are not what
+// bounds it (a 64-row wgmma tile would buy nothing).
 //
 // kRagged: the inference encoder stack on packed rows (encoder_stack.py::
-// ragged_attention; no TPU kernel: the TPU pads every sketch to T). The
-// sketches' valid rows lie back to back in q, k and v; a.work lists one
-// (first query row, sketch's first row, sketch's length) triple a 64-row
-// query block, and the grid is (work items, heads). A block takes its
-// sketch as its batch element: rows counted from the sketch's first, Tq =
-// Tk = its length, no bias. So a block reads only its sketch's keys, in
-// 32-key tiles counted from the sketch's first row, and a padded batch's
-// query blocks and key tiles of padding are not computed at all. The
-// padded layout gives a valid row the same tiles, and its masked keys add
-// exact zeros to the max, the sum and P.V, so a valid row's output is the
-// padded kernel's bit for bit. Only !kNormP is built ragged (the numerics
-// of encoder_attention). The padded instantiations compile as before.
+// ragged_attention's "tiles" route; no TPU kernel: the TPU pads every
+// sketch to T). The sketches' valid rows lie back to back in q, k and v;
+// a.work lists one (first query row, sketch's first row, sketch's length)
+// triple a 64-row query block, and the grid is (work items, heads). A
+// block takes its sketch as its batch element: rows counted from the
+// sketch's first, Tq = Tk = its length, no bias. So a block reads only its
+// sketch's keys, in 32-key tiles counted from the sketch's first row, and
+// a padded batch's query blocks and key tiles of padding are not computed
+// at all. The padded layout gives a valid row the same tiles, and its
+// masked keys add exact zeros to the max, the sum and P.V, so a valid
+// row's output is the padded kernel's bit for bit. Only !kNormP is built
+// ragged (the numerics of encoder_attention). The padded instantiations
+// compile as before. What bounds the ragged grid is exposed memory
+// latency, not the exponentials: at the embed cell's batch (B = 2048,
+// lengths 16-191) a block pays about 2 ntiles + 1 dependent rounds of
+// loads, each a cp.async wait and a block barrier, with one 64 x 32 tile
+// of work between, and it reads the sketch-head's K and V once a query
+// block: 0.88 ms against 0.13 ms for its bytes once (PERF.md section 6,
+// K2). The persistent walk below serves that batch instead.
 
 // qk-norm of rows [0, n) of a bf16 tile in shared memory (row stride
 // kDh + 8), in place, by the block's kThreads threads: kDh / 8 neighbouring
@@ -1357,6 +1364,198 @@ int launch_fwd_mma(const AttnArgs& a, void* out, long long o_bs, int o_rs,
   if (a.Dh <= 64)
     return launch_fwd_mma_dh<64>(a, out, o_bs, o_rs, norm_p, whole, B, s, W);
   return launch_fwd_mma_dh<128>(a, out, o_bs, o_rs, norm_p, whole, B, s, W);
+}
+
+// ---------------------------------------------------------------------------
+// the ragged forward as a persistent walk over (sketch, head) items
+// ---------------------------------------------------------------------------
+//
+// What ragged_attention sends on the embed path (bf16, Dh = 32, no qk-norm,
+// no sketch longer than a stage's kRpRows rows: ops/encoder_stack.py::
+// ragged_route) runs here; anything else keeps the kRagged grid above. That
+// grid gives each 64-row query block its own block, which waits through
+// about 2 ntiles + 1 dependent rounds of loads (the q tile, then every key
+// tile once a sweep), each a cp.async wait and a block barrier with one
+// tile's products between, and reads its sketch-head's K and V once a query
+// block (K twice): exposed memory latency, not the exponentials or the
+// products, set its time (PERF.md section 6, K2).
+//
+// Here the grid is persistent (the blocks an SM that sk_ragged_fit's
+// occupancy query allows: two, by the stages' 92 KB), and block b walks
+// the items b, b + grid, ... of a fixed list: item i is head i % H of the
+// sketch items[i / H] (its first packed row and its length n; the host
+// lists the sketches longest first, so the blocks' walks carry about equal
+// work). Warp 0 produces: it stages an item's q, K and V boxes (n rows x Dh
+// columns at columns h Dh, HD + h Dh and 2 HD + h Dh of the packed pane; q
+// zero to the next 16 rows, K and V to the next 32) by cp.async into one of
+// two stages, each lane's copies arriving on the stage's full mbarrier as
+// they land, and refills a stage once every consumer warp has released it
+// (its empty mbarrier). So item i + 1's loads are in flight while item i
+// computes, and a sketch-head's q, K and V leave device memory once. The
+// kRpWarps consumer warps take the block's 16-row query slices in turn
+// (slice g of the block's walk to warp g % kRpWarps, across items, so no
+// warp keeps every item's remainder), and each slice runs the two sweeps
+// of the kRagged variant from the stage with no block barrier: sweep 1 the
+// scores, kept in registers (up to kRpTiles tiles of 16 a lane), and the
+// row max; sweep 2 the exponentials rounded to bf16 for P.V with their f32
+// sum, then the division. The 32-key tiles counted from the sketch's first
+// row, the warp_qk / warp_pv / c_to_a order, the keys past n excluded by
+// index, the sums' order and the zero rows past n (computed, not stored)
+// are that variant's, so every output is its bit for bit; no state crosses
+// items and each output row has one owner, so re-runs are bit-stable.
+//
+// What bounds it (NVIDIA H100, PERF.md section 6, K2): instruction issue.
+// At the embed cell's batch it takes 0.375 ms, against 0.313 ms with no
+// loads at all and 0.154 ms with no compute; at Dh = 32 an exponential
+// (expf, kept for the bits) costs about 9 instructions against a score's
+// 64 FLOPs of products, and the consumers issue ~450 instructions a
+// 16 x 32 tile. Keeping sweep 1's scores (161 registers, so 4 consumer
+// warps a block) took 0.414 -> 0.375 ms; 4, 8 or 12 consumer warps
+// recomputing them ran within 7% of each other.
+
+constexpr int kRpRows = 192;  // a stage's rows: the longest sketch it takes
+constexpr int kRpDh = 32;
+constexpr int kRpLd = kRpDh + 8;  // padded rows: ldmatrix hits distinct banks
+constexpr int kRpWarps = 4;       // consumer warps; warp 0 produces
+constexpr int kRpThreads = 32 * (kRpWarps + 1);
+constexpr int kRpStages = 2;
+constexpr int kRpStage = 3 * kRpRows * kRpLd;  // a stage's q, K, V elements
+constexpr int kRpTiles = kRpRows / kFbIn;      // key tiles of a stage
+constexpr size_t kRpSmem =
+    (size_t)kRpStages * kRpStage * 2 + 2 * kRpStages * sizeof(uint64_t);
+
+// each of this thread's cp.async copies so far arrives on mbarrier bar once
+// it lands (the arrival counted in bar's expected count)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kRpThreads, 2)
+ragged_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v, int rs,
+                                const int2* __restrict__ items, int nitems,
+                                int H, float scale,
+                                __nv_bfloat16* __restrict__ out, int o_rs) {
+  using bf = __nv_bfloat16;
+  constexpr int kDh = kRpDh, kLd = kRpLd;
+  extern __shared__ __align__(16) unsigned char rp_smem[];
+  bf* stages = reinterpret_cast<bf*>(rp_smem);
+  // full[s] = bars[s] (the producer's 32 lanes), empty[s] = bars[kRpStages
+  // + s] (the consumer warps)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + kRpStages * kRpStage);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kRpStages; ++s) {
+      mbar_init(smem_u32(bars + s), 32);
+      mbar_init(smem_u32(bars + kRpStages + s), kRpWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  RingPos p;
+  if (warp == 0) {
+    for (int it = blockIdx.x, n = 0; it < nitems; it += gridDim.x, ++n) {
+      if (n >= kRpStages)
+        mbar_wait(smem_u32(bars + kRpStages + p.s), p.phase ^ 1u);
+      const int2 e = items[it / H];
+      const size_t off = (size_t)e.x * rs + (it % H) * kDh;
+      bf* st = stages + p.s * kRpStage;
+      stage_rows<kLd, 32>(st, q + off, rs, 0, (e.y + 15) & ~15, e.y, kDh);
+      stage_rows<kLd, 32>(st + kRpRows * kLd, k + off, rs, 0,
+                          (e.y + 31) & ~31, e.y, kDh);
+      stage_rows<kLd, 32>(st + 2 * kRpRows * kLd, v + off, rs, 0,
+                          (e.y + 31) & ~31, e.y, kDh);
+      cp_async_arrive(smem_u32(bars + p.s));
+      p.next(kRpStages);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  const int cw = warp - 1, cq = lane & 3;
+  int turn = 0;  // the block's slices walked so far, modulo kRpWarps
+  for (int it = blockIdx.x; it < nitems; it += gridDim.x) {
+    const int2 e = items[it / H];
+    const int n = e.y, nsl = (n + 15) >> 4, ntiles = (n + kFbIn - 1) / kFbIn;
+    mbar_wait(smem_u32(bars + p.s), p.phase);
+    const bf* qs = stages + p.s * kRpStage;
+    const bf* ks = qs + kRpRows * kLd;
+    const bf* vs = ks + kRpRows * kLd;
+    bf* dst = out + (size_t)e.x * o_rs + (it % H) * kDh;
+    for (int sl = (cw - turn + kRpWarps) % kRpWarps; sl < nsl;
+         sl += kRpWarps) {
+      // warp_qk reads rows warp * 16 + i of its first operand: this slice's
+      const bf* own = qs + (sl - warp) * 16 * kLd;
+      // sweep 1: every tile's scores, kept for sweep 2 (C fragment element
+      // (nt, i) of tile t: key 32 t + 8 nt + 2 cq + i % 2; -inf past n),
+      // and this lane's max of each of its two rows, then the row's
+      float sc[kRpTiles][4][4];
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int t = 0; t < kRpTiles; ++t) {
+        if (t >= ntiles) break;
+        warp_qk<kDh, kLd>(sc[t], own, ks + t * kFbIn * kLd);
+        const int lim = n - t * kFbIn - 2 * cq;  // past n: 8 nt + i % 2 >= lim
+        if (lim >= kFbIn) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              sc[t][nt][i] = __fmul_rn(sc[t][nt][i], scale);
+              mx[i >> 1] = fmaxf(mx[i >> 1], sc[t][nt][i]);
+            }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float x = __fmul_rn(sc[t][nt][i], scale);
+              sc[t][nt][i] = nt * 8 + (i & 1) < lim ? x : -INFINITY;
+              mx[i >> 1] = fmaxf(mx[i >> 1], sc[t][nt][i]);
+            }
+        }
+      }
+      mx[0] = quad_max(mx[0]);
+      mx[1] = quad_max(mx[1]);
+      // sweep 2: e = exp(s - max), its f32 sum, P.V with e rounded to bf16
+      float o[kDh / 8][4] = {};
+      float es[2] = {0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < kRpTiles; ++t) {
+        if (t >= ntiles) break;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = expf(sc[t][nt][i] - mx[i >> 1]);  // 0 past n
+            es[i >> 1] += x;
+            sc[t][nt][i] = x;  // rounded to bf16 as c_to_a packs it
+          }
+        uint32_t pa[2][4];
+        c_to_a(pa, sc[t]);
+        warp_pv<kDh, kLd>(o, pa, vs + t * kFbIn * kLd);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float den = quad_sum(es[r]);
+        const int row = sl * 16 + (lane >> 2) + 8 * r;
+        if (row >= n) continue;
+        bf* d = dst + (size_t)row * o_rs;
+#pragma unroll
+        for (int nd = 0; nd < kDh / 8; ++nd)
+          *reinterpret_cast<__nv_bfloat162*>(d + nd * 8 + 2 * cq) =
+              __floats2bfloat162_rn(o[nd][2 * r] / den,
+                                    o[nd][2 * r + 1] / den);
+      }
+    }
+    turn = (turn + nsl) % kRpWarps;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(bars + kRpStages + p.s));
+    p.next(kRpStages);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1985,6 +2184,42 @@ int sk_attention_fwd_ragged(const void* q, int q_rs, const void* k, int k_rs,
     return (int)cudaErrorInvalidValue;
   return launch_fwd_mma(a, out, 0, o_rs, 0, resident, 1,
                         static_cast<cudaStream_t>(stream), W);
+}
+
+// the same attention as the persistent walk over (sketch, head) items
+// (ragged_attention_fwd_mma_kernel): bf16, Dh = 32, no qk-norm; q, k and v
+// as above with one row stride rs; items (B, 2) int32 holds each sketch's
+// (first row, length) in the walk's order; T is the longest sketch, at most
+// kRpRows; grid blocks, at most sk_ragged_fit's blocks an SM times the SMs
+int sk_attention_fwd_ragged_persistent(const void* q, const void* k,
+                                       const void* v, int rs,
+                                       const void* items, int B, void* out,
+                                       int o_rs, int T, int H, int Dh,
+                                       float scale, int grid, void* stream) {
+  using bf = __nv_bfloat16;
+  auto al = [](const void* p, unsigned n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  if (Dh != kRpDh || T < 1 || T > kRpRows || B < 1 || H < 1 || grid < 1 ||
+      (long long)B * H >= (1ll << 31) || rs % 8 || o_rs % 2 || !al(q, 16) ||
+      !al(k, 16) || !al(v, 16) || !al(items, 8) || !al(out, 4))
+    return (int)cudaErrorInvalidValue;
+  const int err = set_smem(ragged_attention_fwd_mma_kernel, kRpSmem);
+  if (err) return err;
+  ragged_attention_fwd_mma_kernel<<<grid, kRpThreads, kRpSmem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), rs, static_cast<const int2*>(items), B * H,
+      H, scale, static_cast<bf*>(out), o_rs);
+  return (int)cudaGetLastError();
+}
+
+// the persistent ragged kernel's resident blocks an SM (its grid's size)
+int sk_ragged_fit(int* blocks) {
+  const int err = set_smem(ragged_attention_fwd_mma_kernel, kRpSmem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ragged_attention_fwd_mma_kernel, kRpThreads, kRpSmem);
 }
 
 // the qk-norm parameter gradients: f32 writes per-block partial rows to

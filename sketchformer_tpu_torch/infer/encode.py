@@ -119,15 +119,17 @@ def embed_dataset(model: Sketchformer, batches: Iterable[dict],
                     rows = packed_rows(model, host[0],
                                        host[1] if cont else None, device)
             if rows is not None:
-                host += [rows.index.numpy(), rows.work.numpy()]
+                host += [rows.index.numpy(), rows.work.numpy(),
+                         rows.items.numpy()]
             on_device = _to_device(host, device)
             enc = on_device[0]
             mask = on_device[1] if cont else None
             if rows is None:
                 z = embed(enc, mask)
             else:
-                rows = rows._replace(index=on_device[-2],
-                                     work=on_device[-1])
+                rows = rows._replace(index=on_device[-3],
+                                     work=on_device[-2],
+                                     items=on_device[-1])
                 z = embed(enc, mask, rows)
             ready = None
             if device.type == "cuda":

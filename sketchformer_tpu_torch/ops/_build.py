@@ -51,6 +51,9 @@ SIGNATURES = {
     "sk_attention_fwd_ragged": ([_P, _I, _P, _I, _P, _I, _P, _P, _P, _P,
                                  _P, _I, _P, _I, _I, _I, _I, _I, _F, _P],
                                 _I),
+    "sk_attention_fwd_ragged_persistent": ([_P, _P, _P, _I, _P, _I, _P, _I,
+                                            _I, _I, _I, _F, _I, _P], _I),
+    "sk_ragged_fit": ([_P], _I),
     "sk_attention_bwd": ([_I, _I, _P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _P,
                           _P, _P, _P, _P, _L, _I, _I, _P, _P, _L, _I, _P, _L,
                           _I, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,

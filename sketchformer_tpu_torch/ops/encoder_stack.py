@@ -42,11 +42,14 @@ padding's rows are not computed.
 ``LAUNCHES`` counts kernel launches per wrapper (only where a kernel is
 actually launched), so a run can show that its path went through them;
 ``ROUTES`` counts which kernel ``encoder_attention`` and ``layernorm_rows``
-launched, and which stack, padded or packed, ran on the card.
+launched, and which stack, padded or packed, ran on the card;
+``RAGGED_ROUTES`` which kernel ``ragged_attention`` launched.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Callable, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -56,6 +59,7 @@ from sketchformer_tpu_torch.models.layers import layer_norm
 from sketchformer_tpu_torch.ops import _build
 from sketchformer_tpu_torch.ops import attention_train as at
 from sketchformer_tpu_torch.ops import dropout_prng as dp
+from sketchformer_tpu_torch.utils.engines import note_engine
 
 NEG_INF = -1e9
 MAX_FUSED_LEN = 1024    # the JAX engine's limit (pallas_encoder.py)
@@ -72,13 +76,16 @@ LAUNCHES = {"linear": 0, "encoder_attention": 0, "ragged_attention": 0,
 # fused_encoder_stack_packed ("packed")
 ROUTES = {"mma": 0, "fma": 0, "ln_rows": 0, "ln_declined": 0, "padded": 0,
           "packed": 0}
+# ragged_attention's launches by kernel (:func:`ragged_route`): the
+# persistent walk over (sketch, head) items, or the grid of 64-row query
+# blocks
+RAGGED_ROUTES = {"persistent": 0, "tiles": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for k in ROUTES:
-        ROUTES[k] = 0
+    for counts in (LAUNCHES, ROUTES, RAGGED_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -529,21 +536,70 @@ def ragged_declines(device: torch.device, dtype: torch.dtype,
     return ""
 
 
+RAGGED_STAGE_ROWS = 192   # the persistent kernel's stage (csrc: kRpRows)
+RAGGED_HEAD_DIM = 32      # the persistent kernel's head width (csrc: kRpDh)
+
+
+def ragged_route(T: int, head_dim: int, qk_norm: bool) -> Tuple[str, str]:
+    """(route, why) of a :func:`ragged_attention` call whose longest sketch
+    has ``T`` rows: ``"persistent"`` and "" where the persistent walk over
+    (sketch, head) items takes it (head_dim ``RAGGED_HEAD_DIM``, no
+    qk-norm, every sketch within a stage's ``RAGGED_STAGE_ROWS`` rows);
+    else ``"tiles"``, the grid of 64-row query blocks, and why the
+    persistent kernel declined. Both give the same bits."""
+    if qk_norm:
+        return "tiles", "qk-norm: the persistent kernel has none"
+    if head_dim != RAGGED_HEAD_DIM:
+        return "tiles", (f"head_dim {head_dim}: the persistent kernel is "
+                         f"built for {RAGGED_HEAD_DIM}")
+    if T > RAGGED_STAGE_ROWS:
+        return "tiles", (f"a sketch longer than the persistent kernel's "
+                         f"stage of {RAGGED_STAGE_ROWS} rows")
+    return "persistent", ""
+
+
+@functools.cache
+def ragged_fit(device_index: int) -> Tuple[int, int]:
+    """(SMs, resident blocks an SM of the persistent ragged kernel) of the
+    card, by cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _build.check(_build.library().sk_ragged_fit(ctypes.byref(n)),
+                     "ragged_fit")
+    return _build.sm_count(torch.device("cuda", device_index)), n.value
+
+
 def ragged_attention(qkv, rows, *, num_heads, qk_norm=None):
     """Each sketch's self-attention over its own packed rows: ``qkv`` the
     (M, 3*H*Dh) fused pane of every sketch's valid rows back to back, laid
     out by ``rows`` (:class:`PackedRows`); the output (M, H*Dh).
 
-    On a card the tensor-core forward of ``attention_train`` with the
-    numerics of :func:`encoder_attention` (unnormalised exponentials
-    rounded, the division after), over a work list of 64-row query blocks,
-    each reading its sketch's keys alone in 32-key tiles from the sketch's
-    first row, so a valid row's output is the padded call's bit for bit.
-    What the kernel does not take (:func:`ragged_declines`) raises; CPU
-    tensors run :func:`ragged_attention_reference`."""
+    On a card the kernel :func:`ragged_route` picks from the longest sketch
+    (``rows.lengths``, on the host), the head width and qk-norm, noted at
+    site ``ragged-attention`` (:func:`ragged_attention_on`). CPU tensors
+    run :func:`ragged_attention_reference`."""
     if qkv.device.type == "cpu":
         return ragged_attention_reference(qkv, rows, num_heads=num_heads,
                                           qk_norm=qk_norm)
+    route, why = ragged_route(int(rows.lengths.max()),
+                              qkv.shape[-1] // 3 // num_heads,
+                              qk_norm is not None)
+    note_engine("ragged-attention", route, why)
+    return ragged_attention_on(route, qkv, rows, num_heads=num_heads,
+                               qk_norm=qk_norm)
+
+
+def ragged_attention_on(route, qkv, rows, *, num_heads, qk_norm=None):
+    """:func:`ragged_attention` on the kernel ``route`` names: the
+    tensor-core forward of ``attention_train`` with the numerics of
+    :func:`encoder_attention` (unnormalised exponentials rounded, the
+    division after), each sketch reading its own keys in 32-key tiles from
+    its first row, so a valid row's output is the padded call's bit for
+    bit. ``"persistent"``: a grid of the card's resident blocks walks the
+    (sketch, head) items of ``rows.items``, staging each item's q, K and V
+    once; ``"tiles"``: a block a 64-row query block of ``rows.work``. What
+    the kernel does not take (:func:`ragged_declines`, and for
+    ``"persistent"`` :func:`ragged_route`) raises."""
     M, three_hd = qkv.shape
     H = num_heads
     HD = three_hd // 3
@@ -555,8 +611,6 @@ def ragged_attention(qkv, rows, *, num_heads, qk_norm=None):
         raise ValueError(f"ragged_attention: {why}")
     dev = qkv.device
     _build.require(qkv, "qkv", dev, qkv.dtype, (M, three_hd))
-    W = rows.work.shape[0]
-    _build.require(rows.work, "work", dev, torch.int32, (W, 3))
     if qkv.data_ptr() % 16:
         raise ValueError("ragged_attention: qkv must be 16-byte aligned")
     T = int(rows.lengths.max())
@@ -568,16 +622,37 @@ def ragged_attention(qkv, rows, *, num_heads, qk_norm=None):
             _build.require(p, "qk-norm param", dev, torch.float32, (Dh,))
         norms = list(qk_norm)
     out = torch.empty((M, HD), dtype=qkv.dtype, device=dev)
-    resident = at.fwd_resident(T, Dh, qk_norm is not None) is not None
-    with torch.cuda.device(dev):
-        err = _build.library().sk_attention_fwd_ragged(
-            _build.ptr(qkv), three_hd, _build.ptr(qkv[:, HD:]), three_hd,
-            _build.ptr(qkv[:, 2 * HD:]), three_hd,
-            *(_build.ptr(p) for p in norms), _build.ptr(rows.work), W,
-            _build.ptr(out), HD, T, H, Dh, int(resident), 1.0 / Dh ** 0.5,
-            _build.stream(qkv))
+    lib = _build.library()
+    panes = (_build.ptr(qkv), _build.ptr(qkv[:, HD:]),
+             _build.ptr(qkv[:, 2 * HD:]))
+    if route == "persistent":
+        why = ragged_route(T, Dh, qk_norm is not None)[1]
+        if why:
+            raise ValueError(f"ragged_attention: {why}")
+        B = len(rows.lengths)
+        _build.require(rows.items, "items", dev, torch.int32, (B, 2))
+        sms, fit = ragged_fit(dev.index)
+        grid = max(1, min(B * H, sms * fit))
+        with torch.cuda.device(dev):
+            err = lib.sk_attention_fwd_ragged_persistent(
+                *panes, three_hd, _build.ptr(rows.items), B,
+                _build.ptr(out), HD, T, H, Dh, 1.0 / Dh ** 0.5, grid,
+                _build.stream(qkv))
+    elif route == "tiles":
+        W = rows.work.shape[0]
+        _build.require(rows.work, "work", dev, torch.int32, (W, 3))
+        resident = at.fwd_resident(T, Dh, qk_norm is not None) is not None
+        with torch.cuda.device(dev):
+            err = lib.sk_attention_fwd_ragged(
+                panes[0], three_hd, panes[1], three_hd, panes[2], three_hd,
+                *(_build.ptr(p) for p in norms), _build.ptr(rows.work), W,
+                _build.ptr(out), HD, T, H, Dh, int(resident),
+                1.0 / Dh ** 0.5, _build.stream(qkv))
+    else:
+        raise ValueError(f"ragged_attention: no route {route!r}")
     _build.check(err, "ragged_attention")
     LAUNCHES["ragged_attention"] += 1
+    RAGGED_ROUTES[route] += 1
     return out
 
 
@@ -698,13 +773,24 @@ class PackedRows(NamedTuple):
     ``index`` (M,) int32: each packed row's flat position b * T + t in the
     padded batch; ``work`` (W, 3) int32: one row a 64-row query block of a
     sketch, (its first query row, the sketch's first row, the sketch's
-    length) in packed rows, the ragged attention's work list. Both on the
-    stack's device. ``starts`` and ``lengths`` (B,) int64 numpy: each
-    sketch's first packed row and number of rows, on the host."""
+    length) in packed rows, the work list of the ragged attention's
+    ``"tiles"`` kernel; ``items`` (B, 2) int32: each sketch's (first row,
+    length), longest first (ties in batch order), the walk of its
+    ``"persistent"`` kernel, whose item i is head i % H of sketch i // H of
+    this list. All three on the stack's device. ``starts`` and ``lengths``
+    (B,) int64 numpy: each sketch's first packed row and number of rows,
+    on the host."""
     index: torch.Tensor
     work: torch.Tensor
+    items: torch.Tensor
     starts: np.ndarray
     lengths: np.ndarray
+
+    def to(self, device) -> "PackedRows":
+        """The same layout with its tensors on ``device``."""
+        return self._replace(index=self.index.to(device),
+                             work=self.work.to(device),
+                             items=self.items.to(device))
 
 
 def pack_rows(valid: np.ndarray) -> Tuple[Optional[PackedRows], str]:
@@ -731,9 +817,11 @@ def pack_rows(valid: np.ndarray) -> Tuple[Optional[PackedRows], str]:
     s0 = starts[sketch]
     work = np.stack([s0 + at.MMA_ROWS * nth, s0, lengths[sketch]],
                     axis=1).astype(np.int32)
+    order = np.argsort(-lengths, kind="stable")
+    items = np.stack([starts[order], lengths[order]], axis=1).astype(np.int32)
     index = np.flatnonzero(valid).astype(np.int32)
     return PackedRows(torch.from_numpy(index), torch.from_numpy(work),
-                      starts, lengths), ""
+                      torch.from_numpy(items), starts, lengths), ""
 
 
 def fused_encoder_stack_packed(x: torch.Tensor, rows: PackedRows,

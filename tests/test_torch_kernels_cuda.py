@@ -233,7 +233,7 @@ RAGGED_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 191, 192]
 
 def _on(rows, dev):
     """:class:`es.PackedRows` with its tensors on ``dev``."""
-    return rows._replace(index=rows.index.to(dev), work=rows.work.to(dev))
+    return rows.to(dev)
 
 
 @pytest.mark.cuda
@@ -255,16 +255,66 @@ def test_ragged_attention_equals_the_padded_kernel_on_valid_rows(cuda, H, Dh,
     index = rows.index.long()
     padded = es.encoder_attention(qkv, bias, num_heads=H, qk_norm=norms)
     before, routes = dict(es.LAUNCHES), dict(es.ROUTES)
+    ragged = dict(es.RAGGED_ROUTES)
     got = es.ragged_attention(
         qkv.reshape(B * T, -1).index_select(0, index), rows, num_heads=H,
         qk_norm=norms)
     # its own counter: encoder_attention's count and routes are the padded
-    # kernel's launches alone
+    # kernel's launches alone; the persistent walk takes the embed path's
+    # heads (Dh 32, no qk-norm), the 64-row query blocks the rest
     assert es.LAUNCHES == {**before,
                            "ragged_attention": before["ragged_attention"] + 1}
     assert es.ROUTES == routes
+    route = "persistent" if (Dh, qk) == (32, False) else "tiles"
+    assert es.RAGGED_ROUTES == {**ragged, route: ragged[route] + 1}
     torch.cuda.synchronize()
     assert torch.equal(got, padded.reshape(B * T, -1).index_select(0, index))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 2024])
+def test_ragged_persistent_equals_tiles_at_the_embed_cells_batch(cuda, seed):
+    """The embed cell's batch (B = 2048 sketches of 16-191 tokens and their
+    EOS, permuted by the seed; tok_h8's heads): the persistent walk's
+    output is the query-block grid's bit for bit, and a re-run's."""
+    B, T, H, Dh = 2048, 192, 8, 32
+    rng = np.random.default_rng(seed)
+    lengths = rng.permutation(np.arange(B) % 176 + 17)
+    valid = np.arange(T)[None, :] < lengths[:, None]
+    rows = _on(es.pack_rows(valid)[0], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = _rand(gen, cuda, int(lengths.sum()), 3 * H * Dh,
+                dtype=torch.bfloat16)
+    assert es.ragged_route(int(lengths.max()), Dh, False)[0] == "persistent"
+    got = es.ragged_attention_on("persistent", qkv, rows, num_heads=H)
+    again = es.ragged_attention_on("persistent", qkv, rows, num_heads=H)
+    want = es.ragged_attention_on("tiles", qkv, rows, num_heads=H)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_a_sketch_longer_than_the_stage_takes_the_tiles_route(cuda):
+    H, Dh, T = 8, 32, 256
+    lengths = np.array([es.RAGGED_STAGE_ROWS + 1, 40, 192, 7])
+    valid = np.arange(T)[None, :] < lengths[:, None]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = _rand(gen, cuda, len(lengths), T, 3 * H * Dh,
+                dtype=torch.bfloat16)
+    bias = torch.where(torch.from_numpy(valid).to(cuda), 0.0,
+                       es.NEG_INF).float()
+    rows = _on(es.pack_rows(valid)[0], cuda)
+    index = rows.index.long()
+    padded = es.encoder_attention(qkv, bias, num_heads=H)
+    ragged = dict(es.RAGGED_ROUTES)
+    got = es.ragged_attention(qkv.reshape(-1, 3 * H * Dh).index_select(
+        0, index), rows, num_heads=H)
+    assert es.RAGGED_ROUTES == {**ragged, "tiles": ragged["tiles"] + 1}
+    with pytest.raises(ValueError, match="stage"):
+        es.ragged_attention_on("persistent", qkv.reshape(
+            -1, 3 * H * Dh).index_select(0, index), rows, num_heads=H)
+    torch.cuda.synchronize()
+    assert torch.equal(got, padded.reshape(-1, H * Dh).index_select(0, index))
 
 
 def _cell_batches(cont, B, n, T=192, seed=5):

@@ -107,6 +107,101 @@ def test_pack_rows_lays_out_each_sketch_and_its_query_blocks():
         rows.work.numpy(), [[0, 0, 3], [3, 3, 70], [67, 3, 70], [73, 73, 1]])
 
 
+def test_pack_rows_lists_the_persistent_walks_items_longest_first():
+    lengths = [3, 70, 1, 70, 12]
+    rows, _ = es.pack_rows(_prefix(lengths, 80))
+    assert rows.items.dtype == torch.int32
+    # each sketch's (first row, length), longest first, ties in batch order
+    np.testing.assert_array_equal(
+        rows.items.numpy(),
+        [[3, 70], [74, 70], [144, 12], [0, 3], [73, 1]])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_the_persistent_walk_covers_every_sketch_head_once(seed):
+    rng = np.random.default_rng(seed)
+    B, T, H = 37, 192, 8
+    lengths = rng.integers(1, T + 1, B)
+    rows, _ = es.pack_rows(_prefix(lengths, T))
+    items = rows.items.numpy()
+    assert (np.diff(items[:, 1]) <= 0).all()
+    # item i is head i % H of sketch i // H of the list
+    walked = [(int(items[i // H, 0]), int(items[i // H, 1]), i % H)
+              for i in range(B * H)]
+    assert sorted(walked) == sorted(
+        (int(s), int(n), h) for s, n in zip(rows.starts, rows.lengths)
+        for h in range(H))
+
+
+@pytest.mark.parametrize("T,head_dim,qk,route,why", [
+    (192, 32, False, "persistent", ""),
+    (1, 32, False, "persistent", ""),
+    (193, 32, False, "tiles", "stage of 192 rows"),
+    (1024, 32, False, "tiles", "stage of 192 rows"),
+    (192, 32, True, "tiles", "qk-norm"),
+    (64, 64, False, "tiles", "head_dim 64"),
+    (64, 128, False, "tiles", "head_dim 128"),
+    (64, 16, False, "tiles", "head_dim 16"),
+], ids=["stage", "one-row", "past-stage", "max-len", "qk-norm", "dh64",
+        "dh128", "dh16"])
+def test_ragged_route_is_persistent_exactly_where_the_stage_fits(
+        T, head_dim, qk, route, why):
+    got, reason = es.ragged_route(T, head_dim, qk)
+    assert got == route
+    assert (reason == "") if not why else (why in reason)
+
+
+def _walk_item(qkv, start, n, h, H, Dh):
+    """Head h of the sketch of n packed rows from ``start`` as the
+    persistent kernel computes it, in f32: 16-row query slices of the
+    stage (zero rows past n), 32-key tiles from the sketch's first row,
+    sweep 1 every tile's scores (keys past n -inf) and the row max, sweep 2
+    exp(s - max) and its sum tile by tile with P.V, then the division."""
+    HD = H * Dh
+    pane = qkv[start:start + n].float()
+    nsl, ntiles = -(-n // 16), -(-n // 32)
+    q, k, v = (torch.zeros(rows, Dh) for rows in (16 * nsl, 32 * ntiles,
+                                                   32 * ntiles))
+    q[:n] = pane[:, h * Dh:(h + 1) * Dh]
+    k[:n] = pane[:, HD + h * Dh:HD + (h + 1) * Dh]
+    v[:n] = pane[:, 2 * HD + h * Dh:2 * HD + (h + 1) * Dh]
+    out = torch.empty(n, Dh)
+    for sl in range(nsl):
+        qs = q[16 * sl:16 * sl + 16]
+        scores, mx = [], torch.full((16,), -torch.inf)
+        for t in range(ntiles):
+            s = (qs @ k[32 * t:32 * t + 32].t()) * (1.0 / Dh ** 0.5)
+            s[:, torch.arange(32 * t, 32 * t + 32) >= n] = -torch.inf
+            scores.append(s)
+            mx = torch.maximum(mx, s.amax(1))
+        o, es_ = torch.zeros(16, Dh), torch.zeros(16)
+        for t, s in enumerate(scores):
+            e = torch.exp(s - mx[:, None])
+            es_ += e.sum(1)
+            o += e @ v[32 * t:32 * t + 32]
+        keep = min(16, n - 16 * sl)
+        out[16 * sl:16 * sl + keep] = (o / es_[:, None])[:keep]
+    return out
+
+
+def test_the_persistent_walks_tile_order_equals_the_plain_attention():
+    gen = torch.Generator().manual_seed(4)
+    H, Dh = 2, 32
+    lengths = [1, 15, 16, 17, 31, 32, 33, 100, 192]
+    rows, _ = es.pack_rows(_prefix(lengths, 192))
+    qkv = torch.randn(sum(lengths), 3 * H * Dh, generator=gen)
+    got = torch.full((sum(lengths), H * Dh), torch.nan)
+    items = rows.items.numpy()
+    for i in range(len(lengths) * H):
+        start, n = (int(x) for x in items[i // H])
+        h = i % H
+        assert got[start:start + n, h * Dh:(h + 1) * Dh].isnan().all()
+        got[start:start + n, h * Dh:(h + 1) * Dh] = _walk_item(
+            qkv, start, n, h, H, Dh)
+    want = es.ragged_attention_reference(qkv, rows, num_heads=H)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("lengths,hole,why", [
     ([3, 0, 5], None, "no valid position"),
     ([3, 4, 5], (1, 1), "not a prefix"),
